@@ -1,0 +1,101 @@
+"""Where the time goes in the port's flagship enhancement, on one CUDA card.
+
+    python3 scripts/torch_prof_flagship.py [--seed 0] [--out prof.json]
+
+Full-width SincformerMetacog with random weights from a seeded
+torch.Generator (the same model as chip_smoke.py). For each request shape
+it reports the host wall time per request after warm-up (20 requests,
+each ending in the copy of the result to the host), then profiles one
+request with torch.profiler: device time by kernel, the device's busy
+share of the unprofiled request's wall time, and the time of the
+speech-attention kernel (K1). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SHAPES = ((1, 8000), (1, 32000), (4, 32000), (16, 32000))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import sincformer_tpu_torch as port
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[card] {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = port.SincformerMetacog().init_params(
+        torch.Generator().manual_seed(args.seed))
+    pipe = port.SincformerPipeline(model, device="cuda")
+    rng = np.random.default_rng(args.seed)
+    results = []
+    for b, n in SHAPES:
+        wav = np.round(rng.uniform(-0.3, 0.3, (b, n)) * 32767).astype(np.int16)
+        for _ in range(3):
+            pipe.enhance_batch(wav)
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pipe.enhance_batch(wav)
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipe.enhance_batch(wav)
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda k: -k[1])
+        busy_ms = sum(k[1] for k in kernels)
+        k1_ms = sum(k[1] for k in kernels if "speech_attention" in k[0])
+        row = {"batch": b, "samples": n, "audio_s": b * n / 8000,
+               "wall_ms": wall_ms, "rtf_x": b * n / 8000 / (wall_ms / 1e3),
+               "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+               "device_busy_share": busy_ms / wall_ms,
+               "kernel_launches": sum(k[2] for k in kernels),
+               "k1_ms": k1_ms, "top": [
+                   {"kernel": k[0][:90], "ms": k[1], "calls": k[2]}
+                   for k in kernels[:12]]}
+        results.append(row)
+        print(f"[shape] B={b} N={n}: {wall_ms:.3f} ms per request, "
+              f"{row['rtf_x']:.1f}x real time; profiled request "
+              f"{prof_wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+              f"({row['device_busy_share']:.3f} of the unprofiled "
+              f"{wall_ms:.3f} ms), {row['kernel_launches']} "
+              f"kernel launches, K1 {k1_ms:.4f} ms", flush=True)
+        for k in row["top"]:
+            print(f"    {k['ms']:9.4f} ms {k['calls']:5d}x  {k['kernel']}")
+    report = {"card": card, "shapes": results}
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,117 @@
+"""Perception agent, frame-rate encoder (``sincformer_tpu/agents/perception.py``).
+
+``PerceptionAgentMXU`` with ``fine_feats="single"``: SincConv, a companded
+fine stream and a log-envelope stream patchified onto the 80-sample STFT
+grid by k=4 and k=2 convs, three residual conv blocks at frame rate, then
+the complex latent and σ heads. Layout inside is (B, C, T), PyTorch's conv
+layout; flax SAME padding is asymmetric for the even embed kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sincformer_tpu_torch.agents.sincnet import SincConv1d
+from sincformer_tpu_torch.models.conformer import LN_EPS, same_pad
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class _SameConv1d(nn.Conv1d):
+    """Stride-1 conv over (B, C, T) with flax SAME padding."""
+
+    def forward(self, x):
+        return super().forward(same_pad(x, self.kernel_size[0]))
+
+
+class _ConvBlock(nn.Module):
+    """7-conv → GN → GELU → 3-conv → GN, plus a 1×1 skip → GN; then GELU."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        g = min(16, ch)
+        self.conv1 = _SameConv1d(ch, ch, 7)
+        self.gn1 = nn.GroupNorm(g, ch, eps=LN_EPS)
+        self.conv2 = _SameConv1d(ch, ch, 3)
+        self.gn2 = nn.GroupNorm(g, ch, eps=LN_EPS)
+        self.skip = nn.Conv1d(ch, ch, 1)
+        self.gn_skip = nn.GroupNorm(g, ch, eps=LN_EPS)
+
+    def forward(self, x):
+        main = self.gn2(self.conv2(gelu(self.gn1(self.conv1(x)))))
+        return gelu(main + self.gn_skip(self.skip(x)))
+
+
+class PerceptionAgentMXU(nn.Module):
+    """(B, N) waveform → (z_real, z_imag, σ): (B, D, T'), (B, D, T'),
+    (B, 1, T') with T' = N // hop."""
+
+    def __init__(self, encoder_channels: int = 256, sample_rate: int = 8000,
+                 sinc_kernel_size: int = 251, align_hop: int = 80,
+                 num_blocks: int = 3, env_pool: int = 8,
+                 fine_act: str = "mulaw"):
+        super().__init__()
+        d = encoder_channels
+        c = d // 4
+        self.hop = align_hop
+        self.env_pool = env_pool
+        self.fine_act = fine_act
+        self.sinc = SincConv1d(c, sinc_kernel_size, sample_rate,
+                               channels_last=True)
+        self.act_scale = nn.Parameter(torch.ones(c))
+        if fine_act == "mulaw":
+            self.act_mu = nn.Parameter(torch.ones(c))
+        self.embed = _SameConv1d(align_hop * c, d, 4)
+        self.embed_env = _SameConv1d(align_hop // env_pool * c, d, 2)
+        self.embed_ln = nn.LayerNorm(d, eps=LN_EPS)
+        for i in range(num_blocks):
+            self.add_module(f"block_{i}", _ConvBlock(d))
+        self.num_blocks = num_blocks
+        self.real_proj = nn.Linear(d, d)
+        self.gn_real = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.imag_proj = nn.Linear(d, d)
+        self.gn_imag = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.unc1 = _SameConv1d(d, d // 4, 3)
+        self.unc2 = nn.Linear(d // 4, 1)
+
+    def forward(self, waveform: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        hop, pool = self.hop, self.env_pool
+        x = self.sinc(waveform)                          # (B, N, C)
+        b, n, c = x.shape
+        t = n // hop
+
+        # envelope stream: |x| → pool-sample means → log1p, hop chunks
+        env = torch.abs(x[:, :t * hop]).reshape(b, t * hop // pool, pool, c)
+        env = torch.log1p(env.mean(dim=2))
+        echunks = env.reshape(b, t, hop // pool * c)
+
+        # fine stream: per-channel companding (μ-law) or GELU
+        z = x * self.act_scale
+        if self.fine_act == "mulaw":
+            mu = F.softplus(self.act_mu) + 1e-4
+            x = torch.sign(z) * torch.log1p(mu * torch.abs(z))
+        else:
+            x = gelu(z)
+        chunks = x[:, :t * hop].reshape(b, t, hop * c)
+
+        h = (self.embed(chunks.transpose(1, 2))
+             + self.embed_env(echunks.transpose(1, 2)))   # (B, D, T)
+        h = gelu(self.embed_ln(h.transpose(1, 2))).transpose(1, 2)
+        for i in range(self.num_blocks):
+            h = getattr(self, f"block_{i}")(h)
+
+        h_t = h.transpose(1, 2)                           # (B, T, D)
+        z_real = self.gn_real(self.real_proj(h_t).transpose(1, 2))
+        z_imag = self.gn_imag(self.imag_proj(h_t).transpose(1, 2))
+        u = gelu(self.unc1(h)).transpose(1, 2)
+        log_var = self.unc2(u).transpose(1, 2)            # (B, 1, T)
+        sigma = torch.exp(0.5 * torch.clamp(log_var, -10.0, 10.0))
+        return z_real, z_imag, sigma

@@ -1,0 +1,202 @@
+"""Carry a flax ``SincformerMetacog`` checkpoint over to the port.
+
+``load_from_jax`` takes the flax variables as a nested dict of numpy arrays
+(``params`` plus the ``maa_stats``, ``memory_bank`` and ``memory_stats``
+collections of ``model_state``) and returns the torch ``state_dict``, the
+buffers and the :class:`MetacogConfig` read off the tree. The port's modules
+carry the flax names, so a torch key is the flax path joined with dots,
+with these conversions:
+
+  * Dense ``kernel`` (in, out) → ``weight`` (out, in);
+  * Conv ``kernel`` (k, in, out) → ``weight`` (out, in, k), the depthwise
+    (k, 1, D) → (D, 1, k) included;
+  * norm ``scale`` → ``weight``;
+  * ``cpea/LSTMCell_{2l, 2l+1}`` (layer l forward, backward) →
+    ``cpea.lstm.{weight_ih, weight_hh, bias_ih, bias_hh}_l{l}[_reverse]``
+    with the gates concatenated in (i, f, g, o) order and a zero input-side
+    bias (flax keeps the bias on the recurrent side only). The JAX CPEA
+    builds each recurrent matrix as ``Dense(eye(H))``, which is the kernel
+    plus the bias in every row, and recurs with that; ``weight_hh`` is that
+    same matrix, so the port gives the JAX package's numbers (a textbook
+    LSTM cell would differ by (Σ_j h_j)·b per gate; ROADMAP.md Queue 3);
+  * ``memory_bank/memory/x`` → ``memory.bank_x``; the other collections map
+    ``<collection>/<module>/x`` → ``<module>.x``.
+
+Variants outside this slice (the BiLRU mixer, the reference PA cascade, the
+dual fine stream) raise. Every leaf must be placed and every torch
+parameter and buffer filled, with matching shapes, or it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from sincformer_tpu_torch.config import MetacogConfig
+
+_COLLECTIONS = ("maa_stats", "memory_bank", "memory_stats")
+_GATES = ("i", "f", "g", "o")
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, np.ndarray]:
+    flat = {}
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            flat.update(_flatten(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def _count(names, prefix: str) -> int:
+    return sum(1 for n in names if n.startswith(prefix))
+
+
+def infer_config(variables: Mapping, **overrides: Any) -> MetacogConfig:
+    """Sizes and variant of the model that ``variables`` belong to.
+
+    ``num_heads``, ``sample_rate`` and ``sinc_kernel_size`` leave no trace
+    in the tree: they take the flagship's values unless overridden.
+    """
+    params = variables["params"]
+    pa, cpea, msa = params["pa"], params["cpea"], params["msa"]
+    if "bilru" in cpea:
+        raise ValueError("cpea_impl='ssm' (BiLRU) checkpoints are not ported "
+                         "yet (ROADMAP.md Queue 1 item 15)")
+    if "downsample" in pa or "embed" not in pa:
+        raise ValueError("the reference-cascade PerceptionAgent "
+                         "(pa_impl='reference') is not ported yet (ROADMAP.md "
+                         "Queue 1 item 15)")
+    if "embed_norm" in pa:
+        raise ValueError("pa_fine_feats='dual' checkpoints are not ported yet "
+                         "(ROADMAP.md Queue 1 item 15)")
+    if not any(k.startswith("LSTMCell_") for k in cpea):
+        raise ValueError("no LSTMCell_* in params['cpea']: not a "
+                         "cpea_impl='lstm' checkpoint")
+    d = np.shape(pa["embed"]["bias"])[0]
+    c_sinc = np.shape(pa["sinc"]["low_hz"])[0]
+    hop = np.shape(pa["embed"]["kernel"])[1] // c_sinc
+    env_in = np.shape(pa["embed_env"]["kernel"])[1]
+    blocks = [k for k in msa if k.startswith("block_")]
+    block0 = msa["block_0"]
+    found = dict(
+        encoder_channels=d,
+        hop=hop,
+        pa_num_blocks=_count(pa, "block_"),
+        pa_env_pool=hop * c_sinc // env_in,
+        pa_fine_act="mulaw" if "act_mu" in pa else "gelu",
+        cpea_hidden=np.shape(cpea["LSTMCell_0"]["hi"]["kernel"])[0],
+        cpea_layers=_count(cpea, "LSTMCell_") // 2,
+        cpea_channels=np.shape(cpea["rho_s_head"]["bias"])[0],
+        d_model=np.shape(msa["fusion2"]["bias"])[0],
+        n_freq=np.shape(msa["mag_head"]["bias"])[0],
+        msa_blocks=len(blocks),
+        d_ff=np.shape(block0["FeedForwardModule_0"]["Dense_0"]["bias"])[0],
+        kernel_size=np.shape(
+            block0["ConvolutionModule_0"]["depthwise"]["kernel"])[0],
+        vq_centroids=np.shape(params["vq"]["centroids"])[0],
+        memory_slots=np.shape(params["memory"]["keys"])[0],
+        episodic_slots=np.shape(variables.get("memory_bank", {}).get(
+            "memory", {}).get("keys", np.zeros((0,))))[0],
+    )
+    if c_sinc * 4 != d:
+        raise ValueError(f"SincConv has {c_sinc} channels, expected "
+                         f"encoder_channels/4 = {d // 4}")
+    fields = {f.name for f in dataclasses.fields(MetacogConfig)}
+    unknown = set(overrides) - fields
+    if unknown:
+        raise TypeError(f"unknown MetacogConfig fields: {sorted(unknown)}")
+    clash = {k for k in overrides if k in found and overrides[k] != found[k]}
+    if clash:
+        raise ValueError(f"overrides {sorted(clash)} contradict the "
+                         f"checkpoint: {({k: found[k] for k in clash})}")
+    return MetacogConfig(**{**{k: int(v) if not isinstance(v, str) else v
+                               for k, v in found.items()}, **overrides})
+
+
+def _param_leaf(path: tuple, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    leaf = path[-1]
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 3:
+            return "weight", arr.transpose(2, 1, 0)
+        raise ValueError(f"kernel of rank {arr.ndim} at {'/'.join(path)}")
+    if leaf == "scale":
+        return "weight", arr
+    return leaf, arr
+
+
+def _lstm(cpea: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    out = {}
+    for layer in range(num_layers):
+        for direction, suffix in ((0, ""), (1, "_reverse")):
+            cell = cpea[f"LSTMCell_{2 * layer + direction}"]
+            w_ih = np.concatenate([cell[f"i{g}"]["kernel"] for g in _GATES], 1)
+            # the JAX cell materialises its recurrent matrix as
+            # Dense(eye(H)) = kernel + bias in every row (agents/cpea.py,
+            # _LSTMCellParams), so that is the matrix the port must use
+            w_hh = np.concatenate([cell[f"h{g}"]["kernel"]
+                                   + cell[f"h{g}"]["bias"][None, :]
+                                   for g in _GATES], 1)
+            b_hh = np.concatenate([cell[f"h{g}"]["bias"] for g in _GATES])
+            key = f"cpea.lstm.{{}}_l{layer}{suffix}"
+            out[key.format("weight_ih")] = w_ih.T
+            out[key.format("weight_hh")] = w_hh.T
+            out[key.format("bias_hh")] = b_hh
+            out[key.format("bias_ih")] = np.zeros_like(b_hh)
+    return out
+
+
+def load_from_jax(variables: Mapping, **overrides: Any
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor],
+                             MetacogConfig]:
+    """flax variables (numpy leaves) → (state_dict, buffers, config).
+
+    ``variables`` holds ``params`` and, when the model has them, the
+    ``maa_stats``, ``memory_bank`` and ``memory_stats`` collections.
+    ``overrides`` set the config fields the tree does not record.
+    """
+    from sincformer_tpu_torch.agents.metacog import SincformerMetacog
+
+    params = variables["params"]
+    config = infer_config(variables, **overrides)
+    state = {}
+    for path, arr in _flatten(params).items():
+        if path[0] == "cpea" and path[1].startswith("LSTMCell_"):
+            continue
+        leaf, value = _param_leaf(path, arr)
+        state[".".join(path[:-1] + (leaf,))] = value
+    state.update(_lstm(params["cpea"], config.cpea_layers))
+
+    buffers = {}
+    for collection in _COLLECTIONS:
+        for path, arr in _flatten(variables.get(collection, {})).items():
+            module, leaf = path[0], path[-1]
+            if collection == "memory_bank":
+                leaf = f"bank_{leaf}"
+            buffers[f"{module}.{leaf}"] = arr
+
+    with torch.device("meta"):
+        skeleton = SincformerMetacog(config)
+    expected = {k: tuple(v.shape) for k, v in skeleton.state_dict().items()}
+    given = {**state, **buffers}
+    missing = sorted(set(expected) - set(given))
+    extra = sorted(set(given) - set(expected))
+    if missing or extra:
+        raise ValueError(f"checkpoint does not fill the port's model: "
+                         f"missing {missing}, not placed {extra}")
+    wrong = {k: (tuple(np.shape(v)), expected[k]) for k, v in given.items()
+             if tuple(np.shape(v)) != expected[k]}
+    if wrong:
+        raise ValueError(f"shape mismatch (checkpoint, port): {wrong}")
+
+    def tensor(arr):
+        return torch.from_numpy(np.array(arr, copy=True))
+
+    return ({k: tensor(v) for k, v in state.items()},
+            {k: tensor(v) for k, v in buffers.items()}, config)

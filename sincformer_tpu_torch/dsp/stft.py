@@ -1,0 +1,66 @@
+"""Centred STFT / iSTFT (``sincformer_tpu/dsp/stft.py``).
+
+Frame (strided view) → window → one batched real FFT, layout (..., T, F).
+The inverse overlap-adds windowed inverse FFTs and divides by the summed
+squared window clamped at ``eps``, as the JAX package does; ``torch.istft``
+is not used because its window-envelope check and edge handling differ.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sincformer_tpu_torch.utils.signal import (frame_signal, hann_window,
+                                               overlap_add)
+
+
+def _padded_window(window: Optional[np.ndarray], win_length: int, n_fft: int,
+                   device) -> torch.Tensor:
+    """Centre-pad a ``win_length`` window (default periodic Hann) to n_fft."""
+    if window is None:
+        window = hann_window(win_length, periodic=True)
+    window = np.asarray(window, np.float32)
+    left = (n_fft - window.shape[0]) // 2
+    padded = np.pad(window, (left, n_fft - window.shape[0] - left))
+    return torch.from_numpy(padded).to(device)
+
+
+def stft(x: torch.Tensor, n_fft: int = 256, hop: int = 80,
+         win_length: int = 160, window: Optional[np.ndarray] = None,
+         center: bool = True) -> torch.Tensor:
+    """(..., N) real → complex (..., T, n_fft//2+1), T = N//hop + 1 when
+    centred (reflect padding by n_fft//2 on both sides)."""
+    w = _padded_window(window, win_length, n_fft, x.device)
+    if center:
+        pad = n_fft // 2
+        lead = x.shape[:-1]
+        x = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
+        x = x.reshape(lead + (x.shape[-1],))
+    frames = frame_signal(x, n_fft, hop)
+    return torch.fft.rfft(frames * w, n=n_fft, dim=-1)
+
+
+def istft(spec: torch.Tensor, n_fft: int = 256, hop: int = 80,
+          win_length: int = 160, window: Optional[np.ndarray] = None,
+          length: Optional[int] = None, center: bool = True,
+          eps: float = 1e-11) -> torch.Tensor:
+    """Complex (..., T, n_fft//2+1) → real (..., length)."""
+    w = _padded_window(window, win_length, n_fft, spec.device)
+    t = spec.shape[-2]
+    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * w
+    total = (t - 1) * hop + n_fft
+    y = overlap_add(frames, hop, total)
+    norm = overlap_add((w * w).expand(t, n_fft), hop, total)
+    y = y / torch.clamp(norm, min=eps)
+    if center:
+        y = y[..., n_fft // 2:]
+    if length is not None:
+        if y.shape[-1] >= length:
+            y = y[..., :length]
+        else:
+            y = F.pad(y, (0, length - y.shape[-1]))
+    return y

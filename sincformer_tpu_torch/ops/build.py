@@ -1,0 +1,73 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
+by ``nvcc`` for ``sm_90a`` into ``sincformer_tpu_torch/_build/`` (listed in
+``.gitignore``). The library's file name carries a hash of its source, so an
+edited kernel is rebuilt and a stale one is never loaded. Nothing here runs
+at import time: the CPU tests import every module on machines with no CUDA
+toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of sincformer_tpu_torch "
+                       "are built from csrc/ at first use and need the CUDA "
+                       "toolkit")
+
+
+def _library_path(name: str) -> str:
+    """Path of the shared library built from ``csrc/<name>.cu``."""
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns its path.
+
+    The compiler's resource report (``-Xptxas -v``) is kept beside the
+    library as ``<library>.log``.
+    """
+    out = _library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    with open(out + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+    return ctypes.CDLL(build(name))

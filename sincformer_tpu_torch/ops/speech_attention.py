@@ -1,0 +1,113 @@
+"""Full-softmax attention for speech-length sequences (kernel K1).
+
+Counterpart of ``sincformer_tpu/ops/speech_attention.py``. On a CUDA tensor
+:func:`speech_attention` launches the hand-written kernel
+``csrc/speech_attention.cu`` (one f32 online softmax per batch, head and
+query row); on a CPU tensor it runs :func:`_speech_attention_plain`, the
+plain PyTorch version that the CPU tests compare with JAX and that
+``chip_smoke.py`` compares with the kernel on the card. There is no fallback
+from one to the other: a CUDA tensor the kernel does not take raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from sincformer_tpu_torch.ops import build
+
+_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def _speech_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None,
+                            sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Plain f32 softmax attention, (B, T, H, dh) in and out."""
+    scale = sm_scale if sm_scale is not None else 1.0 / float(q.shape[-1]) ** 0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :].float()
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = build.load("speech_attention")
+    fn = lib.speech_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_args(q, k, v, bias):
+    b, t, h, dh = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"speech_attention kernel takes float32, {name} is "
+                            f"{x.dtype}")
+        if x.shape != q.shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, q has "
+                             f"{tuple(q.shape)}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"speech_attention kernel needs contiguous "
+                             f"(B, T, H, dh) tensors; {name} is not")
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"speech_attention kernel supports dh in "
+                         f"{_HEAD_DIMS}, got {dh}")
+    if bias is not None:
+        if (bias.dtype != torch.float32 or bias.shape != (b, t)
+                or bias.device != q.device or not bias.is_contiguous()):
+            raise ValueError(f"bias must be a contiguous float32 (B, T) = "
+                             f"({b}, {t}) tensor on {q.device}; got "
+                             f"{bias.dtype} {tuple(bias.shape)} on "
+                             f"{bias.device}")
+
+
+def speech_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Full-softmax attention tuned for speech-length T.
+
+    Args:
+        q, k, v: (B, T, H, dh).
+        bias: optional (B, T) f32 key-side additive bias (0 valid, -1e9
+            masked), the valid-frame mask in additive form.
+        sm_scale: score scale; default 1/sqrt(dh).
+
+    Returns:
+        (B, T, H, dh) attention output.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``speech_attention.launches``) or raises.
+    """
+    if q.device.type == "cpu":
+        return _speech_attention_plain(q, k, v, bias, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"speech_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_cuda_args(q, k, v, bias)
+    b, t, h, dh = q.shape
+    scale = sm_scale if sm_scale is not None else 1.0 / float(dh) ** 0.5
+    out = torch.empty_like(q)
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 b, t, h, dh, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"speech_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    speech_attention.launches += 1
+    return out
+
+
+speech_attention.launches = 0

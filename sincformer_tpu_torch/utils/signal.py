@@ -1,0 +1,59 @@
+"""Windowing, framing and PCM primitives (``sincformer_tpu/utils/signal.py``).
+
+Windows are computed in float64 with numpy and cast to float32, exactly as
+the JAX package builds them, so both packages start from the same bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def hann_window(n: int, periodic: bool = True) -> np.ndarray:
+    """Hann window; ``periodic=True`` matches ``torch.hann_window``."""
+    denom = n if periodic else n - 1
+    k = np.arange(n)
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * k / denom)).astype(np.float32)
+
+
+def num_frames(n_samples: int, frame_size: int, hop: int) -> int:
+    """Uncentered frame count ``(N - L)//H + 1`` (never negative)."""
+    return max(0, (n_samples - frame_size) // hop + 1)
+
+
+def frame_signal(x: torch.Tensor, frame_size: int, hop: int) -> torch.Tensor:
+    """(..., N) → (..., T, frame_size) overlapping frames (a strided view)."""
+    if num_frames(x.shape[-1], frame_size, hop) == 0:
+        return x.new_zeros(x.shape[:-1] + (0, frame_size))
+    return x.unfold(-1, frame_size, hop)
+
+
+def overlap_add(frames: torch.Tensor, hop: int, out_len: int) -> torch.Tensor:
+    """Inverse of :func:`frame_signal`: sum overlapping frames.
+
+    (..., T, L) → (..., out_len); an extra tail is dropped, a shortfall is
+    zero-padded. Each frame is split into k = ceil(L/hop) hop-sized blocks
+    and the sum becomes k shifted contiguous adds, with no scatter.
+    """
+    t, length = frames.shape[-2], frames.shape[-1]
+    batch = frames.shape[:-2]
+    if t == 0:
+        return frames.new_zeros(batch + (out_len,))
+    k = -(-length // hop)
+    parts = torch.nn.functional.pad(frames, (0, k * hop - length))
+    parts = parts.reshape(batch + (t, k, hop))
+    pad_to = max((t - 1) * hop + length, out_len, (t + k - 1) * hop)
+    out = frames.new_zeros(batch + (pad_to,))
+    for j in range(k):
+        out[..., j * hop:(j + t) * hop] += parts[..., :, j, :].reshape(
+            batch + (t * hop,))
+    return out[..., :out_len]
+
+
+def pcm_to_float(wav: torch.Tensor) -> torch.Tensor:
+    """int16 PCM → float32 in [-1, 1) on the tensor's device; float input
+    passes through unchanged."""
+    if wav.dtype == torch.int16:
+        return wav.to(torch.float32) * (1.0 / 32768.0)
+    return wav

@@ -1,0 +1,97 @@
+"""Shared set-up of the port's parity tests (tests/test_torch_*.py): a narrow
+flax SincformerMetacog and the same weights carried into the port through
+compat.from_jax. Inputs are made with numpy from a seed and handed to both
+packages; both run on the CPU in float32.
+
+The weights fill flax's own parameter tree (taken from ``jax.eval_shape``
+of ``model.init``) with seeded numpy values at flax's initialiser scales,
+fan-in normal kernels, but with every bias and norm offset non-zero: flax
+initialises those to zero, which would hide a bias put in the wrong place.
+The model_state collections hold what training leaves there (moved running
+statistics, a filled episodic bank)."""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+# narrow widths: 2 Conformer blocks, 2 heads of 16, a 65-tap SincConv
+NARROW = dict(encoder_channels=32, cpea_hidden=16, cpea_channels=8,
+              d_model=32, msa_blocks=2, num_heads=2, d_ff=64, kernel_size=7,
+              memory_slots=4, episodic_slots=4, sinc_kernel_size=65)
+N_SAMPLES = 4000          # 0.5 s at 8 kHz: STFT T = 51, PA T' = 50
+
+
+def wave(seed: int, shape=(2, N_SAMPLES), scale: float = 0.3) -> np.ndarray:
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _fill(path, leaf, rng):
+    names = [getattr(k, "key", str(k)) for k in path]
+    shape, name = leaf.shape, names[-1]
+    if name == "kernel":
+        fan_in = int(np.prod(shape[:-1]))
+        return rng.standard_normal(shape) / np.sqrt(fan_in)
+    if name == "scale":
+        return 1.0 + 0.1 * rng.standard_normal(shape)
+    if name == "bias":
+        return 0.1 * rng.standard_normal(shape)
+    if name in ("low_hz", "band_hz"):       # ERB-like cutoffs in Hz
+        return rng.uniform(50.0, 500.0, shape)
+    if name in ("act_scale", "act_mu"):
+        return rng.uniform(0.5, 2.0, shape)
+    if name == "centroids":
+        return np.sort(rng.uniform(0.0, 1.0, shape))
+    return 0.5 * rng.standard_normal(shape)  # memory banks, threshold
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_model():
+    """(flax module, numpy variables, torch SincformerMetacog loaded from
+    them) at the NARROW widths, μ-law fine stream."""
+    from sincformer_tpu.agents.metacog import SincformerMetacog as JaxModel
+    from sincformer_tpu_torch.agents.metacog import SincformerMetacog
+    from sincformer_tpu_torch.compat.from_jax import load_from_jax
+
+    model = JaxModel(**NARROW, dropout=0.0, attn_impl="speech",
+                     pa_fine_act="mulaw")
+    wav = jnp.zeros((1, 800))
+    spec = jnp.zeros((1, 11, 129))
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), wav, spec, spec, train=False))
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, s: _fill(p, s, rng).astype(np.float32), shapes["params"])
+    ep, kd = NARROW["episodic_slots"], NARROW["encoder_channels"]
+    variables = {
+        "params": params,
+        "maa_stats": {"maa": {"running_mean": np.float32(0.7),
+                              "running_var": np.float32(0.2),
+                              "num_updates": np.int32(9)}},
+        "memory_bank": {"memory": {
+            "keys": rng.standard_normal((ep, kd)).astype(np.float32),
+            "values": rng.uniform(0, 1, (ep, 129)).astype(np.float32),
+            "age": np.arange(ep, dtype=np.float32)}},
+        "memory_stats": {"memory": {
+            "usage_count": np.arange(NARROW["memory_slots"] + ep,
+                                     dtype=np.float32),
+            "num_queries": np.int32(7)}},
+    }
+    state, buffers, config = load_from_jax(
+        variables, num_heads=NARROW["num_heads"],
+        sinc_kernel_size=NARROW["sinc_kernel_size"])
+    tmodel = SincformerMetacog(config).eval()
+    tmodel.load_state_dict({**state, **buffers}, strict=True)
+    return model, variables, tmodel
+
+
+def max_abs(a, b) -> float:
+    a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    return float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))

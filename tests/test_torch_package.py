@@ -1,0 +1,75 @@
+"""The port's package boundary: it imports nothing of JAX or of the JAX
+package, and its entry points run on the CPU only when asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sincformer_tpu")
+
+
+def _port_sources():
+    pkg = os.path.join(REPO, "sincformer_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_sources_import_no_jax():
+    bad = [(os.path.relpath(p, REPO), m) for p in _port_sources()
+           for m in _imported(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_loads_no_jax_module():
+    code = ("import sys, sincformer_tpu_torch, sincformer_tpu_torch.compat."
+            "from_jax, sincformer_tpu_torch.ops.build; "
+            f"print([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"
+
+
+def test_pipeline_default_device_needs_cuda():
+    """Without CUDA the default device raises rather than running on the
+    CPU; device='cpu' is the explicit opt-in."""
+    from sincformer_tpu_torch import (MetacogConfig, SincformerMetacog,
+                                      SincformerPipeline)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    small = SincformerMetacog(MetacogConfig(
+        encoder_channels=32, cpea_hidden=8, cpea_channels=4, d_model=32,
+        msa_blocks=1, num_heads=2, d_ff=32, kernel_size=3, memory_slots=2,
+        episodic_slots=2, sinc_kernel_size=33))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SincformerPipeline(small)
+    pipe = SincformerPipeline(small, device="cpu")
+    out = pipe.enhance_signal(torch.zeros(1000).numpy())
+    assert out.shape == (1000,)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py exits non-zero and prints no result line when there is
+    no CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
