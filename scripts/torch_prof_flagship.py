@@ -1,4 +1,4 @@
-"""Where the time goes in the port's flagship enhancement, on one CUDA card.
+"""Where the time goes in the port's enhancement requests, on one CUDA card.
 
     python3 scripts/torch_prof_flagship.py [--seed 0] [--out prof.json]
 
@@ -8,7 +8,11 @@ it reports the host wall time per request after warm-up (20 requests,
 each ending in the copy of the result to the host), then profiles one
 request with torch.profiler: device time by kernel, the device's busy
 share of the unprofiled request's wall time, and the time of the
-speech-attention kernel (K1). Needs a CUDA device.
+hand-written kernels (K1 speech attention, K3 fused feed-forward). The same
+is done for the serving requests of chip_smoke.py: a 60 s int16 file through
+StreamingEnhancer's whole-file and segmented paths (flagship, and DCSE with
+the fused and the unfused feed-forward), and one step of an
+OnlineEnhancerPool of 8 streams. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,20 +55,19 @@ def main() -> int:
         torch.Generator().manual_seed(args.seed))
     pipe = port.SincformerPipeline(model, device="cuda")
     rng = np.random.default_rng(args.seed)
-    results = []
-    for b, n in SHAPES:
-        wav = np.round(rng.uniform(-0.3, 0.3, (b, n)) * 32767).astype(np.int16)
+
+    def measure(label, fn, audio_s, reps=20):
+        """Wall per call after warm-up, then one profiled call."""
         for _ in range(3):
-            pipe.enhance_batch(wav)
-        reps = 20
+            fn()
         t0 = time.perf_counter()
         for _ in range(reps):
-            pipe.enhance_batch(wav)
+            fn()
         wall_ms = (time.perf_counter() - t0) / reps * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            pipe.enhance_batch(wav)
+            fn()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
         kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                           for e in prof.key_averages()
@@ -72,23 +75,64 @@ def main() -> int:
                          key=lambda k: -k[1])
         busy_ms = sum(k[1] for k in kernels)
         k1_ms = sum(k[1] for k in kernels if "speech_attention" in k[0])
-        row = {"batch": b, "samples": n, "audio_s": b * n / 8000,
-               "wall_ms": wall_ms, "rtf_x": b * n / 8000 / (wall_ms / 1e3),
+        k3_ms = sum(k[1] for k in kernels if "fused_ffn" in k[0])
+        row = {"request": label, "audio_s": audio_s,
+               "wall_ms": wall_ms, "rtf_x": audio_s / (wall_ms / 1e3),
                "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                "device_busy_share": busy_ms / wall_ms,
                "kernel_launches": sum(k[2] for k in kernels),
-               "k1_ms": k1_ms, "top": [
+               "k1_ms": k1_ms, "k3_ms": k3_ms, "top": [
                    {"kernel": k[0][:90], "ms": k[1], "calls": k[2]}
                    for k in kernels[:12]]}
-        results.append(row)
-        print(f"[shape] B={b} N={n}: {wall_ms:.3f} ms per request, "
+        print(f"[{label}] {wall_ms:.3f} ms per request, "
               f"{row['rtf_x']:.1f}x real time; profiled request "
               f"{prof_wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
               f"({row['device_busy_share']:.3f} of the unprofiled "
               f"{wall_ms:.3f} ms), {row['kernel_launches']} "
-              f"kernel launches, K1 {k1_ms:.4f} ms", flush=True)
+              f"kernel launches, K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms",
+              flush=True)
         for k in row["top"]:
             print(f"    {k['ms']:9.4f} ms {k['calls']:5d}x  {k['kernel']}")
+        return row
+
+    results = []
+    for b, n in SHAPES:
+        wav = np.round(rng.uniform(-0.3, 0.3, (b, n)) * 32767).astype(np.int16)
+        row = measure(f"flagship enhance_batch ({b}, {n})",
+                      lambda: pipe.enhance_batch(wav), b * n / 8000)
+        row.update(batch=b, samples=n)
+        results.append(row)
+
+    # the serving requests: a 60 s file, and one step of a pool of 8 streams
+    from sincformer_tpu_torch.serve import (OnlineEnhancerPool,
+                                            StreamingEnhancer)
+    pcm60 = np.round(rng.uniform(-0.3, 0.3, 480000) * 32767).astype(np.int16)
+    gen = torch.Generator().manual_seed(args.seed)
+    fused = port.DCSEPipeline(port.SpeechEnhancer(
+        port.DCSEConfig(fused_ffn=True)).init_params(gen), device="cuda")
+    unfused = port.DCSEPipeline(port.SpeechEnhancer(port.DCSEConfig()),
+                                device="cuda")
+    unfused.load_state(fused.model.state_dict())
+    for name, p in (("flagship", pipe), ("dcse fused", fused),
+                    ("dcse unfused", unfused)):
+        for path, kw in (("whole-file", dict(pipelined=False)),
+                         ("segmented", dict(pipelined=True, chunk_batch=4))):
+            se = StreamingEnhancer(p, **kw)
+            results.append(measure(f"{name} 60 s file, {path} path",
+                                   lambda se=se: se.enhance(pcm60), 60.0,
+                                   reps=5))
+    pool = OnlineEnhancerPool(pipe, n_streams=8)
+    live = rng.uniform(-0.3, 0.3, (8, 160)).astype(np.float32)
+
+    def pool_step():
+        for i in range(8):
+            pool.push(i, live[i])
+        pool.step()
+
+    for i in range(8):                      # first chunks: fill the lookahead
+        pool.push(i, np.zeros(240, np.float32))
+    results.append(measure("flagship online pool, 8 streams, one 20 ms step",
+                           pool_step, 8 * 0.02))
     report = {"card": card, "shapes": results}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

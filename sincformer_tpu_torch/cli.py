@@ -1,0 +1,287 @@
+"""Command line of the port: ``python -m sincformer_tpu_torch.cli <verb>``.
+
+  * ``enhance`` - enhance WAV file(s) with a trained model: long files
+    through the streaming enhancer, many files batched, ``--online`` through
+    the causal online enhancer (several inputs: the batched pool);
+  * ``export`` - write a trained checkpoint family as a compact int8
+    serving artifact (a drop-in model directory);
+  * ``info`` - print the configuration and the device.
+
+Models are looked up under ``SINCFORMER_MODEL_DIR`` (default
+``saved_models``), as in the JAX package's CLI. Everything runs on the card
+unless ``--device cpu`` is given. ``train``, ``evaluate``, ``calibrate`` and
+``demo`` are not ported yet and say so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+
+_NOT_PORTED = ("demo", "train", "evaluate", "test", "calibrate")
+
+
+def _model_dir() -> str:
+    return os.environ.get("SINCFORMER_MODEL_DIR", "saved_models")
+
+
+def _pipeline_class(model: str):
+    from sincformer_tpu_torch.pipeline import DCSEPipeline, SincformerPipeline
+    return {"sincformer": SincformerPipeline, "conformer": DCSEPipeline}[model]
+
+
+def _load_pipeline(prefer, device):
+    """The first of (sincformer, conformer) with a checkpoint under the
+    model directory, loaded; (None, None) when there is none."""
+    model_dir = _model_dir()
+    for cand in ([prefer] if prefer else ["sincformer", "conformer"]):
+        cls = _pipeline_class(cand)
+        if not any(os.path.isdir(os.path.join(model_dir, name))
+                   for name in (cls.FINAL_NAME, cls.BEST_NAME)):
+            print(f"  x {cand}: no {cls.FINAL_NAME} or {cls.BEST_NAME} "
+                  f"under {model_dir}")
+            continue
+        pipe = cls(device=device, model_dir=model_dir)
+        pipe.load_model()
+        return cand, pipe
+    return None, None
+
+
+def enhance(args) -> int:
+    """Enhance WAV file(s) with the best available trained model."""
+    from scipy.io import wavfile
+
+    from sincformer_tpu_torch.config import AudioConfig
+    from sincformer_tpu_torch.data.audio import load_audio
+    from sincformer_tpu_torch.serve import (OnlineEnhancer,
+                                            OnlineEnhancerPool,
+                                            StreamingEnhancer)
+
+    fs = AudioConfig().sample_rate
+    name, pipe = _load_pipeline(args.model, args.device)
+    if pipe is None:
+        print("  No trained models found - train or export one first.")
+        return 1
+    print(f"  Using model: {name} on {pipe.device}")
+    inputs = list(args.input)
+    pcm16 = bool(args.pcm16)
+
+    def towav(x):
+        if x.dtype == np.int16:        # quantized on the device (serve.py)
+            return x
+        if pcm16:
+            return StreamingEnhancer._quantize_host(x)
+        return np.clip(x, -1.0, 1.0).astype(np.float32)
+
+    if args.online:
+        # live arrival simulated in 20 ms chunks; several inputs run as
+        # concurrent streams, one batched forward pass per step for all
+        if len(inputs) == 1:
+            noisy = load_audio(inputs[0], fs)
+            oe = OnlineEnhancer(pipe)
+            print(f"  Online mode: {oe.latency_samples / fs * 1000:.0f} ms "
+                  f"algorithmic latency, {oe.chunk / fs * 1000:.0f} ms "
+                  f"chunks")
+            t0 = time.time()
+            parts = [oe.push(noisy[i:i + oe.chunk])
+                     for i in range(0, len(noisy), oe.chunk)]
+            parts.append(oe.flush())
+            dt = time.time() - t0
+            wavfile.write(args.output, fs, towav(np.concatenate(parts)))
+            print(f"  Enhanced -> {args.output}  ({dt:.2f}s wall, "
+                  f"{len(noisy) / fs / max(dt, 1e-9):.1f}x realtime)")
+            return 0
+        signals = [load_audio(p, fs) for p in inputs]
+        pool = OnlineEnhancerPool(pipe, n_streams=len(signals))
+        total_s = sum(len(s) for s in signals) / fs
+        print(f"  Online pool: {len(signals)} concurrent streams, "
+              f"{pool.latency_samples / fs * 1000:.0f} ms algorithmic "
+              f"latency, one forward pass per "
+              f"{pool.chunk / fs * 1000:.0f} ms step")
+        os.makedirs(args.output, exist_ok=True)
+        t0 = time.time()
+        pos, n = [0] * len(signals), pool.chunk
+        while any(p < len(s) for p, s in zip(pos, signals)):
+            for i, s in enumerate(signals):       # lockstep arrival
+                if pos[i] < len(s):
+                    pool.push(i, s[pos[i]:pos[i] + n])
+                    pos[i] += n
+            pool.step()
+        outs = [np.concatenate([pool.take(i), pool.flush(i)])
+                for i in range(len(signals))]
+        dt = time.time() - t0
+        for base, out in zip(_output_names(inputs), outs):
+            wavfile.write(os.path.join(args.output, base), fs, towav(out))
+        print(f"  Enhanced {len(inputs)} streams -> {args.output}/  "
+              f"({dt:.2f}s wall, {total_s / max(dt, 1e-9):.1f}x realtime "
+              f"aggregate)")
+        return 0
+
+    se = StreamingEnhancer(pipe)
+    if len(inputs) == 1:
+        noisy = load_audio(inputs[0], fs)
+        print(f"  Input: {inputs[0]} ({len(noisy) / fs:.2f}s @ {fs} Hz)")
+        t0 = time.time()
+        enhanced = se.enhance(noisy, pcm16_out=pcm16)
+        dt = time.time() - t0
+        wavfile.write(args.output, fs, towav(enhanced))
+        print(f"  Enhanced -> {args.output}  ({dt:.2f}s wall, "
+              f"{len(noisy) / fs / max(dt, 1e-9):.1f}x realtime)")
+        return 0
+
+    # many files: groups of one padded length share a forward pass
+    os.makedirs(args.output, exist_ok=True)
+    signals = [load_audio(p, fs) for p in inputs]
+    total_s = sum(len(s) for s in signals) / fs
+    print(f"  Inputs: {len(inputs)} files, {total_s:.2f}s total")
+    t0 = time.time()
+    outs = se.enhance_many(signals)
+    dt = time.time() - t0
+    for base, out in zip(_output_names(inputs), outs):
+        wavfile.write(os.path.join(args.output, base), fs, towav(out))
+    print(f"  Enhanced {len(inputs)} files -> {args.output}/  "
+          f"({dt:.2f}s wall, {total_s / max(dt, 1e-9):.1f}x realtime)")
+    return 0
+
+
+def _output_names(inputs):
+    """Base names of the inputs, made distinct: two inputs of one base name
+    in different directories must not overwrite each other."""
+    names, seen = [], {}
+    for path in inputs:
+        base = os.path.basename(path)
+        if base in seen:
+            seen[base] += 1
+            stem, ext = os.path.splitext(base)
+            base = f"{stem}_{seen[base]}{ext}"
+        else:
+            seen[base] = 0
+        names.append(base)
+    return names
+
+
+def export(args) -> int:
+    """Export a trained checkpoint family as an int8 serving artifact
+    (``train/state.py::save_checkpoint_quantized``: int8 per output channel
+    with stochastic rounding, about four times smaller). The exported
+    directory is a drop-in model directory: point ``SINCFORMER_MODEL_DIR``
+    at it. It is written under the final family's name whatever the source
+    was; the sidecar records where it came from."""
+    from sincformer_tpu_torch.train.state import merge_train_meta
+
+    os.environ["SINCFORMER_CKPT_PREF"] = args.ckpt
+    cls = _pipeline_class(args.model)
+    pipe = cls(device=args.device, model_dir=_model_dir())
+    src = pipe.load_model()
+    src_fam = os.path.dirname(os.path.abspath(src))
+    out_dir = args.out or (pipe.model_dir.rstrip("/\\") + "_serving")
+    os.makedirs(out_dir, exist_ok=True)
+    pipe.model_dir = out_dir
+    path = pipe.save_model(name=cls.FINAL_NAME, quantize=True)
+    merge_train_meta(out_dir, cls.FINAL_NAME, {
+        "exported_from": os.path.abspath(src),
+        "source_step": int(pipe.step),
+        "source_ckpt_pref": args.ckpt,
+    })
+
+    def du(d):
+        return sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs) / 1e6
+    print(f"  Source:   {src}  ({du(src_fam):.1f} MB family)")
+    print(f"  Exported: {path}  ({du(out_dir):.1f} MB, int8 serving "
+          f"artifact, output_gain={pipe.output_gain:.4f})")
+    print(f"  Load with: SINCFORMER_MODEL_DIR={out_dir}")
+    return 0
+
+
+def info(args) -> int:
+    """Configuration and device."""
+    import torch
+
+    from sincformer_tpu_torch.config import (AudioConfig, DCSEConfig,
+                                             MetacogConfig)
+    acfg = AudioConfig()
+    print("=" * 70)
+    print("  Speech Enhancement System - Configuration (sincformer_tpu_torch)")
+    print("=" * 70)
+    print(f"\n  Sample Rate:        {acfg.sample_rate} Hz")
+    print(f"  Frame Size:         {acfg.frame_size} samples")
+    print(f"  Hop Size:           {acfg.hop_size} samples")
+    print(f"  Flagship:           {MetacogConfig()}")
+    print(f"  DCSE:               {DCSEConfig()}")
+    print(f"\n  PyTorch Version:    {torch.__version__}")
+    print(f"  CUDA available:     {torch.cuda.is_available()}")
+    if torch.cuda.is_available():
+        print(f"  Device:             {torch.cuda.get_device_name(0)} "
+              f"(x{torch.cuda.device_count()})")
+    print(f"\n  Model Dir:          {_model_dir()}")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="sincformer_tpu_torch",
+        description="Speech enhancement on the GPU: Sincformer metacog and "
+                    "the DCSE Conformer (PyTorch/CUDA port)",
+        epilog=f"not ported yet: {', '.join(_NOT_PORTED)}")
+    sub = parser.add_subparsers(dest="command")
+
+    enp = sub.add_parser("enhance", help="Enhance WAV file(s)")
+    enp.add_argument("input", nargs="+", help="Input WAV path(s)")
+    enp.add_argument("output", help="Output WAV path (single input) or "
+                                    "output directory (several inputs)")
+    enp.add_argument("--pcm16", action="store_true",
+                     help="write 16-bit PCM WAV output (default: float32)")
+    enp.add_argument("--online", action="store_true",
+                     help="causal low-latency mode (50 ms bounded "
+                          "algorithmic latency): audio is fed in 20 ms "
+                          "chunks through the online enhancer; several "
+                          "inputs run as concurrent streams through the "
+                          "batched pool")
+    enp.add_argument("--model", default=None,
+                     choices=["sincformer", "conformer"],
+                     help="Model to use (default: best available)")
+
+    xp = sub.add_parser("export",
+                        help="Export a trained checkpoint as a compact "
+                             "int8 serving artifact (drop-in model dir)")
+    xp.add_argument("--model", default="sincformer",
+                    choices=["sincformer", "conformer"])
+    xp.add_argument("--ckpt", default="best", choices=["final", "best"],
+                    help="checkpoint family to export (default: the "
+                         "best-validation checkpoint)")
+    xp.add_argument("--out", default=None, metavar="DIR",
+                    help="output model dir (default: "
+                         "<SINCFORMER_MODEL_DIR>_serving)")
+
+    ip = sub.add_parser("info", help="Print configuration and device")
+    for p in (enp, xp, ip):
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; cpu on request)")
+    return parser
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _NOT_PORTED:
+        print(f"  '{argv[0]}' is not ported to sincformer_tpu_torch yet; "
+              f"use python -m sincformer_tpu.cli {argv[0]}", file=sys.stderr)
+        return 2
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.command == "enhance":
+        return enhance(args)
+    if args.command == "export":
+        return export(args)
+    if args.command == "info":
+        return info(args)
+    parser.print_help()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

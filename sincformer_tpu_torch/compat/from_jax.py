@@ -1,4 +1,5 @@
-"""Carry a flax ``SincformerMetacog`` checkpoint over to the port.
+"""Carry a flax ``SincformerMetacog`` or DCSE ``SpeechEnhancer`` checkpoint
+over to the port.
 
 ``load_from_jax`` takes the flax variables as a nested dict of numpy arrays
 (``params`` plus the ``maa_stats``, ``memory_bank`` and ``memory_stats``
@@ -22,6 +23,15 @@ with these conversions:
   * ``memory_bank/memory/x`` → ``memory.bank_x``; the other collections map
     ``<collection>/<module>/x`` → ``<module>.x``.
 
+``load_dcse_from_jax`` does the same for the DCSE tree (Dense, LayerNorm and
+the depthwise conv only). ``convert_quantized_from_jax`` takes the JAX
+package's int8 serving tree (``{"q": int8, "s": f32}`` nodes, scales along
+the last axis) into the port's quantized form without rounding again: ``q``
+is transposed like its kernel, ``s`` is kept, and the channel axis becomes
+0. The CPEA recurrent matrices are the exception: they carry the folded
+bias, which has no int8 form on the JAX grid, so they are dequantized,
+folded and stored in float32 (1 MB of the flagship's 16 MB).
+
 Variants outside this slice (the BiLRU mixer, the reference PA cascade, the
 dual fine stream) raise. Every leaf must be placed and every torch
 parameter and buffer filled, with matching shapes, or it raises.
@@ -30,26 +40,49 @@ parameter and buffer filled, with matching shapes, or it raises.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from sincformer_tpu_torch.config import MetacogConfig
+from sincformer_tpu_torch.config import DCSEConfig, MetacogConfig
 
 _COLLECTIONS = ("maa_stats", "memory_bank", "memory_stats")
 _GATES = ("i", "f", "g", "o")
 
 
-def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, np.ndarray]:
+def _is_q(node) -> bool:
+    return isinstance(node, Mapping) and set(node) == {"q", "s"}
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[tuple, Any]:
+    """{path: leaf}; a quantized ``{"q", "s"}`` node counts as one leaf."""
     flat = {}
     for key, value in tree.items():
         path = prefix + (str(key),)
-        if isinstance(value, Mapping):
+        if _is_q(value):
+            flat[path] = {"q": np.asarray(value["q"]),
+                          "s": np.asarray(value["s"])}
+        elif isinstance(value, Mapping):
             flat.update(_flatten(value, path))
         else:
             flat[path] = np.asarray(value)
     return flat
+
+
+def _dequantized(tree: Mapping) -> Dict:
+    """The tree with every quantized node replaced by ``q * s`` in float32,
+    the product the JAX package's ``dequantize_tree`` forms."""
+    out = {}
+    for key, value in tree.items():
+        if _is_q(value):
+            q, s = np.asarray(value["q"]), np.asarray(value["s"])
+            out[key] = q.astype(np.float32) * s.astype(np.float32)
+        elif isinstance(value, Mapping):
+            out[key] = _dequantized(value)
+        else:
+            out[key] = value
+    return out
 
 
 def _count(names, prefix: str) -> int:
@@ -183,8 +216,18 @@ def load_from_jax(variables: Mapping, **overrides: Any
 
     with torch.device("meta"):
         skeleton = SincformerMetacog(config)
+    _check_filled(skeleton, {**state, **buffers})
+
+    return ({k: _tensor(v) for k, v in state.items()},
+            {k: _tensor(v) for k, v in buffers.items()}, config)
+
+
+def _tensor(arr) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def _check_filled(skeleton: torch.nn.Module, given: Mapping) -> None:
     expected = {k: tuple(v.shape) for k, v in skeleton.state_dict().items()}
-    given = {**state, **buffers}
     missing = sorted(set(expected) - set(given))
     extra = sorted(set(given) - set(expected))
     if missing or extra:
@@ -195,8 +238,82 @@ def load_from_jax(variables: Mapping, **overrides: Any
     if wrong:
         raise ValueError(f"shape mismatch (checkpoint, port): {wrong}")
 
-    def tensor(arr):
-        return torch.from_numpy(np.array(arr, copy=True))
 
-    return ({k: tensor(v) for k, v in state.items()},
-            {k: tensor(v) for k, v in buffers.items()}, config)
+def infer_dcse_config(variables: Mapping, **overrides: Any) -> DCSEConfig:
+    """Sizes of the ``SpeechEnhancer`` that ``variables`` belong to.
+    ``num_heads``, ``phase_bound_div``, ``attn_impl`` and ``fused_ffn``
+    leave no trace in the tree (the fused and unfused feed-forward modules
+    share their parameters): defaults unless overridden."""
+    params = variables["params"]
+    if set(variables) - {"params"}:
+        raise NotImplementedError(
+            f"collections {sorted(set(variables) - {'params'})}: "
+            f"conv_norm='batch' checkpoints are not ported yet (ROADMAP.md "
+            f"Queue 1)")
+    block0 = params["block_0"]
+    found = dict(
+        d_model=np.shape(params["input_proj"]["bias"])[0],
+        num_blocks=_count(params, "block_"),
+        ff_dim=np.shape(block0["FeedForwardModule_0"]["Dense_0"]["bias"])[0],
+        kernel_size=np.shape(
+            block0["ConvolutionModule_0"]["depthwise"]["kernel"])[0],
+        n_freq=np.shape(params["mag_head"]["bias"])[0])
+    return DCSEConfig(**{**{k: int(v) for k, v in found.items()},
+                         **overrides})
+
+
+def load_dcse_from_jax(variables: Mapping, **overrides: Any
+                       ) -> Tuple[Dict[str, torch.Tensor], DCSEConfig]:
+    """flax ``SpeechEnhancer`` variables (numpy leaves, ``params`` only) →
+    (state_dict, config). ``overrides`` set the config fields the tree does
+    not record, e.g. ``fused_ffn=True``."""
+    from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+
+    config = infer_dcse_config(variables, **overrides)
+    state = {}
+    for path, arr in _flatten(variables["params"]).items():
+        leaf, value = _param_leaf(path, arr)
+        state[".".join(path[:-1] + (leaf,))] = value
+    with torch.device("meta"):
+        skeleton = SpeechEnhancer(config)
+    _check_filled(skeleton, state)
+    return {k: _tensor(v) for k, v in state.items()}, config
+
+
+def convert_quantized_from_jax(params_q: Mapping,
+                               model_state: Optional[Mapping] = None,
+                               **overrides: Any):
+    """The JAX package's int8 serving tree of a ``SincformerMetacog`` →
+    (params_q, buffers, config) in the port's form (see the module
+    docstring); ``ops.quantize.dequantize_tree(params_q)`` equals
+    :func:`load_from_jax` of the JAX package's own dequantized tree bit for
+    bit. No value is rounded again."""
+    state, buffers, config = load_from_jax(
+        {"params": _dequantized(params_q), **(model_state or {})},
+        **overrides)
+    out: Dict[str, Any] = dict(state)
+    flat = _flatten(params_q)
+    for path, node in flat.items():
+        if not _is_q(node) or (path[0] == "cpea"
+                               and path[1].startswith("LSTMCell_")):
+            continue
+        q = node["q"]
+        if path[-1] == "kernel":
+            _, q = _param_leaf(path, q)
+            axis = 0
+        else:
+            axis = q.ndim - 1
+        leaf = "weight" if path[-1] == "kernel" else path[-1]
+        out[".".join(path[:-1] + (leaf,))] = {
+            "q": _tensor(q), "s": _tensor(node["s"]), "axis": axis}
+    # input-side LSTM matrices: the four gates' int8 kernels stacked
+    for layer in range(config.cpea_layers):
+        for direction, suffix in ((0, ""), (1, "_reverse")):
+            gates = [flat[("cpea", f"LSTMCell_{2 * layer + direction}",
+                           f"i{g}", "kernel")] for g in _GATES]
+            if all(_is_q(g) for g in gates):
+                out[f"cpea.lstm.weight_ih_l{layer}{suffix}"] = {
+                    "q": _tensor(np.concatenate([g["q"].T for g in gates])),
+                    "s": _tensor(np.concatenate([g["s"] for g in gates])),
+                    "axis": 0}
+    return out, buffers, config

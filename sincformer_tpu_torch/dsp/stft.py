@@ -51,7 +51,16 @@ def istft(spec: torch.Tensor, n_fft: int = 256, hop: int = 80,
     """Complex (..., T, n_fft//2+1) → real (..., length)."""
     w = _padded_window(window, win_length, n_fft, spec.device)
     t = spec.shape[-2]
-    frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * w
+    # a real signal's DC and Nyquist bins are real. A mask leaves imaginary
+    # parts there; pocketfft (numpy, JAX and torch on the CPU) ignores them,
+    # but cuFFT's result for such input depends on the plan it picks, i.e.
+    # on the batch size, so they are dropped here on every device
+    imag = spec.imag.clone()
+    imag[..., 0] = 0.0
+    if n_fft % 2 == 0:
+        imag[..., -1] = 0.0
+    frames = torch.fft.irfft(torch.complex(spec.real, imag), n=n_fft,
+                             dim=-1) * w
     total = (t - 1) * hop + n_fft
     y = overlap_add(frames, hop, total)
     norm = overlap_add((w * w).expand(t, n_fft), hop, total)

@@ -15,8 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sincformer_tpu_torch.ops.attention import dot_product_attention
-
-LN_EPS = 1e-6
+from sincformer_tpu_torch.ops.fused_ffn import LN_EPS, fused_ffn
 
 
 def same_pad(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -27,15 +26,39 @@ def same_pad(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class FeedForwardModule(nn.Module):
-    """LN → Dense(d_ff) → Swish → Dense(d), half residual."""
+    """LN → Dense(d_ff) → Swish → Dense(d), half residual.
 
-    def __init__(self, d_model: int, d_ff: int):
+    ``fused=True`` runs the whole module as one call of ``ops.fused_ffn``
+    (kernel K3 on a CUDA tensor). Both forms have the same parameters, so a
+    checkpoint loads into either. The kernel reads the weights as (in, out),
+    the transposes of ``Linear.weight``; they are made once and again only
+    when a weight was rewritten or moved, not per call.
+    """
+
+    def __init__(self, d_model: int, d_ff: int, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.Dense_0 = nn.Linear(d_model, d_ff)
         self.Dense_1 = nn.Linear(d_ff, d_model)
+        self._transposed = None         # (key, w1 (d, d_ff), w2 (d_ff, d))
+
+    def _in_out_weights(self):
+        w0, w1 = self.Dense_0.weight, self.Dense_1.weight
+        # (a tensor made under inference_mode has no version counter)
+        key = tuple((w.data_ptr(), 0 if w.is_inference() else w._version)
+                    for w in (w0, w1))
+        if self._transposed is None or self._transposed[0] != key:
+            self._transposed = (key, w0.detach().t().contiguous(),
+                                w1.detach().t().contiguous())
+        return self._transposed[1:]
 
     def forward(self, x):
+        if self.fused:
+            w1, w2 = self._in_out_weights()
+            ln = self.LayerNorm_0
+            return fused_ffn(x.contiguous(), ln.weight, ln.bias, w1,
+                             self.Dense_0.bias, w2, self.Dense_1.bias)
         return x + 0.5 * self.Dense_1(F.silu(self.Dense_0(self.LayerNorm_0(x))))
 
 
@@ -97,13 +120,14 @@ class ConformerBlock(nn.Module):
     """FF½ → MHSA → Conv → FF½ → LN."""
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
-                 kernel_size: int, attn_impl: str = "speech"):
+                 kernel_size: int, attn_impl: str = "speech",
+                 fused_ffn: bool = False):
         super().__init__()
-        self.FeedForwardModule_0 = FeedForwardModule(d_model, d_ff)
+        self.FeedForwardModule_0 = FeedForwardModule(d_model, d_ff, fused_ffn)
         self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(
             d_model, num_heads, attn_impl)
         self.ConvolutionModule_0 = ConvolutionModule(d_model, kernel_size)
-        self.FeedForwardModule_1 = FeedForwardModule(d_model, d_ff)
+        self.FeedForwardModule_1 = FeedForwardModule(d_model, d_ff, fused_ffn)
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None):

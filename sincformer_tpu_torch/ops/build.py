@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from typing import Dict, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -44,27 +45,47 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns its path.
+def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
+    """Compile several ``csrc/<name>.cu`` at once, one ``nvcc`` process each,
+    all started together (default: every source in ``csrc/``); libraries
+    that exist are kept. Returns {name: library path}.
 
-    The compiler's resource report (``-Xptxas -v``) is kept beside the
+    The compiler's resource report (``-Xptxas -v``) is kept beside each
     library as ``<library>.log``.
     """
-    out = _library_path(name)
-    if os.path.exists(out):
-        return out
+    if names is None:
+        names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    paths = {name: _library_path(name) for name in names}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    running = []
+    for name, out in paths.items():
+        if os.path.exists(out):
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{name}.cu")]
+        running.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, proc in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed for {name}.cu:\n{stderr}")
+            continue
+        with open(out + ".log", "w") as f:
+            f.write(stdout + stderr)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns its
+    path."""
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)

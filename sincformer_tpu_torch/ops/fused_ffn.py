@@ -1,0 +1,119 @@
+"""Fused LayerNorm -> Dense(d_ff) -> Swish -> Dense(d) -> half residual
+(kernel K3). Counterpart of ``sincformer_tpu/ops/fused_ffn.py``.
+
+    y = x + 0.5 * (swish(LN(x) . W1 + b1) . W2 + b2)
+
+LayerNorm has eps 1e-6 and f32 statistics, the variance being the mean of
+squares of ``x - mean``. On a CUDA tensor :func:`fused_ffn` launches the
+hand-written kernel ``csrc/fused_ffn.cu``, which reads each row once, writes
+it once, keeps the normalised rows and the d_ff-wide intermediate in shared
+memory and streams the weights through it with asynchronous copies; on a
+CPU tensor it runs :func:`_fused_ffn_plain`. There is no fallback from one
+to the other: a CUDA tensor the kernel does not take raises. Inference
+only; the backward belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from sincformer_tpu_torch.ops import build
+
+LN_EPS = 1e-6
+_WIDTHS = (32, 64, 128, 256)
+
+
+def _fused_ffn_plain(x, ln_g, ln_b, w1, b1, w2, b2):
+    """Plain PyTorch version of the same formula, any leading shape."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    xn = (xf - mu) * torch.rsqrt(var + LN_EPS) * ln_g + ln_b
+    h = xn @ w1 + b1
+    h = h * torch.sigmoid(h)
+    y = h @ w2 + b2
+    return (xf + 0.5 * y).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.load("fused_ffn").fused_ffn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2):
+    d = x.shape[-1]
+    if w1.ndim != 2 or w1.shape[0] != d:
+        raise ValueError(f"w1 must be (d, d_ff) = ({d}, d_ff), got "
+                         f"{tuple(w1.shape)}")
+    d_ff = w1.shape[1]
+    shapes = {"ln_g": (d,), "ln_b": (d,), "w1": (d, d_ff), "b1": (d_ff,),
+              "w2": (d_ff, d), "b2": (d,)}
+    tensors = {"ln_g": ln_g, "ln_b": ln_b, "w1": w1, "b1": b1, "w2": w2,
+               "b2": b2}
+    for name, t in (("x", x), *tensors.items()):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_ffn kernel takes float32, {name} is "
+                            f"{t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_ffn kernel needs contiguous tensors; "
+                             f"{name} is not")
+        if name != "x" and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+    if d not in _WIDTHS:
+        raise ValueError(f"fused_ffn kernel supports d in {_WIDTHS}, got {d}")
+    if d_ff % 32:
+        raise ValueError(f"fused_ffn kernel needs d_ff to be a multiple of "
+                         f"32, got {d_ff}")
+    for name in ("w1", "w2", "b1"):
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"fused_ffn kernel needs {name} aligned to 16 "
+                             f"bytes")
+
+
+def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """y = x + 0.5 * (swish(LN(x) . W1 + b1) . W2 + b2).
+
+    Args:
+        x: (..., d) activations.
+        ln_g, ln_b: LayerNorm scale and bias (d,).
+        w1: (d, d_ff); b1: (d_ff,); w2: (d_ff, d); b2: (d,), the JAX
+            package's (in, out) layout.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``fused_ffn.launches``) or raises.
+    """
+    if x.device.type == "cpu":
+        return _fused_ffn_plain(x, ln_g, ln_b, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_ffn runs on cpu or cuda, not {x.device}")
+    _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2)
+    d, d_ff = w1.shape
+    rows = x.numel() // d
+    if rows == 0:
+        raise ValueError("fused_ffn kernel needs at least one row")
+    out = torch.empty_like(x)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
+                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                 out.data_ptr(), rows, d, d_ff, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_ffn kernel launch failed: CUDA error {err}")
+    fused_ffn.launches += 1
+    return out
+
+
+fused_ffn.launches = 0

@@ -1,18 +1,20 @@
-"""Flagship enhancement entry points (``SincformerPipeline`` inference in
-``sincformer_tpu/train/agent_trainer.py``).
+"""Enhancement entry points: :class:`SincformerPipeline` (the inference half
+of ``sincformer_tpu/train/agent_trainer.py``) and :class:`DCSEPipeline` (of
+``sincformer_tpu/train/dcse_trainer.py``).
 
-    wave (int16 or float) → pcm_to_float → centred STFT → SincformerMetacog
-    → complex mask × STFT → iSTFT → × output_gain
+    wave (int16 or float) → pcm_to_float → centred STFT → model → complex
+    mask × STFT → iSTFT → × output_gain
 
-The pipeline runs on the card (``device="cuda"``, the default) unless the
+A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``; without CUDA the default raises instead of
-running anywhere else.
+running anywhere else. ``output_gain`` is read at every call, so a changed
+gain takes effect at once. ``save_model`` / ``load_model`` write and read
+the serving checkpoints of ``train/state.py``.
 """
 
 from __future__ import annotations
 
-import json
-import math
+import dataclasses
 import os
 from typing import Mapping, Optional
 
@@ -20,8 +22,17 @@ import numpy as np
 import torch
 
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
-from sincformer_tpu_torch.config import AudioConfig
+from sincformer_tpu_torch.config import AudioConfig, DCSEConfig, MetacogConfig
 from sincformer_tpu_torch.dsp.stft import istft, stft
+from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+from sincformer_tpu_torch.train.state import (inference_ckpt_order,
+                                              latest_step_dir,
+                                              merge_train_meta,
+                                              read_step_meta,
+                                              resolve_output_gain,
+                                              restore_checkpoint,
+                                              save_checkpoint,
+                                              save_checkpoint_quantized)
 from sincformer_tpu_torch.utils.signal import pcm_to_float
 
 
@@ -35,35 +46,40 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def read_output_gain(step_dir: str) -> float:
-    """Validation-calibrated output gain of a checkpoint ``.../family/step_N``:
-    ``output_gain`` in the family's ``train_meta.json``, default 1.0."""
-    meta_path = os.path.join(os.path.dirname(os.path.abspath(step_dir)),
-                             "train_meta.json")
-    try:
-        with open(meta_path) as f:
-            gain = float(json.load(f).get("output_gain", 1.0))
-    except FileNotFoundError:
-        return 1.0
-    return gain if math.isfinite(gain) and gain > 0 else 1.0
+class _EnhancementPipeline:
+    """What both pipelines share: the device, the waveform entry points and
+    the checkpoint I/O. A subclass names its model and config classes and
+    its checkpoint families, and maps an STFT to the enhanced STFT."""
 
+    MODEL = None
+    CONFIG = None
+    FINAL_NAME = ""
+    BEST_NAME = ""
 
-class SincformerPipeline:
-    """Sincformer-metacog enhancement of (B, N) or (N,) waveforms."""
-
-    def __init__(self, model: Optional[SincformerMetacog] = None,
-                 device="cuda", output_gain: float = 1.0,
-                 audio: AudioConfig = AudioConfig()):
+    def __init__(self, model=None, device="cuda", output_gain: float = 1.0,
+                 audio: AudioConfig = AudioConfig(),
+                 model_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.audio = audio
-        self.model = (model or SincformerMetacog()).to(self.device).eval()
+        self.model = (model or self.MODEL()).to(self.device).eval()
         self.output_gain = float(output_gain)
+        self.model_dir = model_dir or os.environ.get("SINCFORMER_MODEL_DIR",
+                                                     "saved_models")
+        self.step = 0
+
+    def _enhanced_spec(self, wav: torch.Tensor,
+                       spec: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
     def load_state(self, state_dict: Mapping[str, torch.Tensor],
-                   buffers: Mapping[str, torch.Tensor]) -> None:
+                   buffers: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> None:
         """Load parameters and buffers (e.g. from compat.from_jax); every
         key of the model must be given and no other."""
-        self.model.load_state_dict({**state_dict, **buffers}, strict=True)
+        self.model.load_state_dict({**state_dict, **(buffers or {})},
+                                   strict=True)
+
+    # ── inference ───────────────────────────────────────────────────────
 
     @torch.inference_mode()
     def enhance_tensor(self, wav: torch.Tensor) -> torch.Tensor:
@@ -71,10 +87,8 @@ class SincformerPipeline:
         a = self.audio
         wav = pcm_to_float(wav)
         spec = stft(wav, a.fft_size, a.hop_size, a.frame_size)
-        out = self.model(wav, spec.real, spec.imag)
-        enh = istft(torch.complex(out["enhanced_real"], out["enhanced_imag"]),
-                    a.fft_size, a.hop_size, a.frame_size,
-                    length=wav.shape[-1])
+        enh = istft(self._enhanced_spec(wav, spec), a.fft_size, a.hop_size,
+                    a.frame_size, length=wav.shape[-1])
         return enh * self.output_gain if self.output_gain != 1.0 else enh
 
     def enhance_signal(self, noisy_signal: np.ndarray,
@@ -100,3 +114,85 @@ class SincformerPipeline:
             noisy = noisy.astype(np.float32)
         out = self.enhance_tensor(torch.from_numpy(noisy).to(self.device))
         return out.cpu().numpy()
+
+    # ── model I/O ───────────────────────────────────────────────────────
+
+    def save_model(self, name: Optional[str] = None,
+                   quantize: bool = False) -> str:
+        """Write the model under ``<model_dir>/<name>/step_<step>`` and the
+        output gain into the family's sidecar. ``quantize=True`` writes the
+        int8 serving form (the parameters go through ``quantize_tree`` on
+        this pipeline's device)."""
+        name = name or self.FINAL_NAME
+        params = dict(self.model.named_parameters())
+        state = {"params": params,
+                 "model_state": {k: v for k, v in
+                                 self.model.state_dict().items()
+                                 if k not in params}}
+        save = save_checkpoint_quantized if quantize else save_checkpoint
+        path = save(os.path.join(self.model_dir, name), state, self.step,
+                    extra={"config": dataclasses.asdict(self.model.config)})
+        merge_train_meta(self.model_dir, name,
+                         {"output_gain": float(self.output_gain)})
+        return path
+
+    def load_model(self, path: Optional[str] = None) -> str:
+        """Restore a checkpoint (``path`` = a ``.../family/step_N``
+        directory; default: the newest step of the preferred family under
+        ``model_dir``). The model is rebuilt at the sizes the checkpoint's
+        sidecar records; the output gain comes from the family's sidecar."""
+        if path is None:
+            for name in inference_ckpt_order(self.FINAL_NAME, self.BEST_NAME):
+                path = latest_step_dir(os.path.join(self.model_dir, name))
+                if path:
+                    break
+        if path is None:
+            raise FileNotFoundError(
+                f"no {self.FINAL_NAME} or {self.BEST_NAME} checkpoint under "
+                f"{self.model_dir}")
+        restored = restore_checkpoint(path)
+        config = read_step_meta(path).get("config")
+        if config is not None and config != dataclasses.asdict(
+                self.model.config):
+            self.model = self.MODEL(self.CONFIG(**config)).to(
+                self.device).eval()
+        self.load_state(restored["params"], restored["model_state"])
+        self.step = restored["step"]
+        self.output_gain = resolve_output_gain(path)
+        return path
+
+
+class SincformerPipeline(_EnhancementPipeline):
+    """Sincformer-metacog enhancement of (B, N) or (N,) waveforms."""
+
+    MODEL = SincformerMetacog
+    CONFIG = MetacogConfig
+    FINAL_NAME = "sincformer_final"
+    BEST_NAME = "best_sincformer"
+
+    def _enhanced_spec(self, wav, spec):
+        out = self.model(wav, spec.real, spec.imag)
+        return torch.complex(out["enhanced_real"], out["enhanced_imag"])
+
+
+class DCSEPipeline(_EnhancementPipeline):
+    """DCSE (STFT → Conformer → bounded polar mask) enhancement of (B, N)
+    or (N,) waveforms."""
+
+    MODEL = SpeechEnhancer
+    CONFIG = DCSEConfig
+    FINAL_NAME = "conformer_final"
+    BEST_NAME = "best_conformer"
+
+    def _enhanced_spec(self, wav, spec):
+        enh_real, enh_imag, _ = self.model(spec.real, spec.imag)
+        return torch.complex(enh_real, enh_imag)
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, **kwargs) -> "DCSEPipeline":
+        """Reference ``.pt`` checkpoints carry BatchNorm statistics
+        (``conv_norm="batch"``), which this package does not model yet."""
+        raise NotImplementedError(
+            f"cannot load {path}: the reference .pt import needs "
+            f"conv_norm='batch', which waits for the DCSE training slice "
+            f"(ROADMAP.md Queue 1)")

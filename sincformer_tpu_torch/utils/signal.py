@@ -57,3 +57,19 @@ def pcm_to_float(wav: torch.Tensor) -> torch.Tensor:
     if wav.dtype == torch.int16:
         return wav.to(torch.float32) * (1.0 / 32768.0)
     return wav
+
+
+def float_to_pcm(wav: torch.Tensor) -> torch.Tensor:
+    """float32 audio in [-1, 1] → int16 PCM on the tensor's device: times
+    32768, clipped to [-32768, 32767], rounded half to even."""
+    scaled = torch.clamp(wav * 32768.0, -32768.0, 32767.0)
+    return torch.round(scaled).to(torch.int16)
+
+
+def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Linear-interpolation resampler on the host (data loading only)."""
+    if sr_in == sr_out:
+        return x
+    new_len = int(len(x) * sr_out / sr_in)
+    idx = np.linspace(0, len(x) - 1, new_len)
+    return np.interp(idx, np.arange(len(x)), x).astype(np.float32)

@@ -90,6 +90,57 @@ def narrow_model():
     return model, variables, tmodel
 
 
+# narrow DCSE: 2 Conformer blocks, 2 heads of 16
+NARROW_DCSE = dict(d_model=32, num_blocks=2, num_heads=2, d_ff=64,
+                   kernel_size=7)
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_dcse():
+    """(flax SpeechEnhancer kwargs, numpy variables) at the NARROW_DCSE
+    widths, every bias and norm offset non-zero."""
+    from sincformer_tpu.models.dcse import SpeechEnhancer as JaxModel
+
+    model = JaxModel(n_freq=129, dropout=0.0, attn_impl="speech",
+                     **NARROW_DCSE)
+    spec = jnp.zeros((1, 11, 129))
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), spec,
+                                               spec))
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda p, s: _fill(p, s, rng).astype(np.float32), shapes["params"])
+    return {"params": params}
+
+
+def jax_dcse_model(fused: bool = False):
+    from sincformer_tpu.models.dcse import SpeechEnhancer as JaxModel
+    return JaxModel(n_freq=129, dropout=0.0, attn_impl="speech",
+                    fused_ffn=fused, **NARROW_DCSE)
+
+
+def torch_dcse_pipeline(fused: bool = False, output_gain: float = 1.0):
+    """The port's DCSEPipeline on the CPU with the narrow_dcse weights."""
+    from sincformer_tpu_torch import (DCSEPipeline, SpeechEnhancer,
+                                      load_dcse_from_jax)
+    state, config = load_dcse_from_jax(narrow_dcse(), fused_ffn=fused,
+                                       num_heads=NARROW_DCSE["num_heads"])
+    pipe = DCSEPipeline(SpeechEnhancer(config), device="cpu",
+                        output_gain=output_gain)
+    pipe.load_state(state)
+    return pipe
+
+
+def jax_dcse_pipeline(model_dir: str, output_gain: float = 1.0):
+    """The JAX DCSEPipeline with the narrow_dcse weights."""
+    from sincformer_tpu.train.dcse_trainer import DCSEPipeline
+    pipe = DCSEPipeline(model=jax_dcse_model(), model_dir=model_dir)
+    pipe.init_state(epochs=1, steps_per_epoch=1, example_len=800)
+    pipe.state = pipe.state.replace(
+        params=jax.tree.map(jnp.asarray, narrow_dcse()["params"]))
+    pipe.output_gain = output_gain
+    return pipe
+
+
 def max_abs(a, b) -> float:
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)

@@ -38,8 +38,13 @@ def test_sources_import_no_jax():
 
 
 def test_import_loads_no_jax_module():
-    code = ("import sys, sincformer_tpu_torch, sincformer_tpu_torch.compat."
-            "from_jax, sincformer_tpu_torch.ops.build; "
+    modules = ["sincformer_tpu_torch"] + [
+        f"sincformer_tpu_torch.{m}" for m in (
+            "cli", "serve", "pipeline", "config", "compat.from_jax",
+            "data.audio", "models.dcse", "models.conformer", "ops.build",
+            "ops.fused_ffn", "ops.quantize", "ops.speech_attention",
+            "train.state", "utils.signal")]
+    code = (f"import sys, {', '.join(modules)}; "
             f"print([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}])")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True).stdout
@@ -62,6 +67,17 @@ def test_pipeline_default_device_needs_cuda():
     pipe = SincformerPipeline(small, device="cpu")
     out = pipe.enhance_signal(torch.zeros(1000).numpy())
     assert out.shape == (1000,)
+
+
+def test_dcse_pipeline_default_device_needs_cuda():
+    """The DCSE pipeline and the CLI follow the same rule: the card unless
+    the caller asks for the CPU."""
+    from sincformer_tpu_torch import DCSEPipeline, cli
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DCSEPipeline()
+    assert cli.build_parser().parse_args(["info"]).device == "cuda"
 
 
 def test_chip_smoke_refuses_without_cuda():

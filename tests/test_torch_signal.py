@@ -86,3 +86,51 @@ def test_pcm_to_float_int16():
     np.testing.assert_array_equal(got.numpy(), ref)
     f = torch.randn(5)
     assert pcm_to_float(f) is f
+
+
+def test_float_to_pcm_bit_equal():
+    """float_to_pcm against the JAX function: ties at .5 LSB round half to
+    even, values past full scale clip to [-32768, 32767], and the host-side
+    quantizer of serve.py is the same function."""
+    from sincformer_tpu_torch.serve import StreamingEnhancer
+    from sincformer_tpu_torch.utils.signal import float_to_pcm
+    lsb = 1.0 / 32768.0
+    ties = np.array([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 32766.5, -32767.5],
+                    np.float32) * lsb
+    edge = np.array([1.0, -1.0, 1.5, -1.5, 0.99999, -0.99999, 0.0, 32767 * lsb],
+                    np.float32)
+    x = np.concatenate([ties, edge, _x(500, b=1)[0] * 0.7])
+    ref = np.asarray(jsignal.float_to_pcm(jnp.asarray(x)))
+    got = float_to_pcm(torch.from_numpy(x))
+    assert got.dtype == torch.int16
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert got[:8].tolist() == [0, 2, 2, 0, -2, -2, 32766, -32768]
+    assert got[8:12].tolist() == [32767, -32768, 32767, -32768]
+    np.testing.assert_array_equal(StreamingEnhancer._quantize_host(x), ref)
+
+
+def test_istft_ignores_imaginary_dc_and_nyquist():
+    """A masked spectrum has imaginary parts in its DC and Nyquist bins. The
+    JAX package's iSTFT (pocketfft) ignores them; the port drops them
+    itself, because cuFFT's answer for such input changes with the batch
+    size. Checked on the CPU against JAX, and on the card (where there is
+    one) for one batch of 16 against four batches of 4."""
+    rng = np.random.default_rng(9)
+    re, im = (rng.standard_normal((16, 51, 129)).astype(np.float32)
+              for _ in range(2))
+    ref = np.asarray(jax_istft(jnp.asarray(re) + 1j * jnp.asarray(im),
+                               length=4000))
+    spec = torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+    got = istft(spec, length=4000)
+    assert np.max(np.abs(got.numpy() - ref)) <= 1e-5
+    clean = spec.clone()
+    clean.imag[..., 0] = 0.0
+    clean.imag[..., -1] = 0.0
+    torch.testing.assert_close(istft(clean, length=4000), got, rtol=0, atol=0)
+    if torch.cuda.is_available():
+        on_card = spec.cuda()
+        whole = istft(on_card, length=4000)
+        parts = torch.cat([istft(on_card[i:i + 4], length=4000)
+                           for i in range(0, 16, 4)])
+        assert float((whole - parts).abs().max()) <= 1e-5
+        assert float((whole.cpu() - got).abs().max()) <= 1e-5
