@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the port's three CUDA kernels (speech attention K1, int8 stochastic
-rounding K2, fused feed-forward K3) from ``sincformer_tpu_torch/csrc/``, one
-``nvcc`` process each, and holds each against its plain PyTorch version on
-the card. Then it drives the port's paths at full width and checks, from the
-wrappers' launch counts, that each went through its kernels:
+Builds the port's six CUDA kernels (speech attention K1, int8 stochastic
+rounding K2, fused feed-forward K3, Meddis hair cell K4, conv + GroupNorm
+K5, envelope / activation K6) from ``sincformer_tpu_torch/csrc/``, one
+``nvcc`` process each, all started together, and holds each against its
+plain PyTorch version on the card. Then it drives the port's paths at full
+width and checks, from the wrappers' launch counts, that each went through
+its kernels:
 
   * a few requests through the flagship Sincformer-metacog enhancement
     (random weights from a seeded ``torch.Generator``), held against the
@@ -18,9 +20,22 @@ wrappers' launch counts, that each went through its kernels:
     ``enhance_many``, and an ``OnlineEnhancerPool`` of 8 live streams
     against 8 solo ``OnlineEnhancer``s;
   * the same long-form request through DCSE with the fused feed-forward
-    (seeded random weights), held against the unfused model.
+    (seeded random weights), held against the unfused model;
+  * the auditory front-end: 16 signals of 4 s through the gammatone bank and
+    the Meddis hair cell (K4) to frame rates, held against the port on the
+    CPU;
+  * the PerceptionAgent front-end's fused building blocks through their
+    entry points: the sinc filterbank output of 16 signals through
+    ``env_act_auto`` (K6) and ``conv1d_gn`` (K5), held against their plain
+    versions;
+  * serving the original paper's mask DNN at full width (594 -> 3 x 1024 ->
+    64, seeded weights): ``save_model(quantize=True)`` through K2, load, a
+    batch, a padded single request, the 60 s file through
+    ``StreamingEnhancer``'s host path and through ``enhance --model pcirm``,
+    held against the port on the CPU.
 
-Exits non-zero on any failure, and at once when no CUDA device is present.
+``--kernels-only`` stops after the kernels' own checks (a new kernel's first
+run). Exits non-zero on any failure, and at once when no CUDA device is present.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the kernel table as JSON.
 """
@@ -44,10 +59,29 @@ PEAK_BYTES = 3.35e12
 KERNEL_TOL = 1e-5      # f32 on both sides, sums in another order; K3: of
                        # the output's scale
 WAVE_TOL = 1e-4        # two paths or devices, relative to the waveform's peak
+DNN_TAIL_TOL = 1e-2    # DNN path, the 6 frames before a request's zero padding
+                       # (measured 2.9e-3 on an H100; see check_dnn_wave)
 TIE_MARGIN = 1e-3      # MAA logit gap below which a decision flip is a tie
 ATTN_TS = (50, 100, 250, 400, 601, 2100)
 FFN_ROWS = (25664, 6416, 1, 7, 401, 1000)      # 64 and 16 windows of 401 frames
 K2_OPS_PER_ELEMENT = 40      # Philox-4x32-10 shared by 4 elements + rounding
+K4_OPS_PER_STEP = 19         # f32 operations of one Euler step, the division as one
+K4_CHAIN_OPS = 17            # of them on the loop-carried chain q -> c -> w -> q
+F32_LATENCY_CYCLES = 4       # assumed latency of one dependent f32 operation
+BOOST_HZ = 1.98e9            # H100 SXM maximum SM clock
+ENVACT_TOL = 3e-6            # K6: tanh and log1p in f32 on both sides
+# the five geometries of tests/test_pallas_ops.py (TestConvGN), k=9 at s=1,
+# k=21 at s=2 (11 input rows per output row: outside the TPU kernel's guard;
+# 5 channels per group, a group astride two channel tiles) and one whose
+# input mean is far from zero: (T, Cin, Cout, K, s, act, skip, input mean)
+CONV_GN_CASES = ((1000, 64, 128, 7, 2, True, False, 0.0),
+                 (500, 128, 128, 3, 1, False, True, 0.0),
+                 (1000, 64, 128, 1, 2, False, False, 0.0),
+                 (512, 256, 256, 5, 2, True, False, 0.0),
+                 (513, 128, 256, 7, 2, True, False, 0.0),
+                 (300, 32, 48, 9, 1, True, True, 0.0),
+                 (257, 24, 80, 21, 2, True, False, 0.0),
+                 (1000, 64, 128, 7, 2, True, False, 4.0))
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5",
                         "sincformer_v4s0_best_serving_torch")
@@ -119,16 +153,20 @@ def to_pcm(x: np.ndarray) -> np.ndarray:
 
 
 class Launches:
-    """The three wrappers' launch counts: set to 0 before a path is driven,
+    """The six wrappers' launch counts: set to 0 before a path is driven,
     read after it, summed per kernel over the paths."""
 
     def __init__(self):
+        from sincformer_tpu_torch.ops.conv_gn import conv1d_gn
+        from sincformer_tpu_torch.ops.envact import env_act
         from sincformer_tpu_torch.ops.fused_ffn import fused_ffn
+        from sincformer_tpu_torch.ops.meddis import meddis
         from sincformer_tpu_torch.ops.quantize import quantize_int8
         from sincformer_tpu_torch.ops.speech_attention import speech_attention
         self.wrappers = {"speech_attention": speech_attention,
                          "quantize_int8": quantize_int8,
-                         "fused_ffn": fused_ffn}
+                         "fused_ffn": fused_ffn, "meddis": meddis,
+                         "conv1d_gn": conv1d_gn, "env_act": env_act}
         self.total = dict.fromkeys(self.wrappers, 0)
 
     def reset(self):
@@ -309,6 +347,215 @@ def check_k3(seed: int):
     return worst_abs, timing
 
 
+def time_chain_probe(n: int) -> float:
+    """Time in ms of the Meddis chain alone (registers, constant
+    permeability, no loads and no division) over ``n`` steps: the measured
+    latency floor of the recurrence on this card."""
+    import ctypes
+
+    from sincformer_tpu_torch.ops import build
+    from sincformer_tpu_torch.ops.meddis import _dt, steady_state
+    fn = build.load("meddis").meddis_chain_probe
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    out = torch.empty(32 * 32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(out.data_ptr(), 32, n, _dt(8000), 0.3, *steady_state(),
+                 stream)
+        if err != 0:
+            raise RuntimeError(f"chain probe launch failed: CUDA error {err}")
+    return cuda_ms(launch, iters=5, warmup=1)
+
+
+def check_k4(seed: int, smi: str):
+    """K4 against its plain per-sample loop: equal values expected. Returns
+    (max |difference|, timings)."""
+    from sincformer_tpu_torch.ops.meddis import _meddis_plain, meddis
+    g = torch.Generator().manual_seed(seed)
+
+    def compare(x, ref, what):
+        out = meddis(x)
+        torch.cuda.synchronize()
+        out = out.cpu()
+        differing = int((out != ref).sum())
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        say(f"[k4] {what}: {differing} of {ref.numel()} values differ, "
+            f"max|kernel-plain|={err:.3e}, output scale {scale:.1f} (limit: "
+            f"0 differing, else {KERNEL_TOL:g} of the scale)")
+        if differing:
+            say(f"[k4] {what}: the kernel spells every operation with a "
+                f"round-to-nearest intrinsic in the plain loop's order, so "
+                f"a difference means that the plain side rounded elsewhere "
+                f"(another division or a fused multiply-add in its tensor "
+                f"operations)")
+        if not (np.isfinite(err) and err <= KERNEL_TOL * scale):
+            raise AssertionError(f"K4 disagrees with its plain version, "
+                                 f"{what}: {err}")
+        return err
+
+    worst = 0.0
+    # both signs and large drives: every clamp of the step is exercised
+    for m, n in (((1,), 2000), ((64,), 2000), ((45,), 1999), ((3, 33), 700)):
+        x = torch.randn(*m, n, generator=g) * 30.0
+        on_card = x.cuda()
+        worst = max(worst, compare(on_card, _meddis_plain(on_card).cpu(),
+                                   f"{(*m, n)} vs the plain loop on the card"))
+    x = torch.randn(16, 64, 32000, generator=g) * 30.0
+    on_card = x.cuda()
+    worst = max(worst, compare(on_card, _meddis_plain(x),
+                               "(16, 64, 32000) vs the plain loop on the CPU"))
+    cols, n = 16 * 64, 32000
+    timing = {"ms": cuda_ms(lambda: meddis(on_card), iters=10, warmup=2)}
+    # the plain loop is 32,000 steps of a dozen launches: timed once
+    timing["plain_ms"] = cuda_ms(lambda: _meddis_plain(on_card), iters=1,
+                                 warmup=0)
+    timing["ms_2"] = cuda_ms(lambda: meddis(on_card), iters=10, warmup=0)
+    timing["library_ms"] = None
+    with_bound(timing, K4_OPS_PER_STEP * cols * n, 8.0 * cols * n)
+    chain_ms = n * K4_CHAIN_OPS * F32_LATENCY_CYCLES / BOOST_HZ * 1e3
+    probe_ms = time_chain_probe(n)
+    say(f"[k4] timing ({cols}, {n}): kernel {timing['ms']:.4f} / "
+        f"{timing['ms_2']:.4f} ms, plain loop on the card "
+        f"{timing['plain_ms']:.1f} ms (once), no single PyTorch call computes "
+        f"it (library: none), bound {timing['bound_ms']:.4f} ms "
+        f"({timing['bound_by']}: {8.0 * cols * n / 1e6:.0f} MB); latency "
+        f"floor of the recurrence {chain_ms:.3f} ms ({n} steps x "
+        f"{K4_CHAIN_OPS} dependent operations x {F32_LATENCY_CYCLES} cycles "
+        f"at {BOOST_HZ / 1e9:.2f} GHz), measured {probe_ms:.4f} ms (the "
+        f"chain alone in registers, 32 one-warp blocks), whatever the "
+        f"number of columns; "
+        f"{cols} columns are {-(-cols // 32)} blocks of four warps (one "
+        f"walks 32 columns, three move tiles) on "
+        f"{min(132, -(-cols // 32))} of 132 SMs, one request of 64 columns "
+        f"2 blocks, on {smi}")
+    one = on_card[0].contiguous()
+    say(f"[k4] timing (64, {n}), one request: kernel "
+        f"{cuda_ms(lambda: meddis(one), iters=10, warmup=1):.4f} ms on {smi}")
+    return worst, timing
+
+
+def check_k5(seed: int, smi: str):
+    """K5 against its plain version; returns (max err, timings at the
+    JAX docstring's call site)."""
+    import torch.nn.functional as F
+
+    from sincformer_tpu_torch.ops.conv_gn import (_same_pads, conv1d_gn,
+                                                  conv_gn_reference)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    def inputs(bsz, t, cin, cout, k, s, with_skip, mean=0.0):
+        t_out = -(-t // s)
+        return (r(bsz, t, cin) + mean, r(k, cin, cout, scale=0.1),
+                r(cout, scale=0.1), 1.0 + r(cout, scale=0.1),
+                r(cout, scale=0.1),
+                r(bsz, t_out, cout) if with_skip else None)
+
+    worst = 0.0
+    for t, cin, cout, k, s, act, with_skip, mean in CONV_GN_CASES:
+        a = inputs(2, t, cin, cout, k, s, with_skip, mean)
+        out = conv1d_gn(*a, stride=s, groups=16, act=act)
+        torch.cuda.synchronize()
+        ref = conv_gn_reference(*a, stride=s, groups=16, act=act)
+        err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+        worst = max(worst, err)
+        say(f"[k5] T={t} {cin}->{cout} k={k} s={s} act={act} "
+            f"skip={with_skip} input mean {mean:g}: max|kernel-plain|="
+            f"{err:.3e}, output scale {scale:.3f}, ratio {err / scale:.3e} "
+            f"(limit {KERNEL_TOL:g})")
+        if out.shape != ref.shape or not err <= KERNEL_TOL * scale:
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"T={t} {cin}->{cout} k={k} s={s}: {err}")
+
+    timings = {}
+    for name, (bsz, t, cin, cout, k, s) in (
+            ("call site", (16, 32000, 64, 128, 7, 2)),
+            ("flagship block", (16, 400, 256, 256, 7, 1))):
+        x, w, b, gamma, beta, _ = a = inputs(bsz, t, cin, cout, k, s, False)
+        t_out, pad_l, pad_r = _same_pads(t, k, s)
+        w_oik = w.permute(2, 1, 0).contiguous()
+
+        def library():
+            y = F.conv1d(F.pad(x.transpose(1, 2), (pad_l, pad_r)), w_oik, b,
+                         stride=s)
+            return F.gelu(F.group_norm(y, 16, gamma, beta, 1e-6),
+                          approximate="tanh").transpose(1, 2)
+
+        err = float((conv1d_gn(*a, stride=s, groups=16)
+                     - library()).abs().max())
+        flops = 2.0 * bsz * t_out * k * cin * cout
+        nbytes = 4.0 * (x.numel() + w.numel() + 3 * cout
+                        + bsz * t_out * cout)
+        timing = with_bound(time_in_turns(
+            lambda: conv_gn_reference(*a, stride=s, groups=16),
+            lambda: conv1d_gn(*a, stride=s, groups=16), library, iters=10),
+            flops, nbytes)
+        timings[name] = timing
+        say(f"[k5] timing {name} ({bsz}, {t}, {cin}->{cout}, k={k}, s={s}, "
+            f"GELU): kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms, "
+            f"plain {timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} "
+            f"ms, conv1d + group_norm + gelu (yardstick, f32 without TF32, "
+            f"not used by the port) {timing['library_ms']:.4f} ms, "
+            f"max|kernel-library| {err:.3e}, bound {timing['bound_ms']:.4f} "
+            f"ms ({timing['bound_by']}: {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB) on {smi}")
+        if not err <= 1e-4:
+            raise AssertionError(f"K5 left the library chain at {name}")
+    return worst, timings["call site"]
+
+
+def check_k6(seed: int, smi: str):
+    """K6 against its plain version; returns (max err, timings)."""
+    import torch.nn.functional as F
+
+    from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worst = 0.0
+    # (2, 2400, 64): a length the TPU kernel's tiling refused; (1, 8, 3):
+    # the scalar path (C no multiple of 4)
+    for shape in ((4, 32000, 64), (1, 8, 3), (2, 2400, 64), (3, 808, 6)):
+        x = torch.randn(*shape, device="cuda", generator=g) * 3.0
+        scale = torch.rand(shape[-1], device="cuda", generator=g) * 1.5 + 0.5
+        y, env = env_act(x, scale)
+        torch.cuda.synchronize()
+        y_ref, env_ref = env_act_reference(x, scale)
+        err = max(float((y - y_ref).abs().max()),
+                  float((env - env_ref).abs().max()))
+        worst = max(worst, err)
+        say(f"[k6] {shape}: max|kernel-plain| {err:.3e} over y and env "
+            f"(limit {ENVACT_TOL:g})")
+        if (y.shape != y_ref.shape or env.shape != env_ref.shape
+                or not err <= ENVACT_TOL):
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"{shape}: {err}")
+    b, n, c = 16, 32000, 64
+    x = torch.randn(b, n, c, device="cuda", generator=g) * 3.0
+    scale = torch.rand(c, device="cuda", generator=g) * 1.5 + 0.5
+
+    def library():
+        y = F.gelu(x * scale, approximate="tanh")
+        env = F.avg_pool1d(x.abs().transpose(1, 2), 8).transpose(1, 2)
+        return y, torch.log1p(env)
+
+    nbytes = 4.0 * x.numel() * (2 + 1 / 8) + 4.0 * c
+    timing = with_bound(time_in_turns(
+        lambda: env_act_reference(x, scale), lambda: env_act(x, scale),
+        library, iters=20), 30.0 * x.numel(), nbytes)
+    say(f"[k6] timing ({b}, {n}, {c}): kernel {timing['ms']:.4f} / "
+        f"{timing['ms_2']:.4f} ms, plain {timing['plain_ms']:.4f} / "
+        f"{timing['plain_ms_2']:.4f} ms, mul + gelu + abs + avg_pool1d + "
+        f"log1p (yardstick: no single PyTorch call computes both outputs; "
+        f"not used by the port) {timing['library_ms']:.4f} ms, bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
+        f"{nbytes / 1e6:.1f} MB) on {smi}")
+    return worst, timing
+
+
 def check_istft(seed: int) -> None:
     """The iSTFT on the card must not depend on the batch size: one batch of
     16 windows against four batches of 4 and against the CPU, on a spectrum
@@ -355,6 +602,47 @@ def check_paths_agree(outs: dict, what: str, pcm: bool = False) -> None:
             raise AssertionError(f"{what}: {name} disagrees with {names[0]}")
 
 
+def check_dnn_wave(what: str, got: np.ndarray, want: np.ndarray,
+                   valid_end: int, tail: int = 0, edge: int = 16) -> None:
+    """Two outputs of the DNN path, card and CPU.
+
+    Body: within WAVE_TOL of the peak. Edges: at the first and last ``edge``
+    samples of the span that the valid frames cover, one frame is divided by
+    a symmetric-Hann value under 0.1 (down to 3.9e-4), which amplifies the
+    inverse FFT's float32 noise by up to 2,560 on either side; those samples
+    are held to 1e-3 of their own magnitude and do not set the peak. Tail:
+    where the request is zero-padded (``tail`` > 0), the last 6 frames of
+    the span see, through the +-5 frames of context, GFCC features of frames
+    astride the padding: a small energy as a difference of two float32
+    running sums of ~7,000, cube-rooted. The card's and the CPU's ``cumsum``
+    add in another order, so those frames' masks differ more: the tail is
+    held to DNN_TAIL_TOL of (its magnitude + the peak)."""
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"{what}: shapes {got.shape} and {want.shape}, "
+                             f"or a value that is not finite")
+    diff = np.abs(got - want)
+    body = slice(edge, valid_end - max(edge, tail))
+    peak = float(np.abs(want[..., body]).max())
+    rel = float(diff[..., body].max()) / peak
+    ends = np.arange(edge)
+    if not tail:
+        ends = np.concatenate([ends, np.arange(valid_end - edge, valid_end)])
+    edge_ok = bool(np.all(diff[..., ends] <= 1e-3 * np.abs(want[..., ends])
+                          + WAVE_TOL * peak))
+    last = slice(valid_end - tail, valid_end)
+    tail_rel = float((diff[..., last] / (np.abs(want[..., last]) + peak)
+                      ).max()) if tail else 0.0
+    past_ok = not got[..., valid_end:].any()
+    say(f"[dnn] {what}: max difference {rel:.3e} of the peak {peak:.4f} "
+        f"(limit {WAVE_TOL:g}), {len(ends)} edge samples within 1e-3 of "
+        f"their magnitude: {edge_ok}, zero past the valid span: {past_ok}"
+        + (f", last {tail} samples before the padding: {tail_rel:.3e} of "
+           f"magnitude + peak (limit {DNN_TAIL_TOL:g})" if tail else ""))
+    if not (rel <= WAVE_TOL and edge_ok and past_ok
+            and tail_rel <= DNN_TAIL_TOL):
+        raise AssertionError(f"{what}: card and CPU disagree")
+
+
 def long_form(pipe, what: str, pcm60: np.ndarray, smi: str, launches,
               per_forward: dict) -> dict:
     """The 60 s request through the whole-file, the segmented and the host
@@ -396,6 +684,10 @@ def long_form(pipe, what: str, pcm60: np.ndarray, smi: str, launches,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels, hold each against its plain "
+                         "version and stop (a new kernel's first run); "
+                         "prints no result line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
@@ -425,6 +717,16 @@ def main() -> int:
     k1_err, k1_time = check_k1(args.seed)
     k2_err, k2_time = check_k2(args.seed)
     k3_err, k3_time = check_k3(args.seed)
+    k4_err, k4_time = check_k4(args.seed, smi)
+    k5_err, k5_time = check_k5(args.seed, smi)
+    k6_err, k6_time = check_k6(args.seed, smi)
+    if args.kernels_only:
+        for name in built:
+            with open(built[name] + ".log") as f:
+                say(f"[build] {name}.cu: " + " | ".join(
+                    line.strip() for line in f if "registers" in line
+                    or "spill" in line))
+        return 0
     check_istft(args.seed)
     launches = Launches()
 
@@ -652,6 +954,171 @@ def main() -> int:
             f"{smi}")
     launches.reset()
 
+    # ── phase 8: the auditory front-end (gammatone bank, hair cell K4) ───
+    from sincformer_tpu_torch.ops.conv_gn import conv_gn_reference
+    from sincformer_tpu_torch.ops.envact import env_act_reference
+    rng = np.random.default_rng(args.seed + 2)
+    speech16 = np.stack([speechlike(rng, 32000) for _ in range(16)])
+    gfb, hair = port.GammatoneFilterbank(), port.MeddisHairCell()
+    # the hair cell works in the model's pressure units (A = 5, B = 300):
+    # a drive of peak 100 works the compression k = s / (s + B)
+    drive = speech16 * 200.0
+
+    def front_end(x: torch.Tensor) -> torch.Tensor:
+        return hair.process_to_frames(gfb.filter(x))
+
+    launches.reset()
+    rates = front_end(torch.from_numpy(drive).cuda()).cpu()
+    launches.expect("auditory front-end", meddis=1)
+    rates_cpu = front_end(torch.from_numpy(drive[:2]))
+    launches.expect("auditory front-end on the CPU")
+    if rates.shape != (16, 64, 399) or not bool(torch.isfinite(rates).all()):
+        raise AssertionError(f"front-end: bad output {tuple(rates.shape)}")
+    err = float((rates[:2] - rates_cpu).abs().max() / rates_cpu.abs().max())
+    say(f"[front-end] 16 signals x 4 s -> gammatone (16, 64, 32000) -> "
+        f"Meddis -> frame rates {tuple(rates.shape)}, mean rate "
+        f"{float(rates.mean()):.2f}, peak {float(rates.max()):.2f}; card vs "
+        f"CPU on 2 signals: {err:.3e} of the peak (limit {WAVE_TOL:g}: the "
+        f"filterbank is a library convolution on either side, the "
+        f"recurrence is the same bits for the same input)")
+    if not err <= WAVE_TOL:
+        raise AssertionError("the front-end on the card left the CPU port")
+    wall = wall_s(lambda: front_end(torch.from_numpy(drive).cuda()).cpu())
+    say(f"[perf] auditory front-end, 16 x 4 s, host to host: "
+        f"{wall * 1e3:.3f} ms wall, {64 / wall:.1f}x real time on {smi}")
+    launches.reset()
+
+    # ── phase 9: the PerceptionAgent front-end's fused building blocks ───
+    # through their entry points (no model calls them, as in the JAX
+    # package): sinc filterbank output -> env_act_auto (K6) -> conv1d_gn (K5)
+    from sincformer_tpu_torch.agents.sincnet import SincConv1d
+    g = torch.Generator().manual_seed(args.seed + 3)
+    with torch.inference_mode():
+        sinc_out = SincConv1d(64, config.sinc_kernel_size,
+                              channels_last=True).cuda()(
+            torch.from_numpy(speech16).cuda()).contiguous() * 40.0
+    act_scale = (torch.rand(64, generator=g) * 1.5 + 0.5).cuda()
+    conv_args = [t.cuda() for t in (
+        torch.randn(7, 64, 128, generator=g) * (7 * 64) ** -0.5,
+        torch.randn(128, generator=g) * 0.1,
+        1.0 + torch.randn(128, generator=g) * 0.1,
+        torch.randn(128, generator=g) * 0.1)]
+    launches.reset()
+    fine, env = port.env_act_auto(sinc_out, act_scale)
+    block = port.conv1d_gn(fine, *conv_args, None, 2, 16)
+    torch.cuda.synchronize()
+    launches.expect("PA front-end entry points", env_act=1, conv1d_gn=1)
+    fine_ref, env_ref = env_act_reference(sinc_out, act_scale)
+    block_ref = conv_gn_reference(fine, *conv_args, None, stride=2, groups=16)
+    errs = {"env_act y": (fine, fine_ref, ENVACT_TOL),
+            "env_act env": (env, env_ref, ENVACT_TOL),
+            "conv1d_gn": (block, block_ref,
+                          KERNEL_TOL * float(block_ref.abs().max()))}
+    for name, (got, ref, limit) in errs.items():
+        err = float((got - ref).abs().max())
+        say(f"[pa-blocks] {name} {tuple(got.shape)} on the sinc output of "
+            f"16 x 4 s: max|kernel-plain| {err:.3e} (limit {limit:.3e})")
+        if got.shape != ref.shape or not err <= limit:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the driven path")
+    del sinc_out, fine, env, block, fine_ref, env_ref, block_ref
+    launches.reset()
+
+    # ── phase 10: serving the original paper's mask DNN ──────────────────
+    dnn = port.create_dnn(port.FeatureConfig().dim).init_params(
+        torch.Generator().manual_seed(args.seed))
+    fe = port.FeatureExtractor()
+    with torch.inference_mode():
+        feats = fe.add_context(fe.extract_frame_features(
+            torch.from_numpy(speech16[:4]).cuda())).reshape(-1, fe.feature_dim)
+    feat_std = feats.std(dim=0)
+    feat_std[feat_std < 1e-6] = 1.0          # the AMS block is all zeros
+    pcm16 = to_pcm(speech16)
+    pcm_33 = pcm16[0, :26400]                # 3.3 s: padded to 28,000
+    n_dnn_leaves = sum(1 for p in dnn.parameters() if p.ndim == 2)
+    with tempfile.TemporaryDirectory() as dnn_dir:
+        fresh = port.DNNPipeline("pcirm", device="cuda", model_dir=dnn_dir,
+                                 model=dnn)
+        fresh.feat_mean = feats.mean(dim=0).cpu().numpy()
+        fresh.feat_std = feat_std.cpu().numpy()
+        launches.reset()
+        fresh.save_model(quantize=True)
+        launches.expect("dnn save_model(quantize=True)",
+                        quantize_int8=n_dnn_leaves)
+        served = port.DNNPipeline("pcirm", device="cuda", model_dir=dnn_dir)
+        on_cpu = port.DNNPipeline("pcirm", device="cpu", model_dir=dnn_dir)
+        say(f"[model] SpeechEnhancementDNN "
+            f"{sum(p.numel() for p in dnn.parameters())} params "
+            f"{dnn.sizes}, {n_dnn_leaves} weight matrices through K2; "
+            f"loaded {os.path.basename(served.load_model())} on the card "
+            f"and {os.path.basename(on_cpu.load_model())} on the CPU")
+
+        launches.reset()
+        got_batch = served.enhance_batch(pcm16)
+        got_one = served.enhance_signal(pcm_33)
+        host_path = StreamingEnhancer(served)
+        if host_path._has_device_path():
+            raise AssertionError("the DNN pipeline has no device path")
+        got_60 = host_path.enhance(pcm60)
+        # the DNN path holds none of the six kernels: a library convolution,
+        # FFTs and matrix products, as in the JAX package
+        launches.expect("dnn serving")
+        os.environ["SINCFORMER_MODEL_DIR"] = dnn_dir
+        wav_in = os.path.join(dnn_dir, "in.wav")
+        wav_out = os.path.join(dnn_dir, "out.wav")
+        from scipy.io import wavfile
+        wavfile.write(wav_in, 8000, pcm60)
+        if cli.main(["enhance", wav_in, wav_out, "--model", "pcirm"]) != 0:
+            raise AssertionError("the enhance verb failed")
+        launches.expect("enhance --model pcirm")
+        got_cli = wavfile.read(wav_out)[1]
+
+        want_batch = on_cpu.enhance_batch(pcm16[:2])
+        want_one = on_cpu.enhance_signal(pcm_33)
+        want_60 = on_cpu.enhance_batch(pcm60[None, :32000])[0, :28000]
+        with torch.inference_mode():
+            f_card = fe.extract_frame_features(
+                torch.from_numpy(speech16[:2]).cuda()).cpu()
+            f_cpu = fe.extract_frame_features(torch.from_numpy(speech16[:2]))
+        # card vs CPU per feature block; GFCC is the widest, as expected of
+        # differences of a float32 running sum followed by a cube root
+        for name, block in (("RASTA-PLP", slice(15, 28)),
+                            ("MFCC", slice(28, 41)), ("GFCC", slice(41, 54))):
+            delta = (f_card[..., block] - f_cpu[..., block]).abs()
+            scale = float(f_cpu[..., block].abs().max())
+            worst_frame = int(delta.amax(dim=(0, 2)).argmax())
+            say(f"[dnn] {name} features, card vs CPU, 2 x 4 s: max "
+                f"difference {float(delta.max()) / scale:.3e} of the "
+                f"block's scale {scale:.3f} (worst frame {worst_frame})")
+        # (what, card, CPU, end of the valid span, samples before padding:
+        # 6 frames of 80 and the half frame they overlap)
+        checks = (("enhance_batch (16, 32000) int16, rows 0-1", got_batch[:2],
+                   want_batch, 32000, 0),
+                  ("enhance_signal 3.3 s int16 (padded to 28000)", got_one,
+                   want_one, ((26400 - 160) // 80) * 80 + 160, 560),
+                  ("60 s file, host path, first 3.5 s", got_60[:28000],
+                   want_60, 28000, 0),
+                  ("60 s file, enhance --model pcirm vs the host path",
+                   got_cli, np.clip(got_60, -1.0, 1.0), len(pcm60), 0))
+        for name, got, want, valid_end, tail in checks:
+            check_dnn_wave(name, got, want, valid_end, tail)
+        for shape, got in (((16, 32000), got_batch), ((26400,), got_one),
+                           ((480000,), got_60)):
+            if got.shape != shape or got.dtype != np.float32:
+                raise AssertionError(f"dnn: bad output {got.dtype} "
+                                     f"{got.shape}, expected {shape}")
+        for name, audio_s, fn in (
+                ("enhance_batch (16, 32000) int16", 64.0,
+                 lambda: served.enhance_batch(pcm16)),
+                ("enhance_signal 3.3 s int16", 3.3,
+                 lambda: served.enhance_signal(pcm_33)),
+                ("60 s int16 file, host path (16 windows, one batch)", 60.0,
+                 lambda: host_path.enhance(pcm60))):
+            wall = wall_s(fn, reps=5)
+            say(f"[perf] dnn {name}: {wall * 1e3:.3f} ms wall, "
+                f"{audio_s / wall:.1f}x real time on {smi}")
+    launches.reset()
+
     def row(name, source, replaces, err, timing):
         return {"name": name, "route": "cuda",
                 "source": f"sincformer_tpu_torch/csrc/{source}",
@@ -667,7 +1134,13 @@ def main() -> int:
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time),
         row("fused_ffn", "fused_ffn.cu",
-            "sincformer_tpu/ops/fused_ffn.py:39", k3_err, k3_time)]
+            "sincformer_tpu/ops/fused_ffn.py:39", k3_err, k3_time),
+        row("meddis", "meddis.cu",
+            "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
+        row("conv1d_gn", "conv_gn.cu",
+            "sincformer_tpu/ops/conv_gn_pallas.py:64", k5_err, k5_time),
+        row("env_act", "envact.cu",
+            "sincformer_tpu/ops/envact_pallas.py:37", k6_err, k6_time)]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on the "

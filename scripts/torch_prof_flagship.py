@@ -8,11 +8,14 @@ it reports the host wall time per request after warm-up (20 requests,
 each ending in the copy of the result to the host), then profiles one
 request with torch.profiler: device time by kernel, the device's busy
 share of the unprofiled request's wall time, and the time of the
-hand-written kernels (K1 speech attention, K3 fused feed-forward). The same
-is done for the serving requests of chip_smoke.py: a 60 s int16 file through
-StreamingEnhancer's whole-file and segmented paths (flagship, and DCSE with
-the fused and the unfused feed-forward), and one step of an
-OnlineEnhancerPool of 8 streams. Needs a CUDA device.
+hand-written kernels (K1 speech attention, K3 fused feed-forward, K4 Meddis
+hair cell). The same is done for the serving requests of chip_smoke.py: a
+60 s int16 file through StreamingEnhancer's whole-file and segmented paths
+(flagship, and DCSE with the fused and the unfused feed-forward), one step
+of an OnlineEnhancerPool of 8 streams, the full-width mask DNN's
+enhance_batch (16, 32000) and 60 s file (host path), and the auditory
+front-end (gammatone bank and hair cell) on 16 signals of 4 s. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -76,12 +79,13 @@ def main() -> int:
         busy_ms = sum(k[1] for k in kernels)
         k1_ms = sum(k[1] for k in kernels if "speech_attention" in k[0])
         k3_ms = sum(k[1] for k in kernels if "fused_ffn" in k[0])
+        k4_ms = sum(k[1] for k in kernels if "meddis" in k[0])
         row = {"request": label, "audio_s": audio_s,
                "wall_ms": wall_ms, "rtf_x": audio_s / (wall_ms / 1e3),
                "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
                "device_busy_share": busy_ms / wall_ms,
                "kernel_launches": sum(k[2] for k in kernels),
-               "k1_ms": k1_ms, "k3_ms": k3_ms, "top": [
+               "k1_ms": k1_ms, "k3_ms": k3_ms, "k4_ms": k4_ms, "top": [
                    {"kernel": k[0][:90], "ms": k[1], "calls": k[2]}
                    for k in kernels[:12]]}
         print(f"[{label}] {wall_ms:.3f} ms per request, "
@@ -89,7 +93,8 @@ def main() -> int:
               f"{prof_wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
               f"({row['device_busy_share']:.3f} of the unprofiled "
               f"{wall_ms:.3f} ms), {row['kernel_launches']} "
-              f"kernel launches, K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms",
+              f"kernel launches, K1 {k1_ms:.4f} ms, K3 {k3_ms:.4f} ms, K4 "
+              f"{k4_ms:.4f} ms",
               flush=True)
         for k in row["top"]:
             print(f"    {k['ms']:9.4f} ms {k['calls']:5d}x  {k['kernel']}")
@@ -133,6 +138,24 @@ def main() -> int:
         pool.push(i, np.zeros(240, np.float32))
     results.append(measure("flagship online pool, 8 streams, one 20 ms step",
                            pool_step, 8 * 0.02))
+
+    # the original paper's mask DNN at full width, seeded weights, and the
+    # auditory front-end
+    dnn = port.DNNPipeline("pcirm", device="cuda", model=port.create_dnn(
+        port.FeatureConfig().dim).init_params(gen))
+    wav16 = np.round(rng.uniform(-0.3, 0.3, (16, 32000)) * 32767).astype(
+        np.int16)
+    results.append(measure("dnn enhance_batch (16, 32000)",
+                           lambda: dnn.enhance_batch(wav16), 64.0))
+    host_path = StreamingEnhancer(dnn)
+    results.append(measure("dnn 60 s file, host path",
+                           lambda: host_path.enhance(pcm60), 60.0, reps=5))
+    gfb, hair = port.GammatoneFilterbank(), port.MeddisHairCell()
+    drive = rng.uniform(-100.0, 100.0, (16, 32000)).astype(np.float32)
+    results.append(measure(
+        "auditory front-end, 16 x 4 s",
+        lambda: hair.process_to_frames(gfb.filter(
+            torch.from_numpy(drive).cuda())).cpu(), 64.0))
     report = {"card": card, "shapes": results}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

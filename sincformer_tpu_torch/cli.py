@@ -1,16 +1,20 @@
 """Command line of the port: ``python -m sincformer_tpu_torch.cli <verb>``.
 
-  * ``enhance`` - enhance WAV file(s) with a trained model: long files
-    through the streaming enhancer, many files batched, ``--online`` through
-    the causal online enhancer (several inputs: the batched pool);
+  * ``enhance`` - enhance WAV file(s) with a trained model (the flagship,
+    DCSE, or a mask DNN of the original paper: ``--model pcirm``,
+    ``opt_pcirm``, ``irm``): long files through the streaming enhancer, many
+    files batched, ``--online`` through the causal online enhancer (several
+    inputs: the batched pool);
   * ``export`` - write a trained checkpoint family as a compact int8
-    serving artifact (a drop-in model directory);
+    serving artifact (a drop-in model directory); ``--model dnn
+    --mask-type`` for a mask DNN;
   * ``info`` - print the configuration and the device.
 
 Models are looked up under ``SINCFORMER_MODEL_DIR`` (default
 ``saved_models``), as in the JAX package's CLI. Everything runs on the card
-unless ``--device cpu`` is given. ``train``, ``evaluate``, ``calibrate`` and
-``demo`` are not ported yet and say so.
+unless ``--device cpu`` is given. ``train``, ``evaluate`` (``test``),
+``calibrate`` and ``demo`` are not ported yet and say so: they wait for the
+training, evaluation and oracle-mask slices.
 """
 
 from __future__ import annotations
@@ -29,23 +33,37 @@ def _model_dir() -> str:
     return os.environ.get("SINCFORMER_MODEL_DIR", "saved_models")
 
 
-def _pipeline_class(model: str):
-    from sincformer_tpu_torch.pipeline import DCSEPipeline, SincformerPipeline
-    return {"sincformer": SincformerPipeline, "conformer": DCSEPipeline}[model]
+_MASK_TYPES = ("pcirm", "opt_pcirm", "irm")
+# preference order of ``enhance``: flagship, DCSE, then the mask DNNs
+_MODELS = ("sincformer", "conformer") + _MASK_TYPES
+
+
+def _family(model: str):
+    """(constructor taking ``device`` and ``model_dir``, final checkpoint
+    family, best-validation family) of ``model`` (a name of _MODELS)."""
+    import functools
+
+    from sincformer_tpu_torch.pipeline import (DCSEPipeline, DNNPipeline,
+                                               SincformerPipeline)
+    if model in _MASK_TYPES:
+        return (functools.partial(DNNPipeline, mask_type=model),
+                f"dnn_{model}_final", f"best_{model}")
+    cls = {"sincformer": SincformerPipeline, "conformer": DCSEPipeline}[model]
+    return cls, cls.FINAL_NAME, cls.BEST_NAME
 
 
 def _load_pipeline(prefer, device):
-    """The first of (sincformer, conformer) with a checkpoint under the
-    model directory, loaded; (None, None) when there is none."""
+    """The first family of _MODELS with a checkpoint under the model
+    directory, loaded; (None, None) when there is none."""
     model_dir = _model_dir()
-    for cand in ([prefer] if prefer else ["sincformer", "conformer"]):
-        cls = _pipeline_class(cand)
+    for cand in ([prefer] if prefer else _MODELS):
+        make, final_name, best_name = _family(cand)
         if not any(os.path.isdir(os.path.join(model_dir, name))
-                   for name in (cls.FINAL_NAME, cls.BEST_NAME)):
-            print(f"  x {cand}: no {cls.FINAL_NAME} or {cls.BEST_NAME} "
-                  f"under {model_dir}")
+                   for name in (final_name, best_name)):
+            print(f"  x {cand}: no {final_name} or {best_name} under "
+                  f"{model_dir}")
             continue
-        pipe = cls(device=device, model_dir=model_dir)
+        pipe = make(device=device, model_dir=model_dir)
         pipe.load_model()
         return cand, pipe
     return None, None
@@ -174,15 +192,16 @@ def export(args) -> int:
     from sincformer_tpu_torch.train.state import merge_train_meta
 
     os.environ["SINCFORMER_CKPT_PREF"] = args.ckpt
-    cls = _pipeline_class(args.model)
-    pipe = cls(device=args.device, model_dir=_model_dir())
+    make, final_name, _ = _family(args.mask_type if args.model == "dnn"
+                                  else args.model)
+    pipe = make(device=args.device, model_dir=_model_dir())
     src = pipe.load_model()
     src_fam = os.path.dirname(os.path.abspath(src))
     out_dir = args.out or (pipe.model_dir.rstrip("/\\") + "_serving")
     os.makedirs(out_dir, exist_ok=True)
     pipe.model_dir = out_dir
-    path = pipe.save_model(name=cls.FINAL_NAME, quantize=True)
-    merge_train_meta(out_dir, cls.FINAL_NAME, {
+    path = pipe.save_model(name=final_name, quantize=True)
+    merge_train_meta(out_dir, final_name, {
         "exported_from": os.path.abspath(src),
         "source_step": int(pipe.step),
         "source_ckpt_pref": args.ckpt,
@@ -193,7 +212,7 @@ def export(args) -> int:
                    for r, _, fs in os.walk(d) for f in fs) / 1e6
     print(f"  Source:   {src}  ({du(src_fam):.1f} MB family)")
     print(f"  Exported: {path}  ({du(out_dir):.1f} MB, int8 serving "
-          f"artifact, output_gain={pipe.output_gain:.4f})")
+          f"artifact, output_gain={getattr(pipe, 'output_gain', 1.0):.4f})")
     print(f"  Load with: SINCFORMER_MODEL_DIR={out_dir}")
     return 0
 
@@ -203,14 +222,19 @@ def info(args) -> int:
     import torch
 
     from sincformer_tpu_torch.config import (AudioConfig, DCSEConfig,
+                                             DNNConfig, GammatoneConfig,
                                              MetacogConfig)
-    acfg = AudioConfig()
+    acfg, dcfg = AudioConfig(), DNNConfig()
     print("=" * 70)
     print("  Speech Enhancement System - Configuration (sincformer_tpu_torch)")
     print("=" * 70)
     print(f"\n  Sample Rate:        {acfg.sample_rate} Hz")
     print(f"  Frame Size:         {acfg.frame_size} samples")
     print(f"  Hop Size:           {acfg.hop_size} samples")
+    print(f"  GFTB Channels:      {GammatoneConfig().num_channels}")
+    print(f"  DNN Hidden Layers:  {dcfg.hidden_layers}")
+    print(f"  DNN Hidden Units:   {dcfg.hidden_units}")
+    print(f"  DNN Dropout:        {dcfg.dropout}")
     print(f"  Flagship:           {MetacogConfig()}")
     print(f"  DCSE:               {DCSEConfig()}")
     print(f"\n  PyTorch Version:    {torch.__version__}")
@@ -225,8 +249,9 @@ def info(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="sincformer_tpu_torch",
-        description="Speech enhancement on the GPU: Sincformer metacog and "
-                    "the DCSE Conformer (PyTorch/CUDA port)",
+        description="Speech enhancement on the GPU: Sincformer metacog, "
+                    "the DCSE Conformer and the original paper's mask DNN "
+                    "(PyTorch/CUDA port)",
         epilog=f"not ported yet: {', '.join(_NOT_PORTED)}")
     sub = parser.add_subparsers(dest="command")
 
@@ -242,15 +267,17 @@ def build_parser() -> argparse.ArgumentParser:
                           "chunks through the online enhancer; several "
                           "inputs run as concurrent streams through the "
                           "batched pool")
-    enp.add_argument("--model", default=None,
-                     choices=["sincformer", "conformer"],
-                     help="Model to use (default: best available)")
+    enp.add_argument("--model", default=None, choices=list(_MODELS),
+                     help="Model to use (default: best available, in this "
+                          "order)")
 
     xp = sub.add_parser("export",
                         help="Export a trained checkpoint as a compact "
                              "int8 serving artifact (drop-in model dir)")
     xp.add_argument("--model", default="sincformer",
-                    choices=["sincformer", "conformer"])
+                    choices=["sincformer", "conformer", "dnn"])
+    xp.add_argument("--mask-type", default="pcirm", choices=list(_MASK_TYPES),
+                    help="mask head of the DNN checkpoint (--model dnn)")
     xp.add_argument("--ckpt", default="best", choices=["final", "best"],
                     help="checkpoint family to export (default: the "
                          "best-validation checkpoint)")
@@ -268,8 +295,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _NOT_PORTED:
-        print(f"  '{argv[0]}' is not ported to sincformer_tpu_torch yet; "
-              f"use python -m sincformer_tpu.cli {argv[0]}", file=sys.stderr)
+        print(f"  '{argv[0]}' is not ported to sincformer_tpu_torch yet "
+              f"(still missing: {', '.join(_NOT_PORTED)}); use python -m "
+              f"sincformer_tpu.cli {argv[0]}", file=sys.stderr)
         return 2
     parser = build_parser()
     args = parser.parse_args(argv)

@@ -1,5 +1,5 @@
-"""Carry a flax ``SincformerMetacog`` or DCSE ``SpeechEnhancer`` checkpoint
-over to the port.
+"""Carry a flax ``SincformerMetacog``, DCSE ``SpeechEnhancer`` or mask-DNN
+``SpeechEnhancementDNN`` checkpoint over to the port.
 
 ``load_from_jax`` takes the flax variables as a nested dict of numpy arrays
 (``params`` plus the ``maa_stats``, ``memory_bank`` and ``memory_stats``
@@ -31,6 +31,9 @@ is transposed like its kernel, ``s`` is kept, and the channel axis becomes
 0. The CPEA recurrent matrices are the exception: they carry the folded
 bias, which has no int8 form on the JAX grid, so they are dequantized,
 folded and stored in float32 (1 MB of the flagship's 16 MB).
+
+``load_dnn_from_jax`` and ``convert_quantized_dnn_from_jax`` do both for the
+mask DNN (Dense layers only).
 
 Variants outside this slice (the BiLRU mixer, the reference PA cascade, the
 dual fine stream) raise. Every leaf must be placed and every torch
@@ -280,6 +283,74 @@ def load_dcse_from_jax(variables: Mapping, **overrides: Any
     return {k: _tensor(v) for k, v in state.items()}, config
 
 
+def _quantized_leaves(flat: Mapping[tuple, Any]) -> Dict[str, Any]:
+    """The ``{"q", "s"}`` nodes of a flattened JAX int8 tree in the port's
+    form: ``q`` transposed like its kernel, ``s`` kept, the channel axis 0
+    for a kernel and the last axis otherwise."""
+    out = {}
+    for path, node in flat.items():
+        if not _is_q(node):
+            continue
+        q = node["q"]
+        if path[-1] == "kernel":
+            _, q = _param_leaf(path, q)
+            axis = 0
+        else:
+            axis = q.ndim - 1
+        leaf = "weight" if path[-1] == "kernel" else path[-1]
+        out[".".join(path[:-1] + (leaf,))] = {
+            "q": _tensor(q), "s": _tensor(node["s"]), "axis": axis}
+    return out
+
+
+def _dnn_params(variables: Mapping) -> Mapping:
+    params = variables.get("params", variables)
+    if set(variables) - {"params"} and "params" in variables:
+        raise ValueError(f"the mask DNN has parameters only, got collections "
+                         f"{sorted(set(variables) - {'params'})}")
+    hidden = sorted(k for k in params if k.startswith("hidden_"))
+    if not hidden or "output" not in params or set(params) - set(hidden) - {
+            "output"}:
+        raise ValueError(f"not a SpeechEnhancementDNN tree: {sorted(params)}")
+    return params
+
+
+def load_dnn_from_jax(variables: Mapping, dropout: float = 0.2
+                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """flax ``SpeechEnhancementDNN`` variables (numpy leaves; ``{"params":
+    ...}`` or the parameter tree itself, f32 or the int8 serving form) →
+    (state_dict, the model's size arguments). Dense ``hidden_i`` / ``output``
+    kernels (in, out) become ``nn.Linear`` weights (out, in). ``dropout``
+    leaves no trace in the tree."""
+    from sincformer_tpu_torch.models.dnn import SpeechEnhancementDNN
+
+    params = _dequantized(_dnn_params(variables))
+    state = {}
+    for path, arr in _flatten(params).items():
+        leaf, value = _param_leaf(path, arr)
+        state[".".join(path[:-1] + (leaf,))] = value
+    n_hidden = _count(params, "hidden_")
+    sizes = {"input_dim": int(np.shape(params["hidden_0"]["kernel"])[0]),
+             "hidden_dim": int(np.shape(params["hidden_0"]["kernel"])[1]),
+             "output_dim": int(np.shape(params["output"]["bias"])[0]),
+             "num_hidden_layers": n_hidden, "dropout": dropout}
+    with torch.device("meta"):
+        skeleton = SpeechEnhancementDNN(**sizes)
+    _check_filled(skeleton, state)
+    return {k: _tensor(v) for k, v in state.items()}, sizes
+
+
+def convert_quantized_dnn_from_jax(params_q: Mapping, dropout: float = 0.2):
+    """The JAX package's int8 serving tree of a ``SpeechEnhancementDNN`` →
+    (params_q in the port's form, the model's size arguments), without
+    rounding again: ``ops.quantize.dequantize_tree`` of the result equals
+    :func:`load_dnn_from_jax` of the same tree bit for bit."""
+    state, sizes = load_dnn_from_jax(params_q, dropout)
+    out: Dict[str, Any] = dict(state)
+    out.update(_quantized_leaves(_flatten(_dnn_params(params_q))))
+    return out, sizes
+
+
 def convert_quantized_from_jax(params_q: Mapping,
                                model_state: Optional[Mapping] = None,
                                **overrides: Any):
@@ -293,19 +364,9 @@ def convert_quantized_from_jax(params_q: Mapping,
         **overrides)
     out: Dict[str, Any] = dict(state)
     flat = _flatten(params_q)
-    for path, node in flat.items():
-        if not _is_q(node) or (path[0] == "cpea"
-                               and path[1].startswith("LSTMCell_")):
-            continue
-        q = node["q"]
-        if path[-1] == "kernel":
-            _, q = _param_leaf(path, q)
-            axis = 0
-        else:
-            axis = q.ndim - 1
-        leaf = "weight" if path[-1] == "kernel" else path[-1]
-        out[".".join(path[:-1] + (leaf,))] = {
-            "q": _tensor(q), "s": _tensor(node["s"]), "axis": axis}
+    out.update(_quantized_leaves({
+        path: node for path, node in flat.items()
+        if not (path[0] == "cpea" and path[1].startswith("LSTMCell_"))}))
     # input-side LSTM matrices: the four gates' int8 kernels stacked
     for layer in range(config.cpea_layers):
         for direction, suffix in ((0, ""), (1, "_reverse")):

@@ -1,9 +1,10 @@
-"""Audio framing and model sizes of the flagship and of DCSE.
+"""Audio framing, the auditory front-end's and the feature extractor's
+constants, and model sizes of the flagship, of DCSE and of the mask DNN.
 
 A copy of what the port needs from ``sincformer_tpu/config.py`` (AudioConfig,
-ConformerConfig.attn_impl, AgentConfig, VQConfig, the inference fields of
-DCSEConfig) and of the ``SincformerMetacog`` fields that ``default_metacog``
-sets. The JAX
+GammatoneConfig, FeatureConfig, DNNConfig, ConformerConfig.attn_impl,
+AgentConfig, VQConfig, the inference fields of DCSEConfig) and of the
+``SincformerMetacog`` fields that ``default_metacog`` sets. The JAX
 package's ``SINCFORMER_*`` environment knobs are plain fields here with the
 same defaults; nothing reads the environment.
 """
@@ -24,6 +25,59 @@ class AudioConfig:
     @property
     def n_freq(self) -> int:
         return self.fft_size // 2 + 1
+
+
+@dataclass(frozen=True)
+class GammatoneConfig:
+    """64-channel gammatone filterbank, 50-4000 Hz."""
+    num_channels: int = 64
+    freq_low: float = 50.0
+    freq_high: float = 4000.0
+    filter_order: int = 4
+    ir_duration: float = 0.05       # seconds of impulse response
+
+
+@dataclass(frozen=True)
+class FeatureConfig:
+    """AMS / RASTA-PLP / MFCC / GFCC sizes of the DNN's input features."""
+    ams_segments: int = 128
+    ams_overlap: int = 64
+    ams_fft_size: int = 256
+    ams_num_bands: int = 15
+    ams_decimate: int = 8
+    ams_low_hz: float = 15.6
+    ams_high_hz: float = 400.0
+
+    mfcc_num_coeff: int = 13
+    mfcc_fft_size: int = 512
+    mfcc_num_filters: int = 64
+
+    gfcc_num_coeff: int = 13
+    gfcc_decimate_rate: int = 100   # Hz: a 10 ms frame shift
+
+    rasta_num_coeff: int = 13
+    rasta_num_bands: int = 21       # bark critical bands
+
+    context_frames: int = 5         # +-5 frames of context: 11 x the frame
+
+    @property
+    def raw_dim(self) -> int:       # 15 + 13 + 13 + 13 = 54
+        return (self.ams_num_bands + self.rasta_num_coeff
+                + self.mfcc_num_coeff + self.gfcc_num_coeff)
+
+    @property
+    def dim(self) -> int:           # 54 * 11 = 594
+        return self.raw_dim * (2 * self.context_frames + 1)
+
+
+@dataclass(frozen=True)
+class DNNConfig:
+    """The original paper's mask DNN: 594 -> 3 x 1024 -> 64 (inference
+    fields; the optimiser's belong to the training slice)."""
+    hidden_layers: int = 3
+    hidden_units: int = 1024
+    dropout: float = 0.2
+    output_dim: int = 64            # one mask value per gammatone channel
 
 
 @dataclass(frozen=True)

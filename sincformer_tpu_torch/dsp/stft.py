@@ -1,4 +1,5 @@
-"""Centred STFT / iSTFT (``sincformer_tpu/dsp/stft.py``).
+"""Centred STFT / iSTFT and the uncentred pair of the DNN inference path
+(``sincformer_tpu/dsp/stft.py``).
 
 Frame (strided view) → window → one batched real FFT, layout (..., T, F).
 The inverse overlap-adds windowed inverse FFTs and divides by the summed
@@ -55,11 +56,7 @@ def istft(spec: torch.Tensor, n_fft: int = 256, hop: int = 80,
     # parts there; pocketfft (numpy, JAX and torch on the CPU) ignores them,
     # but cuFFT's result for such input depends on the plan it picks, i.e.
     # on the batch size, so they are dropped here on every device
-    imag = spec.imag.clone()
-    imag[..., 0] = 0.0
-    if n_fft % 2 == 0:
-        imag[..., -1] = 0.0
-    frames = torch.fft.irfft(torch.complex(spec.real, imag), n=n_fft,
+    frames = torch.fft.irfft(real_edge_bins(spec, n_fft), n=n_fft,
                              dim=-1) * w
     total = (t - 1) * hop + n_fft
     y = overlap_add(frames, hop, total)
@@ -73,3 +70,46 @@ def istft(spec: torch.Tensor, n_fft: int = 256, hop: int = 80,
         else:
             y = F.pad(y, (0, length - y.shape[-1]))
     return y
+
+
+def real_edge_bins(spec: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """``spec`` with the imaginary parts of the DC and Nyquist bins set to
+    zero (see :func:`istft`)."""
+    imag = spec.imag.clone()
+    imag[..., 0] = 0.0
+    if n_fft % 2 == 0:
+        imag[..., -1] = 0.0
+    return torch.complex(spec.real, imag)
+
+
+def stft_uncentered(x: torch.Tensor, frame_size: int = 160, hop: int = 80,
+                    n_fft: int = 256,
+                    window: Optional[np.ndarray] = None) -> torch.Tensor:
+    """Uncentred STFT of the DNN inference path: symmetric Hann window of
+    ``frame_size``, real FFT zero-padded to ``n_fft``.
+
+    (..., N) → complex (..., T, n_fft//2+1), T = (N - frame_size)//hop + 1.
+    """
+    if window is None:
+        window = hann_window(frame_size, periodic=False)
+    w = torch.from_numpy(np.asarray(window, np.float32)).to(x.device)
+    return torch.fft.rfft(frame_signal(x, frame_size, hop) * w, n=n_fft,
+                          dim=-1)
+
+
+def istft_uncentered(spec: torch.Tensor, out_len: int, frame_size: int = 160,
+                     hop: int = 80, n_fft: int = 256,
+                     window: Optional[np.ndarray] = None,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """Overlap-add reconstruction of the DNN inference path: inverse FFT →
+    first ``frame_size`` samples → × window → overlap-add → ÷ summed
+    window² (1 where that sum is under ``eps``)."""
+    if window is None:
+        window = hann_window(frame_size, periodic=False)
+    w = torch.from_numpy(np.asarray(window, np.float32)).to(spec.device)
+    frames = torch.fft.irfft(real_edge_bins(spec, n_fft), n=n_fft,
+                             dim=-1)[..., :frame_size] * w
+    t = spec.shape[-2]
+    y = overlap_add(frames, hop, out_len)
+    norm = overlap_add((w * w).expand(t, frame_size), hop, out_len)
+    return y / torch.where(norm < eps, torch.ones_like(norm), norm)

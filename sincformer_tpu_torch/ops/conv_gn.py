@@ -1,0 +1,154 @@
+"""Strided SAME Conv1d → GroupNorm [→ + skip] [→ tanh-GELU] (kernel K5).
+Counterpart of ``sincformer_tpu/ops/conv_gn_pallas.py``.
+
+The entry point keeps the JAX contract: x (B, T, Cin) channel last, w
+(K, Cin, Cout), flax SAME padding (``Tout = ceil(T / stride)``, the smaller
+half of the padding on the left), GroupNorm over all rows of a batch row
+with eps inside the square root, the skip added after the affine and before
+the GELU. On a CUDA tensor :func:`conv1d_gn` launches the hand-written
+kernels of ``csrc/conv_gn.cu`` (the convolution is computed there, not by a
+library); on a CPU tensor it runs :func:`conv_gn_reference`, the plain
+PyTorch version. There is no fallback from one to the other. Any kernel
+size and stride are taken; the TPU kernel's geometry guards belonged to its
+DMA window. Like the JAX package, no model calls this. Forward only; the
+JAX backward is the reference's, so a later training slice differentiates
+:func:`conv_gn_reference`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from sincformer_tpu_torch.ops import build
+
+_TILE_ROWS = 64          # csrc/conv_gn.cu: kTM
+
+
+def _same_pads(t: int, k: int, s: int) -> Tuple[int, int, int]:
+    """lax/flax SAME padding: (t_out, pad_left, pad_right)."""
+    t_out = -(-t // s)
+    total = max((t_out - 1) * s + k - t, 0)
+    return t_out, total // 2, total - total // 2
+
+
+def _check_shapes(x, w, b, gamma, beta, skip, stride: int, groups: int):
+    if x.ndim != 3 or w.ndim != 3 or w.shape[1] != x.shape[2]:
+        raise ValueError(f"conv1d_gn takes x (B, T, Cin) and w (K, Cin, "
+                         f"Cout), got {tuple(x.shape)} and {tuple(w.shape)}")
+    if stride < 1:
+        raise ValueError(f"stride must be at least 1, got {stride}")
+    cout = w.shape[2]
+    if groups < 1 or cout % groups:
+        raise ValueError(f"groups={groups} does not divide Cout={cout}")
+    for name, t in (("b", b), ("gamma", gamma), ("beta", beta)):
+        if tuple(t.shape) != (cout,):
+            raise ValueError(f"{name} must have shape ({cout},), got "
+                             f"{tuple(t.shape)}")
+    t_out = _same_pads(x.shape[1], w.shape[0], stride)[0]
+    if skip is not None and tuple(skip.shape) != (x.shape[0], t_out, cout):
+        raise ValueError(f"skip must have shape "
+                         f"{(x.shape[0], t_out, cout)}, got "
+                         f"{tuple(skip.shape)}")
+
+
+def conv_gn_reference(x, w, b, gamma, beta, skip=None, *, stride: int,
+                      groups: int, eps: float = 1e-6, act: bool = True):
+    """Plain PyTorch version: Conv(SAME) → GroupNorm [→ + skip] [→ GELU] in
+    float32, the variance as the mean of squares about the mean."""
+    _check_shapes(x, w, b, gamma, beta, skip, stride, groups)
+    k = w.shape[0]
+    _, pad_l, pad_r = _same_pads(x.shape[1], k, stride)
+    xp = F.pad(x.to(torch.float32).transpose(1, 2), (pad_l, pad_r))
+    y = F.conv1d(xp, w.to(torch.float32).permute(2, 1, 0), b.float(),
+                 stride=stride).transpose(1, 2)             # (B, Tout, Cout)
+    bsz, t_out, cout = y.shape
+    yg = y.reshape(bsz, t_out, groups, cout // groups)
+    mu = yg.mean(dim=(1, 3), keepdim=True)
+    var = ((yg - mu) ** 2).mean(dim=(1, 3), keepdim=True)
+    yn = ((yg - mu) * torch.rsqrt(var + eps)).reshape(bsz, t_out, cout)
+    yn = yn * gamma.float() + beta.float()
+    if skip is not None:
+        yn = yn + skip.float()
+    if act:
+        yn = F.gelu(yn, approximate="tanh")
+    return yn.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.load("conv_gn").conv_gn_fwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conv1d_gn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              gamma: torch.Tensor, beta: torch.Tensor,
+              skip: Optional[torch.Tensor], stride: int, groups: int,
+              eps: float = 1e-6, act: bool = True) -> torch.Tensor:
+    """Fused Conv1d(SAME, stride) → GroupNorm(groups) [→ + skip] [→ GELU].
+
+    Args:
+        x: (B, T, Cin). w: (K, Cin, Cout). b, gamma, beta: (Cout,).
+        skip: optional (B, Tout, Cout), added after the GroupNorm's affine
+            and before the activation.
+        act: apply the tanh-GELU at the end.
+
+    Returns (B, Tout, Cout), Tout = ceil(T / stride). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels (counted once per call
+    in ``conv1d_gn.launches``) or raises.
+    """
+    if x.device.type == "cpu":
+        return conv_gn_reference(x, w, b, gamma, beta, skip, stride=stride,
+                                 groups=groups, eps=eps, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d_gn runs on cpu or cuda, not {x.device}")
+    _check_shapes(x, w, b, gamma, beta, skip, stride, groups)
+    tensors = [("x", x), ("w", w), ("b", b), ("gamma", gamma), ("beta", beta)]
+    if skip is not None:
+        tensors.append(("skip", skip))
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"conv1d_gn kernel takes float32, {name} is "
+                            f"{t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"conv1d_gn kernel needs contiguous tensors; "
+                             f"{name} is not")
+    bsz, t, cin = x.shape
+    k, _, cout = w.shape
+    if x.numel() == 0 or bsz > 65535:
+        raise ValueError(f"conv1d_gn kernel takes 1 to 65535 batch rows of "
+                         f"at least one sample, got x {tuple(x.shape)}")
+    t_out, pad_l, _ = _same_pads(t, k, stride)
+    if max(t * stride + k, cin, cout) >= 1 << 31:
+        raise ValueError("conv1d_gn kernel takes sizes below 2^31")
+    n_tiles = -(-t_out // _TILE_ROWS)
+    out = torch.empty((bsz, t_out, cout), dtype=x.dtype, device=x.device)
+    partial = torch.empty((bsz, n_tiles, cout, 2), dtype=torch.float32,
+                          device=x.device)
+    stats = torch.empty((bsz, groups, 2), dtype=torch.float32,
+                        device=x.device)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+                 beta.data_ptr(), skip.data_ptr() if skip is not None else None,
+                 out.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, t,
+                 cin, cout, k, stride, pad_l, t_out, groups, float(eps),
+                 int(bool(act)), stream)
+    if err != 0:
+        raise RuntimeError(f"conv1d_gn kernel launch failed: CUDA error "
+                           f"{err}")
+    conv1d_gn.launches += 1
+    return out
+
+
+conv1d_gn.launches = 0

@@ -1,0 +1,109 @@
+"""Fine activation and pooled log envelope of the sinc filterbank output in
+one pass (kernel K6). Counterpart of ``sincformer_tpu/ops/envact_pallas.py``.
+
+    y   = gelu_tanh(x * scale)                         (B, N, C)
+    env = log1p(mean over 8 consecutive rows of |x|)   (B, N/8, C)
+
+On a CUDA tensor :func:`env_act` launches the hand-written kernel
+``csrc/envact.cu``, which reads x once and writes both outputs; on a CPU
+tensor it runs :func:`env_act_reference`, the plain PyTorch version. There
+is no fallback from one to the other. N must be a multiple of 8 (the plain
+version's reshape has the same limit); the TPU kernel's block tiling and its
+"no tiling" branch have no counterpart here. Like the JAX package, no model
+calls this: it is reached through :func:`env_act` and :func:`env_act_auto`.
+Forward only; the JAX backward is the reference's, so a later training
+slice differentiates :func:`env_act_reference`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from sincformer_tpu_torch.ops import build
+
+POOL = 8
+
+
+def _check_shapes(x: torch.Tensor, scale: torch.Tensor) -> None:
+    if x.ndim != 3:
+        raise ValueError(f"env_act takes x of shape (B, N, C), got "
+                         f"{tuple(x.shape)}")
+    if x.shape[1] % POOL:
+        raise ValueError(f"env_act needs N to be a multiple of {POOL}, got "
+                         f"N={x.shape[1]}")
+    if tuple(scale.shape) != (x.shape[2],):
+        raise ValueError(f"scale must have shape ({x.shape[2]},), got "
+                         f"{tuple(scale.shape)}")
+
+
+def env_act_reference(x: torch.Tensor, scale: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: (B, N, C), (C,) → (y (B, N, C),
+    env (B, N/8, C))."""
+    _check_shapes(x, scale)
+    b, n, c = x.shape
+    y = F.gelu(x * scale, approximate="tanh")
+    env = x.abs().reshape(b, n // POOL, POOL, c).to(torch.float32).mean(dim=2)
+    return y, torch.log1p(env).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.load("envact").envact_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def env_act(x: torch.Tensor, scale: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, C) sinc output, (C,) scale → (gelu(x*scale),
+    log1p(pool8(|x|))).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``env_act.launches``) or raises.
+    """
+    if x.device.type == "cpu":
+        return env_act_reference(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"env_act runs on cpu or cuda, not {x.device}")
+    _check_shapes(x, scale)
+    for name, t in (("x", x), ("scale", scale)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"env_act kernel takes float32, {name} is "
+                            f"{t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"env_act kernel needs contiguous tensors; "
+                             f"{name} is not")
+    b, n, c = x.shape
+    if x.numel() == 0:
+        raise ValueError("env_act kernel needs a non-empty input")
+    y = torch.empty_like(x)
+    env = torch.empty((b, n // POOL, c), dtype=x.dtype, device=x.device)
+    fn = _kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                 env.data_ptr(), b * n, c, stream)
+    if err != 0:
+        raise RuntimeError(f"env_act kernel launch failed: CUDA error {err}")
+    env_act.launches += 1
+    return y, env
+
+
+env_act.launches = 0
+
+
+def env_act_auto(x: torch.Tensor, scale: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor
+    (the JAX package's TPU / elsewhere dispatch)."""
+    return env_act(x, scale)

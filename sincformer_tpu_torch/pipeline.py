@@ -1,9 +1,13 @@
 """Enhancement entry points: :class:`SincformerPipeline` (the inference half
-of ``sincformer_tpu/train/agent_trainer.py``) and :class:`DCSEPipeline` (of
-``sincformer_tpu/train/dcse_trainer.py``).
+of ``sincformer_tpu/train/agent_trainer.py``), :class:`DCSEPipeline` (of
+``sincformer_tpu/train/dcse_trainer.py``) and :class:`DNNPipeline` (of
+``sincformer_tpu/train/dnn_trainer.py``, the original paper's pipeline).
 
     wave (int16 or float) → pcm_to_float → centred STFT → model → complex
-    mask × STFT → iSTFT → × output_gain
+    mask × STFT → iSTFT → × output_gain                  (the first two)
+
+    wave → AMS/RASTA-PLP/MFCC/GFCC features ± 5 frames → z-score → DNN →
+    64-channel mask → 129 STFT bins → masked uncentred iSTFT      (the DNN)
 
 A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``; without CUDA the default raises instead of
@@ -22,9 +26,14 @@ import numpy as np
 import torch
 
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
-from sincformer_tpu_torch.config import AudioConfig, DCSEConfig, MetacogConfig
-from sincformer_tpu_torch.dsp.stft import istft, stft
+from sincformer_tpu_torch.config import (AudioConfig, DCSEConfig, DNNConfig,
+                                         GammatoneConfig, MetacogConfig)
+from sincformer_tpu_torch.dsp.features import FeatureExtractor
+from sincformer_tpu_torch.dsp.gammatone import GammatoneFilterbank, erb_space
+from sincformer_tpu_torch.dsp.stft import (istft, real_edge_bins, stft,
+                                           stft_uncentered)
 from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+from sincformer_tpu_torch.models.dnn import SpeechEnhancementDNN, create_dnn
 from sincformer_tpu_torch.train.state import (inference_ckpt_order,
                                               latest_step_dir,
                                               merge_train_meta,
@@ -33,7 +42,8 @@ from sincformer_tpu_torch.train.state import (inference_ckpt_order,
                                               restore_checkpoint,
                                               save_checkpoint,
                                               save_checkpoint_quantized)
-from sincformer_tpu_torch.utils.signal import pcm_to_float
+from sincformer_tpu_torch.utils.signal import (hann_window, overlap_add,
+                                               pcm_to_float)
 
 
 def resolve_device(device) -> torch.device:
@@ -196,3 +206,195 @@ class DCSEPipeline(_EnhancementPipeline):
             f"cannot load {path}: the reference .pt import needs "
             f"conv_norm='batch', which waits for the DCSE training slice "
             f"(ROADMAP.md Queue 1)")
+
+
+def mask_interp_matrix(centers: np.ndarray, freqs: np.ndarray) -> np.ndarray:
+    """(len(freqs), len(centers)) float32 matrix W with ``W @ row`` equal to
+    ``np.interp(freqs, centers, row)``: linear interpolation between the
+    channel centres, the first and last value held beyond them."""
+    eye = np.eye(len(centers))
+    return np.stack([np.interp(freqs, centers, eye[j])
+                     for j in range(len(centers))], axis=1).astype(np.float32)
+
+
+class DNNPipeline:
+    """Feature-domain DNN mask estimation, the inference half of the
+    original paper's pipeline: enhancement of one signal or of a batch, and
+    checkpoint I/O with the feature statistics in the step's sidecar. It has
+    no ``enhance_tensor``, as in the JAX package, so ``StreamingEnhancer``
+    serves it through its host path."""
+
+    def __init__(self, mask_type: str = "pcirm", device="cuda",
+                 model_dir: Optional[str] = None,
+                 model: Optional[SpeechEnhancementDNN] = None,
+                 dcfg: DNNConfig = DNNConfig(),
+                 acfg: AudioConfig = AudioConfig()):
+        if mask_type not in ("pcirm", "opt_pcirm", "irm"):
+            raise ValueError(f"mask_type must be 'pcirm', 'opt_pcirm' or "
+                             f"'irm', got {mask_type!r}")
+        self.mask_type = mask_type
+        self.device = resolve_device(device)
+        self.dcfg = dcfg
+        self.acfg = acfg
+        self.fs = acfg.sample_rate
+        self.model_dir = model_dir or os.environ.get("SINCFORMER_MODEL_DIR",
+                                                     "saved_models")
+        self.fe = FeatureExtractor(fs=self.fs)
+        self.gfb = GammatoneFilterbank(sample_rate=self.fs)
+        self.feature_dim = self.fe.feature_dim
+        self.mask_dim = self.gfb.num_channels
+        self.model = model.to(self.device).eval() if model is not None else None
+        self.feat_mean: Optional[np.ndarray] = None
+        self.feat_std: Optional[np.ndarray] = None
+        self.step = 0
+        gcfg = GammatoneConfig()
+        self._interp = torch.from_numpy(mask_interp_matrix(
+            erb_space(gcfg.freq_low, gcfg.freq_high, self.mask_dim),
+            np.linspace(0, self.fs / 2, acfg.fft_size // 2 + 1))
+        ).to(self.device)
+        self._window = torch.from_numpy(
+            hann_window(acfg.frame_size, periodic=False)).to(self.device)
+
+    @property
+    def FINAL_NAME(self) -> str:
+        return f"dnn_{self.mask_type}_final"
+
+    @property
+    def BEST_NAME(self) -> str:
+        return f"best_{self.mask_type}"
+
+    # ── model I/O ───────────────────────────────────────────────────────
+
+    def save_model(self, name: Optional[str] = None,
+                   quantize: bool = False) -> Optional[str]:
+        """Write the DNN under ``<model_dir>/<name>/step_<step>`` with the
+        feature statistics, the mask type and the sizes in the step's
+        sidecar; nothing when no model is loaded. ``quantize=True`` writes
+        the int8 serving form."""
+        if self.model is None:
+            return None
+        name = name or self.FINAL_NAME
+
+        def listed(a):
+            return None if a is None else np.asarray(a, np.float32).tolist()
+        extra = {"feat_mean": listed(self.feat_mean),
+                 "feat_std": listed(self.feat_std),
+                 "mask_type": self.mask_type,
+                 "feature_dim": self.feature_dim, "mask_dim": self.mask_dim,
+                 "config": self.model.sizes}
+        save = save_checkpoint_quantized if quantize else save_checkpoint
+        return save(os.path.join(self.model_dir, name),
+                    {"params": dict(self.model.named_parameters())},
+                    self.step, extra)
+
+    def load_state(self, state_dict: Mapping[str, torch.Tensor],
+                   sizes: Optional[Mapping] = None) -> None:
+        """Load parameters (e.g. from compat.from_jax); the model is built
+        at ``sizes`` (default: the paper's) unless one of those sizes is
+        already there."""
+        sizes = dict(sizes) if sizes else create_dnn(
+            self.feature_dim, self.mask_dim, self.dcfg).sizes
+        if self.model is None or self.model.sizes != sizes:
+            self.model = SpeechEnhancementDNN(**sizes).to(self.device).eval()
+        self.model.load_state_dict(dict(state_dict), strict=True)
+
+    def load_model(self, path: Optional[str] = None) -> str:
+        """Restore a checkpoint (``path`` = a ``.../family/step_N``
+        directory; default: the newest step of the preferred family under
+        ``model_dir``) and the feature statistics of its sidecar."""
+        if path is None:
+            for name in inference_ckpt_order(self.FINAL_NAME, self.BEST_NAME):
+                path = latest_step_dir(os.path.join(self.model_dir, name))
+                if path:
+                    break
+        if path is None:
+            raise FileNotFoundError("no DNN checkpoint found")
+        meta = read_step_meta(path)
+        if meta.get("feat_mean") is not None:
+            self.feat_mean = np.asarray(meta["feat_mean"], np.float32)
+            self.feat_std = np.asarray(meta["feat_std"], np.float32)
+        restored = restore_checkpoint(path)
+        self.load_state(restored["params"], meta.get("config"))
+        self.step = restored["step"]
+        return path
+
+    # ── inference ───────────────────────────────────────────────────────
+
+    def _statistics(self):
+        mean = (self.feat_mean if self.feat_mean is not None
+                else np.zeros(self.feature_dim, np.float32))
+        std = (self.feat_std if self.feat_std is not None
+               else np.ones(self.feature_dim, np.float32))
+        return (torch.from_numpy(np.asarray(mean, np.float32)).to(self.device),
+                torch.from_numpy(np.asarray(std, np.float32)).to(self.device))
+
+    @torch.inference_mode()
+    def _enhance_core(self, noisy: torch.Tensor,
+                      t_true: torch.Tensor) -> torch.Tensor:
+        """(B, N) float waveforms on the device and their (B,) counts of
+        valid frames → (B, N): features → DNN → mask onto the STFT bins →
+        masked frames → overlap-add over the valid frames only."""
+        if self.model is None:
+            raise RuntimeError("No model loaded. Call load_model() first.")
+        a = self.acfg
+        frame, hop, n_fft = a.frame_size, a.hop_size, a.fft_size
+        n = noisy.shape[-1]
+        mean, std = self._statistics()
+        feats = self.fe.add_context(self.fe.extract_frame_features(noisy))
+        feats = torch.clamp((feats - mean) / std, -10.0, 10.0)
+        feats = torch.nan_to_num(feats, nan=0.0, posinf=0.0, neginf=0.0)
+        mask64 = torch.clamp(self.model(feats), 0.0, 1.0)     # (B, T, 64)
+        spec = stft_uncentered(noisy, frame, hop, n_fft)
+        t = min(mask64.shape[-2], spec.shape[-2])
+        stft_mask = mask64[..., :t, :] @ self._interp.T       # (B, t, 129)
+        valid = (torch.arange(t, device=noisy.device)[None, :]
+                 < t_true[:, None])[..., None]
+        masked = spec[..., :t, :] * stft_mask * valid
+        frames = torch.fft.irfft(real_edge_bins(masked, n_fft), n=n_fft,
+                                 dim=-1)[..., :frame] * self._window
+        y = overlap_add(frames, hop, n)
+        wsq = overlap_add((self._window * self._window) * valid, hop, n)
+        return y / torch.where(wsq < 1e-8, torch.ones_like(wsq), wsq)
+
+    def enhance_signal(self, noisy_signal: np.ndarray,
+                       pad_quantum: int = 2000) -> np.ndarray:
+        """One signal (N,) → (N,) float32. The input is zero-padded to a
+        multiple of ``pad_quantum`` and frames past the true length are
+        masked out, as in the JAX package: the whole-utterance RASTA-PLP
+        mean runs over the padded signal, so the padding is part of the
+        numbers. int16 input is scaled by 1/32768."""
+        noisy = np.asarray(noisy_signal)
+        noisy = (noisy.astype(np.float32) / 32768.0
+                 if noisy.dtype == np.int16 else noisy.astype(np.float32))
+        n_true = len(noisy)
+        n_pad = int(np.ceil(n_true / pad_quantum) * pad_quantum)
+        t_true = (n_true - self.acfg.frame_size) // self.acfg.hop_size + 1
+        wav = np.zeros((1, n_pad), np.float32)
+        wav[0, :n_true] = noisy
+        out = self._enhance_core(
+            torch.from_numpy(wav).to(self.device),
+            torch.tensor([t_true], device=self.device))
+        return out[0, :n_true].cpu().numpy()
+
+    def enhance_batch(self, noisy: np.ndarray,
+                      lengths: Optional[np.ndarray] = None) -> np.ndarray:
+        """(B, N) → (B, N) float32, with no padding to a quantum. int16 PCM
+        goes to the device as it is and is converted there.
+
+        ``lengths``: optional (B,) true sample counts of rows padded to a
+        common N; each row's valid-frame mask is then what
+        :meth:`enhance_signal` applies to it."""
+        noisy = np.asarray(noisy)
+        if noisy.dtype != np.int16:
+            noisy = noisy.astype(np.float32)
+        b, n = noisy.shape
+        frame, hop = self.acfg.frame_size, self.acfg.hop_size
+        if lengths is None:
+            t_true = np.full((b,), (n - frame) // hop + 1, np.int64)
+        else:
+            t_true = np.maximum(
+                (np.asarray(lengths, np.int64) - frame) // hop + 1, 1)
+        out = self._enhance_core(
+            pcm_to_float(torch.from_numpy(noisy).to(self.device)),
+            torch.from_numpy(t_true).to(self.device))
+        return out.cpu().numpy()

@@ -6,8 +6,19 @@ the JAX package builds them, so both packages start from the same bits.
 
 from __future__ import annotations
 
+import functools
+from typing import Optional
+
 import numpy as np
 import torch
+
+
+def hamming_window(n: int, periodic: bool = False) -> np.ndarray:
+    """Hamming window; ``periodic=False`` matches
+    ``scipy.signal.windows.hamming``."""
+    denom = n if periodic else n - 1
+    k = np.arange(n)
+    return (0.54 - 0.46 * np.cos(2.0 * np.pi * k / denom)).astype(np.float32)
 
 
 def hann_window(n: int, periodic: bool = True) -> np.ndarray:
@@ -49,6 +60,18 @@ def overlap_add(frames: torch.Tensor, hop: int, out_len: int) -> torch.Tensor:
         out[..., j * hop:(j + t) * hop] += parts[..., :, j, :].reshape(
             batch + (t * hop,))
     return out[..., :out_len]
+
+
+@functools.lru_cache(maxsize=32)
+def dct_matrix(n: int, n_out: Optional[int] = None) -> np.ndarray:
+    """Orthonormal DCT-II matrix (n_out, n), rows = output coefficients:
+    ``D @ x`` equals ``scipy.fftpack.dct(x, type=2, norm='ortho')[:n_out]``."""
+    n_out = n_out or n
+    k = np.arange(n_out)[:, None]
+    j = np.arange(n)[None, :]
+    d = np.cos(np.pi * k * (2 * j + 1) / (2 * n)) * 2.0
+    d = d * np.where(k == 0, np.sqrt(1.0 / (4.0 * n)), np.sqrt(1.0 / (2.0 * n)))
+    return d.astype(np.float32)
 
 
 def pcm_to_float(wav: torch.Tensor) -> torch.Tensor:

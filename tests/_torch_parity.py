@@ -146,3 +146,78 @@ def max_abs(a, b) -> float:
     b = b.detach().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     assert a.shape == b.shape, (a.shape, b.shape)
     return float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))
+
+
+def speechlike(seed: int, n: int, fs: int = 8000) -> np.ndarray:
+    """Harmonic voiced segments with a syllable-rate envelope in white
+    noise at about 5 dB SNR, peak 0.5: no digital silence, so that the
+    ``log(x + 1e-10)`` of the MFCC and RASTA features stays well
+    conditioned."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / fs
+    f0 = 110 + 40 * np.sin(2 * np.pi * 0.7 * t + rng.uniform(0, 6))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    voiced = sum(np.sin(h * phase) / h for h in range(1, 12))
+    env = np.clip(np.sin(2 * np.pi * 3.0 * t + rng.uniform(0, 6)), 0, None)
+    clean = voiced * env
+    noise = rng.standard_normal(n) * np.std(clean) * 10 ** (-5 / 20)
+    x = clean + noise
+    return (0.5 * x / np.max(np.abs(x))).astype(np.float32)
+
+
+# narrow mask DNN: 594 -> 2 x 64 -> 64 (the feature and mask widths are the
+# front-end's and stay)
+NARROW_DNN = dict(hidden_layers=2, hidden_units=64)
+
+
+@functools.lru_cache(maxsize=None)
+def dnn_variables():
+    """Seeded flax variables of the narrow mask DNN, every bias non-zero,
+    and non-trivial feature statistics (mean, std) of width 594."""
+    rng = np.random.default_rng(2)
+    widths = [594] + [NARROW_DNN["hidden_units"]] * NARROW_DNN["hidden_layers"]
+    params = {}
+    for i, (fan_in, fan_out) in enumerate(zip(widths[:-1], widths[1:])):
+        params[f"hidden_{i}"] = {
+            "kernel": (rng.standard_normal((fan_in, fan_out))
+                       * np.sqrt(2.0 / fan_in)).astype(np.float32),
+            "bias": (0.1 * rng.standard_normal(fan_out)).astype(np.float32)}
+    params["output"] = {
+        "kernel": (rng.standard_normal((widths[-1], 64))
+                   / np.sqrt(widths[-1])).astype(np.float32),
+        "bias": (0.1 * rng.standard_normal(64)).astype(np.float32)}
+    mean = (0.5 * rng.standard_normal(594)).astype(np.float32)
+    std = rng.uniform(0.5, 3.0, 594).astype(np.float32)
+    return {"params": params}, mean, std
+
+
+def jax_dnn_pipeline(model_dir: str, mask_type: str = "pcirm"):
+    """The JAX DNNPipeline at the narrow widths with the dnn_variables
+    weights and feature statistics."""
+    import dataclasses
+
+    from sincformer_tpu import config as cfg
+    from sincformer_tpu.train.dnn_trainer import DNNPipeline
+    variables, mean, std = dnn_variables()
+    pipe = DNNPipeline(mask_type=mask_type, use_rbm_pretrain=False,
+                       model_dir=model_dir,
+                       dcfg=dataclasses.replace(cfg.DEFAULT.dnn, **NARROW_DNN))
+    pipe.state = pipe._init_model_state(1e-3, jax.random.PRNGKey(0))
+    pipe.state = pipe.state.replace(params=jax.tree.map(jnp.asarray,
+                                                        variables))
+    pipe.feat_mean, pipe.feat_std = mean, std
+    return pipe
+
+
+def torch_dnn_pipeline(variables=None, model_dir=None,
+                       mask_type: str = "pcirm"):
+    """The port's DNNPipeline on the CPU with bridged weights (default: the
+    dnn_variables ones) and the same feature statistics."""
+    from sincformer_tpu_torch import DNNPipeline, load_dnn_from_jax
+    default, mean, std = dnn_variables()
+    state, sizes = load_dnn_from_jax(variables or default)
+    pipe = DNNPipeline(mask_type=mask_type, device="cpu",
+                       model_dir=model_dir)
+    pipe.load_state(state, sizes)
+    pipe.feat_mean, pipe.feat_std = mean, std
+    return pipe

@@ -37,15 +37,27 @@ def test_sources_import_no_jax():
     assert not bad, bad
 
 
+def _port_modules():
+    """Every module of the package, by walking its directory."""
+    pkg = os.path.join(REPO, "sincformer_tpu_torch")
+    for path in _port_sources():
+        if not path.startswith(pkg):
+            continue
+        name = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        yield name[:-len(".__init__")] if name.endswith(".__init__") else name
+
+
 def test_import_loads_no_jax_module():
-    modules = ["sincformer_tpu_torch"] + [
-        f"sincformer_tpu_torch.{m}" for m in (
-            "cli", "serve", "pipeline", "config", "compat.from_jax",
-            "data.audio", "models.dcse", "models.conformer", "ops.build",
-            "ops.fused_ffn", "ops.quantize", "ops.speech_attention",
-            "train.state", "utils.signal")]
-    code = (f"import sys, {', '.join(modules)}; "
-            f"print([m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}])")
+    """Importing every module of the port (the new front-end, feature, DNN
+    and kernel-wrapper modules included) and chip_smoke.py loads nothing of
+    JAX, builds no kernel and needs no CUDA, nvcc or triton."""
+    modules = sorted(_port_modules())
+    for new in ("dsp.gammatone", "dsp.haircell", "dsp.features", "models.dnn",
+                "ops.meddis", "ops.envact", "ops.conv_gn"):
+        assert f"sincformer_tpu_torch.{new}" in modules
+    code = (f"import sys, chip_smoke, {', '.join(modules)}; "
+            f"print([m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('triton',)!r}])")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True).stdout
     assert out.strip() == "[]"
@@ -78,6 +90,25 @@ def test_dcse_pipeline_default_device_needs_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DCSEPipeline()
     assert cli.build_parser().parse_args(["info"]).device == "cuda"
+
+
+@pytest.mark.parametrize("wrapper", ["meddis", "env_act", "conv1d_gn"])
+def test_new_wrappers_refuse_other_devices(wrapper):
+    """A wrapper takes the plain version only for a CPU tensor: a tensor on
+    any other device that is not CUDA raises instead of falling back."""
+    from sincformer_tpu_torch import conv1d_gn, env_act, meddis
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        if wrapper == "meddis":
+            meddis(torch.zeros(2, 16, device=meta))
+        elif wrapper == "env_act":
+            env_act(torch.zeros(1, 8, 4, device=meta),
+                    torch.ones(4, device=meta))
+        else:
+            conv1d_gn(torch.zeros(1, 8, 4, device=meta),
+                      torch.zeros(3, 4, 4, device=meta),
+                      *(torch.zeros(4, device=meta) for _ in range(3)), None,
+                      1, 2)
 
 
 def test_chip_smoke_refuses_without_cuda():
