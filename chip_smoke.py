@@ -53,9 +53,13 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+TF32_PRODUCTS = 3      # K1, K3: split TF32, three tensor-core products per
+                       # product for f32-level results
 KERNEL_TOL = 1e-5      # f32 on both sides, sums in another order; K3: of
                        # the output's scale
 WAVE_TOL = 1e-4        # two paths or devices, relative to the waveform's peak
@@ -63,6 +67,7 @@ DNN_TAIL_TOL = 1e-2    # DNN path, the 6 frames before a request's zero padding
                        # (measured 2.9e-3 on an H100; see check_dnn_wave)
 TIE_MARGIN = 1e-3      # MAA logit gap below which a decision flip is a tie
 ATTN_TS = (50, 100, 250, 400, 601, 2100)
+ATTN_DH_TS = (1, 400, 2100)     # the other head widths (16, 32, 128)
 FFN_ROWS = (25664, 6416, 1, 7, 401, 1000)      # 64 and 16 windows of 401 frames
 K2_OPS_PER_ELEMENT = 40      # Philox-4x32-10 shared by 4 elements + rounding
 K4_OPS_PER_STEP = 19         # f32 operations of one Euler step, the division as one
@@ -105,18 +110,54 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_in_turns(plain, kernel, library=None, iters: int = 50) -> dict:
+def graph_ms(fn, iters: int = 50, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms: ``iters`` calls captured in one CUDA
+    graph, one replay between CUDA events. The host's time per call (the
+    wrapper's checks, the ctypes call) drops out, so a call shorter than
+    its launch is timed by the device's work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_in_turns(plain, kernel, library=None, iters: int = 50,
+                  graph: bool = False) -> dict:
     """plain, kernel, kernel, plain (and the library call, where there is
-    one), each the mean of ``iters`` launches."""
-    timing = {"plain_ms": cuda_ms(plain, iters), "ms": cuda_ms(kernel, iters),
-              "ms_2": cuda_ms(kernel, iters),
-              "plain_ms_2": cuda_ms(plain, iters)}
-    timing["library_ms"] = cuda_ms(library, iters) if library else None
+    one), each the mean of ``iters`` launches; with ``graph``, replayed from
+    a CUDA graph (device time), and the kernel's eager time beside it as
+    ``ms_eager``."""
+    timer = graph_ms if graph else cuda_ms
+    timing = {"plain_ms": timer(plain, iters), "ms": timer(kernel, iters),
+              "ms_2": timer(kernel, iters),
+              "plain_ms_2": timer(plain, iters)}
+    timing["library_ms"] = timer(library, iters) if library else None
+    if graph:
+        timing["ms_eager"] = cuda_ms(kernel, iters)
     return timing
 
 
-def with_bound(timing: dict, flops: float, nbytes: float) -> dict:
+def with_bound(timing: dict, flops: float, nbytes: float,
+               tf32x3: bool = False) -> dict:
+    """The least time of the work on this card: f32 operations on the CUDA
+    cores or bytes. For a split-TF32 kernel (``tf32x3``) ``bound_ms`` is
+    three TF32 tensor-core products per product, the least time of
+    f32-level results, and the f32 bound is kept as ``bound_f32_ms``."""
     by_ops, by_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    if tf32x3:
+        timing["bound_f32_ms"] = max(by_ops, by_bytes) * 1e3
+        by_ops = TF32_PRODUCTS * flops / PEAK_TF32_FLOPS
     timing["bound_ms"] = max(by_ops, by_bytes) * 1e3
     timing["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
     return timing
@@ -191,15 +232,18 @@ class Launches:
         return got
 
 
-def check_k1(seed: int):
-    """K1 against its plain version; returns (max err, timings)."""
+def check_k1(seed: int, smi: str):
+    """K1 against its plain version; returns (max err, timings at the
+    batch request's shape, timings at the 60 s file's shape)."""
     from sincformer_tpu_torch.ops.speech_attention import (
         _speech_attention_plain, speech_attention)
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
-    shapes = [(4, t) for t in ATTN_TS] + [(1, 100), (1, 250), (16, 401)]
-    for b, t in shapes:
-        q, k, v = (torch.randn(b, t, 4, 64, device="cuda", generator=g)
+    shapes = ([(4, t, 64) for t in ATTN_TS] + [(1, 100, 64), (1, 250, 64),
+                                               (16, 401, 64)]
+              + [(4, t, dh) for dh in (16, 32, 128) for t in ATTN_DH_TS])
+    for b, t, dh in shapes:
+        q, k, v = (torch.randn(b, t, 4, dh, device="cuda", generator=g)
                    for _ in range(3))
         lengths = torch.tensor(([t, t - 7, t // 2, 1] * 4)[:b], device="cuda")
         valid = torch.arange(t, device="cuda")[None, :] < lengths[:, None]
@@ -209,32 +253,39 @@ def check_k1(seed: int):
             torch.cuda.synchronize()
             err = float((out - _speech_attention_plain(q, k, v, bb)).abs().max())
             worst = max(worst, err)
-            say(f"[k1] B={b} T={t} H=4 dh=64 bias={bb is not None} "
+            say(f"[k1] B={b} T={t} H=4 dh={dh} bias={bb is not None} "
                 f"max|kernel-plain|={err:.3e} (limit {KERNEL_TOL:g})")
             if not err <= KERNEL_TOL:
                 raise AssertionError(f"K1 disagrees with its plain version "
-                                     f"at B={b} T={t}: {err}")
+                                     f"at B={b} T={t} dh={dh}: {err}")
 
-    # timing at the batch request's shape: B=4, T=400 (4 s), no mask
-    b, t, h, dh = 4, 400, 4, 64
-    q, k, v = (torch.randn(b, t, h, dh, device="cuda", generator=g)
-               for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    d = h * dh
-    flops = 4.0 * b * t * t * d
-    nbytes = 4.0 * b * t * d * 4
-    timing = with_bound(time_in_turns(
-        lambda: _speech_attention_plain(q, k, v),
-        lambda: speech_attention(q, k, v), lambda: sdpa(qt, kt, vt)),
-        flops, nbytes)
-    say(f"[k1] timing B={b} T={t} H={h} dh={dh}: kernel {timing['ms']:.4f} / "
-        f"{timing['ms_2']:.4f} ms, plain {timing['plain_ms']:.4f} / "
-        f"{timing['plain_ms_2']:.4f} ms, sdpa (yardstick, not used by the "
-        f"port) {timing['library_ms']:.4f} ms, bound "
-        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
-        f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
-    return worst, timing
+    # timing at the batch request's shape (B=4, T=400: 4 s) and at the 60 s
+    # file's (16 windows of 401 frames), no mask, each in turns with SDPA
+    timings = []
+    for b, t in ((4, 400), (16, 401)):
+        h, dh = 4, 64
+        q, k, v = (torch.randn(b, t, h, dh, device="cuda", generator=g)
+                   for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        d = h * dh
+        flops = 4.0 * b * t * t * d
+        nbytes = 4.0 * b * t * d * 4
+        timing = with_bound(time_in_turns(
+            lambda: _speech_attention_plain(q, k, v),
+            lambda: speech_attention(q, k, v), lambda: sdpa(qt, kt, vt),
+            graph=True), flops, nbytes, tf32x3=True)
+        timings.append(timing)
+        say(f"[k1] timing B={b} T={t} H={h} dh={dh}, CUDA graph replays: "
+            f"kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms (eager "
+            f"calls {timing['ms_eager']:.4f} ms), plain "
+            f"{timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} ms, sdpa "
+            f"(yardstick, not used by the port) {timing['library_ms']:.4f} "
+            f"ms, bound {timing['bound_ms']:.5f} ms (3xTF32 at "
+            f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; f32 "
+            f"{timing['bound_f32_ms']:.4f} ms; {timing['bound_by']}: "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) on {smi}")
+    return worst, timings[0], timings[1]
 
 
 def check_k2(seed: int):
@@ -292,8 +343,9 @@ def check_k2(seed: int):
     return worst, timing
 
 
-def check_k3(seed: int):
-    """K3 against its plain version; returns (max err / scale, timings)."""
+def check_k3(seed: int, smi: str):
+    """K3 against its plain version; returns (max abs err, timings at
+    25,664 rows, timings at 6,416 rows)."""
     import torch.nn.functional as F
 
     from sincformer_tpu_torch.ops.fused_ffn import (LN_EPS, _fused_ffn_plain,
@@ -325,26 +377,36 @@ def check_k3(seed: int):
             raise AssertionError(f"K3 disagrees with its plain version at "
                                  f"rows={m} d={d} d_ff={f}: {err}")
 
-    m, d, f = FFN_ROWS[0], 256, 1024
-    x, ln_g, ln_b, w1, b1, w2, b2 = a = args(m, d, f)
-    w1_oi, w2_oi = w1.t().contiguous(), w2.t().contiguous()
+    # timing at the (64, 32000) DCSE batch's rows and at the 60 s file's
+    # (16 windows of 401 frames), each in turns with the library chain
+    timings = []
+    for m in FFN_ROWS[:2]:
+        d, f = 256, 1024
+        x, ln_g, ln_b, w1, b1, w2, b2 = a = args(m, d, f)
+        w1_oi, w2_oi = w1.t().contiguous(), w2.t().contiguous()
 
-    def library():
-        xn = F.layer_norm(x, (d,), ln_g, ln_b, LN_EPS)
-        return x + 0.5 * F.linear(F.silu(F.linear(xn, w1_oi, b1)), w2_oi, b2)
+        def library():
+            xn = F.layer_norm(x, (d,), ln_g, ln_b, LN_EPS)
+            return x + 0.5 * F.linear(F.silu(F.linear(xn, w1_oi, b1)), w2_oi,
+                                      b2)
 
-    flops = 4.0 * m * d * f
-    nbytes = 4.0 * (2 * m * d + 2 * d * f + 3 * d + f)
-    timing = with_bound(time_in_turns(
-        lambda: _fused_ffn_plain(*a), lambda: fused_ffn(*a), library,
-        iters=20), flops, nbytes)
-    say(f"[k3] timing rows={m} d={d} d_ff={f}: kernel {timing['ms']:.4f} / "
-        f"{timing['ms_2']:.4f} ms, plain {timing['plain_ms']:.4f} / "
-        f"{timing['plain_ms_2']:.4f} ms, layer_norm + 2 linear + silu "
-        f"(yardstick, not used by the port) {timing['library_ms']:.4f} ms, "
-        f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    return worst_abs, timing
+        flops = 4.0 * m * d * f
+        nbytes = 4.0 * (2 * m * d + 2 * d * f + 3 * d + f)
+        timing = with_bound(time_in_turns(
+            lambda: _fused_ffn_plain(*a), lambda: fused_ffn(*a), library,
+            iters=20, graph=True), flops, nbytes, tf32x3=True)
+        timings.append(timing)
+        say(f"[k3] timing rows={m} d={d} d_ff={f}, CUDA graph replays: "
+            f"kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms (eager "
+            f"calls {timing['ms_eager']:.4f} ms), plain "
+            f"{timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} ms, "
+            f"layer_norm + 2 linear + silu (yardstick, f32 without TF32, not "
+            f"used by the port) {timing['library_ms']:.4f} ms, bound "
+            f"{timing['bound_ms']:.4f} ms (3xTF32 at "
+            f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; f32 "
+            f"{timing['bound_f32_ms']:.4f} ms; {timing['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) on {smi}")
+    return worst_abs, timings[0], timings[1]
 
 
 def time_chain_probe(n: int) -> float:
@@ -714,9 +776,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # ── phase 2: each kernel alone against its plain version ─────────────
-    k1_err, k1_time = check_k1(args.seed)
+    k1_err, k1_time, k1_time_60s = check_k1(args.seed, smi)
     k2_err, k2_time = check_k2(args.seed)
-    k3_err, k3_time = check_k3(args.seed)
+    k3_err, k3_time, k3_time_60s = check_k3(args.seed, smi)
     k4_err, k4_time = check_k4(args.seed, smi)
     k5_err, k5_time = check_k5(args.seed, smi)
     k6_err, k6_time = check_k6(args.seed, smi)
@@ -1119,22 +1181,27 @@ def main() -> int:
                 f"{audio_s / wall:.1f}x real time on {smi}")
     launches.reset()
 
-    def row(name, source, replaces, err, timing):
-        return {"name": name, "route": "cuda",
-                "source": f"sincformer_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches.total[name],
-                "max_abs_err": err, "ms": timing["ms"],
-                "plain_ms": timing["plain_ms"],
-                "bound_ms": timing["bound_ms"],
-                "bound_by": timing["bound_by"],
-                "library_ms": timing["library_ms"]}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def row(name, source, replaces, err, timing, **more):
+        r = {"name": name, "route": "cuda",
+             "source": f"sincformer_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches.total[name],
+             "max_abs_err": err, **{k: timing[k] for k in keys}}
+        if "bound_f32_ms" in timing:
+            r["bound_f32_ms"] = timing["bound_f32_ms"]
+        for shape, t in more.items():
+            r[shape] = {k: t[k] for k in (*keys, "bound_f32_ms")}
+        return r
     kernels = [
         row("speech_attention", "speech_attention.cu",
-            "sincformer_tpu/ops/speech_attention.py:70", k1_err, k1_time),
+            "sincformer_tpu/ops/speech_attention.py:70", k1_err, k1_time,
+            at_B16_T401=k1_time_60s),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time),
         row("fused_ffn", "fused_ffn.cu",
-            "sincformer_tpu/ops/fused_ffn.py:39", k3_err, k3_time),
+            "sincformer_tpu/ops/fused_ffn.py:39", k3_err, k3_time,
+            at_rows6416=k3_time_60s),
         row("meddis", "meddis.cu",
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",

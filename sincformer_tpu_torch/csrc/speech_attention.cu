@@ -1,4 +1,4 @@
-// Speech attention forward for Hopper (sm_90a), f32 on CUDA cores.
+// Speech attention forward for Hopper (sm_90a), split-TF32 tensor cores.
 //
 // Replaces the TPU kernel sincformer_tpu/ops/speech_attention.py::_attn_kernel
 // (launched by _speech_attention_fwd). Same function, not a block-by-block
@@ -9,167 +9,366 @@
 // with the heads packed in the last dimension, as in the TPU kernel.
 //
 // Bound at the main-path shape (B=4, T=400, H=4, dh=64, D=256): 4*B*T^2*D
-// = 0.66 GFLOP of f32 FMA work against 4*B*T*D*4 = 6.6 MB of traffic, so
-// it is compute bound (9.8 us at 67 TFLOP/s f32 vs 2 us at 3.35 TB/s).
+// = 0.66 GFLOP against 4*B*T*D*4 = 6.6 MB of traffic, so it is bound by
+// operations: 9.8 us at 67 TFLOP/s on CUDA cores, 4.0 us for the three
+// TF32 products per product at 495 TFLOP/s that f32-level results take on
+// the tensor cores (tf32x3.cuh).
 //
-// Design: one block of 128 threads per (batch, head, 32 query rows). Four
-// neighbouring lanes share a query row; each holds a quarter of the row's
-// dh values of q and of the output accumulator in registers, and the
-// partial dot products are summed with two warp shuffles. Key and value
-// tiles of the head are staged through shared memory and read there as
-// broadcasts; the four lanes of a row read interleaved 16-byte chunks so a
-// quarter-warp touches 64 contiguous bytes (no bank conflicts). The softmax
-// is online (running max and sum, rescaled every 8 keys), so any T runs
-// with fixed shared memory: this covers the T > 2048 range that the JAX
-// dispatch sends to its flash kernel. Keys past T are excluded outright
-// (probability 0), matching the unpadded reference. No tensor cores yet:
-// the work is 4*dh FMAs per (row, key) pair, done at full f32 precision.
+// Design: a block owns RW x 16 query rows of one (batch, head) and has
+// RW x KW warps: warp (r, kw) takes the 16 rows r and, of every tile of 64
+// keys, the 64 / KW keys kw. Each warp runs its own online softmax over its
+// share of the keys; at the end the KW partial results of a row group are
+// merged through shared memory (max, rescaled sums). Splitting the keys
+// gives KW times the warps: one warp walking a row group alone spends most
+// of its time waiting on its own chains of dependent tensor-core products.
+// Blocks of 64 rows (RW = 4) are launched when B*H*ceil(T/64) fills the
+// SMs, else blocks of 32 rows (RW = 2), so that small requests spread over
+// twice the SMs. The block's Q rows stay in shared memory for the whole
+// walk; tiles of 64 keys of K and V are copied there with cp.async, two
+// buffers deep (tile i+1 in flight while tile i is used). Every tile is
+// kept at a pitch of dh + 4 floats, so that the fragment loads of both
+// products hit 32 distinct banks. Per tile a warp computes its S (16 x
+// 64/KW) = Q.K^T, runs the online softmax in registers (row max and sum
+// over the 4 lanes of a quad by __shfl_xor_sync; the running sum stays per
+// lane until the end), takes the tile's P.V (16 x dh) in fresh
+// accumulators and adds it to the rescaled O in f32. The tensor cores add
+// into their accumulator by truncation, so a sum carried through every tile
+// of a long walk (33 tiles at T = 2100) drifts: the fresh accumulators bound
+// that to one tile and leave the sum across tiles to round-to-nearest f32
+// additions.
+//
+// P goes from the accumulator layout into the A operand of P.V without a
+// shuffle: a lane holds S columns 2t and 2t+1 of each 8-key block, and the
+// A fragment wants columns t and t+4. The sum over keys does not depend on
+// their order, so P.V reads the 8 keys of a block in the order
+// (0, 2, 4, 6, 1, 3, 5, 7): A column t is key 2t, column t+4 is key 2t+1,
+// and the lane loads V rows 2t and 2t+1 as its B fragment to match.
+//
+// Keys past T are zero-filled in shared memory and carry a score of -inf
+// (probability 0), as in the unpadded reference. A warp whose share of a
+// tile lies wholly past T keeps its running max (or -inf, if it has seen no
+// key yet: its sums stay 0 and weigh nothing in the merge, since key 0 is
+// in warp kw = 0's share). Any T runs in fixed shared memory: this covers
+// the T > 2048 range that the JAX dispatch sends to its flash kernel. Every
+// product is a 3xTF32 tensor-core product; softmax, scale and bias stay f32
+// on the CUDA cores.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kLanesPerRow = 4;
-constexpr int kRowsPerBlock = kThreads / kLanesPerRow;   // 32
-constexpr int kKeysPerStep = 8;
+using tf32x3::cp_async16;
+using tf32x3::mma3;
+using tf32x3::split;
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kKeys = 64;     // keys per tile
+constexpr int KW = 2;         // warps that share a row group's keys
+
+// shared memory of a block: Q rows, K and V tiles (two buffers each), bias
+template <int DH, int RW>
+constexpr int smem_bytes() {
+  return ((RW * 16 + 4 * kKeys) * (DH + 4) + 2 * kKeys) * (int)sizeof(float);
+}
+
+template <int DH, int RW>
+__global__ void __launch_bounds__(RW * KW * 32)
 speech_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ bias,
                         float* __restrict__ out,
                         int T, int H, float scale) {
-  constexpr int kChunks = DH / 16;                 // float4 chunks per lane
-  constexpr int kTileKeys = DH <= 64 ? 64 : 32;    // 32 KB of K+V per tile
-  constexpr int kVec = DH / 4;                     // float4 per key row
-  __shared__ __align__(16) float ks[kTileKeys * DH];
-  __shared__ __align__(16) float vs[kTileKeys * DH];
-  __shared__ float bs[kTileKeys];
+  constexpr int kThreads = RW * KW * 32;
+  constexpr int P = DH + 4;         // row pitch of the Q, K and V tiles
+  constexpr int KS = DH / 8;        // k-steps of Q.K^T, n-tiles of P.V
+  constexpr int NT = kKeys / 8 / KW;  // n-tiles of a warp's S, k-steps of P.V
+  constexpr int kRed = 4 * KS + 5;  // floats a lane leaves for the merge
+  static_assert(RW * (KW - 1) * 32 * kRed <= 4 * kKeys * P,
+                "the merge must fit in the K and V buffers");
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                       // [RW * 16][P]
+  float* ks = qs + RW * 16 * P;           // [2][kKeys][P]
+  float* vs = ks + 2 * kKeys * P;         // [2][kKeys][P]
+  float* bs = vs + 2 * kKeys * P;         // [2][kKeys]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int tid = threadIdx.x;
-  const int part = tid & (kLanesPerRow - 1);
-  const int row = blockIdx.x * kRowsPerBlock + tid / kLanesPerRow;
-  const bool row_ok = row < T;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rw = warp % RW;               // row group
+  const int kw = warp / RW;               // share of each tile's keys
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const long long D = (long long)H * DH;
-  const long long head_base = (long long)b * T * D + (long long)h * DH;
+  const long long head = (long long)b * T * D + (long long)h * DH;
+  const int q0 = blockIdx.x * (RW * 16);
+  const int r_lo = q0 + rw * 16 + g;
+  const int r_hi = r_lo + 8;
 
-  // lane `part` owns float4 chunks part, part+4, part+8, ... of the row
-  float4 qr[kChunks], acc[kChunks];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const int col = 4 * (part + kLanesPerRow * c);
-    qr[c] = row_ok
-        ? *reinterpret_cast<const float4*>(q + head_base + row * D + col)
-        : make_float4(0.f, 0.f, 0.f, 0.f);
-    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < T; k0 += kTileKeys) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int idx = tid; idx < kTileKeys * kVec; idx += kThreads) {
-      const int j = idx / kVec;
-      const int c4 = idx - j * kVec;
+  // copies of the tile of keys k0..k0+63 into buffer `buf`
+  auto stage = [&](int buf, int k0) {
+    constexpr int kVec = DH / 4;
+    float* kd = ks + buf * kKeys * P;
+    float* vd = vs + buf * kKeys * P;
+    for (int i = tid; i < kKeys * kVec; i += kThreads) {
+      const int j = i / kVec;
+      const int c = i - j * kVec;
       const int key = k0 + j;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vv = kk;
-      if (key < T) {
-        const long long off = head_base + key * D + 4 * c4;
-        kk = *reinterpret_cast<const float4*>(k + off);
-        vv = *reinterpret_cast<const float4*>(v + off);
-      }
-      *reinterpret_cast<float4*>(ks + j * DH + 4 * c4) = kk;
-      *reinterpret_cast<float4*>(vs + j * DH + 4 * c4) = vv;
+      const bool ok = key < T;
+      const long long off = ok ? head + (long long)key * D + 4 * c : 0;
+      cp_async16(kd + j * P + 4 * c, k + off, ok);
+      cp_async16(vd + j * P + 4 * c, v + off, ok);
     }
-    for (int j = tid; j < kTileKeys; j += kThreads) {
+    for (int j = tid; j < kKeys; j += kThreads) {
       const int key = k0 + j;
-      bs[j] = key < T ? (bias != nullptr ? bias[(long long)b * T + key] : 0.f)
-                      : -INFINITY;
+      bs[buf * kKeys + j] =
+          key < T ? (bias != nullptr ? bias[(long long)b * T + key] : 0.f)
+                  : -INFINITY;
     }
-    __syncthreads();
+    tf32x3::cp_async_commit();
+  };
 
-    const int n_keys = min(kTileKeys, T - k0);
-    for (int j0 = 0; j0 < n_keys; j0 += kKeysPerStep) {
-      // scores of 8 keys; keys past T carry -inf and drop out below
-      float s[kKeysPerStep];
+  // the block's query rows (zeros past T) join the first tile's copies
+  for (int i = tid; i < RW * 16 * (DH / 4); i += kThreads) {
+    const int r = i / (DH / 4);
+    const int c = i - r * (DH / 4);
+    const bool ok = q0 + r < T;
+    cp_async16(qs + r * P + 4 * c,
+               q + (ok ? head + (long long)(q0 + r) * D + 4 * c : 0), ok);
+  }
+  const int n_tiles = (T + kKeys - 1) / kKeys;
+  stage(0, 0);
+  // A fragments of Q read from here: rows g and g + 8 of the warp's 16
+  const float* qr = qs + (rw * 16 + g) * P + t;
+  const int key0 = kw * (kKeys / KW);     // the warp's keys in a tile
+
+  float o[KS][4];
 #pragma unroll
-      for (int u = 0; u < kKeysPerStep; ++u) {
-        const float* kr = ks + (j0 + u) * DH;
-        float p = 0.f;
+  for (int nd = 0; nd < KS; ++nd)
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          const float4 kk = *reinterpret_cast<const float4*>(
-              kr + 4 * (part + kLanesPerRow * c));
-          p = fmaf(qr[c].x, kk.x, p);
-          p = fmaf(qr[c].y, kk.y, p);
-          p = fmaf(qr[c].z, kk.z, p);
-          p = fmaf(qr[c].w, kk.w, p);
-        }
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        s[u] = p * scale + bs[j0 + u];
+    for (int i = 0; i < 4; ++i) o[nd][i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;   // running max of rows g, g+8
+  float l_lo = 0.f, l_hi = 0.f;               // this lane's part of the sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage((it + 1) & 1, (it + 1) * kKeys);
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    __syncthreads();   // tile it is in shared memory for every thread
+    const float* kt = ks + (it & 1) * kKeys * P + key0 * P;
+    const float* vt = vs + (it & 1) * kKeys * P + key0 * P;
+    const float* bt = bs + (it & 1) * kKeys + key0;
+
+    // S = Q . K^T: B fragment b0 = K[8nt + g][8kk + t], b1 = ...[+ 4]
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ah[4], al[4];
+      split(qr[8 * kk], ah[0], al[0]);
+      split(qr[8 * P + 8 * kk], ah[1], al[1]);
+      split(qr[8 * kk + 4], ah[2], al[2]);
+      split(qr[8 * P + 8 * kk + 4], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* kr = kt + (8 * nt + g) * P + 8 * kk + t;
+        uint32_t bh[2], bl[2];
+        split(kr[0], bh[0], bl[0]);
+        split(kr[4], bh[1], bl[1]);
+        mma3(s[nt], ah, al, bh, bl);
       }
-      float step_max = s[0];
+    }
+
+    // online softmax over this tile, rows g (s0, s1) and g + 8 (s2, s3)
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
 #pragma unroll
-      for (int u = 1; u < kKeysPerStep; ++u) step_max = fmaxf(step_max, s[u]);
-      // the step holds at least one key < T, so m_new is finite
-      const float m_new = fmaxf(m, step_max);
-      const float corr = expf(m - m_new);
-      l *= corr;
+    for (int nt = 0; nt < NT; ++nt) {
+      const float b0 = bt[8 * nt + 2 * t];
+      const float b1 = bt[8 * nt + 2 * t + 1];
+      s[nt][0] = s[nt][0] * scale + b0;
+      s[nt][1] = s[nt][1] * scale + b1;
+      s[nt][2] = s[nt][2] * scale + b0;
+      s[nt][3] = s[nt][3] * scale + b1;
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        acc[c].x *= corr; acc[c].y *= corr; acc[c].z *= corr; acc[c].w *= corr;
+    for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o_));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o_));
+    }
+    // no key yet for this warp: exponents against 0 give p = 0, corr = 0
+    const float mn_lo = fmaxf(m_lo, mx_lo);
+    const float mn_hi = fmaxf(m_hi, mx_hi);
+    const float base_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float base_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float corr_lo = expf(m_lo - base_lo);
+    const float corr_hi = expf(m_hi - base_hi);
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+    l_lo *= corr_lo;
+    l_hi *= corr_hi;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = expf(s[nt][0] - base_lo);
+      s[nt][1] = expf(s[nt][1] - base_lo);
+      s[nt][2] = expf(s[nt][2] - base_hi);
+      s[nt][3] = expf(s[nt][3] - base_hi);
+      l_lo += s[nt][0] + s[nt][1];
+      l_hi += s[nt][2] + s[nt][3];
+    }
+
+    // this tile's P . V over the 8-key blocks, keys in the order
+    // 0,2,4,6,1,3,5,7: A (g, t) = P(g, 2t), A (g, t+4) = P(g, 2t+1); B rows
+    // to match
+    float pv[KS][4];
+#pragma unroll
+    for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[nd][i] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t ah[4], al[4];
+      split(s[nt][0], ah[0], al[0]);
+      split(s[nt][2], ah[1], al[1]);
+      split(s[nt][1], ah[2], al[2]);
+      split(s[nt][3], ah[3], al[3]);
+      const float* vr = vt + (8 * nt + 2 * t) * P + g;
+#pragma unroll
+      for (int nd = 0; nd < KS; ++nd) {
+        uint32_t bh[2], bl[2];
+        split(vr[8 * nd], bh[0], bl[0]);
+        split(vr[P + 8 * nd], bh[1], bl[1]);
+        mma3(pv[nd], ah, al, bh, bl);
       }
+    }
 #pragma unroll
-      for (int u = 0; u < kKeysPerStep; ++u) {
-        const float p = expf(s[u] - m_new);
-        l += p;
-        const float* vr = vs + (j0 + u) * DH;
+    for (int nd = 0; nd < KS; ++nd) {
+      o[nd][0] = fmaf(o[nd][0], corr_lo, pv[nd][0]);
+      o[nd][1] = fmaf(o[nd][1], corr_lo, pv[nd][1]);
+      o[nd][2] = fmaf(o[nd][2], corr_hi, pv[nd][2]);
+      o[nd][3] = fmaf(o[nd][3], corr_hi, pv[nd][3]);
+    }
+    __syncthreads();   // buffer it & 1 is free for tile it + 2
+  }
+
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vr + 4 * (part + kLanesPerRow * c));
-          acc[c].x = fmaf(p, vv.x, acc[c].x);
-          acc[c].y = fmaf(p, vv.y, acc[c].y);
-          acc[c].z = fmaf(p, vv.z, acc[c].z);
-          acc[c].w = fmaf(p, vv.w, acc[c].w);
-        }
-      }
-      m = m_new;
+  for (int o_ = 1; o_ <= 2; o_ <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o_);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o_);
+  }
+  // merge the key shares of each row group: the K and V buffers are free
+  // (the loop ended on a barrier); a lane's values sit at a stride of
+  // kRed (odd) floats, so the lanes of a warp hit distinct banks
+  float* red = ks;
+  if (kw > 0) {
+    float* mine = red + ((rw * (KW - 1) + kw - 1) * 32 + lane) * kRed;
+#pragma unroll
+    for (int nd = 0; nd < KS; ++nd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mine[4 * nd + i] = o[nd][i];
+    mine[4 * KS] = m_lo;
+    mine[4 * KS + 1] = m_hi;
+    mine[4 * KS + 2] = l_lo;
+    mine[4 * KS + 3] = l_hi;
+  }
+  __syncthreads();
+  if (kw > 0) return;
+  // key 0 is in this warp's share, so m_lo and m_hi are finite
+  float mm_lo = m_lo, mm_hi = m_hi;
+#pragma unroll
+  for (int j = 1; j < KW; ++j) {
+    const float* other = red + ((rw * (KW - 1) + j - 1) * 32 + lane) * kRed;
+    mm_lo = fmaxf(mm_lo, other[4 * KS]);
+    mm_hi = fmaxf(mm_hi, other[4 * KS + 1]);
+  }
+  float c_lo = expf(m_lo - mm_lo), c_hi = expf(m_hi - mm_hi);
+  l_lo *= c_lo;
+  l_hi *= c_hi;
+#pragma unroll
+  for (int nd = 0; nd < KS; ++nd) {
+    o[nd][0] *= c_lo;
+    o[nd][1] *= c_lo;
+    o[nd][2] *= c_hi;
+    o[nd][3] *= c_hi;
+  }
+#pragma unroll
+  for (int j = 1; j < KW; ++j) {
+    const float* other = red + ((rw * (KW - 1) + j - 1) * 32 + lane) * kRed;
+    c_lo = expf(other[4 * KS] - mm_lo);
+    c_hi = expf(other[4 * KS + 1] - mm_hi);
+    l_lo = fmaf(other[4 * KS + 2], c_lo, l_lo);
+    l_hi = fmaf(other[4 * KS + 3], c_hi, l_hi);
+#pragma unroll
+    for (int nd = 0; nd < KS; ++nd) {
+      o[nd][0] = fmaf(other[4 * nd], c_lo, o[nd][0]);
+      o[nd][1] = fmaf(other[4 * nd + 1], c_lo, o[nd][1]);
+      o[nd][2] = fmaf(other[4 * nd + 2], c_hi, o[nd][2]);
+      o[nd][3] = fmaf(other[4 * nd + 3], c_hi, o[nd][3]);
     }
   }
 
-  if (row_ok) {
-    const float inv = 1.f / l;
+  const float inv_lo = 1.f / l_lo;
+  const float inv_hi = 1.f / l_hi;
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
-      const int col = 4 * (part + kLanesPerRow * c);
-      float4 o = acc[c];
-      o.x *= inv; o.y *= inv; o.z *= inv; o.w *= inv;
-      *reinterpret_cast<float4*>(out + head_base + row * D + col) = o;
+  for (int nd = 0; nd < KS; ++nd) {
+    const int c = 8 * nd + 2 * t;
+    if (r_lo < T) {
+      *reinterpret_cast<float2*>(out + head + (long long)r_lo * D + c) =
+          make_float2(o[nd][0] * inv_lo, o[nd][1] * inv_lo);
+    }
+    if (r_hi < T) {
+      *reinterpret_cast<float2*>(out + head + (long long)r_hi * D + c) =
+          make_float2(o[nd][2] * inv_hi, o[nd][3] * inv_hi);
     }
   }
 }
 
-template <int DH>
-void launch(const float* q, const float* k, const float* v, const float* bias,
-            float* out, int B, int T, int H, float scale, cudaStream_t stream) {
-  const dim3 grid((T + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  speech_attention_kernel<DH><<<grid, kThreads, 0, stream>>>(
+template <int DH, int RW>
+int launch(const float* q, const float* k, const float* v, const float* bias,
+           float* out, int B, int T, int H, float scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DH, RW>();
+  static int ready[64];
+  const cudaError_t err = tf32x3::allow_smem(
+      speech_attention_kernel<DH, RW>, smem, ready);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + RW * 16 - 1) / (RW * 16), H, B);
+  speech_attention_kernel<DH, RW><<<grid, RW * KW * 32, smem, stream>>>(
       q, k, v, bias, out, T, H, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_dh(const float* q, const float* k, const float* v,
+              const float* bias, float* out, int B, int T, int H, float scale,
+              cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks64 = (long long)B * H * ((T + 63) / 64);
+  return blocks64 >= sms
+      ? launch<DH, 4>(q, k, v, bias, out, B, T, H, scale, stream)
+      : launch<DH, 2>(q, k, v, bias, out, B, T, H, scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, out: (B, T, H*dh) contiguous f32 on the device; bias: (B, T) f32
-// or null. Returns the cudaError_t of the launch (0 on success).
+// q, k, v, out: (B, T, H*dh) contiguous f32 on the device, 16-byte aligned;
+// bias: (B, T) f32 or null. Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int speech_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* bias,
                                     void* out, int B, int T, int H, int dh,
@@ -184,11 +383,10 @@ extern "C" int speech_attention_fwd(const void* q, const void* k,
   float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: launch<16>(qf, kf, vf, bf, of, B, T, H, scale, s); break;
-    case 32: launch<32>(qf, kf, vf, bf, of, B, T, H, scale, s); break;
-    case 64: launch<64>(qf, kf, vf, bf, of, B, T, H, scale, s); break;
-    case 128: launch<128>(qf, kf, vf, bf, of, B, T, H, scale, s); break;
+    case 16: return launch_dh<16>(qf, kf, vf, bf, of, B, T, H, scale, s);
+    case 32: return launch_dh<32>(qf, kf, vf, bf, of, B, T, H, scale, s);
+    case 64: return launch_dh<64>(qf, kf, vf, bf, of, B, T, H, scale, s);
+    case 128: return launch_dh<128>(qf, kf, vf, bf, of, B, T, H, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 by ``nvcc`` for ``sm_90a`` into ``sincformer_tpu_torch/_build/`` (listed in
-``.gitignore``). The library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale one is never loaded. Nothing here runs
-at import time: the CPU tests import every module on machines with no CUDA
-toolkit.
+``.gitignore``). The library's file name carries a hash of its source and
+of the ``csrc/`` headers it includes (``#include "..."``, followed through
+headers that include others), so an edited kernel or header is rebuilt and
+a stale library is never loaded. Nothing here runs at import time: the CPU
+tests import every module on machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,11 +40,31 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> Dict[str, bytes]:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with quotes,
+    directly or through another header: {file name: contents}."""
+    found: Dict[str, bytes] = {}
+    todo = [f"{name}.cu"]
+    while todo:
+        fname = todo.pop()
+        if fname in found:
+            continue
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            found[fname] = f.read()
+        todo.extend(inc.decode() for inc in
+                    _LOCAL_INCLUDE.findall(found[fname]))
+    return found
+
+
 def _library_path(name: str) -> str:
     """Path of the shared library built from ``csrc/<name>.cu``."""
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha1()
+    for fname, text in sorted(_sources(name).items()):
+        h.update(fname.encode() + b"\0" + text + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:

@@ -7,7 +7,8 @@ LayerNorm has eps 1e-6 and f32 statistics, the variance being the mean of
 squares of ``x - mean``. On a CUDA tensor :func:`fused_ffn` launches the
 hand-written kernel ``csrc/fused_ffn.cu``, which reads each row once, writes
 it once, keeps the normalised rows and the d_ff-wide intermediate in shared
-memory and streams the weights through it with asynchronous copies; on a
+memory, streams the weights through it with asynchronous copies and takes
+both products on the tensor cores in split TF32 (f32-level results); on a
 CPU tensor it runs :func:`_fused_ffn_plain`. There is no fallback from one
 to the other: a CUDA tensor the kernel does not take raises. Inference
 only; the backward belongs to the training slice.
@@ -74,10 +75,11 @@ def _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2):
     if d_ff % 32:
         raise ValueError(f"fused_ffn kernel needs d_ff to be a multiple of "
                          f"32, got {d_ff}")
-    for name in ("w1", "w2", "b1"):
-        if tensors[name].data_ptr() % 16:
-            raise ValueError(f"fused_ffn kernel needs {name} aligned to 16 "
-                             f"bytes")
+    for name, t, align in (("w1", w1, 16), ("w2", w2, 16), ("b1", b1, 16),
+                           ("x", x, 8), ("b2", b2, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"fused_ffn kernel needs {name} aligned to "
+                             f"{align} bytes")
 
 
 def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,

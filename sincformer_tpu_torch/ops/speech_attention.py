@@ -3,10 +3,12 @@
 Counterpart of ``sincformer_tpu/ops/speech_attention.py``. On a CUDA tensor
 :func:`speech_attention` launches the hand-written kernel
 ``csrc/speech_attention.cu`` (one f32 online softmax per batch, head and
-query row); on a CPU tensor it runs :func:`_speech_attention_plain`, the
-plain PyTorch version that the CPU tests compare with JAX and that
-``chip_smoke.py`` compares with the kernel on the card. There is no fallback
-from one to the other: a CUDA tensor the kernel does not take raises.
+query row; both products on the tensor cores in split TF32, which keeps
+f32-level results); on a CPU tensor it runs
+:func:`_speech_attention_plain`, the plain PyTorch version that the CPU
+tests compare with JAX and that ``chip_smoke.py`` compares with the kernel
+on the card. There is no fallback from one to the other: a CUDA tensor the
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ def _check_cuda_args(q, k, v, bias):
         if not x.is_contiguous():
             raise ValueError(f"speech_attention kernel needs contiguous "
                              f"(B, T, H, dh) tensors; {name} is not")
+        if x.data_ptr() % 16:
+            raise ValueError(f"speech_attention kernel needs {name} aligned "
+                             f"to 16 bytes")
     if dh not in _HEAD_DIMS:
         raise ValueError(f"speech_attention kernel supports dh in "
                          f"{_HEAD_DIMS}, got {dh}")

@@ -221,3 +221,56 @@ def torch_dnn_pipeline(variables=None, model_dir=None,
     pipe.load_state(state, sizes)
     pipe.feat_mean, pipe.feat_std = mean, std
     return pipe
+
+
+# ── split-TF32 arithmetic of the tensor-core kernels (K1, K3) ─────────────
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (10 explicit mantissa bits) as ``cvt.rna.tf32.f32``
+    rounds: to nearest, ties away from zero. Adding half a unit of the
+    kept last place to the sign-magnitude bit pattern and clearing the 13
+    dropped bits rounds the magnitude half up, whatever the sign."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x = hi + lo as the kernels split it (tf32x3.cuh)."""
+    hi = tf32(x)
+    return hi, tf32(x.float() - hi)
+
+
+def matmul_tf32(a: torch.Tensor, b: torch.Tensor,
+                terms: int = 3) -> torch.Tensor:
+    """a @ b with the kernels' tensor-core arithmetic, f32 sums: ``terms=3``
+    is lo.hi + hi.lo + hi.hi (small terms first), ``terms=1`` the single
+    TF32 product hi.hi that the kernels must not fall back to."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def attention_tf32(q, k, v, bias=None, terms: int = 3) -> torch.Tensor:
+    """Kernel K1's arithmetic, (B, T, H, dh) in and out: S = Q.K^T and
+    O = P.V in split TF32, f32 softmax with the sum divided out last."""
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    qh, kh, vh = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))
+    s = matmul_tf32(qh, kh.transpose(-1, -2), terms) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = matmul_tf32(p, vh, terms) / p.sum(dim=-1, keepdim=True)
+    return o.permute(0, 2, 1, 3)
+
+
+def fused_ffn_tf32(x, ln_g, ln_b, w1, b1, w2, b2,
+                   terms: int = 3) -> torch.Tensor:
+    """Kernel K3's arithmetic: f32 LayerNorm (eps 1e-6, centred variance),
+    both products in split TF32, f32 bias, swish and residual."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    xn = (x - mu) * torch.rsqrt(var + 1e-6) * ln_g + ln_b
+    h = matmul_tf32(xn, w1, terms) + b1
+    h = h * torch.sigmoid(h)
+    return x + 0.5 * (matmul_tf32(h, w2, terms) + b2)

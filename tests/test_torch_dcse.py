@@ -1,6 +1,7 @@
 """Kernel K3 (fused feed-forward) and the DCSE path of the port against
 sincformer_tpu: the plain version against the Pallas kernel in interpret mode
-and its unfused reference, the feed-forward module fused and unfused, and
+and its unfused reference, the kernel's split-TF32 arithmetic emulated on the
+CPU against the plain version, the feed-forward module fused and unfused, and
 the SpeechEnhancer with bridged weights (the DCSE pipeline is held against
 the JAX pipeline in tests/test_torch_serve.py, which builds one anyway).
 
@@ -15,8 +16,8 @@ import torch
 
 from sincformer_tpu.ops.fused_ffn import _ffn_fwd_pallas, _ffn_reference
 from sincformer_tpu_torch.ops.fused_ffn import _fused_ffn_plain, fused_ffn
-from tests._torch_parity import (NARROW_DCSE, jax_dcse_model, max_abs,
-                                 narrow_dcse)
+from tests._torch_parity import (NARROW_DCSE, fused_ffn_tf32,
+                                 jax_dcse_model, max_abs, narrow_dcse)
 
 TOL = 1e-5
 
@@ -43,6 +44,20 @@ def test_plain_matches_pallas_interpret_and_reference(m, d, d_ff):
         ref = np.asarray(ref)
         assert ref.shape == (m, d)
         assert np.max(np.abs(got - ref)) <= TOL * max(1.0, np.abs(ref).max())
+
+
+def test_split_tf32_keeps_the_kernel_bar():
+    """The kernel's products in split TF32 (lo.hi + hi.lo + hi.hi) stay
+    within K3's bar of its plain version at the DCSE widths (256 rows, d 256,
+    d_ff 1024); one TF32 product alone breaks it many times over, so a
+    kernel that drops the lo terms fails the card's check."""
+    args = [torch.from_numpy(a) for a in _ffn_args(256, 256, 1024, seed=4)]
+    ref = _fused_ffn_plain(*args)
+    scale = float(ref.abs().max())
+    err3 = float((fused_ffn_tf32(*args, terms=3) - ref).abs().max())
+    err1 = float((fused_ffn_tf32(*args, terms=1) - ref).abs().max())
+    assert err3 <= TOL / 5 * scale
+    assert err1 >= 5 * TOL * scale
 
 
 def test_variance_is_mean_of_centred_squares():
@@ -131,8 +146,10 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,d,d_ff", [(1, 256, 1024), (401, 256, 1024),
-                                      (130, 32, 64), (70, 64, 96)])
+@pytest.mark.parametrize("m,d,d_ff", [(1, 256, 1024), (33, 256, 1024),
+                                      (401, 256, 1024), (6416, 256, 1024),
+                                      (130, 32, 64), (70, 64, 96),
+                                      (200, 128, 512)])
 def test_cuda_kernel_matches_plain(m, d, d_ff):
     """Needs a CUDA card and nvcc (builds csrc/fused_ffn.cu)."""
     if not torch.cuda.is_available():

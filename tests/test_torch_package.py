@@ -120,3 +120,30 @@ def test_chip_smoke_refuses_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_library_name_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes its source and the csrc/ headers it
+    includes, also through another header; an edit to any of them names a
+    new library (so a stale one is never loaded), an edit elsewhere does
+    not. Needs no nvcc."""
+    from sincformer_tpu_torch.ops import build
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#pragma once\nint b;\n')
+    (tmp_path / "other.cuh").write_text('int other;\n')
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    assert sorted(build._sources("k")) == ["a.cuh", "b.cuh", "k.cu"]
+    first = build._library_path("k")
+    assert os.path.basename(first).startswith("libk-")
+    (tmp_path / "other.cuh").write_text('int other2;\n')
+    assert build._library_path("k") == first
+    (tmp_path / "b.cuh").write_text('#pragma once\nint b2;\n')
+    second = build._library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k2;\n')
+    assert build._library_path("k") not in (first, second)
+    monkeypatch.undo()
+    for name in ("speech_attention", "fused_ffn"):
+        assert "tf32x3.cuh" in build._sources(name)

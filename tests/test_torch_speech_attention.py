@@ -1,6 +1,8 @@
 """Kernel K1 (speech attention): the port's plain version against the JAX
-Pallas kernel run in interpret mode and against its unfused reference, and
-the CUDA kernel against the plain version where a card is present.
+Pallas kernel run in interpret mode and against its unfused reference, the
+kernel's split-TF32 arithmetic emulated on the CPU against the plain
+version, and the CUDA kernel against the plain version where a card is
+present.
 
 Tolerance 1e-5 absolute on outputs of O(1) (float32, a softmax over at most
 2100 keys; the sums run in another order on each side)."""
@@ -14,6 +16,7 @@ from sincformer_tpu.ops.speech_attention import (_reference,
                                                  _speech_attention_fwd)
 from sincformer_tpu_torch.ops.speech_attention import (
     _speech_attention_plain, speech_attention)
+from tests._torch_parity import attention_tf32, split_tf32, tf32
 
 TOL = 1e-5
 
@@ -76,14 +79,51 @@ def test_cpu_tensor_takes_plain_version_without_launch():
                                rtol=0, atol=0)
 
 
+def test_tf32_rounding_is_cvt_rna():
+    """The emulation rounds as cvt.rna.tf32.f32: 10 mantissa bits, to
+    nearest, ties away from zero, either sign; hi + lo carries about 21
+    bits of the value."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + ulp / 2, 1.0 + 1.5 * ulp, 1.0 + ulp / 4,
+                      -(1.0 + ulp / 2), -(1.0 + 0.75 * ulp)])
+    want = [1.0 + ulp, 1.0 + 2 * ulp, 1.0, -(1.0 + ulp), -(1.0 + ulp)]
+    assert tf32(x).tolist() == want
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = split_tf32(y)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert float(((hi - y).abs() / y.abs()).max()) <= 2.0 ** -11
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_tf32_keeps_the_kernel_bar(masked):
+    """The kernel's products in split TF32 (lo.hi + hi.lo + hi.hi) stay
+    within K1's bar of its plain version at the main path's head width
+    (B=1, T=100, H=4, dh=64, inputs of unit scale as in chip_smoke.py); one
+    TF32 product alone breaks it many times over, so a kernel that drops
+    the lo terms fails the card's check."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 100, 4, 64))
+                                .astype(np.float32)) for _ in range(3))
+    bias = torch.from_numpy(_bias(1, 100, 70)) if masked else None
+    ref = _speech_attention_plain(q, k, v, bias)
+    err3 = float((attention_tf32(q, k, v, bias, terms=3) - ref).abs().max())
+    err1 = float((attention_tf32(q, k, v, bias, terms=1) - ref).abs().max())
+    assert err3 <= TOL / 5
+    assert err1 >= 10 * TOL
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [50, 400, 601, 2100])
-def test_cuda_kernel_matches_plain(t):
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 50, 100, 400, 601, 2100])
+def test_cuda_kernel_matches_plain(t, dh):
     """Needs a CUDA card and nvcc (builds csrc/speech_attention.cu)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    q, k, v = (torch.from_numpy(x).cuda() for x in _qkv(t, b=2, h=4, dh=64))
-    bias = torch.from_numpy(_bias(2, t, t // 2)).cuda()
+    q, k, v = (torch.from_numpy(x).cuda() for x in _qkv(t, b=2, h=4, dh=dh))
+    bias = torch.from_numpy(_bias(2, t, max(t // 2, 1))).cuda()
     before = speech_attention.launches
     for bb in (None, bias):
         out = speech_attention(q, k, v, bb)
