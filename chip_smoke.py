@@ -15,10 +15,11 @@ its kernels:
     same port on the CPU, and the batch request's time;
   * serving from the committed trained artifact
     (``artifacts/r5/sincformer_v4s0_best_serving_torch``): load, ``export``
-    again through K2, load that, a 60 s file through the whole-file, the
-    segmented and the host path of ``StreamingEnhancer``, five files through
-    ``enhance_many``, and an ``OnlineEnhancerPool`` of 8 live streams
-    against 8 solo ``OnlineEnhancer``s;
+    again through K2 (one launch for the whole tree), load that, a 60 s
+    file through the whole-file, the segmented and the host path of
+    ``StreamingEnhancer``, five files through ``enhance_many``, and an
+    ``OnlineEnhancerPool`` of 8 live streams against 8 solo
+    ``OnlineEnhancer``s;
   * the same long-form request through DCSE with the fused feed-forward
     (seeded random weights), held against the unfused model;
   * the auditory front-end: 16 signals of 4 s through the gammatone bank and
@@ -29,13 +30,16 @@ its kernels:
     ``env_act_auto`` (K6) and ``conv1d_gn`` (K5), held against their plain
     versions;
   * serving the original paper's mask DNN at full width (594 -> 3 x 1024 ->
-    64, seeded weights): ``save_model(quantize=True)`` through K2, load, a
-    batch, a padded single request, the 60 s file through
+    64, seeded weights): ``save_model(quantize=True)`` through K2 (one
+    launch), load, a batch, a padded single request, the 60 s file through
     ``StreamingEnhancer``'s host path and through ``enhance --model pcirm``,
     held against the port on the CPU.
 
-``--kernels-only`` stops after the kernels' own checks (a new kernel's first
-run). Exits non-zero on any failure, and at once when no CUDA device is present.
+K1, K2, K3 and K5 are timed from CUDA-graph replays (device time), their
+eager calls beside them; K2 also as the flagship's whole tree (73 leaves in
+one launch, against the CPU's tree bit for bit). ``--kernels-only`` stops
+after the kernels' own checks (a new kernel's first run). Exits non-zero
+on any failure, and at once when no CUDA device is present.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the kernel table as JSON.
 """
@@ -43,6 +47,7 @@ line before it holds the kernel table as JSON.
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import subprocess
@@ -58,10 +63,10 @@ import torch
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
-TF32_PRODUCTS = 3      # K1, K3: split TF32, three tensor-core products per
-                       # product for f32-level results
-KERNEL_TOL = 1e-5      # f32 on both sides, sums in another order; K3: of
-                       # the output's scale
+TF32_PRODUCTS = 3      # K1, K3, K5: split TF32, three tensor-core products
+                       # per product for f32-level results
+KERNEL_TOL = 1e-5      # f32 on both sides, sums in another order; K3, K5:
+                       # of the output's scale
 WAVE_TOL = 1e-4        # two paths or devices, relative to the waveform's peak
 DNN_TAIL_TOL = 1e-2    # DNN path, the 6 frames before a request's zero padding
                        # (measured 2.9e-3 on an H100; see check_dnn_wave)
@@ -77,16 +82,25 @@ BOOST_HZ = 1.98e9            # H100 SXM maximum SM clock
 ENVACT_TOL = 3e-6            # K6: tanh and log1p in f32 on both sides
 # the five geometries of tests/test_pallas_ops.py (TestConvGN), k=9 at s=1,
 # k=21 at s=2 (11 input rows per output row: outside the TPU kernel's guard;
-# 5 channels per group, a group astride two channel tiles) and one whose
-# input mean is far from zero: (T, Cin, Cout, K, s, act, skip, input mean)
-CONV_GN_CASES = ((1000, 64, 128, 7, 2, True, False, 0.0),
-                 (500, 128, 128, 3, 1, False, True, 0.0),
-                 (1000, 64, 128, 1, 2, False, False, 0.0),
-                 (512, 256, 256, 5, 2, True, False, 0.0),
-                 (513, 128, 256, 7, 2, True, False, 0.0),
-                 (300, 32, 48, 9, 1, True, True, 0.0),
-                 (257, 24, 80, 21, 2, True, False, 0.0),
-                 (1000, 64, 128, 7, 2, True, False, 4.0))
+# 5 channels per group, a group astride two channel tiles), one whose input
+# mean is far from zero, and the edges of the tensor-core tiling (64 rows x
+# 64 channels, 8 input channels a chunk, taps in groups): Cin % 8 != 0,
+# Cout % 64 != 0, Cin and Cout % 4 != 0 (no 16-byte copies), K=1 at s=4,
+# Tout under one tile, K=31 (taps in four groups):
+# (T, Cin, Cout, K, s, act, skip, input mean, groups)
+CONV_GN_CASES = ((1000, 64, 128, 7, 2, True, False, 0.0, 16),
+                 (500, 128, 128, 3, 1, False, True, 0.0, 16),
+                 (1000, 64, 128, 1, 2, False, False, 0.0, 16),
+                 (512, 256, 256, 5, 2, True, False, 0.0, 16),
+                 (513, 128, 256, 7, 2, True, False, 0.0, 16),
+                 (300, 32, 48, 9, 1, True, True, 0.0, 16),
+                 (257, 24, 80, 21, 2, True, False, 0.0, 16),
+                 (1000, 64, 128, 7, 2, True, False, 4.0, 16),
+                 (100, 24, 48, 1, 4, True, False, 0.0, 16),
+                 (333, 12, 80, 5, 4, True, True, 0.0, 16),
+                 (50, 3, 18, 3, 1, False, False, 0.0, 3),
+                 (1200, 64, 128, 31, 1, True, False, 0.0, 16),
+                 (400, 256, 256, 7, 1, True, True, 4.0, 16))
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5",
                         "sincformer_v4s0_best_serving_torch")
@@ -288,59 +302,129 @@ def check_k1(seed: int, smi: str):
     return worst, timings[0], timings[1]
 
 
-def check_k2(seed: int):
-    """K2 against its plain version: equal int8 values and equal scales, a
-    round trip within one step; returns (max |difference|, timings)."""
-    from sincformer_tpu_torch.ops.quantize import (_quantize_plain,
-                                                   dequantize_int8,
-                                                   quantize_int8)
+def check_k2(seed: int, smi: str):
+    """K2 against its plain version: equal int8 values, scales equal to the
+    CPU's bit for bit, a round trip within one step; the flagship's tree in
+    one launch equal to the CPU's tree. Returns (max |difference|, timings
+    of one leaf, timings of the flagship tree)."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.ops import quantize as tq
     g = torch.Generator(device="cuda").manual_seed(seed)
     worst = 0.0
     # leaves of the two models ((out, in) rows, a flattened conv, a memory
     # bank scaled by column), a ragged size, R*C no multiple of 4 or 256
     cases = [((1024, 256), 0), ((256, 1024), 0), ((768, 256), 0),
              ((256, 64 * 251), 0), ((64, 129), 1), ((67, 129), 0),
-             ((67, 129), 1), ((4099, 3), 0), ((1, 4099), 1)]
+             ((67, 129), 1), ((4099, 3), 0), ((1, 4099), 1),
+             ((256, 20480), 0), ((129, 1026), 0), ((4099, 3), 1)]
+    reciprocal = 0
     for (r, c), axis in cases:
         x = torch.randn(r, c, device="cuda", generator=g) * 0.1
-        vals, scales = quantize_int8(x, seed=seed + 7, channel_axis=axis)
+        vals, scales = tq.quantize_int8(x, seed=seed + 7, channel_axis=axis)
         torch.cuda.synchronize()
-        amax = x.abs().amax(dim=1 - axis)
-        want_scales = torch.clamp(amax, min=1e-12) / 127.0
+        want_scales = tq._plain_scale(x.cpu(), axis).reshape(-1)
+        # PyTorch's CUDA division by a Python number multiplies by its
+        # reciprocal: the same expression on the card may differ by an ulp
+        reciprocal += int((tq._plain_scale(x, axis).reshape(-1).cpu()
+                           != want_scales).sum())
         s = scales[:, None] if axis == 0 else scales[None, :]
-        plain = _quantize_plain(x, s, seed + 7)
+        plain = tq._quantize_plain(x, s, seed + 7)
         diff = float((vals.int() - plain.int()).abs().max())
         worst = max(worst, diff)
-        round_trip = float(((dequantize_int8(vals, scales, axis) - x).abs()
+        round_trip = float(((tq.dequantize_int8(vals, scales, axis) - x).abs()
                             / s).max())
+        equal = bool(torch.equal(scales.cpu(), want_scales))
         say(f"[k2] ({r}, {c}) scales along axis {axis}: max|kernel-plain| "
-            f"{diff:g} int8 steps, scales equal "
-            f"{bool(torch.equal(scales, want_scales))}, round trip "
-            f"{round_trip:.4f} steps (limit 1)")
+            f"{diff:g} int8 steps, scales equal to the CPU's {equal}, round "
+            f"trip {round_trip:.4f} steps (limit 1)")
         if diff != 0 or vals.dtype != torch.int8:
             raise AssertionError(f"K2 int8 output differs from its plain "
                                  f"version at ({r}, {c})")
-        if not torch.equal(scales, want_scales):
+        if not equal:
             raise AssertionError(f"K2 scales differ at ({r}, {c})")
         if not round_trip <= 1.0 + 1e-6:
             raise AssertionError(f"K2 round trip {round_trip} steps")
+    say(f"[k2] scales of torch.clamp(amax, min=1e-12) / 127.0 computed on "
+        f"the card that differ from the CPU's (and the kernel's): "
+        f"{reciprocal}")
+    x = torch.randn(64, 300, device="cuda", generator=g)
+    x[5, 7] = float("nan")
+    scales = tq.quantize_int8(x, seed=1)[1].cpu()
+    if not (scales[5].isnan() and scales.isnan().sum() == 1):
+        raise AssertionError("K2 does not keep a NaN in its channel's scale")
+
+    # one 256 x 1024 leaf: the launch alone from CUDA-graph replays (the
+    # table already on the card), the wrapper's eager calls beside it
     x = torch.randn(256, 1024, device="cuda", generator=g) * 0.1
     n = x.numel()
 
     def plain():
-        amax = x.abs().amax(dim=1, keepdim=True)
-        return _quantize_plain(x, torch.clamp(amax, min=1e-12) / 127.0, 3)
+        return tq._quantize_plain(x, tq._plain_scale(x, 0), 3)
+    leaf = tq._matrix_call(x, 3, 0)
+    tq._launch(leaf)
+    timing = {"plain_ms": graph_ms(plain),
+              "ms": graph_ms(lambda: tq._launch_on_device_table(leaf)),
+              "ms_2": graph_ms(lambda: tq._launch_on_device_table(leaf)),
+              "plain_ms_2": graph_ms(plain), "library_ms": None,
+              "ms_eager": cuda_ms(lambda: tq.quantize_int8(x, seed=3))}
+    with_bound(timing, K2_OPS_PER_ELEMENT * n, 5.0 * n + 4.0 * x.shape[0])
+    say(f"[k2] timing (256, 1024) leaf, CUDA graph replays of the launch: "
+        f"kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms (eager "
+        f"quantize_int8 calls, table and copy included, "
+        f"{timing['ms_eager']:.4f} ms), plain {timing['plain_ms']:.4f} / "
+        f"{timing['plain_ms_2']:.4f} ms, no single PyTorch call computes it "
+        f"(library: none), bound {timing['bound_ms']:.5f} ms "
+        f"({timing['bound_by']}: {5.0 * n / 1e6:.2f} MB) on {smi}")
 
-    timing = with_bound(time_in_turns(
-        plain, lambda: quantize_int8(x, seed=3)),
-        K2_OPS_PER_ELEMENT * n, 5.0 * n + 4.0 * x.shape[0])
-    say(f"[k2] timing (256, 1024) leaf, amax included: kernel "
-        f"{timing['ms']:.4f} / {timing['ms_2']:.4f} ms, plain "
-        f"{timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} ms, no "
-        f"single PyTorch call computes it (library: none), bound "
-        f"{timing['bound_ms']:.5f} ms ({timing['bound_by']}: "
-        f"{5.0 * n / 1e6:.2f} MB)")
-    return worst, timing
+    # the flagship's parameters (seeded): one launch for the tree, equal to
+    # the CPU's tree bit for bit
+    model = port.SincformerMetacog(port.MetacogConfig()).init_params(
+        torch.Generator().manual_seed(seed))
+    on_cpu = {name: p.detach() for name, p in model.named_parameters()}
+    params = {name: p.cuda() for name, p in on_cpu.items()}
+    before = tq.quantize_int8.launches
+    tree = tq.quantize_tree(params, seed)
+    torch.cuda.synchronize()
+    if tq.quantize_int8.launches != before + 1:
+        raise AssertionError("quantize_tree took more than one launch")
+    want = tq.quantize_tree(on_cpu, seed)
+    entries, n_blocks = tq.work_table(
+        {name: tuple(p.shape) for name, p in params.items()}, seed)
+    call = tq._card_tree([params[e.name] for e in entries], entries,
+                         n_blocks)
+    for e in entries:
+        got, node = tree[e.name], want[e.name]
+        if not (got["axis"] == node["axis"]
+                and torch.equal(got["s"].cpu(), node["s"])
+                and torch.equal(got["q"].cpu(), node["q"])):
+            raise AssertionError(f"K2 tree differs from the CPU's at "
+                                 f"{e.name}")
+    n = sum(e.rows * e.cols for e in entries)
+    n_scales = sum(e.rows if e.axis == 0 else e.cols for e in entries)
+    tq._launch(call)
+
+    def plain_tree():
+        for e in entries:
+            mat = params[e.name].reshape(e.rows, e.cols)
+            tq._quantize_plain(mat, tq._plain_scale(mat, e.axis), e.key)
+    tree_timing = {
+        "plain_ms": graph_ms(plain_tree, iters=3),
+        "ms": graph_ms(lambda: tq._launch_on_device_table(call)),
+        "ms_2": graph_ms(lambda: tq._launch_on_device_table(call)),
+        "plain_ms_2": graph_ms(plain_tree, iters=3), "library_ms": None,
+        "wall_ms": wall_s(lambda: tq.quantize_tree(params, seed),
+                          reps=20) * 1e3}
+    with_bound(tree_timing, K2_OPS_PER_ELEMENT * n, 5.0 * n + 4.0 * n_scales)
+    say(f"[k2] timing the flagship's tree ({len(entries)} leaves, {n} "
+        f"elements, {call.n_blocks} blocks), one launch equal to the CPU's "
+        f"tree: CUDA graph replays of the launch {tree_timing['ms']:.4f} / "
+        f"{tree_timing['ms_2']:.4f} ms, quantize_tree wall "
+        f"{tree_timing['wall_ms']:.3f} ms (table, copy, launch, outputs), "
+        f"plain leaf by leaf {tree_timing['plain_ms']:.4f} / "
+        f"{tree_timing['plain_ms_2']:.4f} ms, bound "
+        f"{tree_timing['bound_ms']:.4f} ms ({tree_timing['bound_by']}: "
+        f"{(5.0 * n + 4.0 * n_scales) / 1e6:.1f} MB) on {smi}")
+    return worst, timing, tree_timing
 
 
 def check_k3(seed: int, smi: str):
@@ -501,7 +585,7 @@ def check_k4(seed: int, smi: str):
 
 def check_k5(seed: int, smi: str):
     """K5 against its plain version; returns (max err, timings at the
-    JAX docstring's call site)."""
+    JAX docstring's call site, timings at the flagship block's shape)."""
     import torch.nn.functional as F
 
     from sincformer_tpu_torch.ops.conv_gn import (_same_pads, conv1d_gn,
@@ -519,11 +603,11 @@ def check_k5(seed: int, smi: str):
                 r(bsz, t_out, cout) if with_skip else None)
 
     worst = 0.0
-    for t, cin, cout, k, s, act, with_skip, mean in CONV_GN_CASES:
+    for t, cin, cout, k, s, act, with_skip, mean, groups in CONV_GN_CASES:
         a = inputs(2, t, cin, cout, k, s, with_skip, mean)
-        out = conv1d_gn(*a, stride=s, groups=16, act=act)
+        out = conv1d_gn(*a, stride=s, groups=groups, act=act)
         torch.cuda.synchronize()
-        ref = conv_gn_reference(*a, stride=s, groups=16, act=act)
+        ref = conv_gn_reference(*a, stride=s, groups=groups, act=act)
         err, scale = float((out - ref).abs().max()), float(ref.abs().max())
         worst = max(worst, err)
         say(f"[k5] T={t} {cin}->{cout} k={k} s={s} act={act} "
@@ -555,20 +639,23 @@ def check_k5(seed: int, smi: str):
                         + bsz * t_out * cout)
         timing = with_bound(time_in_turns(
             lambda: conv_gn_reference(*a, stride=s, groups=16),
-            lambda: conv1d_gn(*a, stride=s, groups=16), library, iters=10),
-            flops, nbytes)
+            lambda: conv1d_gn(*a, stride=s, groups=16), library, iters=10,
+            graph=True), flops, nbytes, tf32x3=True)
         timings[name] = timing
         say(f"[k5] timing {name} ({bsz}, {t}, {cin}->{cout}, k={k}, s={s}, "
-            f"GELU): kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms, "
-            f"plain {timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} "
-            f"ms, conv1d + group_norm + gelu (yardstick, f32 without TF32, "
-            f"not used by the port) {timing['library_ms']:.4f} ms, "
-            f"max|kernel-library| {err:.3e}, bound {timing['bound_ms']:.4f} "
-            f"ms ({timing['bound_by']}: {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB) on {smi}")
+            f"GELU), CUDA graph replays: kernel {timing['ms']:.4f} / "
+            f"{timing['ms_2']:.4f} ms (eager calls {timing['ms_eager']:.4f} "
+            f"ms), plain {timing['plain_ms']:.4f} / "
+            f"{timing['plain_ms_2']:.4f} ms, conv1d + group_norm + gelu "
+            f"(yardstick, f32 without TF32, not used by the port) "
+            f"{timing['library_ms']:.4f} ms, max|kernel-library| {err:.3e}, "
+            f"bound {timing['bound_ms']:.4f} ms (3xTF32 at "
+            f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s; f32 "
+            f"{timing['bound_f32_ms']:.4f} ms; {timing['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB) on {smi}")
         if not err <= 1e-4:
             raise AssertionError(f"K5 left the library chain at {name}")
-    return worst, timings["call site"]
+    return worst, timings["call site"], timings["flagship block"]
 
 
 def check_k6(seed: int, smi: str):
@@ -777,10 +864,10 @@ def main() -> int:
 
     # ── phase 2: each kernel alone against its plain version ─────────────
     k1_err, k1_time, k1_time_60s = check_k1(args.seed, smi)
-    k2_err, k2_time = check_k2(args.seed)
+    k2_err, k2_time, k2_time_tree = check_k2(args.seed, smi)
     k3_err, k3_time, k3_time_60s = check_k3(args.seed, smi)
     k4_err, k4_time = check_k4(args.seed, smi)
-    k5_err, k5_time = check_k5(args.seed, smi)
+    k5_err, k5_time, k5_time_block = check_k5(args.seed, smi)
     k6_err, k6_time = check_k6(args.seed, smi)
     if args.kernels_only:
         for name in built:
@@ -884,7 +971,7 @@ def main() -> int:
                      "--out", exported]) != 0:
             raise AssertionError("the export verb failed")
         export_s = time.perf_counter() - t0
-        launches.expect("export", quantize_int8=n_leaves)
+        launches.expect("export", quantize_int8=1)
         served = port.SincformerPipeline(device="cuda", model_dir=exported)
         served.load_model()
         size_mb = sum(os.path.getsize(os.path.join(r, f))
@@ -892,7 +979,24 @@ def main() -> int:
     params = dict(trained.model.named_parameters())
     tree_s = wall_s(lambda: port.quantize_tree(params))
     launches.reset()
-    say(f"[export] {n_leaves} leaves ({n_quantized} elements) through K2, "
+
+    def saved_bytes(tree) -> int:
+        buf = io.BytesIO()
+        torch.save(tree, buf)
+        return buf.tell()
+    # each leaf's int8 values and scales are tensors of their own: saved,
+    # the card's tree takes the bytes of the CPU's (views into one buffer
+    # would write the whole buffer with every leaf)
+    card_bytes = saved_bytes(port.quantize_tree(params))
+    cpu_bytes = saved_bytes(port.quantize_tree(
+        {name: p.detach().cpu() for name, p in params.items()}))
+    launches.reset()
+    say(f"[export] the tree saved: {card_bytes} bytes from the card, "
+        f"{cpu_bytes} from the CPU (limit 1 % apart)")
+    if abs(card_bytes / cpu_bytes - 1.0) > 0.01:
+        raise AssertionError("the card's quantized tree saves to another size")
+    say(f"[export] {n_leaves} leaves ({n_quantized} elements) through K2 "
+        f"in one launch, "
         f"{size_mb:.1f} MB written, export verb {export_s:.2f} s wall; "
         f"quantize_tree alone {tree_s * 1e3:.3f} ms wall against "
         f"{5.0 * n_quantized / PEAK_BYTES * 1e3:.4f} ms of bytes "
@@ -1105,13 +1209,13 @@ def main() -> int:
         fresh.feat_std = feat_std.cpu().numpy()
         launches.reset()
         fresh.save_model(quantize=True)
-        launches.expect("dnn save_model(quantize=True)",
-                        quantize_int8=n_dnn_leaves)
+        launches.expect("dnn save_model(quantize=True)", quantize_int8=1)
         served = port.DNNPipeline("pcirm", device="cuda", model_dir=dnn_dir)
         on_cpu = port.DNNPipeline("pcirm", device="cpu", model_dir=dnn_dir)
         say(f"[model] SpeechEnhancementDNN "
             f"{sum(p.numel() for p in dnn.parameters())} params "
-            f"{dnn.sizes}, {n_dnn_leaves} weight matrices through K2; "
+            f"{dnn.sizes}, {n_dnn_leaves} weight matrices through K2 in one "
+            f"launch; "
             f"loaded {os.path.basename(served.load_model())} on the card "
             f"and {os.path.basename(on_cpu.load_model())} on the CPU")
 
@@ -1191,21 +1295,24 @@ def main() -> int:
         if "bound_f32_ms" in timing:
             r["bound_f32_ms"] = timing["bound_f32_ms"]
         for shape, t in more.items():
-            r[shape] = {k: t[k] for k in (*keys, "bound_f32_ms")}
+            r[shape] = {k: t[k] for k in (*keys, "bound_f32_ms", "ms_eager",
+                                          "wall_ms") if k in t}
         return r
     kernels = [
         row("speech_attention", "speech_attention.cu",
             "sincformer_tpu/ops/speech_attention.py:70", k1_err, k1_time,
             at_B16_T401=k1_time_60s),
         row("quantize_int8", "quantize_int8.cu",
-            "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time),
+            "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
+            at_flagship_tree=k2_time_tree),
         row("fused_ffn", "fused_ffn.cu",
             "sincformer_tpu/ops/fused_ffn.py:39", k3_err, k3_time,
             at_rows6416=k3_time_60s),
         row("meddis", "meddis.cu",
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",
-            "sincformer_tpu/ops/conv_gn_pallas.py:64", k5_err, k5_time),
+            "sincformer_tpu/ops/conv_gn_pallas.py:64", k5_err, k5_time,
+            at_flagship_block=k5_time_block),
         row("env_act", "envact.cu",
             "sincformer_tpu/ops/envact_pallas.py:37", k6_err, k6_time)]
     for k in kernels:

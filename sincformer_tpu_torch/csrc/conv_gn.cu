@@ -1,5 +1,5 @@
 // Strided SAME Conv1d -> GroupNorm [-> + skip] [-> tanh-GELU] for Hopper
-// (sm_90a), f32.
+// (sm_90a), f32, the convolution on the tensor cores in split TF32.
 //
 // Replaces the TPU kernel sincformer_tpu/ops/conv_gn_pallas.py::_kernel
 // (launched by _conv1d_gn_pallas, entry point conv1d_gn). For x (B, T, Cin),
@@ -11,24 +11,49 @@
 // (gamma, beta), the optional skip and the optional tanh-GELU.
 //
 // Bound: operations, 2 * B * Tout * K * Cin * Cout (29.4 GFLOP at B=16,
-// T=32,000, 64 -> 128, k=7, s=2: 0.44 ms at the 67 TFLOP/s of f32 outside the
-// tensor cores; the bytes of the same call, 262 MB, are 0.08 ms).
+// T=32,000, 64 -> 128, k=7, s=2): 0.178 ms for the three TF32 products per
+// product at 495 TFLOP/s that f32-level results take on the tensor cores
+// (tf32x3.cuh), 0.44 ms at the 67 TFLOP/s of f32 outside them; the bytes of
+// the same call, 262 MB, are 0.08 ms.
 //
 // Design. GroupNorm's statistics span a whole batch row, so no block can
 // finish from its own tile, and blocks do not run in order as the TPU's grid
 // does. Three kernels on one stream, with two small scratch buffers between
 // them, instead of one block walking a row twice:
-//   1. conv_kernel: a (64 rows x 64 channels) output tile per block, 4 x 4
-//      outputs per thread, the contraction over (tap, 16 input channels)
-//      staged through shared memory. The tile is written to `out` with its
-//      bias, and for each of its channels the tile's mean and its sum of
-//      squares about that mean go to `partial`. The convolution is computed
-//      here, by this code: no library is called.
+//   1. conv_kernel: an implicit GEMM with M = the Tout rows of one batch
+//      row, N = Cout and the contraction over (tap, Cin). A block of 8 warps
+//      owns a (128 rows x 64 channels) tile, each warp 32 x 32 as 2 x 4
+//      m16n8k8 tiles. It walks Cin in chunks of 8 channels; for each chunk
+//      it stages, once for all taps, the input rows the tile needs,
+//      (128 - 1) * s + K of them (261 at s=2, k=7), by cp.async with
+//      zero-fill for the SAME padding at both ends of the row, and the
+//      chunk's rows of w for every tap, and splits both into TF32 hi and lo
+//      once, in place, before any product reads them. Tap k's A operand is
+//      then rows k, k+s, k+2s, ... of that one window. The window is stored
+//      by stride phase (window row j at phase j % s, position j / s), so a
+//      tap's rows are consecutive: at a pitch of 12 words one ldmatrix.x4
+//      loads a fragment without bank conflicts at any stride, and only the
+//      phases a tap reaches are staged. w stays N-major (mma.sync takes B
+//      from shared memory in any layout) at a pitch of 72 words. Each
+//      chunk's products go into fresh accumulators that are added into the
+//      f32 sum on the CUDA cores: the tensor cores add by truncation. Taps
+//      are taken in groups small enough that a block's shared memory stays
+//      under 100 KB (all 7 taps at the main shapes, 57 KB; two blocks an
+//      SM), so any K and any s are taken. Tiles of 128 rows stage and split
+//      w for twice the outputs of 64-row tiles (w is most of what a block
+//      stages at the call site: 7 x 8 x 64 words a chunk against 2 x 131 x
+//      8 of the window). Copying the next chunk under this one's products,
+//      and B's fragments by ldmatrix from a transposed w, measured no
+//      faster (PERF.md): the block is bound by the instructions it runs.
+//      The tile is written to `out` with its bias, and for each of its
+//      channels the tile's mean and its sum of squares about that mean go
+//      to `partial`. The convolution is computed here, by this code: no
+//      library is called.
 //   2. stats_kernel: one block per (batch row, group) merges the partials
 //      of its channels and tiles with the pairwise-merge formula (Chan et
 //      al.) in double precision: mean and 1 / sqrt(var + eps) to `stats`.
-//   3. norm_kernel: elementwise over `out`, in place:
-//      (v - mean) * rstd * gamma + beta [+ skip] [gelu].
+//   3. norm_kernel: elementwise over `out`, in place, a block per 32 rows
+//      of one batch row: (v - mean) * rstd * gamma + beta [+ skip] [gelu].
 // Centred partial sums, not sum and sum of squares (what the TPU kernel
 // accumulates): E[v^2] - mean^2 in f32 loses the variance when the mean is
 // far from zero. All reductions run in a fixed order, without atomics, so a
@@ -38,123 +63,255 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int kTM = 64;          // output rows per tile
-constexpr int kTN = 64;          // output channels per tile
-constexpr int kKC = 16;          // input channels per staged slice
-constexpr int kAP = kTM + 4;     // pitch of the A slice (keeps float4 aligned)
-constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
+using tf32x3::cp_async16;
+using tf32x3::ldmatrix_x4;
+using tf32x3::mma3;
+using tf32x3::split;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kTM = 128;         // output rows per tile
+constexpr int kTN = 64;          // output channels per tile
+constexpr int kKC = 8;           // input channels per chunk (one k-step)
+constexpr int kXP = kKC + 4;     // pitch of the window rows, words
+constexpr int kWP = kTN + 8;     // pitch of the w rows, words
+constexpr int kWarps = 8;        // 4 along the rows x 2 along the channels
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSmemBudget = 100 * 1024;  // two blocks an SM; one tap at a
+                                         // time takes 17 KB at any stride
+
+// shared memory of a block that takes `taps` taps at a time at stride s:
+// (phases x rows a phase) window rows and the taps' w rows, hi and lo
+__host__ __device__ constexpr int phases(int taps, int s) {
+  return taps < s ? taps : s;
+}
+__host__ __device__ constexpr int phase_rows(int taps, int s) {
+  return kTM - 1 + (taps + s - 1) / s;
+}
+inline int smem_bytes(int taps, int s) {
+  return 2 * 4 * (phases(taps, s) * phase_rows(taps, s) * kXP +
+                  taps * kKC * kWP);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const float* __restrict__ bias, float* __restrict__ out,
             float* __restrict__ partial, int T, int Cin, int Cout, int K,
-            int s, int pad_left, int Tout, int n_tiles) {
-  __shared__ __align__(16) float As[kKC][kAP];
-  __shared__ __align__(16) float Bs[kKC][kTN];
-  __shared__ float red[16][kTN];
+            int s, int pad_left, int Tout, int n_tiles, int n_chunks,
+            int taps, int vec_x, int vec_w) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ float red[4][kTN];
   __shared__ float tile_mean[kTN];
+  const int rp = phase_rows(taps, s);
+  uint32_t* xh = smem;                                  // [phases * rp][kXP]
+  uint32_t* xl = xh + phases(taps, s) * rp * kXP;
+  uint32_t* wh = xl + phases(taps, s) * rp * kXP;       // [taps][kKC][kWP]
+  uint32_t* wl = wh + taps * kKC * kWP;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int tile = blockIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;      // warp tile: rows 32wm, cols 32wn
+  // this lane's row of the A tiles for ldmatrix: (lane & 7) + 8 * bit 3,
+  // at word 4 * bit 4
+  const int a_row = 32 * wm + (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_word = 4 * (lane >> 4);
+  const int tile = blockIdx.x / n_chunks;
+  const int n0 = (blockIdx.x - tile * n_chunks) * kTN;
   const int row0 = tile * kTM;
-  const int n0 = blockIdx.y * kTN;
-  const int b = blockIdx.z;
+  const int b = blockIdx.y;
   const float* xb = x + (long long)b * T * Cin;
 
-  float acc[4][4];
+  float sum[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[i][j][e] = 0.f;
 
-  for (int k = 0; k < K; ++k) {
+  for (int k0 = 0; k0 < K; k0 += taps) {
+    const int kt = K - k0 < taps ? K - k0 : taps;
+    const int nph = phases(kt, s);
+    const int n_rows = nph * rp;                    // window rows staged
+    const long long t_first = (long long)row0 * s - pad_left + k0;
     for (int c0 = 0; c0 < Cin; c0 += kKC) {
-      // A slice: As[kk][m] = x[b, (row0 + m) * s + k - pad_left, c0 + kk]
+      __syncthreads();             // the previous chunk's products are done
+      // window row j = pos * s + phase -> input row t_first + j, channels
+      // c0 .. c0 + 7 as two 16-byte pieces; zeros outside [0, T) and Cin
+      {
+        const int piece = tid & 1;
+        const int c = c0 + 4 * piece;
+        for (int phase = 0; phase < nph; ++phase) {
+          for (int pos = tid >> 1; pos < rp; pos += kThreads / 2) {
+            const long long t_in = t_first + (long long)pos * s + phase;
+            uint32_t* dst = xh + (phase * rp + pos) * kXP + 4 * piece;
+            const bool in_t = t_in >= 0 && t_in < T;
+            if (vec_x) {
+              const bool ok = in_t && c < Cin;
+              cp_async16(dst, ok ? xb + t_in * Cin + c : x, ok);
+            } else {
 #pragma unroll
-      for (int j = 0; j < (kTM * kKC) / kThreads; ++j) {
-        const int e = tid + j * kThreads;
-        const int kk = e & (kKC - 1), m = e / kKC;
-        const long long t_in = (long long)(row0 + m) * s + k - pad_left;
-        float v = 0.0f;
-        if (row0 + m < Tout && t_in >= 0 && t_in < T && c0 + kk < Cin)
-          v = xb[t_in * Cin + c0 + kk];
-        As[kk][m] = v;
+              for (int j = 0; j < 4; ++j)
+                dst[j] = __float_as_uint(in_t && c + j < Cin
+                                             ? xb[t_in * Cin + c + j] : 0.f);
+            }
+          }
+        }
       }
-      // B slice: Bs[kk][n] = w[k, c0 + kk, n0 + n]
+      // w rows (k0 + tap, c0 + ci), columns n0 .. n0 + 63 as 16 pieces
+      for (int i = tid; i < kt * kKC * (kTN / 4); i += kThreads) {
+        const int row = i / (kTN / 4);               // tap * kKC + ci
+        const int c4 = 4 * (i - row * (kTN / 4));
+        const int tap = row / kKC, ci = c0 + row - tap * kKC;
+        const long long src = ((long long)(k0 + tap) * Cin + ci) * Cout + n0 + c4;
+        uint32_t* dst = wh + row * kWP + c4;
+        if (vec_w) {
+          const bool ok = ci < Cin && n0 + c4 < Cout;
+          cp_async16(dst, ok ? w + src : w, ok);
+        } else {
 #pragma unroll
-      for (int j = 0; j < (kKC * kTN) / kThreads; ++j) {
-        const int e = tid + j * kThreads;
-        const int n = e & (kTN - 1), kk = e / kTN;
-        float v = 0.0f;
-        if (c0 + kk < Cin && n0 + n < Cout)
-          v = w[((long long)k * Cin + c0 + kk) * Cout + n0 + n];
-        Bs[kk][n] = v;
+          for (int j = 0; j < 4; ++j)
+            dst[j] = __float_as_uint(ci < Cin && n0 + c4 + j < Cout
+                                         ? w[src + j] : 0.f);
+        }
+      }
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<0>();
+      __syncthreads();
+      // split once, in place: hi over the staged value, lo beside it
+      for (int i = tid; i < n_rows * kKC; i += kThreads) {
+        const int o = (i >> 3) * kXP + (i & 7);
+        uint32_t hi, lo;
+        split(__uint_as_float(xh[o]), hi, lo);
+        xh[o] = hi;
+        xl[o] = lo;
+      }
+      for (int i = tid; i < kt * kKC * kTN; i += kThreads) {
+        const int o = (i / kTN) * kWP + (i & (kTN - 1));
+        uint32_t hi, lo;
+        split(__uint_as_float(wh[o]), hi, lo);
+        wh[o] = hi;
+        wl[o] = lo;
       }
       __syncthreads();
+
+      // the chunk's products, all taps, in fresh accumulators
+      float acc[2][4][4];
 #pragma unroll
-      for (int kk = 0; kk < kKC; ++kk) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bb[j];
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      int phase = 0, shift = 0;                 // tap % s, tap / s
+      for (int tap = 0; tap < kt; ++tap) {
+        uint32_t ah[2][4], al[2][4];
+        const int ao = (phase * rp + shift + a_row) * kXP + a_word;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          ldmatrix_x4(ah[mt], xh + ao + 16 * mt * kXP);
+          ldmatrix_x4(al[mt], xl + ao + 16 * mt * kXP);
+        }
+        const int wo = (tap * kKC + t) * kWP + 32 * wn + g;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t bh[2] = {wh[wo + 8 * nt], wh[wo + 4 * kWP + 8 * nt]};
+          const uint32_t bl[2] = {wl[wo + 8 * nt], wl[wo + 4 * kWP + 8 * nt]};
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
+        }
+        if (++phase == s) {
+          phase = 0;
+          ++shift;
+        }
       }
-      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[i][j][e] += acc[i][j][e];
     }
   }
 
-  // bias, store, and the tile's per-channel mean and centred sum of squares
+  // bias, store, and the tile's per-channel mean and centred sum of
+  // squares. Thread (g, t) holds rows 32wm + 16mt + g (+8) and columns
+  // 32wn + 8nt + 2t (+1).
   const int valid_rows = (Tout - row0) < kTM ? (Tout - row0) : kTM;
-  float colsum[4] = {0.f, 0.f, 0.f, 0.f};
+  float colsum[4][2];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = n0 + tx * 4 + j;
-    const float bv = c < Cout ? bias[c] : 0.0f;
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = 32 * wn + 8 * nt + 2 * t;
+    const float b0 = n0 + col < Cout ? bias[n0 + col] : 0.f;
+    const float b1 = n0 + col + 1 < Cout ? bias[n0 + col + 1] : 0.f;
+    colsum[nt][0] = colsum[nt][1] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      acc[i][j] += bv;
-      if (r < Tout && c < Cout) {
-        out[((long long)b * Tout + r) * Cout + c] = acc[i][j];
-        colsum[j] += acc[i][j];
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 32 * wm + 16 * mt + g + 8 * half;
+        float* v = &sum[mt][nt][2 * half];
+        v[0] += b0;
+        v[1] += b1;
+        if (r < valid_rows) {
+          float* o = out + ((long long)b * Tout + row0 + r) * Cout + n0 + col;
+          if (n0 + col + 1 < Cout && (Cout & 1) == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          } else {
+            if (n0 + col < Cout) o[0] = v[0];
+            if (n0 + col + 1 < Cout) o[1] = v[1];
+          }
+          colsum[nt][0] += v[0];
+          colsum[nt][1] += v[1];
+        }
       }
+  }
+  // the 8 lanes of one t hold the same columns: sum over g, then over the
+  // four warps of a column half in a fixed order
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = colsum[nt][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[wm][32 * wn + 8 * nt + 2 * t + c] = v;
     }
-    red[ty][tx * 4 + j] = colsum[j];
-  }
   __syncthreads();
-  if (tid < kTN) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) sum += red[r][tid];
-    tile_mean[tid] = sum / (float)valid_rows;
-  }
+  if (tid < kTN)
+    tile_mean[tid] = (red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid]) /
+                     (float)valid_rows;
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float mu = tile_mean[tx * 4 + j];
-    float sq = 0.0f;
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float d = acc[i][j] - mu;
-      if (row0 + ty * 4 + i < Tout) sq += d * d;
+    for (int c = 0; c < 2; ++c) {
+      const float mu = tile_mean[32 * wn + 8 * nt + 2 * t + c];
+      float sq = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float d = sum[mt][nt][2 * half + c] - mu;
+          if (32 * wm + 16 * mt + g + 8 * half < valid_rows) sq += d * d;
+        }
+      sq += __shfl_xor_sync(0xffffffffu, sq, 4);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 8);
+      sq += __shfl_xor_sync(0xffffffffu, sq, 16);
+      if (g == 0) red[wm][32 * wn + 8 * nt + 2 * t + c] = sq;
     }
-    red[ty][tx * 4 + j] = sq;
-  }
   __syncthreads();
   if (tid < kTN && n0 + tid < Cout) {
-    float m2 = 0.0f;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) m2 += red[r][tid];
     float* p = partial + (((long long)b * n_tiles + tile) * Cout + n0 + tid) * 2;
     p[0] = tile_mean[tid];
-    p[1] = m2;
+    p[1] = red[0][tid] + red[1][tid] + red[2][tid] + red[3][tid];
   }
 }
 
@@ -216,21 +373,53 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return v * (0.5f * (1.0f + tanhf(inner)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A block per (kNormRows rows, batch row): the batch row's statistics,
+// (v - mean) * rstd * gamma + beta [+ skip] [gelu], in place, four channels
+// a thread where Cout % 4 == 0; 32-bit index arithmetic within the block.
+constexpr int kNormRows = 32;
+
+__device__ __forceinline__ float normalise(float v, const float* st, int c,
+                                           int cg, const float* gamma,
+                                           const float* beta) {
+  const float* sg = st + (c / cg) * 2;
+  return (v - sg[0]) * sg[1] * gamma[c] + beta[c];
+}
+
+__global__ void __launch_bounds__(256)
 norm_kernel(float* __restrict__ out, const float* __restrict__ stats,
             const float* __restrict__ gamma, const float* __restrict__ beta,
-            const float* __restrict__ skip, long long total,
-            long long per_batch, int Cout, int cg, int groups, int act) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += stride) {
-    const int c = (int)(e % Cout);
-    const long long b = e / per_batch;
-    const float* st = stats + (b * groups + c / cg) * 2;
-    float v = (out[e] - st[0]) * st[1] * gamma[c] + beta[c];
-    if (skip != nullptr) v += skip[e];
-    if (act) v = gelu_tanh(v);
-    out[e] = v;
+            const float* __restrict__ skip, int Tout, int Cout, int cg,
+            int groups, int act, int vec) {
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kNormRows;
+  const int rows = Tout - r0 < kNormRows ? Tout - r0 : kNormRows;
+  const long long base = ((long long)b * Tout + r0) * Cout;
+  float* o = out + base;
+  const float* sk = skip != nullptr ? skip + base : nullptr;
+  const float* st = stats + (long long)b * groups * 2;
+  const int n = rows * Cout;
+  if (vec) {
+    for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) {
+      const int c = i % Cout;
+      float4 v = *reinterpret_cast<const float4*>(o + i);
+      float r[4] = {v.x, v.y, v.z, v.w};
+      float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (sk != nullptr) sv = *reinterpret_cast<const float4*>(sk + i);
+      const float add[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        r[j] = normalise(r[j], st, c + j, cg, gamma, beta) + add[j];
+        if (act) r[j] = gelu_tanh(r[j]);
+      }
+      *reinterpret_cast<float4*>(o + i) = make_float4(r[0], r[1], r[2], r[3]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      float v = normalise(o[i], st, i % Cout, cg, gamma, beta);
+      if (sk != nullptr) v += sk[i];
+      if (act) v = gelu_tanh(v);
+      o[i] = v;
+    }
   }
 }
 
@@ -238,7 +427,7 @@ norm_kernel(float* __restrict__ out, const float* __restrict__ stats,
 
 // x (B, T, Cin), w (K, Cin, Cout), bias/gamma/beta (Cout,), skip (B, Tout,
 // Cout) or null, out (B, Tout, Cout), partial (B, n_tiles, Cout, 2) with
-// n_tiles = ceil(Tout / 64), stats (B, groups, 2); all contiguous f32 on the
+// n_tiles = ceil(Tout / 128), stats (B, groups, 2); all contiguous f32 on the
 // device. Returns the first cudaError_t of the three launches (0 on
 // success).
 extern "C" int conv_gn_fwd(const void* x, const void* w, const void* bias,
@@ -253,28 +442,36 @@ extern "C" int conv_gn_fwd(const void* x, const void* w, const void* bias,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_tiles = (Tout + kTM - 1) / kTM;
   const int n_chunks = (Cout + kTN - 1) / kTN;
-  if (n_chunks > 65535) return (int)cudaErrorInvalidValue;
+  if ((long long)n_tiles * n_chunks > 0x7FFFFFFFll ||
+      (long long)kNormRows * Cout > 0x7FFFFFFFll)
+    return (int)cudaErrorInvalidValue;
+  // the most taps a block takes at once within its shared-memory budget
+  int taps = K;
+  while (taps > 1 && smem_bytes(taps, s) > kSmemBudget) --taps;
+  const int smem = smem_bytes(taps, s);
+  static int ready[64];
+  cudaError_t err = tf32x3::allow_smem(conv_kernel, kSmemBudget, ready);
+  if (err != cudaSuccess) return (int)err;
+  const int vec_x = (Cin % 4 == 0 && ((uintptr_t)x & 15u) == 0) ? 1 : 0;
+  const int vec_w = (Cout % 4 == 0 && ((uintptr_t)w & 15u) == 0) ? 1 : 0;
   const int cg = Cout / groups;
-  conv_kernel<<<dim3(n_tiles, n_chunks, B), kThreads, 0, st>>>(
+  conv_kernel<<<dim3((unsigned)(n_tiles * n_chunks), B), kThreads, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w),
       static_cast<const float*>(bias), static_cast<float*>(out),
       static_cast<float*>(partial), T, Cin, Cout, K, s, pad_left, Tout,
-      n_tiles);
-  cudaError_t err = cudaGetLastError();
+      n_tiles, n_chunks, taps, vec_x, vec_w);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_kernel<<<dim3(groups, B), 128, 0, st>>>(
       static_cast<const float*>(partial), static_cast<float*>(stats), Cout,
       cg, Tout, n_tiles, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long per_batch = (long long)Tout * Cout;
-  const long long total = per_batch * B;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > 132 * 32) blocks = 132 * 32;   // grid-stride beyond that
-  norm_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+  const int vec = (Cout % 4 == 0 &&
+                   (((uintptr_t)out | (uintptr_t)skip) & 15u) == 0) ? 1 : 0;
+  norm_kernel<<<dim3((Tout + kNormRows - 1) / kNormRows, B), 256, 0, st>>>(
       static_cast<float*>(out), static_cast<const float*>(stats),
       static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(skip), total, per_batch, Cout, cg, groups,
-      act);
+      static_cast<const float*>(skip), Tout, Cout, cg, groups, act, vec);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 // Split-TF32 ("3xTF32") tensor-core products for Hopper (sm_90a), shared by
-// speech_attention.cu (K1) and fused_ffn.cu (K3).
+// speech_attention.cu (K1), fused_ffn.cu (K3) and conv_gn.cu (K5).
 //
 // A float x is split into hi = tf32(x) and lo = tf32(x - hi), both rounded
 // to nearest with ties away from zero (as cvt.rna.tf32.f32 rounds). A product a.b is
@@ -58,6 +58,22 @@ __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&a_hi)[4],
   mma(d, a_lo, b_hi);
   mma(d, a_hi, b_lo);
   mma(d, a_hi, b_hi);
+}
+
+// Four 8 x 4-word matrices of 32-bit words from shared memory in one
+// ldmatrix.x4: lanes 8i .. 8i + 7 give the addresses of matrix i's eight
+// rows (16-byte aligned), and lane l receives in r[i] the word at row l / 4,
+// word l % 4 of matrix i: the (g, t) element of an mma.sync.m16n8k8 TF32
+// fragment. For A (16 x 8, row major) the matrices are rows 0-7 and 8-15
+// of words 0-3, then of words 4-7: r holds a0 .. a3.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const uint32_t* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 // 16-byte asynchronous copy global -> shared; with full == false nothing is

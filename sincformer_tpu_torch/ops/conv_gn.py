@@ -6,13 +6,13 @@ The entry point keeps the JAX contract: x (B, T, Cin) channel last, w
 half of the padding on the left), GroupNorm over all rows of a batch row
 with eps inside the square root, the skip added after the affine and before
 the GELU. On a CUDA tensor :func:`conv1d_gn` launches the hand-written
-kernels of ``csrc/conv_gn.cu`` (the convolution is computed there, not by a
-library); on a CPU tensor it runs :func:`conv_gn_reference`, the plain
-PyTorch version. There is no fallback from one to the other. Any kernel
-size and stride are taken; the TPU kernel's geometry guards belonged to its
-DMA window. Like the JAX package, no model calls this. Forward only; the
-JAX backward is the reference's, so a later training slice differentiates
-:func:`conv_gn_reference`.
+kernels of ``csrc/conv_gn.cu`` (the convolution is computed there, on the
+tensor cores in split TF32, not by a library); on a CPU tensor it runs
+:func:`conv_gn_reference`, the plain PyTorch version. There is no fallback
+from one to the other. Any kernel size and stride are taken; the TPU
+kernel's geometry guards belonged to its DMA window. Like the JAX package,
+no model calls this. Forward only; the JAX backward is the reference's, so
+a later training slice differentiates :func:`conv_gn_reference`.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from sincformer_tpu_torch.ops import build
 
-_TILE_ROWS = 64          # csrc/conv_gn.cu: kTM
+_TILE_ROWS = 128         # csrc/conv_gn.cu: kTM
 
 
 def _same_pads(t: int, k: int, s: int) -> Tuple[int, int, int]:

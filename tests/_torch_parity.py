@@ -223,7 +223,7 @@ def torch_dnn_pipeline(variables=None, model_dir=None,
     return pipe
 
 
-# ── split-TF32 arithmetic of the tensor-core kernels (K1, K3) ─────────────
+# ── split-TF32 arithmetic of the tensor-core kernels (K1, K3, K5) ─────────
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 -> TF32 (10 explicit mantissa bits) as ``cvt.rna.tf32.f32``
     rounds: to nearest, ties away from zero. Adding half a unit of the
@@ -274,3 +274,27 @@ def fused_ffn_tf32(x, ln_g, ln_b, w1, b1, w2, b2,
     h = matmul_tf32(xn, w1, terms) + b1
     h = h * torch.sigmoid(h)
     return x + 0.5 * (matmul_tf32(h, w2, terms) + b2)
+
+
+def conv_gn_tf32(x, w, b, gamma, beta, skip=None, *, stride: int,
+                 groups: int, terms: int = 3, eps: float = 1e-6,
+                 act: bool = True) -> torch.Tensor:
+    """Kernel K5's arithmetic: the SAME strided convolution as one product
+    of the im2col of x (B, Tout, K * Cin) with w (K * Cin, Cout) in split
+    TF32, then f32 bias, GroupNorm (centred variance), skip and tanh-GELU."""
+    import torch.nn.functional as F
+
+    from sincformer_tpu_torch.ops.conv_gn import _same_pads
+    k, cin, cout = w.shape
+    t_out, pad_l, pad_r = _same_pads(x.shape[1], k, stride)
+    xp = F.pad(x.float(), (0, 0, pad_l, pad_r))              # (B, T', Cin)
+    cols = xp.unfold(1, k, stride)[:, :t_out]       # (B, Tout, Cin, K)
+    cols = cols.permute(0, 1, 3, 2).reshape(x.shape[0], t_out, k * cin)
+    y = matmul_tf32(cols, w.float().reshape(k * cin, cout), terms) + b
+    yg = y.reshape(x.shape[0], t_out, groups, cout // groups)
+    mu = yg.mean(dim=(1, 3), keepdim=True)
+    var = ((yg - mu) ** 2).mean(dim=(1, 3), keepdim=True)
+    y = ((yg - mu) * torch.rsqrt(var + eps)).reshape(y.shape) * gamma + beta
+    if skip is not None:
+        y = y + skip
+    return F.gelu(y, approximate="tanh") if act else y

@@ -2,7 +2,8 @@
 version against the JAX Pallas kernel run in interpret mode and against the
 JAX reference formulation, on the geometries of
 tests/test_pallas_ops.py::TestConvGN, and the CUDA kernel against the plain
-version where a card is present.
+version where a card is present; the CUDA kernel's split-TF32 arithmetic
+emulated on the CPU against the JAX reference.
 
 Tolerance 1e-5 of the output's scale (float32 on both sides, a contraction
 over up to 1280 products summed in another order, then a normalisation)."""
@@ -109,13 +110,39 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     assert torch.equal(out, conv_gn_reference(*args, stride=2, groups=4))
 
 
-@pytest.mark.gpu
 @pytest.mark.parametrize("t,cin,cout,k,s,act,with_skip,mean", [
-    g + (0.0,) for g in GEOMETRIES] + [
-    (300, 32, 48, 9, 1, True, True, 0.0),
-    (257, 24, 80, 21, 2, True, False, 0.0),
+    GEOMETRIES[0] + (0.0,), GEOMETRIES[3] + (0.0,),
     (1000, 64, 128, 7, 2, True, False, 4.0)])
-def test_cuda_kernel_matches_plain(t, cin, cout, k, s, act, with_skip, mean):
+def test_split_tf32_meets_the_bar_and_one_tf32_product_misses(
+        t, cin, cout, k, s, act, with_skip, mean):
+    """The CUDA kernel's convolution runs on the tensor cores in split TF32
+    (three products lo.hi + hi.lo + hi.hi); emulated on the CPU it stays
+    within 1e-5 of the output's scale of the JAX reference, and one TF32
+    product alone does not."""
+    from tests._torch_parity import conv_gn_tf32
+    args = _inputs(t, cin, cout, k, s, with_skip, mean, seed=3)
+    ref = np.asarray(jax_conv_gn.conv_gn_reference(*_jax(args), stride=s,
+                                                   groups=16, act=act))
+    bar = TOL * float(np.abs(ref).max())
+    errs = {terms: float(np.max(np.abs(conv_gn_tf32(
+        *_torch(args), stride=s, groups=16, terms=terms, act=act).numpy()
+        - ref))) for terms in (3, 1)}
+    assert errs[3] <= bar, errs
+    assert errs[1] > bar, errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,cin,cout,k,s,act,with_skip,mean,groups", [
+    g + (0.0, 16) for g in GEOMETRIES] + [
+    (300, 32, 48, 9, 1, True, True, 0.0, 16),
+    (257, 24, 80, 21, 2, True, False, 0.0, 16),
+    (1000, 64, 128, 7, 2, True, False, 4.0, 16),
+    (100, 24, 48, 1, 4, True, False, 0.0, 16),    # K=1, s=4, Tout < a tile
+    (333, 12, 80, 5, 4, True, True, 0.0, 16),     # Cin % 8 != 0, s=4
+    (50, 3, 18, 3, 1, False, False, 0.0, 3),      # Cin, Cout % 4 != 0
+    (1200, 64, 128, 31, 1, True, False, 0.0, 16)])  # taps in groups
+def test_cuda_kernel_matches_plain(t, cin, cout, k, s, act, with_skip, mean,
+                                   groups):
     """Needs a CUDA card and nvcc (builds csrc/conv_gn.cu)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -123,8 +150,8 @@ def test_cuda_kernel_matches_plain(t, cin, cout, k, s, act, with_skip, mean):
     args = [None if a is None else a.cuda()
             for a in _torch(_inputs(t, cin, cout, k, s, with_skip, mean))]
     before = conv1d_gn.launches
-    out = conv1d_gn(*args, s, 16, 1e-6, act)
+    out = conv1d_gn(*args, s, groups, 1e-6, act)
     torch.cuda.synchronize()
     assert conv1d_gn.launches == before + 1
-    ref = conv_gn_reference(*args, stride=s, groups=16, act=act)
+    ref = conv_gn_reference(*args, stride=s, groups=groups, act=act)
     assert float((out - ref).abs().max()) <= TOL * float(ref.abs().max())

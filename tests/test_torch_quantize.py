@@ -200,3 +200,108 @@ def test_cuda_kernel_equals_plain(shape, channel_axis):
     assert tq.quantize_int8.launches == before + 1
     s = scales[:, None] if channel_axis == 0 else scales[None, :]
     assert torch.equal(vals, tq._quantize_plain(x, s, 7))
+
+
+# a tree of every kind of leaf the kernel's table takes: rows scaled (the
+# port's weights, C % 4 != 0 too, one row), columns scaled (a memory bank,
+# C % 4 != 0), and leaves that stay float32 (under 4096 elements, 1-D)
+MIXED_SHAPES = {"a.weight": (40, 33, 5), "bank.keys": (70, 130),
+                "a.bias": (40,), "small.weight": (63, 65),
+                "b.weight_ih_l0": (300, 256), "one.weight": (1, 4099),
+                "bank.values": (4099, 3), "c.weight": (8, 20480)}
+
+
+def _mixed_tree():
+    rng = np.random.default_rng(11)
+    return {name: torch.from_numpy((rng.standard_normal(shape) * 0.1
+                                    ).astype(np.float32))
+            for name, shape in MIXED_SHAPES.items()}
+
+
+def test_work_table_covers_every_element_once():
+    """The kernel's table: every element of every quantized leaf falls in
+    exactly one block, the k-th quantized leaf (dictionary order) keyed by
+    seed + k, the blocks of the leaves consecutive from 0."""
+    entries, n_blocks = tq.work_table(MIXED_SHAPES, seed=40)
+    quantized = [n for n, s in MIXED_SHAPES.items() if tq.is_quantizable(s)]
+    assert [e.name for e in entries] == quantized
+    assert [e.key for e in entries] == [40 + k for k in
+                                        range(1, len(quantized) + 1)]
+    assert {e.name: e.axis for e in entries} == {
+        "a.weight": 0, "bank.keys": 1, "b.weight_ih_l0": 0,
+        "one.weight": 0, "bank.values": 1, "c.weight": 0}
+    first = 0
+    for e in entries:
+        shape = MIXED_SHAPES[e.name]
+        assert e.rows * e.cols == int(np.prod(shape))
+        assert e.first_block == first
+        first += e.n_blocks
+        hits = np.zeros((e.rows, e.cols), dtype=np.int64)
+        for blk in range(e.n_blocks):
+            rows, cols = tq.block_span(e, blk)
+            assert rows.stop > rows.start and cols.stop > cols.start
+            hits[rows, cols] += 1
+        assert np.all(hits == 1), e.name
+    assert first == n_blocks
+
+
+def test_tree_on_cpu_matches_leaf_by_leaf():
+    """The CPU tree rounds each leaf as quantize_int8 does under its key,
+    along the leaf's channel axis, and keeps the small leaves."""
+    params = _mixed_tree()
+    tree = tq.quantize_tree(params, seed=40)
+    for e in tq.work_table(MIXED_SHAPES, seed=40)[0]:
+        mat = params[e.name].reshape(e.rows, e.cols)
+        q, s = tq.quantize_int8(mat, seed=e.key, channel_axis=e.axis)
+        assert torch.equal(tree[e.name]["q"].reshape(e.rows, e.cols), q)
+        assert torch.equal(tree[e.name]["s"], s)
+    assert torch.equal(tree["a.bias"], params["a.bias"])
+    assert torch.equal(tree["small.weight"], params["small.weight"])
+
+
+@pytest.mark.gpu
+def test_cuda_tree_equals_cpu_tree_in_one_launch():
+    """Needs a CUDA card and nvcc: the card's quantize_tree is one launch
+    for the whole tree and equals the CPU's bit for bit (int8 values,
+    scales, axis); a NaN in a channel gives that channel a NaN scale, as
+    torch.amax does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    params = _mixed_tree()
+    params["bank.keys"][5, 17] = float("nan")
+    params["a.weight"][3, 0, 0] = float("nan")
+    on_card = {n: p.cuda() for n, p in params.items()}
+    before = tq.quantize_int8.launches
+    tree = tq.quantize_tree(on_card, seed=40)
+    torch.cuda.synchronize()
+    assert tq.quantize_int8.launches == before + 1
+    want = tq.quantize_tree(params, seed=40)
+    for name, node in want.items():
+        if not tq.is_quantized(node):
+            assert torch.equal(tree[name].cpu(), node)
+            continue
+        got = tree[name]
+        assert got["axis"] == node["axis"]
+        torch.testing.assert_close(got["s"].cpu(), node["s"], rtol=0, atol=0,
+                                   equal_nan=True)
+        # int8 of a NaN is left to the cast: compare the finite channels
+        shape = [1] * node["q"].ndim
+        shape[node["axis"]] = -1
+        keep = torch.isfinite(node["s"]).reshape(shape).expand_as(node["q"])
+        assert torch.equal(got["q"].cpu()[keep], node["q"][keep]), name
+    assert torch.isnan(tree["bank.keys"]["s"][17].cpu())
+    assert torch.isnan(tree["a.weight"]["s"][3].cpu())
+
+
+def test_tree_saves_only_its_own_bytes():
+    """A small leaf that is a view into a larger storage (as cuDNN's flat
+    LSTM weights hold the biases on the card) is copied, so the saved tree
+    does not carry the whole storage with it."""
+    import io
+    flat = torch.randn(100_000)
+    params = {"w.weight": flat[:8192].view(64, 128), "w.bias": flat[8192:8256]}
+    tree = tq.quantize_tree(params)
+    assert torch.equal(tree["w.bias"], params["w.bias"])
+    buf = io.BytesIO()
+    torch.save(tree, buf)
+    assert buf.tell() < 4 * 20_000
