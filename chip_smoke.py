@@ -519,7 +519,8 @@ def time_chain_probe(n: int) -> float:
 def check_k4(seed: int, smi: str):
     """K4 against its plain per-sample loop: equal values expected. Returns
     (max |difference|, timings)."""
-    from sincformer_tpu_torch.ops.meddis import _meddis_plain, meddis
+    from sincformer_tpu_torch.ops.meddis import (_meddis_plain, meddis,
+                                                 wave_columns)
     g = torch.Generator().manual_seed(seed)
 
     def compare(x, ref, what):
@@ -543,8 +544,20 @@ def check_k4(seed: int, smi: str):
         return err
 
     worst = 0.0
-    # both signs and large drives: every clamp of the step is exercised
-    for m, n in (((1,), 2000), ((64,), 2000), ((45,), 1999), ((3, 33), 700)):
+    # more columns than one wave of blocks holds on this card
+    wave = wave_columns()
+    past_wave = max(8448, wave + 45)
+    say(f"[k4] one wave of blocks holds {wave} columns; checking "
+        f"{past_wave}")
+    # both signs and large drives: every clamp of the step is exercised.
+    # Edges of the kernel's tiling (128-sample tiles, 8 columns a block, a
+    # ring of 4 tiles): N = 1, N under one tile, N one sample past a tile
+    # (and past the earlier kernel's 64), N % 4 != 0, M not a multiple of
+    # 8, a ring that wraps many times
+    for m, n in (((1,), 2000), ((64,), 2000), ((45,), 1999), ((3, 33), 700),
+                 ((1,), 1), ((3,), 1), ((5,), 63), ((8,), 129), ((13,), 65),
+                 ((9,), 130), ((2, 3), 130), ((11,), 999), ((7,), 512),
+                 ((17,), 8001), ((past_wave,), 8000)):
         x = torch.randn(*m, n, generator=g) * 30.0
         on_card = x.cuda()
         worst = max(worst, compare(on_card, _meddis_plain(on_card).cpu(),
@@ -572,14 +585,15 @@ def check_k4(seed: int, smi: str):
         f"{K4_CHAIN_OPS} dependent operations x {F32_LATENCY_CYCLES} cycles "
         f"at {BOOST_HZ / 1e9:.2f} GHz), measured {probe_ms:.4f} ms (the "
         f"chain alone in registers, 32 one-warp blocks), whatever the "
-        f"number of columns; "
-        f"{cols} columns are {-(-cols // 32)} blocks of four warps (one "
-        f"walks 32 columns, three move tiles) on "
-        f"{min(132, -(-cols // 32))} of 132 SMs, one request of 64 columns "
-        f"2 blocks, on {smi}")
+        f"number of columns; {cols} columns are {-(-cols // 8)} blocks of "
+        f"four warps (one walks 8 columns, three move tiles), one request "
+        f"of 64 columns 8 blocks; the earlier kernel (32 columns a block, "
+        f"one block-wide barrier per 64 samples) took 2.2591 ms here on an "
+        f"H100 80GB HBM3 at 700 W, on {smi}")
     one = on_card[0].contiguous()
+    timing["at_64_ms"] = cuda_ms(lambda: meddis(one), iters=10, warmup=1)
     say(f"[k4] timing (64, {n}), one request: kernel "
-        f"{cuda_ms(lambda: meddis(one), iters=10, warmup=1):.4f} ms on {smi}")
+        f"{timing['at_64_ms']:.4f} ms (the earlier kernel: 2.0683 ms) on {smi}")
     return worst, timing
 
 

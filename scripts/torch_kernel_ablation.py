@@ -1,14 +1,16 @@
-"""What holds the split-TF32 kernels K1, K3 and K5 back, measured by
-removing parts of them in turn, on one CUDA card.
+"""What holds the kernels K1, K3, K4 and K5 back, measured by removing
+parts of them in turn, on one CUDA card.
 
     python3 scripts/torch_kernel_ablation.py [--out ablation.json]
         [--kernels k1,k3,k5] [--k5-baseline path/to/conv_gn.cu]
+        [--k4-baseline path/to/meddis.cu] [--sass k4.sass]
 
 Builds edited copies of ``sincformer_tpu_torch/csrc/fused_ffn.cu`` (K3),
-``speech_attention.cu`` (K1) and ``conv_gn.cu`` (K5) with ``nvcc`` (one
-process each, all started together) into
+``speech_attention.cu`` (K1), ``conv_gn.cu`` (K5) and ``meddis.cu`` (K4)
+with ``nvcc`` (one process each, all started together) into
 ``sincformer_tpu_torch/_build/ablation/`` and times each beside the kernel
-as committed and the library call, from CUDA-graph replays (device time),
+as committed and the library call, from CUDA-graph replays (device time;
+K4, whose calls take milliseconds, from CUDA events around eager calls),
 at the main path's shapes:
 
   * K3: ``no_product_a`` (the three mma of h = xn . W1 removed),
@@ -26,6 +28,23 @@ at the main path's shapes:
     copied into shared memory), and, with ``--k5-baseline``, another
     ``conv_gn.cu`` with the same C interface built as it is (the CUDA-core
     kernel of an earlier commit, unpacked with ``git archive``).
+
+  * K4 (``--kernels k4``, not in the default set), at the front-end
+    request's (1024, 32,000) and one request's (64, 32,000), beside the
+    chain alone in registers (``probe``) and the SM clock under load:
+    ``walk_only`` (the movers load, divide and store nothing; the walker
+    walks tiles filled once), ``move_only`` (the walker takes no step),
+    ``no_wait`` (no mbarrier wait waits; timing only), ``idle_movers`` (a
+    mover pauses 500 ns between tests of its barrier), ``k_inline`` (the
+    walker does the division), ``probe_shared`` (the walker's batch loop
+    alone over one shared tile, no barriers), ``cols16``, ``cols32`` (with
+    64-sample tiles: 32 do not fit), ``tile64``, ``batch32``.
+    ``--k4-baseline`` takes the earlier ``meddis.cu`` (32 columns a block,
+    one ``__syncthreads`` per 64-sample tile) and builds it as it is and
+    with the edits ``walk_only``, ``move_only``, ``no_barrier``,
+    ``k_inline``, ``probe_shared`` (its ``walk`` alone) and ``cols8`` (8
+    columns a block). ``--sass`` writes ``cuobjdump -sass`` of every K4
+    library.
 
 K3 is also timed on the inputs that the fused DCSE model (seeded weights)
 gives its eight calls in a 60 s request, beside random values of the same
@@ -71,6 +90,7 @@ K5_STAGE_W = "i < kt * kKC * (kTN / 4); i += kThreads"
 
 # name -> (kernel source, [(old, new) edits of the source], header edit)
 VARIANTS = {
+    "k4": ("meddis", [], None),
     "k3": ("fused_ffn", [], None),
     "k3_no_product_a": ("fused_ffn", [(PRODUCT_A, "")], None),
     "k3_no_product_b": ("fused_ffn", [(PRODUCT_B, "")], None),
@@ -95,6 +115,110 @@ VARIANTS = {
 }
 
 
+# K4: the earlier meddis.cu (one walking warp, three moving warps, one
+# __syncthreads per 64-sample tile), as --k4-baseline builds it
+OLD_MOVE = """      if (i < n_tiles)
+        load_tile(tiles[i % kStages], x, col0, cols, N, i * kTile, warp - 1,
+                  lane);
+      if (i >= 2)
+        store_tile(tiles[(i - 2) % kStages], out, col0, cols, N,
+                   (i - 2) * kTile, warp - 1, lane);
+"""
+OLD_STATE = "  float q = q0, c = c0, w = w0;\n"
+OLD_FILL = ("  for (int e = threadIdx.x; e < kStages * kCols * kPitch; "
+            "e += kThreads)\n    (&tiles[0][0])[e] = 0.5f;\n  __syncthreads();\n")
+OLD_WALK = "        walk(tiles[j % kStages] + lane * kPitch, steps, dt, q, c, w);"
+OLD_K = ("        tile[r * kPitch + lane + 32 * j] = "
+         "__fdiv_rn(s, __fadd_rn(s, kB));")
+STEP_HEAD = """float dt, float& q,
+                                            float& c, float& w) {
+"""
+K_INLINE = ("  { const float s = fmaxf(__fadd_rn(k, kA), 0.0f);\n"
+            "    k = __fdiv_rn(s, __fadd_rn(s, kB)); }\n")
+OLD_PROBE = """  float q = q0, c = c0, w = w0, last = 0.0f;
+  for (int t = 0; t < N; ++t) last = euler_step(k, dt, q, c, w);
+  out[blockIdx.x * kCols + threadIdx.x] = last;"""
+OLD_PROBE_SHARED = """  __shared__ float tile[kCols * kPitch];
+  for (int e = threadIdx.x; e < kCols * kPitch; e += kCols) tile[e] = k;
+  __syncwarp();
+  float q = q0, c = c0, w = w0;
+  for (int t0 = 0; t0 < N; t0 += kTile)
+    walk(tile + threadIdx.x * kPitch, N - t0 < kTile ? N - t0 : kTile, dt, q,
+         c, w);
+  out[blockIdx.x * kCols + threadIdx.x] = tile[threadIdx.x * kPitch];"""
+# variant -> edits of the earlier meddis.cu
+K4_BASELINE_EDITS = {
+    "walk_only": [(OLD_MOVE, ""), (OLD_STATE, OLD_FILL + OLD_STATE)],
+    "move_only": [(OLD_WALK, "        (void)steps;")],
+    "no_barrier": [("    __syncthreads();\n  }\n}", "  }\n}")],
+    "k_inline": [(OLD_K, "        tile[r * kPitch + lane + 32 * j] = v[a][j];"),
+                 (STEP_HEAD, STEP_HEAD + K_INLINE)],
+    "probe_shared": [(OLD_PROBE, OLD_PROBE_SHARED)],
+    "cols8": [("constexpr int kCols = 32; ", "constexpr int kCols = 8; ")],
+}
+
+# K4 as committed: a walking warp and three moving warps around a ring of
+# tiles with mbarriers
+MOVE_LOAD = """          v[r][j] = (r < cols && t < N) ? x[(col0 + r) * (long long)N + t]
+                                        : 0.0f;"""
+MOVE_STORE = """          if (r < cols && t < N)
+            out[(col0 + r) * (long long)N + t] = slot[r * kPitch + 32 * j +
+                                                      lane];"""
+MOVE_K = "          slot[r * kPitch + 32 * j + lane] = __fdiv_rn(s, __fadd_rn(s, kB));"
+RING_INIT = "  __syncthreads();\n  if (warp == 0)"
+RING_FILL = ("  for (int e = threadIdx.x; e < kSlots * kSlotFloats; e += kThreads)\n"
+             "    ring[e] = 0.5f;\n")
+PROBE = """  float q = q0, c = c0, w = w0, last = 0.0f;
+  for (int t = 0; t < N; ++t) last = euler_step(k, dt, q, c, w);
+  out[blockIdx.x * 32 + threadIdx.x] = last;"""
+PROBE_SHARED = """  __shared__ __align__(16) float tile[kSlotFloats];
+  for (int e = threadIdx.x; e < kSlotFloats; e += 32) tile[e] = k;
+  __syncwarp();
+  float q = q0, c = c0, w = w0;
+  const uint32_t row0 = smem(tile) + 4u * (threadIdx.x % kCols) * kPitch;
+  const bool writes = threadIdx.x < kCols;
+  const auto at = [&](int b) { return row0 + 4u * ((b % kBpt) * kBatch); };
+  float4 ka[kBatch / 4], kb[kBatch / 4];
+  load_batch(ka, at(0));
+  for (int b = 0; b + 2 <= N / kBatch; b += 2) {
+    load_batch(kb, at(b + 1));
+    steps_full(ka, dt, q, c, w);
+    if (writes) store_batch(ka, at(b));
+    load_batch(ka, at(b + 2));
+    steps_full(kb, dt, q, c, w);
+    if (writes) store_batch(kb, at(b + 1));
+  }
+  out[blockIdx.x * 32 + threadIdx.x] = q;"""
+MOVER_WAIT = "      bar_wait(walked0 + 8u * (i % kSlots), ((i - kSlots) / kSlots) & 1);"
+MOVER_WAIT_IDLE = """      while (!bar_test(walked0 + 8u * (i % kSlots),
+                       ((i - kSlots) / kSlots) & 1))
+        __nanosleep(500);"""
+COLS = "constexpr int kCols = 8; "
+TILE = "constexpr int kTile = 128; "
+K4_VARIANTS = {
+    "k4_walk_only": ("meddis", [(MOVE_LOAD, "          v[r][j] = 0.0f;"),
+                                (MOVE_STORE, "          (void)t;"),
+                                (MOVE_K, "          (void)s;"),
+                                (RING_INIT, RING_FILL + RING_INIT)], None),
+    "k4_move_only": ("meddis", [
+        ("    steps_full(ka, dt, q, c, w);\n", ""),
+        ("    steps_full(kb, dt, q, c, w);\n", ""),
+        ("    steps_part(ka, N - b * kBatch, dt, q, c, w);\n", "")], None),
+    "k4_no_wait": ("meddis", [("!bar_test(bar, parity);", "false;")], None),
+    "k4_idle_movers": ("meddis", [(MOVER_WAIT, MOVER_WAIT_IDLE)], None),
+    "k4_batch32": ("meddis", [("constexpr int kBatch = 16; ",
+                                "constexpr int kBatch = 32; ")], None),
+    "k4_k_inline": ("meddis", [(MOVE_K, "          slot[r * kPitch + 32 * j + "
+                                        "lane] = v[r][j];"),
+                               (STEP_HEAD, STEP_HEAD + K_INLINE)], None),
+    "k4_probe_shared": ("meddis", [(PROBE, PROBE_SHARED)], None),
+    "k4_cols16": ("meddis", [(COLS, "constexpr int kCols = 16;")], None),
+    "k4_cols32": ("meddis", [(COLS, "constexpr int kCols = 32;"),
+                             (TILE, "constexpr int kTile = 64;")], None),
+    "k4_tile64": ("meddis", [(TILE, "constexpr int kTile = 64;")], None),
+}
+
+
 def edited(text: str, edits) -> str:
     for old, new in edits:
         if text.count(old) != 1:
@@ -103,10 +227,11 @@ def edited(text: str, edits) -> str:
     return text
 
 
-def build_variants(out_dir: str, kernels, k5_baseline=None) -> dict:
+def build_variants(out_dir: str, kernels, k5_baseline=None,
+                   k4_baseline=None) -> dict:
     from sincformer_tpu_torch.ops import build
     os.makedirs(out_dir, exist_ok=True)
-    variants = {name: v for name, v in VARIANTS.items()
+    variants = {name: v for name, v in {**VARIANTS, **K4_VARIANTS}.items()
                 if name.split("_")[0] in kernels}
     procs = {}
     for name, (src, edits, header) in variants.items():
@@ -123,6 +248,16 @@ def build_variants(out_dir: str, kernels, k5_baseline=None) -> dict:
         procs[name] = os.path.join(vdir, f"{src}.cu")
     if k5_baseline:
         procs["k5_baseline"] = os.path.abspath(k5_baseline)
+    if k4_baseline:
+        procs["k4_baseline"] = os.path.abspath(k4_baseline)
+        with open(k4_baseline) as f:
+            text = f.read()
+        for vname, edits in K4_BASELINE_EDITS.items():
+            vdir = os.path.join(out_dir, f"k4_baseline_{vname}")
+            os.makedirs(vdir, exist_ok=True)
+            with open(os.path.join(vdir, "meddis.cu"), "w") as f:
+                f.write(edited(text, edits))
+            procs[f"k4_baseline_{vname}"] = os.path.join(vdir, "meddis.cu")
     running = {}
     for name, source in procs.items():
         lib = os.path.join(out_dir, f"lib{name}.so")
@@ -135,6 +270,16 @@ def build_variants(out_dir: str, kernels, k5_baseline=None) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         fn = ctypes.CDLL(lib)
+        if name.startswith("k4"):
+            fwd, probe = fn.meddis_fwd, fn.meddis_chain_probe
+            fwd.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_longlong, ctypes.c_int] + [
+                ctypes.c_float] * 4 + [ctypes.c_void_p]
+            probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
+                ctypes.c_float] * 5 + [ctypes.c_void_p]
+            fwd.restype = probe.restype = ctypes.c_int
+            fns[name] = (fwd, probe, lib)
+            continue
         if name.startswith("k1"):
             fn = fn.speech_attention_fwd
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -150,6 +295,77 @@ def build_variants(out_dir: str, kernels, k5_baseline=None) -> dict:
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
+
+
+def sm_clock() -> str:
+    """The SM clock and its maximum, as nvidia-smi reads them now."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def time_k4(fns: dict, card: str, sass: str = None) -> dict:
+    """K4's variants at the front-end request's shape (1024, 32,000) and one
+    request's (64, 32,000), CUDA events around 10 calls each (a call is
+    about 2 ms: the eager time is the device time), the committed kernel
+    first and last; the chain probes with one 32-thread block per 32
+    columns. The SM clock is read while 200 calls of the committed kernel
+    run."""
+    from chip_smoke import cuda_ms
+    from sincformer_tpu_torch.ops import build
+    from sincformer_tpu_torch.ops.meddis import _dt, steady_state
+    dt, state = _dt(8000), steady_state()
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device="cuda").manual_seed(0)
+    result = {}
+    for cols in (1024, 64):
+        n = 32000
+        x = torch.randn(cols, n, device="cuda", generator=g) * 30.0
+        out = torch.empty_like(x)
+
+        def fwd(fn):
+            def call():
+                err = fn(x.data_ptr(), out.data_ptr(), cols, n, dt, *state,
+                         stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+            return call
+
+        def probe(fn):
+            def call():
+                err = fn(out.data_ptr(), cols // 32, n, dt, 0.3, *state,
+                         stream)
+                if err != 0:
+                    raise RuntimeError(f"launch failed: CUDA error {err}")
+            return call
+        row = {}
+        for name, (f, p, _) in fns.items():
+            if name.startswith("k4"):
+                row[name] = cuda_ms(probe(p) if name.endswith("probe_shared")
+                                    else fwd(f), iters=10, warmup=2)
+        row["probe"] = cuda_ms(probe(fns["k4"][1]), iters=10, warmup=2)
+        row["k4_2"] = cuda_ms(fwd(fns["k4"][0]), iters=10, warmup=2)
+        busy = fwd(fns["k4"][0])
+        for _ in range(200):
+            busy()
+        row["clocks_sm_max_mhz"] = sm_clock()
+        torch.cuda.synchronize()
+        result[f"({cols}, {n})"] = row
+        print(f"[k4] ({cols}, {n}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in row.items() if k[0] in "kp")
+              + f"; SM clock, max: {row['clocks_sm_max_mhz']} on {card}",
+              flush=True)
+    if sass:
+        os.makedirs(os.path.dirname(os.path.abspath(sass)), exist_ok=True)
+        with open(sass, "w") as f:
+            for name, (_, _, lib) in fns.items():
+                f.write(f"==== {name}: {lib}\n")
+                f.write(subprocess.run(
+                    [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"),
+                     "-sass", lib], capture_output=True, text=True,
+                    check=True).stdout)
+        print(f"[k4] SASS of the K4 libraries in {sass}", flush=True)
+    return result
 
 
 def time_k5(fns: dict, g, card: str) -> dict:
@@ -210,6 +426,11 @@ def main() -> int:
                     help="which kernels' variants to build and time")
     ap.add_argument("--k5-baseline", default=None,
                     help="another conv_gn.cu to time beside K5's variants")
+    ap.add_argument("--k4-baseline", default=None,
+                    help="the earlier meddis.cu, built as it is and with parts "
+                         "removed, beside K4's variants")
+    ap.add_argument("--sass", default=None,
+                    help="write the SASS of the K4 libraries to this file")
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -226,9 +447,11 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     fns = build_variants(os.path.join(build.BUILD_DIR, "ablation"), kernels,
-                         args.k5_baseline)
+                         args.k5_baseline, args.k4_baseline)
     g = torch.Generator(device="cuda").manual_seed(0)
     result = {"card": card, "k3": {}, "k1": {}}
+    if "k4" in kernels:
+        result["k4"] = time_k4(fns, card, args.sass)
     if "k5" in kernels:
         torch.backends.cudnn.allow_tf32 = False
         result["k5"] = time_k5(fns, g, card)

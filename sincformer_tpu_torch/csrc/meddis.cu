@@ -14,34 +14,44 @@
 // columns x 32,000 samples, 0.08 ms at 3.35 TB/s) but the chain: the N steps
 // of one column depend on each other, and from one step's w to the next
 // step's w run 17 dependent f32 operations (q, then c, then w). That chain
-// alone, in registers (chain_probe_kernel below, timed by chip_smoke.py),
-// takes 1.23 ms for 32,000 steps on an H100 at 1.98 GHz, 38 ns a step, the
-// same for 1 column and for 4,000.
+// alone, in registers (chain_probe_kernel below), takes 1.23 ms for 32,000
+// steps on an H100 at 1.98 GHz, 38 ns a step, the same for 1 column and for
+// 4,000. The kernel's aim is that the thread that walks a column pays for
+// the chain and for little else.
 //
 // Design: one thread per column carries (q, c, w) in registers over all N
-// samples; the state never touches memory, nothing is padded and there is no
-// grid over time (the TPU kernel's sequential grid, its VMEM state and its
-// 128-lane padding are not carried over). Only the chain may sit on the
-// walking thread's critical path, so a block is four warps with two jobs:
-//   * warp 0 walks: lane l integrates column l of the block's 32 columns. It
-//     touches shared memory only: it reads the permeability k 16 samples
-//     ahead into registers, steps, and writes h * c back in place.
-//   * warps 1-3 move: the input is (M, N) with time last, so neighbouring
-//     columns sit N floats apart. Instead of transposing it in device memory
-//     (as the TPU wrapper does), the movers stage (32 columns x 64 steps)
-//     tiles through shared memory, every global load and store a row segment
-//     of consecutive bytes, all of a mover's loads in flight together. On the
-//     way in they turn x into k = s / (s + B), which depends on the input
-//     alone: the IEEE division, a subroutine with a branch, stays off the
-//     walker's instruction stream. On the way out they store the finished
-//     tile as coalesced rows.
-// Three tile buffers rotate: while tile j is walked, tile j + 1 is loaded
-// and tile j - 1 stored, one __syncthreads per step of that rotation. The
-// tile's pitch is odd, so the per-column walk is free of bank conflicts.
-// One warp cannot do both jobs: its shared-memory accesses queue behind its
-// own outstanding global copies, and the division's branch keeps the
-// compiler from scheduling the loads of the next steps under the chain (a
-// single-warp version took 6.6 ms at 1024 x 32,000 where this one takes 2.2).
+// samples; the state never touches memory and there is no grid over time
+// (the TPU kernel's sequential grid, its VMEM state and its 128-lane padding
+// are not carried over). A block is four warps with two jobs:
+//   * warp 0 walks: lane l integrates column l of the block's kCols = 8
+//     columns. It touches shared memory only, 16 bytes at a time: it reads
+//     the permeability k one batch of 16 steps ahead, steps, and writes
+//     h * c back in place.
+//   * warps 1-3 move, each a whole (kCols x kTile) tile in turn. The input
+//     is (M, N) with time last, so a tile's rows are row segments of
+//     consecutive bytes; all of a tile's loads are in flight together. On
+//     the way in a mover turns x into k = s / (s + B), which depends on the
+//     input alone: the IEEE division (a subroutine with a branch, about 260
+//     cycles a step when it is on the walker's stream) stays off the chain.
+//     Before it fills a slot, the mover stores the slot's walked tile.
+// The tiles sit in a ring of kSlots slots with two mbarriers each: "full"
+// (the mover's 32 lanes arrive when k is in) and "walked" (the walker's 32
+// lanes arrive when the outputs are in). The walker waits only for its next
+// tile and only when that tile is late; a mover waits only for its slot.
+// No thread waits for the whole block inside the time loop.
+//
+// Why this shape (scripts/torch_kernel_ablation.py on an H100, PERF.md):
+// the kernel before it had 32 columns a block and one __syncthreads per
+// 64-sample tile. Its movers alone took as long as the kernel (2.26 ms): at
+// every tile the walker waited for their global loads and their 22
+// divisions a lane. With 8 columns a block, 1024 columns are 128 blocks on
+// 132 SMs and a mover has 32 divisions a lane for every 3 x 128 steps of
+// the walker; the ring lets a mover run ahead. The walker as first written
+// for the ring took a fifth longer (addresses recomputed between batches, k
+// copied between registers, a branch around the idle lanes' steps, a
+// blocking wait at every tile): the batches now go in pairs over shared
+// addresses computed once, every lane steps, and the walker tests the next
+// tile's barrier without waiting unless the tile is not in.
 //
 // Bits: every product, sum and quotient is spelled with a round-to-nearest
 // intrinsic, which the compiler may not contract into a fused multiply-add,
@@ -50,20 +60,23 @@
 // expected to be equal, not merely close.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kCols = 32;            // columns per block: the walker's lanes
+constexpr int kCols = 8;             // columns per block: the walker's lanes
 constexpr int kMovers = 3;           // warps that stage tiles and compute k
 constexpr int kThreads = 32 * (1 + kMovers);
-constexpr int kRows = (kCols + kMovers - 1) / kMovers;   // rows per mover
-constexpr int kTile = 64;            // samples per staged tile
+constexpr int kTile = 128;           // samples per tile
 constexpr int kSegs = kTile / 32;    // 32-sample row segments per tile row
-constexpr int kBatch = 16;           // steps whose k is read ahead
-constexpr int kStages = 3;           // tiles in flight: load, walk, store
-// floats per column in shared memory: the tile, kBatch floats that the
-// read-ahead may touch, and one more to make the pitch odd
-constexpr int kPitch = kTile + kBatch + 1;
+constexpr int kSlots = 4;            // tiles in the ring
+constexpr int kBatch = 16;           // steps whose k the walker holds
+// floats per column of a slot: the tile, and a multiple of 4 whose quarter
+// is odd, so that eight lanes' 16-byte accesses meet all 32 banks once
+constexpr int kPitch = kTile + 4;
+constexpr int kSlotFloats = kCols * kPitch;
+static_assert(kTile % kBatch == 0 && kTile % 32 == 0, "tile shape");
+static_assert(kPitch % 4 == 0 && (kPitch / 4) % 2 == 1, "pitch");
 
 // Meddis (1986) constants; must match ops/meddis.py
 constexpr float kA = 5.0f, kB = 300.0f;
@@ -86,73 +99,192 @@ __device__ __forceinline__ float euler_step(float k, float dt, float& q,
   return __fmul_rn(kH, c);
 }
 
-// Walker: `steps` Euler steps of one column over its row of k values, which
-// the outputs replace. Reads up to kBatch floats past the tile (the row's
-// padding; those values are never used).
-__device__ __forceinline__ void walk(float* mine, int steps, float dt,
-                                     float& q, float& c, float& w) {
-  float k[kBatch], k_next[kBatch];
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The walker's shared-memory accesses and the ring's mbarriers, by 32-bit
+// shared address (computed once, outside the time loop).
+__device__ __forceinline__ float4 lds128(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+// Arrive (release: this thread's shared-memory accesses before it are seen
+// by whoever waits for the phase).
+__device__ __forceinline__ void bar_arrive(uint32_t bar) {
+  asm volatile("{\n\t.reg .b64 state;\n\t"
+               "mbarrier.arrive.shared::cta.b64 state, [%0];\n\t}"
+               :: "r"(bar) : "memory");
+}
+
+// Has the phase of the given parity completed? (acquire when it has; does
+// not wait)
+__device__ __forceinline__ bool bar_test(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  asm volatile("{\n\t.reg .pred p;\n\t"
+               "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+               "selp.u32 %0, 1, 0, p;\n\t}"
+               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait (acquire) until the phase of the given parity has completed. A wait
+// that lasts seconds is a fault of the protocol: the kernel traps (the
+// launch fails) instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, unsigned parity) {
+  for (int tries = 0; !bar_test(bar, parity); ++tries)
+    if (tries == (1 << 28)) __trap();
+}
+
+constexpr int kBpt = kTile / kBatch;   // batches per tile
+
+// kBatch steps over k; the outputs replace k.
+__device__ __forceinline__ void steps_full(float4 (&k)[kBatch / 4], float dt,
+                                           float& q, float& c, float& w) {
 #pragma unroll
-  for (int u = 0; u < kBatch; ++u) k[u] = mine[u];
-  for (int t = 0; t < steps; t += kBatch) {
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) k_next[u] = mine[t + kBatch + u];
-    if (t + kBatch <= steps) {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) k[u] = euler_step(k[u], dt, q, c, w);
-    } else {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        if (t + u < steps) k[u] = euler_step(k[u], dt, q, c, w);
-    }
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      mine[t + u] = k[u];
-      k[u] = k_next[u];
-    }
+  for (int v = 0; v < kBatch / 4; ++v) {
+    k[v].x = euler_step(k[v].x, dt, q, c, w);
+    k[v].y = euler_step(k[v].y, dt, q, c, w);
+    k[v].z = euler_step(k[v].z, dt, q, c, w);
+    k[v].w = euler_step(k[v].w, dt, q, c, w);
   }
 }
 
-// Mover `m`: rows m, m + kMovers, ... of the tile at sample t0, as
-// k = s / (s + B) with s = max(x + A, 0).
-__device__ __forceinline__ void load_tile(float* tile, const float* x,
-                                          long long col0, int cols, int N,
-                                          int t0, int m, int lane) {
-  float v[kRows][kSegs];
+// The first `steps` (< kBatch or not) of a batch.
+__device__ __forceinline__ void steps_part(float4 (&k)[kBatch / 4],
+                                           int steps, float dt, float& q,
+                                           float& c, float& w) {
 #pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int r = m + a * kMovers;
-#pragma unroll
-    for (int j = 0; j < kSegs; ++j) {
-      const int t = t0 + lane + 32 * j;
-      v[a][j] = (r < cols && t < N) ? x[(col0 + r) * (long long)N + t] : 0.0f;
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int r = m + a * kMovers;
-    if (r < cols) {
-#pragma unroll
-      for (int j = 0; j < kSegs; ++j) {
-        const float s = fmaxf(__fadd_rn(v[a][j], kA), 0.0f);
-        tile[r * kPitch + lane + 32 * j] = __fdiv_rn(s, __fadd_rn(s, kB));
-      }
-    }
+  for (int v = 0; v < kBatch / 4; ++v) {
+    if (4 * v < steps) k[v].x = euler_step(k[v].x, dt, q, c, w);
+    if (4 * v + 1 < steps) k[v].y = euler_step(k[v].y, dt, q, c, w);
+    if (4 * v + 2 < steps) k[v].z = euler_step(k[v].z, dt, q, c, w);
+    if (4 * v + 3 < steps) k[v].w = euler_step(k[v].w, dt, q, c, w);
   }
 }
 
-// Mover `m`: its rows of the finished tile at sample t0, to device memory.
-__device__ __forceinline__ void store_tile(const float* tile, float* out,
-                                           long long col0, int cols, int N,
-                                           int t0, int m, int lane) {
+__device__ __forceinline__ void load_batch(float4 (&k)[kBatch / 4],
+                                           uint32_t a) {
 #pragma unroll
-  for (int a = 0; a < kRows; ++a) {
-    const int r = m + a * kMovers;
+  for (int v = 0; v < kBatch / 4; ++v) k[v] = lds128(a + 16 * v);
+}
+
+__device__ __forceinline__ void store_batch(const float4 (&k)[kBatch / 4],
+                                            uint32_t a) {
 #pragma unroll
-    for (int j = 0; j < kSegs; ++j) {
-      const int t = t0 + lane + 32 * j;
-      if (r < cols && t < N)
-        out[(col0 + r) * (long long)N + t] = tile[r * kPitch + lane + 32 * j];
+  for (int v = 0; v < kBatch / 4; ++v) sts128(a + 16 * v, k[v]);
+}
+
+// Warp 0: walks the column's N samples in batches of kBatch, tile after
+// tile around the ring. Every lane walks row lane % kCols, so that the warp
+// never diverges; only lanes below kCols (`writes`) store. row0: the shared
+// address of the lane's row in slot 0.
+//
+// Batches go in pairs (k in ka, then kb) so that no batch's k is copied
+// between registers. The next tile's "full" phase is tested without
+// waiting; the walker waits only when the tile is not in.
+__device__ __forceinline__ void walker(uint32_t row0, uint32_t full0,
+                                       uint32_t walked0, bool writes, int N,
+                                       float dt, float q, float c, float w) {
+  const auto at = [&](int b) {           // shared address of batch b
+    return row0 + 4u * (((b / kBpt) % kSlots) * kSlotFloats +
+                        (b % kBpt) * kBatch);
+  };
+  const auto full_of = [&](int j) { return full0 + 8u * (j % kSlots); };
+  const int nb = (N + kBatch - 1) / kBatch, n_full = N / kBatch;
+  float4 ka[kBatch / 4], kb[kBatch / 4];
+  bar_wait(full0, 0);
+  load_batch(ka, at(0));
+  int b = 0;
+  for (; b + 2 <= n_full; b += 2) {       // b is even: b + 1 is in b's tile
+    load_batch(kb, at(b + 1));
+    const int jn = (b + 2) / kBpt;
+    const bool in = bar_test(full_of(jn), (jn / kSlots) & 1);
+    steps_full(ka, dt, q, c, w);
+    if (writes) store_batch(ka, at(b));
+    if (b + 2 < nb) {
+      if ((b + 2) % kBpt == 0 && !in) bar_wait(full_of(jn), (jn / kSlots) & 1);
+      load_batch(ka, at(b + 2));
+    }
+    steps_full(kb, dt, q, c, w);
+    if (writes) store_batch(kb, at(b + 1));
+    if ((b + 2) % kBpt == 0 || b + 2 == nb)
+      bar_arrive(walked0 + 8u * ((b / kBpt) % kSlots));
+  }
+  // at most two batches are left, the last perhaps short; ka holds batch b
+  for (; b < nb; ++b) {
+    if (b + 1 < nb) {
+      const int j = (b + 1) / kBpt;
+      if ((b + 1) % kBpt == 0) bar_wait(full_of(j), (j / kSlots) & 1);
+      load_batch(kb, at(b + 1));
+    }
+    steps_part(ka, N - b * kBatch, dt, q, c, w);
+    if (writes) store_batch(ka, at(b));
+    if ((b + 1) % kBpt == 0 || b + 1 == nb)
+      bar_arrive(walked0 + 8u * ((b / kBpt) % kSlots));
+#pragma unroll
+    for (int v = 0; v < kBatch / 4; ++v) ka[v] = kb[v];
+  }
+}
+
+// Mover m (0 .. kMovers - 1): tiles m, m + kMovers, ...; for tile i it
+// loads x, stores tile i - kSlots from the slot they share once it is
+// walked, then fills the slot with k of tile i. The last kSlots tiles are
+// stored after the loop's end.
+__device__ __forceinline__ void mover(float* ring, uint32_t full0,
+                                      uint32_t walked0, const float* x,
+                                      float* out, long long col0, int cols,
+                                      int N, int n_tiles, int m, int lane) {
+  for (int i = m; i < n_tiles + kSlots; i += kMovers) {
+    float* slot = ring + (i % kSlots) * kSlotFloats;
+    float v[kCols][kSegs];
+    if (i < n_tiles) {
+#pragma unroll
+      for (int r = 0; r < kCols; ++r)
+#pragma unroll
+        for (int j = 0; j < kSegs; ++j) {
+          const int t = i * kTile + 32 * j + lane;
+          v[r][j] = (r < cols && t < N) ? x[(col0 + r) * (long long)N + t]
+                                        : 0.0f;
+        }
+    }
+    if (i >= kSlots) {
+      const int t0 = (i - kSlots) * kTile;
+      bar_wait(walked0 + 8u * (i % kSlots), ((i - kSlots) / kSlots) & 1);
+#pragma unroll
+      for (int r = 0; r < kCols; ++r)
+#pragma unroll
+        for (int j = 0; j < kSegs; ++j) {
+          const int t = t0 + 32 * j + lane;
+          if (r < cols && t < N)
+            out[(col0 + r) * (long long)N + t] = slot[r * kPitch + 32 * j +
+                                                      lane];
+        }
+    }
+    if (i < n_tiles) {
+#pragma unroll
+      for (int r = 0; r < kCols; ++r)
+#pragma unroll
+        for (int j = 0; j < kSegs; ++j) {
+          const float s = fmaxf(__fadd_rn(v[r][j], kA), 0.0f);
+          slot[r * kPitch + 32 * j + lane] = __fdiv_rn(s, __fadd_rn(s, kB));
+        }
+      bar_arrive(full0 + 8u * (i % kSlots));
     }
   }
 }
@@ -160,43 +292,34 @@ __device__ __forceinline__ void store_tile(const float* tile, float* out,
 __global__ void __launch_bounds__(kThreads)
 meddis_kernel(const float* __restrict__ x, float* __restrict__ out,
               long long M, int N, float dt, float q0, float c0, float w0) {
-  __shared__ float tiles[kStages][kCols * kPitch];
+  __shared__ __align__(16) float ring[kSlots * kSlotFloats];
+  __shared__ uint64_t full[kSlots], walked[kSlots];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long col0 = (long long)blockIdx.x * kCols;
   const int cols = (int)((M - col0) < kCols ? (M - col0) : kCols);
-  const int n_tiles = (N + kTile - 1) / kTile;
-
-  float q = q0, c = c0, w = w0;
-  // step i of the rotation: tile i is loaded, tile i - 1 walked, tile i - 2
-  // stored, each in its own buffer
-  for (int i = 0; i < n_tiles + 2; ++i) {
-    if (warp == 0) {
-      const int j = i - 1;
-      if (j >= 0 && j < n_tiles && lane < cols) {
-        const int steps = (N - j * kTile) < kTile ? (N - j * kTile) : kTile;
-        walk(tiles[j % kStages] + lane * kPitch, steps, dt, q, c, w);
-      }
-    } else {
-      if (i < n_tiles)
-        load_tile(tiles[i % kStages], x, col0, cols, N, i * kTile, warp - 1,
-                  lane);
-      if (i >= 2)
-        store_tile(tiles[(i - 2) % kStages], out, col0, cols, N,
-                   (i - 2) * kTile, warp - 1, lane);
-    }
-    __syncthreads();
+  const uint32_t full0 = smem(full), walked0 = smem(walked);
+  if (threadIdx.x < kSlots) {
+    bar_init(full0 + 8u * threadIdx.x, 32);
+    bar_init(walked0 + 8u * threadIdx.x, 32);
   }
+  __syncthreads();
+  if (warp == 0)
+    walker(smem(ring) + 4u * (lane % kCols) * kPitch, full0, walked0,
+           lane < kCols, N, dt, q0, c0, w0);
+  else
+    mover(ring, full0, walked0, x, out, col0, cols, N,
+          (N + kTile - 1) / kTile, warp - 1, lane);
 }
 
 // The chain alone: N steps in registers under a constant permeability, no
 // loads, no division. Its time is the recurrence's latency floor on this
 // card; chip_smoke.py measures it beside the kernel.
-__global__ void __launch_bounds__(kCols)
+__global__ void __launch_bounds__(32)
 chain_probe_kernel(float* __restrict__ out, int N, float dt, float k,
                    float q0, float c0, float w0) {
   float q = q0, c = c0, w = w0, last = 0.0f;
   for (int t = 0; t < N; ++t) last = euler_step(k, dt, q, c, w);
-  out[blockIdx.x * kCols + threadIdx.x] = last;
+  out[blockIdx.x * 32 + threadIdx.x] = last;
 }
 
 }  // namespace
@@ -206,10 +329,24 @@ extern "C" int meddis_chain_probe(void* out, int blocks, int N, float dt,
                                   float k, float q0, float c0, float w0,
                                   void* stream) {
   if (blocks <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  chain_probe_kernel<<<(unsigned)blocks, kCols, 0,
+  chain_probe_kernel<<<(unsigned)blocks, 32, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), N, dt, k, q0, c0, w0);
   return (int)cudaGetLastError();
+}
+
+// *columns: how many columns one wave of blocks holds on the current
+// device (blocks resident per SM x SMs x columns per block).
+extern "C" int meddis_wave_columns(long long* columns) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, meddis_kernel,
+                                                        kThreads, 0);
+  *columns = (long long)blocks * sms * kCols;
+  return (int)err;
 }
 
 // x, out: (M, N) contiguous f32 on the device, time last. dt is 1/sample

@@ -4,13 +4,19 @@
 Every signal of the input (..., N) carries a transmitter state (q, c, w)
 from its steady state at zero input through N forward-Euler steps; the
 output is the firing-rate probability ``h * c`` per sample. On a CUDA tensor
-:func:`meddis` launches the hand-written kernel ``csrc/meddis.cu`` (one
-thread per signal, the state in registers, time tiles staged through shared
-memory by other warps of the block); on a CPU tensor it runs
+:func:`meddis` launches the hand-written kernel ``csrc/meddis.cu``: one
+thread per signal carries the state in registers, 8 signals a block, so
+that 16 requests of 64 channels fill 128 SMs; three other warps of the
+block stage 128-sample tiles of k = s / (s + B) (the IEEE division stays off
+the recurrence's chain) through a ring of four shared-memory slots with
+mbarriers, so the walking warp waits for a tile only when it is late, and
+never for the whole block. The recurrence's 17 dependent operations a step
+bound it, not its bytes. On a CPU tensor :func:`meddis` runs
 :func:`_meddis_plain`, a per-sample loop of tensor operations and the
 counterpart of the ``lax.scan`` in ``sincformer_tpu/dsp/haircell.py``. There
-is no fallback from one to the other. The kernel spells every operation with a round-to-nearest intrinsic
-in the plain loop's order, so the two give the same bits.
+is no fallback from one to the other. The kernel spells every operation with
+a round-to-nearest intrinsic in the plain loop's order, so the two give the
+same bits.
 """
 
 from __future__ import annotations
@@ -72,6 +78,19 @@ def _kernel():
                    ctypes.c_int] + [ctypes.c_float] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def wave_columns() -> int:
+    """How many signals one wave of the kernel's blocks holds on the current
+    CUDA device (blocks resident per SM x SMs x signals per block)."""
+    fn = build.load("meddis").meddis_wave_columns
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    columns = ctypes.c_longlong(0)
+    err = fn(ctypes.byref(columns))
+    if err != 0:
+        raise RuntimeError(f"meddis_wave_columns failed: CUDA error {err}")
+    return columns.value
 
 
 def meddis(signal: torch.Tensor, sample_rate: int = 8000) -> torch.Tensor:

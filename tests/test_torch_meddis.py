@@ -16,15 +16,23 @@ import torch
 from sincformer_tpu.dsp.haircell import MeddisHairCell as JaxHairCell
 from sincformer_tpu.ops.meddis_pallas import meddis_pallas
 from sincformer_tpu_torch.dsp.haircell import MeddisHairCell
-from sincformer_tpu_torch.ops.meddis import _meddis_plain, meddis
+from sincformer_tpu_torch.ops.meddis import (_meddis_plain, meddis,
+                                            wave_columns)
 
 TOL = 1e-5
 # the drives of tests/test_pallas_ops.py::TestMeddisPallas, plus one with
-# both signs that exercises the clamp of the input
+# both signs that exercises the clamp of the input, plus the edges of the
+# CUDA kernel's tiling (128-sample tiles, 8 columns a block): one sample,
+# under one tile, one sample past 64 and past 128, with a number of signals
+# that is no multiple of 8 or 32
 DRIVES = {"batch of channels": ((2, 8, 700), 20.0, True),
           "single signal": ((300,), 20.0, True),
           "weak drive": ((3, 200), 10.0, True),
-          "both signs": ((5, 400), 30.0, False)}
+          "both signs": ((5, 400), 30.0, False),
+          "one sample": ((3, 1), 30.0, False),
+          "under one tile": ((5, 63), 30.0, False),
+          "past 64 samples": ((7, 65), 30.0, False),
+          "past one tile": ((3, 3, 129), 30.0, False)}
 
 
 def _drive(name):
@@ -36,6 +44,10 @@ def _drive(name):
 def _close(got, ref):
     ref = np.asarray(ref)
     assert got.shape == ref.shape
+    if ref.shape[-1] == 1:
+        # one step from the steady state clamps c to 0 whatever the input
+        # (dt * (l + r) > 1): the outputs are zeros, and must be equal
+        return np.array_equal(got, ref)
     assert float(ref.max()) > 0                      # non-degenerate drive
     return float(np.max(np.abs(got - ref))) <= TOL * float(np.abs(ref).max())
 
@@ -90,11 +102,15 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 1500), (64, 1500), (45, 999),
-                                   (2, 3, 130)])
+                                   (2, 3, 130), (3, 1), (5, 63), (7, 65),
+                                   (3, 3, 129), (17, 8001), "past one wave"])
 def test_cuda_kernel_equals_plain(shape):
-    """Needs a CUDA card and nvcc (builds csrc/meddis.cu)."""
+    """Needs a CUDA card and nvcc (builds csrc/meddis.cu). "past one wave":
+    more signals than the card holds blocks at once."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    if shape == "past one wave":
+        shape = (wave_columns() + 45, 300)
     x = (torch.randn(shape, generator=torch.Generator().manual_seed(0))
          * 30.0).cuda()
     before = meddis.launches
@@ -104,4 +120,6 @@ def test_cuda_kernel_equals_plain(shape):
     assert torch.equal(out, _meddis_plain(x))
     assert torch.equal(out.cpu(), _meddis_plain(x.cpu()))
     with pytest.raises(ValueError, match="contiguous"):
-        meddis(x[..., ::2])
+        # every other sample of twice the input: strided whatever the shape
+        # (x[..., ::2] of an (M, 1) input would still be contiguous)
+        meddis(torch.cat([x, x], dim=-1)[..., ::2])
