@@ -33,10 +33,19 @@ its kernels:
     64, seeded weights): ``save_model(quantize=True)`` through K2 (one
     launch), load, a batch, a padded single request, the 60 s file through
     ``StreamingEnhancer``'s host path and through ``enhance --model pcirm``,
-    held against the port on the CPU.
+    held against the port on the CPU;
+  * flagship training at full width: the ``train`` verb in a process of
+    its own (``--synthetic 40 --epochs 2``: 8 steps of 8 x 4 s, two
+    validations, best and final checkpoints, then one request served from
+    them), 20 steps on one batch with every loss term on (the loss must
+    fall; time, device busy time, launches and peak memory of a step), and
+    one step from the committed artifact held against the same step on
+    the CPU (loss, every gradient leaf, the parameters after AdamW).
 
-K1, K2, K3 and K5 are timed from CUDA-graph replays (device time), their
-eager calls beside them; K2 also as the flagship's whole tree (73 leaves in
+K1 and K3 are also held against their plain versions under autograd (the
+backward is the plain formulation's gradient, so the gradients are equal bit
+for bit). K1, K2, K3 and K5 are timed from CUDA-graph replays (device
+time), their eager calls beside them; K2 also as the flagship's whole tree (73 leaves in
 one launch, against the CPU's tree bit for bit). ``--kernels-only`` stops
 after the kernels' own checks (a new kernel's first run). Exits non-zero
 on any failure, and at once when no CUDA device is present.
@@ -47,6 +56,7 @@ line before it holds the kernel table as JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -101,6 +111,17 @@ CONV_GN_CASES = ((1000, 64, 128, 7, 2, True, False, 0.0, 16),
                  (50, 3, 18, 3, 1, False, False, 0.0, 3),
                  (1200, 64, 128, 31, 1, True, False, 0.0, 16),
                  (400, 256, 256, 7, 1, True, True, 4.0, 16))
+TRAIN_LOSS_TOL = 1e-4       # card vs CPU training step: loss, relative
+TRAIN_GRAD_TOL = 1e-3       # each gradient leaf, of its largest magnitude
+TRAIN_PARAM_TOL = 1e-5      # parameters after the step, of their scale
+TRAIN_FLIP_SHARE = 1e-4     # where the CPU's step is float64's: the share of
+                            # elements whose step on the card may leave
+                            # float64's by more than that step (the MR-STFT
+                            # term's rounding; measured 4.5e-6 on an H100)
+GRAD_FLOOR = 1e-4           # a leaf's scale floored at this x the largest
+                            # gradient (the SincConv cutoffs' gradients are
+                            # rounding only; tests/test_torch_train_step.py)
+TRAIN_BATCH = (8, 32000)    # the train verb's batches: 8 x 4 s
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5",
                         "sincformer_v4s0_best_serving_torch")
@@ -719,6 +740,503 @@ def check_k6(seed: int, smi: str):
     return worst, timing
 
 
+def check_autograd(seed: int):
+    """K1 and K3 under autograd on the card: the forward is the kernel, the
+    backward the plain formulation's gradient on the saved inputs, so the
+    gradients of a fixed cotangent equal the plain version's autograd bit
+    for bit. K1 at a training step's shape (4, 400, 4, 64) with and without
+    the key mask; K3 at one DCSE block's (8 x 400 rows, 256, 1024)."""
+    from sincformer_tpu_torch.ops.fused_ffn import _fused_ffn_plain, fused_ffn
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain, speech_attention)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def grads(fn, args, cot):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves)
+        return out.detach(), torch.autograd.grad(out, leaves, cot)
+
+    q, k, v = (torch.randn(4, 400, 4, 64, device="cuda", generator=g)
+               for _ in range(3))
+    valid = torch.arange(400, device="cuda")[None] < torch.tensor(
+        [[400], [393], [200], [1]], device="cuda")
+    mask_bias = torch.where(valid, 0.0, -1e9).float().contiguous()
+    cot = torch.randn(q.shape, device="cuda", generator=g)
+    worst = 0.0
+    for bias in (None, mask_bias):
+        before = speech_attention.launches
+        out, got = grads(lambda *x: speech_attention(*x, bias), (q, k, v), cot)
+        launched = speech_attention.launches - before
+        ref, want = grads(lambda *x: _speech_attention_plain(*x, bias),
+                          (q, k, v), cot)
+        err = float((out - ref).abs().max())
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        say(f"[autograd] K1 B=4 T=400 H=4 dh=64 mask={bias is not None}: "
+            f"forward max|kernel-plain| {err:.3e} (limit {KERNEL_TOL:g}), "
+            f"dq/dk/dv equal to the plain autograd: {equal}, kernel launches "
+            f"{launched}")
+        if not (err <= KERNEL_TOL and equal and launched == 1):
+            raise AssertionError("K1 under autograd disagrees with its plain "
+                                 "version")
+        worst = max(worst, err)
+    d, d_ff = 256, 1024
+    args = (torch.randn(8, 400, d, device="cuda", generator=g),
+            1.0 + 0.1 * torch.randn(d, device="cuda", generator=g),
+            0.1 * torch.randn(d, device="cuda", generator=g),
+            torch.randn(d, d_ff, device="cuda", generator=g) / d ** 0.5,
+            0.1 * torch.randn(d_ff, device="cuda", generator=g),
+            torch.randn(d_ff, d, device="cuda", generator=g) / d_ff ** 0.5,
+            0.1 * torch.randn(d, device="cuda", generator=g))
+    cot = torch.randn(args[0].shape, device="cuda", generator=g)
+    before = fused_ffn.launches
+    out, got = grads(fused_ffn, args, cot)
+    launched = fused_ffn.launches - before
+    ref, want = grads(_fused_ffn_plain, args, cot)
+    err = float((out - ref).abs().max() / ref.abs().max())
+    equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    say(f"[autograd] K3 (3200, 256, 1024): forward {err:.3e} of the scale "
+        f"(limit {KERNEL_TOL:g}), the 7 gradients equal to the plain "
+        f"autograd: {equal}, kernel launches {launched}")
+    if not (err <= KERNEL_TOL and equal and launched == 1):
+        raise AssertionError("K3 under autograd disagrees with its plain "
+                             "version")
+    return worst
+
+
+def time_attention_in_step(seed: int, smi: str) -> dict:
+    """K1's forward and the plain backward (the recompute of the plain
+    formulation and its gradient, what K1's autograd function runs) at one
+    MSA block's shape in the train verb's step, (8, 400, 4, 64)."""
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain, speech_attention)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(8, 400, 4, 64, device="cuda", generator=g)
+               for _ in range(3))
+    cot = torch.randn(q.shape, device="cuda", generator=g)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+    def backward():
+        torch.autograd.grad(_speech_attention_plain(*leaves), leaves, cot)
+    t = {"forward_ms": graph_ms(lambda: speech_attention(q, k, v)),
+         "plain_backward_ms": cuda_ms(backward, iters=20)}
+    say(f"[train] K1 at (8, 400, 4, 64): forward {t['forward_ms']:.4f} ms "
+        f"(CUDA graph replays), plain backward {t['plain_backward_ms']:.4f} "
+        f"ms (eager, CUDA events), x8 a step on {smi}")
+    return t
+
+
+def check_train(seed: int, smi: str, launches) -> dict:
+    """Flagship training on the card: the train verb end to end, 20 steps
+    on one batch with every loss term on, and one step against the CPU."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.cli import _synthetic_corpus
+    from sincformer_tpu_torch.data.loader import batch_iterator
+    from sincformer_tpu_torch.train.agent_trainer import SincformerTrainer
+    from sincformer_tpu_torch.train.state import latest_step_dir
+    blocks = port.MetacogConfig().msa_blocks
+    result = {}
+
+    # ── the train verb in a process of its own ──────────────────────────
+    runner = ("import json, sys, torch\n"
+              "from sincformer_tpu_torch import cli\n"
+              "from sincformer_tpu_torch.ops.speech_attention import "
+              "speech_attention\n"
+              "rc = cli.main(sys.argv[1:])\n"
+              "print(json.dumps({'speech_attention': "
+              "speech_attention.launches, 'tf32': ["
+              "torch.backends.cuda.matmul.allow_tf32, "
+              "torch.backends.cudnn.allow_tf32]}))\n"
+              "sys.exit(rc)\n")
+    with tempfile.TemporaryDirectory() as model_dir:
+        log = os.path.join(model_dir, "train.jsonl")
+        env = {**os.environ, "SINCFORMER_MODEL_DIR": model_dir,
+               "PYTHONPATH": REPO}
+        env.pop("SINCFORMER_MAX_WAVE_SECONDS", None)
+        argv = ["train", "--pipeline", "agents", "--synthetic", "40",
+                "--epochs", "2", "--seed", str(seed), "--log-jsonl", log]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", runner, *argv], cwd=REPO,
+                              env=env, capture_output=True, text=True,
+                              timeout=900)
+        verb_s = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines()[-8:]:
+            say(f"[train] | {line}")
+        if proc.returncode != 0:
+            say(proc.stderr[-3000:])
+            raise AssertionError(f"the train verb exited {proc.returncode}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        k1 = child["speech_attention"]
+        records = [json.loads(line) for line in open(log)]
+        # 36 utterances in batches of 8: 4 steps an epoch, 2 MSA passes a
+        # step; 4 validation utterances: one batch an epoch, one pass
+        steps, evals = 2 * (36 // 8), 2
+        want_k1 = blocks * (2 * steps + evals)
+        say(f"[train] train --pipeline agents --synthetic 40 --epochs 2: "
+            f"exit 0 in {verb_s:.1f} s wall (process start, weights, 8 steps "
+            f"of {TRAIN_BATCH}, 2 validations, 3 full checkpoints); K1 "
+            f"launches {k1} = {blocks} blocks x (2 passes x {steps} steps + "
+            f"{evals} validation batches); TF32 in cuBLAS and cuDNN in the "
+            f"process: {child['tf32']}")
+        for r in records:
+            say(f"[train] epoch {r['epoch']}: train loss {r['train_loss']:.4f}"
+                f", val loss {r['val_loss']:.4f}, val SI-SNR "
+                f"{r['val_sisnr']:+.2f} dB, nan_count {r['nan_count']}, "
+                f"{r['epoch_seconds']:.2f} s")
+        if (k1 != want_k1 or child["tf32"] != [False, False]
+                or len(records) != 2
+                or not all(np.isfinite(r["train_loss"])
+                           and np.isfinite(r["val_loss"])
+                           and r["nan_count"] == 0 for r in records)):
+            raise AssertionError("the train verb's run is not as expected")
+        launches.total["speech_attention"] += k1
+        for family in ("best_sincformer", "sincformer_final"):
+            if latest_step_dir(os.path.join(model_dir, family)) is None:
+                raise AssertionError(f"no {family} checkpoint written")
+        served = port.SincformerPipeline(device="cuda", model_dir=model_dir)
+        path = served.load_model()
+        launches.reset()
+        rng = np.random.default_rng(seed + 5)
+        out = served.enhance_signal(speechlike(rng, 20000))
+        launches.expect("enhance from the trained checkpoint",
+                        speech_attention=blocks)
+        if out.shape != (20000,) or not np.all(np.isfinite(out)):
+            raise AssertionError("serving the trained checkpoint failed")
+        say(f"[train] served one 2.5 s request on the card from "
+            f"{os.path.relpath(path, model_dir)} (output_gain "
+            f"{served.output_gain:.4f}); best and final written")
+        del served
+
+    # ── one batch, 20 steps, every loss term on ─────────────────────────
+    clean, noises = _synthetic_corpus(TRAIN_BATCH[0], "multi", "varied")
+    ds = SincformerTrainer.remix_for_stage(
+        clean, noises, [0, 5], TRAIN_BATCH[1], 0)
+    batch = next(batch_iterator(ds, TRAIN_BATCH[0], shuffle=False))
+    pipe = SincformerTrainer(device="cuda", seed=seed)
+    pipe.init_state(epochs=1, steps_per_epoch=20)
+    noisy, clean_t = (torch.from_numpy(batch[k]).cuda()
+                      for k in ("noisy", "clean"))
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    for i in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.expect(f"training step {i}", speech_attention=2 * blocks)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    launches.expect("profiled training step", speech_attention=2 * blocks)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels)
+    n_kernels = sum(k[2] for k in kernels)
+    median_ms = float(np.median(step_ms[1:]))
+    result.update(loss_first=losses[0], loss_last=losses[-1],
+                  step_ms_median=median_ms, step_ms_first=step_ms[0],
+                  device_busy_ms=busy_ms, device_busy_share=busy_ms / median_ms,
+                  kernel_launches_per_step=n_kernels,
+                  k1_launches_per_step=2 * blocks, peak_memory_gb=peak_gb,
+                  profiled_step_ms=prof_ms,
+                  k1_device_ms=sum(k[1] for k in kernels
+                                   if "speech_attention" in k[0]))
+    say(f"[train] one batch {TRAIN_BATCH}, every term on, 20 steps: loss "
+        f"{losses[0]:.4f} at step 1, {losses[-1]:.4f} at step 20 "
+        f"(min {min(losses):.4f}); {median_ms:.2f} ms per step (median of "
+        f"steps 2-20; step 1 {step_ms[0]:.1f} ms), peak memory "
+        f"{peak_gb:.2f} GB; K1 launches {2 * blocks} a step on {smi}")
+    say(f"[train] profiled step: {prof_ms:.2f} ms wall, device busy "
+        f"{busy_ms:.3f} ms ({busy_ms / median_ms:.3f} of the median step), "
+        f"{n_kernels} kernel launches, K1 {result['k1_device_ms']:.4f} ms")
+    for name, ms, calls in kernels[:10]:
+        say(f"[train]     {ms:9.4f} ms {calls:5d}x  {name[:90]}")
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise AssertionError("the loss did not fall over 20 steps")
+    del pipe, noisy, clean_t
+    torch.cuda.empty_cache()
+
+    result.update(check_step_vs_cpu({k: v[:2] for k, v in batch.items()}))
+    launches.reset()
+    return result
+
+
+def check_step_vs_cpu(small: dict) -> dict:
+    """One training step of the full flagship from the committed artifact,
+    dropout 0, softmax routing, on the card, on the CPU and on the CPU in
+    float64 (the reference that tells float32 rounding from a fault), for
+    the loss without the multi-resolution STFT term and for the whole loss.
+    The gradient and parameter bars are held on the loss without that term:
+    its log-magnitude L1 makes the float32 gradient of a padded batch
+    rounding-dominated (ROADMAP.md Queue 3; :func:`attribute_mrstft` splits
+    it by source). With it, the loss is held, and where the CPU's step is
+    float64's the card's step is float64's too, but for a share of at most
+    TRAIN_FLIP_SHARE of those elements, each within twice its step."""
+    from unittest import mock
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.train import agent_trainer
+    from sincformer_tpu_torch.train.state import GRAD_CLIP, guard_nan_update
+    cfg = port.MetacogConfig(dropout=0.0, routing="softmax")
+    result = {}
+
+    def one_step(device, dtype, without_mrstft):
+        p = agent_trainer.SincformerTrainer(port.SincformerMetacog(cfg),
+                                            device=device, model_dir=ARTIFACT)
+        p.load_model()
+        p.model.to(dtype)
+        p.init_state(epochs=1, steps_per_epoch=1)
+        noisy, clean_t = (torch.from_numpy(small[k]).to(device, dtype)
+                          for k in ("noisy", "clean"))
+        patch = mock.patch.object(
+            agent_trainer, "multi_resolution_stft_loss",
+            (lambda pred, target: pred.sum() * 0.0) if without_mrstft
+            else agent_trainer.multi_resolution_stft_loss)
+        t0 = time.perf_counter()
+        with patch:
+            loss, _, grads = p.loss_and_grads(noisy, clean_t, 1.0, 1.0,
+                                              None, 1.0)
+        params = p.params()
+        grads = dict(zip(params, grads))
+        guarded, _ = guard_nan_update(list(grads.values()), loss,
+                                      params.values())
+        before = {k: v.detach().cpu().double() for k, v in params.items()}
+        p.tx.update(params, guarded, p.opt_state)
+        return (float(loss), {k: g.cpu().double() for k, g in grads.items()
+                              if g is not None}, before,
+                {k: v.detach().cpu().double() for k, v in params.items()},
+                time.perf_counter() - t0)
+
+    def grad_rows(g_cpu, g_gpu, g_64):
+        floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_64.values())
+        rows = []
+        for k, w in g_64.items():
+            scale = max(float(w.abs().max()), floor)
+            rows.append((float((g_gpu[k] - g_cpu[k]).abs().max()) / scale,
+                         k, float((g_gpu[k] - w).abs().max()) / scale,
+                         float((g_cpu[k] - w).abs().max()) / scale))
+        return sorted(rows, reverse=True)
+
+    def clipped(g):
+        norm = float(torch.sqrt(sum((v ** 2).sum() for v in g.values())))
+        clip = min(1.0, GRAD_CLIP / norm)
+        return clip, {k: v * clip for k, v in g.items()}
+
+    for without in (True, False):
+        what = ("without the MR-STFT term" if without
+                else "the whole loss, as trained")
+        (l_cpu, g_cpu, p0, p_cpu, t_cpu), (l_gpu, g_gpu, _, p_gpu, _), \
+            (l_64, g_64, _, p_64, t_64) = (
+                one_step("cpu", torch.float32, without),
+                one_step("cuda", torch.float32, without),
+                one_step("cpu", torch.float64, without))
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        rows = grad_rows(g_cpu, g_gpu, g_64)
+        say(f"[train] card vs CPU, one step from the committed artifact, "
+            f"{what}, dropout 0, softmax routing, batch (2, 32000): loss "
+            f"{l_gpu:.6f} vs {l_cpu:.6f} ({l_64:.6f} in float64), "
+            f"{rel:.3e} relative (limit {TRAIN_LOSS_TOL:g}); CPU step "
+            f"{t_cpu:.1f} s, {t_64:.1f} s in float64")
+        say(f"[train]   gradients, of each leaf's scale (floored at "
+            f"{GRAD_FLOOR:g} x the largest): card vs CPU up to {rows[0][0]:.3e}"
+            f"{f' (limit {TRAIN_GRAD_TOL:g})' if without else ''}; card vs "
+            f"float64 up to {max(r[2] for r in rows):.3e}, CPU vs float64 up "
+            f"to {max(r[3] for r in rows):.3e}; worst: " + "; ".join(
+                f"{k} {dp:.3e}" for dp, k, _, _ in rows[:3]))
+        if not rel <= TRAIN_LOSS_TOL:
+            raise AssertionError(f"the training loss on the card left the "
+                                 f"CPU's ({what})")
+        key = "without_mrstft" if without else "as_trained"
+        result[f"card_vs_cpu_{key}"] = {
+            "loss_rel": rel, "grad": rows[0][0],
+            "grad_card_vs_float64": max(r[2] for r in rows),
+            "grad_cpu_vs_float64": max(r[3] for r in rows)}
+        if without and not rows[0][0] <= TRAIN_GRAD_TOL:
+            raise AssertionError("the training gradients on the card left "
+                                 "the CPU's")
+        # AdamW's first step is about lr x sign(g) for |g| well above eps
+        # after the global-norm clip: where two clipped gradients agree in
+        # sign and pass 1e-5, the steps agree; elsewhere they may differ by
+        # the step itself
+        (c_cpu, gc_all), (c_gpu, gg_all), (_, g64_all) = (
+            clipped(g_cpu), clipped(g_gpu), clipped(g_64))
+        p_worst, flipped, n_el = 0.0, 0, 0
+        t_worst, t_n, t_missed, t_step, t_flip = 0.0, 0, 0, 0.0, 0
+        flips = {}
+        for k, w in p_cpu.items():
+            scale = float(w.abs().max())
+            zero = torch.zeros_like(w)
+            gc, gg, g6 = (g.get(k, zero) for g in (gc_all, gg_all, g64_all))
+            same = ((torch.sign(gc) == torch.sign(gg)) & (gc.abs() >= 1e-5)
+                    & (gg.abs() >= 1e-5))
+            diff = (p_gpu[k] - w).abs()
+            if same.any():
+                p_worst = max(p_worst, float(diff[same].max()) / scale)
+            step = float((w - p0[k]).abs().max())
+            if not bool((diff[~same] <= 2 * step + TRAIN_PARAM_TOL * scale
+                         ).all()):
+                raise AssertionError(f"{k}: a parameter moved past its step")
+            flipped += int((~same).sum())
+            n_el += w.numel()
+            # where the CPU's step is float64's (the clipped gradients agree
+            # in sign and pass 1e-5): the card against float64
+            trusted = ((torch.sign(gc) == torch.sign(g6))
+                       & (gc.abs() >= 1e-5) & (g6.abs() >= 1e-5))
+            if trusted.any():
+                off = (p_gpu[k] - p_64[k]).abs()[trusted] / scale
+                t_worst = max(t_worst, float(off.max()))
+                t_n += int(trusted.sum())
+                t_missed += int((off > TRAIN_PARAM_TOL).sum())
+                # of the element's own float64 step
+                own = ((p_gpu[k] - p_64[k]).abs()
+                       / (p_64[k] - p0[k]).abs().clamp_min(1e-30))[trusted]
+                t_step = max(t_step, float(own.max()))
+                if bool((own > 1.0).any()):
+                    flips[k] = int((own > 1.0).sum())
+                    t_flip += flips[k]
+        say(f"[train]   parameters after the AdamW step: {p_worst:.3e} of "
+            f"the leaf's scale where the two clipped gradients agree in sign "
+            f"and pass 1e-5"
+            f"{f' (limit {TRAIN_PARAM_TOL:g})' if without else ''}; the "
+            f"other {flipped} of {n_el} elements within twice the step; "
+            f"clip factors {c_cpu:.4g} (CPU) and {c_gpu:.4g} (card)")
+        say(f"[train]   where the CPU's step is float64's ({t_n} of {n_el} "
+            f"elements): the card {t_worst:.3e} of the leaf's scale from "
+            f"float64, {t_missed} elements past {TRAIN_PARAM_TOL:g}; up to "
+            f"{t_step:.3e} of the element's float64 step, {t_flip} elements "
+            f"past one step (limit {TRAIN_FLIP_SHARE:g} of them: "
+            f"{int(TRAIN_FLIP_SHARE * t_n)})" + "".join(
+                f"; {k} {n}" for k, n in sorted(flips.items(),
+                                                key=lambda kn: -kn[1])[:6]))
+        result[f"card_vs_cpu_{key}"].update(
+            param=p_worst, param_elements_sign_differs=flipped,
+            param_where_cpu_is_float64=t_worst,
+            param_elements_cpu_is_float64=t_n,
+            param_elements_card_past_tol_there=t_missed,
+            param_of_step_where_cpu_is_float64=t_step,
+            param_elements_past_one_step_there=t_flip)
+        if without and not p_worst <= TRAIN_PARAM_TOL:
+            raise AssertionError("the parameters after the step on the card "
+                                 "left the CPU's")
+        if not t_flip <= TRAIN_FLIP_SHARE * t_n:
+            raise AssertionError(f"the card's step left float64's where the "
+                                 f"CPU's is float64's ({what})")
+    result["mrstft_attribution"] = attribute_mrstft(small, cfg)
+    torch.cuda.empty_cache()
+    return result
+
+
+def attribute_mrstft(small: dict, cfg) -> dict:
+    """Split the error of the MR-STFT term's float32 gradient by source.
+    The term is a function of the enhanced wave alone: its gradient with
+    respect to the parameters is the model's backward applied to its
+    gradient with respect to that wave (the cotangent). One training forward
+    on the CPU, on the card, on the card with K1 swapped for its plain
+    version and on the CPU in float64 keeps each run's graph. Each source is
+    then taken from one float32 run with the rest in float64: the forward
+    that made the wave (and, within it, the network that made the enhanced
+    spectrum, that spectrum's iSTFT taken in float64), the STFT path that
+    takes the cotangent, and the model's backward. Every result is held
+    against float64 throughout, per leaf (scale floored as in the step)."""
+    from unittest import mock
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.dsp.stft import istft
+    from sincformer_tpu_torch.ops import attention
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain)
+    from sincformer_tpu_torch.train.agent_trainer import SincformerTrainer
+    from sincformer_tpu_torch.train.losses import multi_resolution_stft_loss
+    a = port.AudioConfig()
+    runs = {}
+    for run, device, dtype in (("cpu", "cpu", torch.float32),
+                               ("card", "cuda", torch.float32),
+                               ("card, K1 plain", "cuda", torch.float32),
+                               ("float64", "cpu", torch.float64)):
+        p = SincformerTrainer(port.SincformerMetacog(cfg), device=device,
+                              model_dir=ARTIFACT)
+        p.load_model()
+        p.model.to(dtype)
+        p.init_state(epochs=1, steps_per_epoch=1)
+        noisy, clean = (torch.from_numpy(small[k]).to(device, dtype)
+                        for k in ("noisy", "clean"))
+        plain = mock.patch.object(attention, "speech_attention",
+                                  _speech_attention_plain)
+        with plain if "plain" in run else contextlib.nullcontext():
+            _, aux = p._loss(noisy, clean, True, 1.0, 1.0, None, 1.0)
+        spec = torch.complex(aux["out"]["enhanced_real"].detach().double(),
+                             aux["out"]["enhanced_imag"].detach().double())
+        runs[run] = (p, aux["enh_wav"], clean, istft(
+            spec.cpu(), a.fft_size, a.hop_size, a.frame_size,
+            length=clean.shape[-1]))
+    wave = {run: r[1].detach().cpu().double() for run, r in runs.items()}
+
+    def cotangent(run, x):
+        clean = runs[run][2]
+        x = x.to(clean.device, clean.dtype, copy=True).requires_grad_(True)
+        g, = torch.autograd.grad(multi_resolution_stft_loss(x, clean), x)
+        return g.cpu().double()
+
+    def backward(run, cot):
+        p, enh = runs[run][:2]
+        params = p.params()
+        gs = torch.autograd.grad(enh, list(params.values()),
+                                 cot.to(enh.device, enh.dtype),
+                                 retain_graph=True, allow_unused=True)
+        return {k: g.cpu().double() for k, g in zip(params, gs)
+                if g is not None}
+
+    cot64 = cotangent("float64", wave["float64"])
+    ref = backward("float64", cot64)
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in ref.values())
+
+    def off(got):
+        return max((float((got[k] - w).abs().max())
+                    / max(float(w.abs().max()), floor), k)
+                   for k, w in ref.items())
+
+    def wave_off(x, y):
+        return float((x - y).abs().max() / y.abs().max())
+
+    out = {}
+    say("[train] MR-STFT term's gradient, of each leaf's scale from float64 "
+        "(one forward each from the committed artifact, batch (2, 32000)):")
+    for run in ("cpu", "card", "card, K1 plain"):
+        rows = {
+            "all": backward(run, cotangent(run, wave[run])),
+            "forward": backward("float64", cotangent("float64", wave[run])),
+            "network": backward("float64", cotangent("float64",
+                                                     runs[run][3])),
+            "stft_path": backward("float64", cotangent(run,
+                                                       wave["float64"])),
+            "model_backward": backward(run, cot64)}
+        r = out[run] = {what: off(g)[0] for what, g in rows.items()}
+        r["wave"] = wave_off(wave[run], wave["float64"])
+        r["cotangent_forward"] = wave_off(cotangent("float64", wave[run]),
+                                          cot64)
+        r["cotangent_stft_path"] = wave_off(cotangent(run, wave["float64"]),
+                                            cot64)
+        say(f"[train]   {run}: all float32 {r['all']:.3e} "
+            f"({off(rows['all'])[1]}); its forward alone {r['forward']:.3e} "
+            f"(its network alone, iSTFT in float64, {r['network']:.3e}), its "
+            f"STFT path alone {r['stft_path']:.3e}, its model backward alone "
+            f"{r['model_backward']:.3e}; enhanced wave {r['wave']:.3e} of "
+            f"its peak from float64; cotangent from its wave "
+            f"{r['cotangent_forward']:.3e} and from its STFT path "
+            f"{r['cotangent_stft_path']:.3e} of the largest")
+    del runs
+    return out
+
+
 def check_istft(seed: int) -> None:
     """The iSTFT on the card must not depend on the batch size: one batch of
     16 windows against four batches of 4 and against the CPU, on a spectrum
@@ -883,6 +1401,7 @@ def main() -> int:
     k4_err, k4_time = check_k4(args.seed, smi)
     k5_err, k5_time, k5_time_block = check_k5(args.seed, smi)
     k6_err, k6_time = check_k6(args.seed, smi)
+    check_autograd(args.seed)
     if args.kernels_only:
         for name in built:
             with open(built[name] + ".log") as f:
@@ -1299,9 +1818,15 @@ def main() -> int:
                 f"{audio_s / wall:.1f}x real time on {smi}")
     launches.reset()
 
+    # ── phase 11: flagship training (the train verb, 20 steps, vs CPU) ───
+    train = check_train(args.seed, smi, launches)
+    train.update(time_attention_in_step(args.seed, smi))
+    say("[train] " + json.dumps(train))
+    launches.reset()
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def row(name, source, replaces, err, timing, **more):
+    def row(name, source, replaces, err, timing, extra=None, **more):
         r = {"name": name, "route": "cuda",
              "source": f"sincformer_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches.total[name],
@@ -1311,11 +1836,15 @@ def main() -> int:
         for shape, t in more.items():
             r[shape] = {k: t[k] for k in (*keys, "bound_f32_ms", "ms_eager",
                                           "wall_ms") if k in t}
+        r.update(extra or {})
         return r
     kernels = [
         row("speech_attention", "speech_attention.cu",
             "sincformer_tpu/ops/speech_attention.py:70", k1_err, k1_time,
-            at_B16_T401=k1_time_60s),
+            at_B16_T401=k1_time_60s, extra={"in_training_step": {
+                "launches_per_step": train["k1_launches_per_step"],
+                "forward_ms_B8_T400": train["forward_ms"],
+                "plain_backward_ms_B8_T400": train["plain_backward_ms"]}}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),

@@ -1,12 +1,19 @@
-"""SincformerMetacog at inference (``sincformer_tpu/agents/metacog.py``,
-``train=False`` with no dropout rng).
+"""SincformerMetacog (``sincformer_tpu/agents/metacog.py``).
 
     waveform → PerceptionAgentMXU → (z_real, z_imag, σ)   [T' = N // hop]
     z → CPEA;  (z, CPEA, noisy STFT) → MSA → polar mask
     pooled z → EpisodicMemory → magnitude bias
-    σ → MAA → one-hot route over {soft, resample (= soft), VQ-hard, unity}
+    σ → MAA → route over {soft, resample, VQ-hard, unity}
     routed magnitude · e^{i·phase} ⊙ STFT, last frame repeated to the STFT
     length T = N // hop + 1.
+
+At inference (``train=False``) the MSA runs once without dropout, the
+resample strategy is the soft mask and the route is one-hot. A training
+forward (``train=True``, with a dropout and a routing generator) runs the
+MSA with dropout, writes the episodic memory, steps the MAA statistics,
+routes by Gumbel straight-through (or softmax) and runs the MSA a second
+time with fresh dropout masks for the resample strategy, as the JAX model
+does, also when the dropout rate is 0.
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ from sincformer_tpu_torch.config import MetacogConfig
 from sincformer_tpu_torch.models.vq import VectorQuantizer
 
 
+def _polar_mag(mask_r: torch.Tensor, mask_i: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(mask_r ** 2 + mask_i ** 2 + 1e-12)
+
+
 class SincformerMetacog(nn.Module):
     """(B, N) waveform + (B, T, F) noisy STFT parts → enhanced STFT parts
     and routing outputs. The caller owns the STFT and iSTFT."""
@@ -41,14 +52,25 @@ class SincformerMetacog(nn.Module):
             c.encoder_channels, c.cpea_hidden, c.cpea_layers, c.cpea_channels)
         self.msa = MaskSynthesisAgent(
             c.encoder_channels, c.cpea_channels, c.d_model, c.n_freq,
-            c.msa_blocks, c.num_heads, c.d_ff, c.kernel_size, c.attn_impl)
+            c.msa_blocks, c.num_heads, c.d_ff, c.kernel_size, c.attn_impl,
+            dropout=c.dropout)
         self.memory = EpisodicMemory(c.encoder_channels, c.n_freq,
                                      c.memory_slots, c.episodic_slots)
         self.vq = VectorQuantizer(c.vq_centroids, c.vq_commitment)
-        self.maa = MetacognitiveArbitrationAgent()
+        self.maa = MetacognitiveArbitrationAgent(routing=c.routing)
 
     def forward(self, waveform: torch.Tensor, stft_real: torch.Tensor,
-                stft_imag: torch.Tensor) -> Dict[str, torch.Tensor]:
+                stft_imag: torch.Tensor, train: bool = False,
+                use_vq: bool = True, gumbel_tau=None,
+                dropout_generator: Optional[torch.Generator] = None,
+                routing_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """``train=True`` needs ``dropout_generator`` and, for Gumbel
+        routing, ``routing_generator``; ``gumbel_tau`` (a float or a 0-d
+        tensor) overrides the Gumbel temperature."""
+        if train and dropout_generator is None:
+            raise ValueError("a training forward needs a dropout_generator")
+        drop = dropout_generator if train else None
         z_real, z_imag, sigma = self.pa(waveform)
         # align the latent frames to the STFT grid (T' = N//hop ≤ T)
         t = min(z_real.shape[-1], stft_real.shape[-2])
@@ -56,19 +78,34 @@ class SincformerMetacog(nn.Module):
         sr, si = stft_real[:, :t], stft_imag[:, :t]
 
         cpea = self.cpea(z_real)
-        mask_r, mask_i = self.msa(z_real, z_imag, cpea, sr, si)
-        mask_mag = torch.sqrt(mask_r ** 2 + mask_i ** 2 + 1e-12)
+        mask_r, mask_i = self.msa(z_real, z_imag, cpea, sr, si, drop)
+        mask_mag = _polar_mag(mask_r, mask_i)
         mask_phase = torch.atan2(mask_i, mask_r)
 
-        mem = self.memory(z_real.mean(dim=-1))
-        mask_mag = torch.clamp(mask_mag + mem["bias"][:, None, :], 0.0, 1.0)
+        # in training the episodic bank first takes the batch's mean mask
+        write = (mask_mag.mean(dim=1)
+                 if train and self.config.episodic_slots > 0 else None)
+        mem = self.memory(z_real.mean(dim=-1), train=train,
+                          write_value=write)
+        bias = mem["bias"][:, None, :]
+        mask_mag = torch.clamp(mask_mag + bias, 0.0, 1.0)
 
+        if train:   # resample: a second MSA pass with its own dropout masks
+            mask_r2, mask_i2 = self.msa(z_real, z_imag, cpea, sr, si, drop)
+            mag2 = torch.clamp(_polar_mag(mask_r2, mask_i2) + bias, 0.0, 1.0)
+            resample = 0.5 * (mask_mag + mag2)
+        else:
+            resample = mask_mag
         hard, _, vq_loss = self.vq(mask_mag)
-        routing = self.maa(sigma)
-        # soft, resample (= soft without a dropout pass), hard, pass-through
+        if not use_vq:
+            hard = mask_mag
+            vq_loss = 0.0 * vq_loss
+        routing = self.maa(sigma, train=train, tau=gumbel_tau,
+                           generator=routing_generator)
         strategies = torch.stack(
-            [mask_mag, mask_mag, hard, torch.ones_like(mask_mag)], dim=-1)
-        # the route is one-hot: an elementwise product keeps the pick exact
+            [mask_mag, resample, hard, torch.ones_like(mask_mag)], dim=-1)
+        # at inference the route is one-hot: an elementwise product keeps
+        # the pick exact
         final_mag = (strategies * routing["route"][:, :, None, :]).sum(-1)
 
         final_r = final_mag * torch.cos(mask_phase)
@@ -87,16 +124,19 @@ class SincformerMetacog(nn.Module):
                 "route_logits": routing["logits"],
                 "route_probs": routing["probs"],
                 "confidence": routing["confidence"],
-                "memory_gate": mem["gate"], "memory_top": mem["top_indices"]}
+                "memory_gate": mem["gate"], "memory_top": mem["top_indices"],
+                "cpea": cpea}
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "SincformerMetacog":
         """Random weights drawn from ``generator`` only, after the flax
-        initialisers' scales: N(0, 1/fan_in) matrices and kernels, zero
-        biases, unit norm scales, N(0, 0.01²) memory banks, a 0.01-scaled
-        memory value projection; SincConv cutoffs, VQ centroids, the MAA
-        threshold and the companding parameters keep their constants, and
-        every buffer returns to its initial value."""
+        initialisers' scales: N(0, 1/fan_in) matrices and kernels, the
+        CPEA's recurrent kernels orthogonal per gate block (flax
+        ``orthogonal()``), zero biases, unit norm scales, N(0, 0.01²)
+        memory banks, a 0.01-scaled memory value projection; SincConv
+        cutoffs, VQ centroids, the MAA threshold and the companding
+        parameters keep their constants, and every buffer returns to its
+        initial value."""
         fresh = SincformerMetacog(self.config)
         norms = (nn.LayerNorm, nn.GroupNorm)
         norm_params = {f"{m}.{p}" for m, mod in self.named_modules()
@@ -111,6 +151,10 @@ class SincformerMetacog(nn.Module):
                 p.copy_(randn(0.01))
             elif name.split(".")[-1].startswith("bias"):
                 p.zero_()
+            elif ".kernel_hh" in name:
+                h = p.shape[1]
+                p.copy_(torch.cat([orthogonal(h, generator)
+                                   for _ in range(p.shape[0] // h)]))
             elif p.ndim >= 2:
                 fan_in = p[0].numel()
                 scale = 0.01 if name == "memory.value_proj.weight" else 1.0
@@ -120,3 +164,12 @@ class SincformerMetacog(nn.Module):
         for name, buf in self.named_buffers():
             buf.copy_(fresh.get_buffer(name))
         return self
+
+
+def orthogonal(n: int, generator: torch.Generator) -> torch.Tensor:
+    """A random (n, n) orthogonal matrix as flax's ``orthogonal()`` draws
+    one: Q of the QR decomposition of a standard normal matrix, its columns
+    signed by the diagonal of R."""
+    a = torch.randn(n, n, generator=generator, dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    return (q * torch.sign(torch.diagonal(r))[None, :]).to(torch.float32)

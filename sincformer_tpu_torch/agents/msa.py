@@ -1,10 +1,12 @@
 """Mask synthesis agent (``sincformer_tpu/agents/msa.py``): fused features →
-fusion MLP → Conformer blocks → bounded polar mask (phase within ±π/8)."""
+fusion MLP → Conformer blocks → bounded polar mask (phase within ±π/8).
+A forward given a ``generator`` runs its blocks' dropout from it (the JAX
+module's ``deterministic=False``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,7 +21,8 @@ class MaskSynthesisAgent(nn.Module):
     def __init__(self, latent_dim: int = 256, cpea_dim: int = 64,
                  d_model: int = 256, n_freq: int = 129, num_blocks: int = 4,
                  num_heads: int = 4, d_ff: int = 1024, kernel_size: int = 31,
-                 attn_impl: str = "speech", phase_bound_div: float = 8.0):
+                 attn_impl: str = "speech", phase_bound_div: float = 8.0,
+                 dropout: float = 0.0):
         super().__init__()
         self.phase_bound = math.pi / phase_bound_div
         self.num_blocks = num_blocks
@@ -30,13 +33,15 @@ class MaskSynthesisAgent(nn.Module):
         self.fusion_ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
         for i in range(num_blocks):
             self.add_module(f"block_{i}", ConformerBlock(
-                d_model, num_heads, d_ff, kernel_size, attn_impl))
+                d_model, num_heads, d_ff, kernel_size, attn_impl,
+                dropout=dropout))
         self.head_hidden = nn.Linear(d_model, d_model)
         self.mag_head = nn.Linear(d_model, n_freq)
         self.phase_head = nn.Linear(d_model, n_freq)
 
     def forward(self, z_real, z_imag, cpea: Dict[str, torch.Tensor],
-                noisy_stft_real, noisy_stft_imag
+                noisy_stft_real, noisy_stft_imag,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         # log1p-magnitude normalisation of the noisy STFT
         mag = torch.sqrt(noisy_stft_real ** 2 + noisy_stft_imag ** 2 + 1e-8)
@@ -48,7 +53,7 @@ class MaskSynthesisAgent(nn.Module):
         x = gelu(self.fusion_ln1(self.fusion1(fused)))
         x = self.fusion_ln2(self.fusion2(x))
         for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, generator=generator)
         h = gelu(self.head_hidden(x))
         mask_mag = torch.sigmoid(self.mag_head(h))
         mask_phase = torch.tanh(self.phase_head(h)) * self.phase_bound

@@ -8,13 +8,17 @@
   * ``export`` - write a trained checkpoint family as a compact int8
     serving artifact (a drop-in model directory); ``--model dnn
     --mask-type`` for a mask DNN;
+  * ``train --pipeline agents`` - curriculum training of the flagship on
+    TIMIT + NOISEX-92, or on ``--synthetic N`` synthetic utterances (no
+    dataset needed); ``--resume`` continues from the newest checkpoint,
+    ``--log-jsonl`` writes one record per epoch;
   * ``info`` - print the configuration and the device.
 
-Models are looked up under ``SINCFORMER_MODEL_DIR`` (default
+Models are looked up and written under ``SINCFORMER_MODEL_DIR`` (default
 ``saved_models``), as in the JAX package's CLI. Everything runs on the card
-unless ``--device cpu`` is given. ``train``, ``evaluate`` (``test``),
-``calibrate`` and ``demo`` are not ported yet and say so: they wait for the
-training, evaluation and oracle-mask slices.
+unless ``--device cpu`` is given. ``evaluate`` (``test``), ``calibrate`` and
+``demo``, ``train --pipeline dnn|dcse|conformer`` and ``train
+--adversarial`` are not ported yet and say so.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = ("demo", "train", "evaluate", "test", "calibrate")
+_NOT_PORTED = ("demo", "evaluate", "test", "calibrate")
+_MISSING = ", ".join(_NOT_PORTED + ("train --pipeline dnn|conformer|dcse",
+                                    "train --adversarial"))
 
 
 def _model_dir() -> str:
@@ -217,6 +223,89 @@ def export(args) -> int:
     return 0
 
 
+def _synthetic_corpus(n: int, noise_kind: str = "white",
+                      speech_kind: str = "formant"):
+    """n synthetic clean utterances of 1-2 s and a noise bank, from fixed
+    seeds: the JAX package's corpus for dataset-free training, bit for bit.
+    ``noise_kind="multi"``: the 4-class synthetic noise bank (babble, white,
+    factory1, destroyerengine) instead of one white noise;
+    ``speech_kind="varied"``: a distinct randomized utterance per index
+    instead of the fixed formant pattern."""
+    from sincformer_tpu_torch.config import AudioConfig
+    from sincformer_tpu_torch.data.synthetic import (synthetic_noise,
+                                                     synthetic_noise_bank,
+                                                     synthetic_speech,
+                                                     synthetic_speech_varied)
+    rng = np.random.default_rng(42)
+    if speech_kind == "varied":
+        clean = [synthetic_speech_varied(1.0 + rng.random(), seed=1000 + i)
+                 * (0.6 + 0.8 * rng.random()) for i in range(n)]
+    else:
+        clean = [synthetic_speech(1.0 + rng.random())
+                 * (0.6 + 0.8 * rng.random()) for _ in range(n)]
+    fs = AudioConfig().sample_rate
+    if noise_kind == "multi":
+        noises = synthetic_noise_bank(fs * 30, seed=7)
+    else:
+        noises = {"white": synthetic_noise(fs * 30, seed=7)}
+    return clean, noises
+
+
+def train(args) -> int:
+    """Train the flagship (``--pipeline agents``) on TIMIT + NOISEX-92, or
+    on a synthetic corpus with ``--synthetic N``, then save the final
+    checkpoint."""
+    if args.pipeline != "agents" or args.adversarial:
+        what = ("--adversarial" if args.pipeline == "agents"
+                else f"--pipeline {args.pipeline}")
+        print(f"  'train {what}' is not ported to sincformer_tpu_torch yet "
+              f"(still missing: {_MISSING}); use python -m "
+              f"sincformer_tpu.cli train", file=sys.stderr)
+        return 2
+    from sincformer_tpu_torch.config import AudioConfig, DataConfig
+    from sincformer_tpu_torch.data.audio import load_audio
+    from sincformer_tpu_torch.data.loader import (find_speech_files,
+                                                  load_noise_signals,
+                                                  train_test_split)
+    from sincformer_tpu_torch.train import agent_trainer
+
+    logger = None
+    if args.log_jsonl:
+        from sincformer_tpu_torch.utils.observability import MetricsLogger
+        logger = MetricsLogger(args.log_jsonl)
+    print("=" * 70)
+    print("  Speech Enhancement — Sincformer Metacog Training (GPU port)")
+    print("=" * 70)
+    fs = AudioConfig().sample_rate
+    if args.synthetic:
+        clean, noises = _synthetic_corpus(args.synthetic, args.synth_noises,
+                                          args.synth_speech)
+        split = max(1, int(0.9 * len(clean)))
+        clean_tr, clean_te = clean[:split], clean[split:]
+    else:
+        files = find_speech_files()
+        if not files:
+            print(f"  No speech files in {DataConfig().timit_dir}",
+                  file=sys.stderr)
+            return 1
+        tr_files, te_files = train_test_split(files, max_train=args.max_train,
+                                              max_test=args.max_test)
+        clean_tr = [load_audio(f, fs) for f in tr_files]
+        clean_te = [load_audio(f, fs) for f in te_files]
+        noises = load_noise_signals(fs)
+    pipe = agent_trainer.SincformerTrainer(
+        agent_trainer.default_metacog(), device=args.device,
+        model_dir=_model_dir(), seed=args.seed, logger=logger)
+    n_params = sum(p.numel() for p in pipe.model.parameters())
+    print(f"  {n_params} parameters on {pipe.device}; {len(clean_tr)} "
+          f"training and {len(clean_te)} validation utterances")
+    pipe.train(clean_tr, clean_te, noises, epochs=args.epochs,
+               resume=args.resume)
+    print(f"  Saved {pipe.save_model()}")
+    print("\nTraining complete!")
+    return 0
+
+
 def info(args) -> int:
     """Configuration and device."""
     import torch
@@ -252,7 +341,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Speech enhancement on the GPU: Sincformer metacog, "
                     "the DCSE Conformer and the original paper's mask DNN "
                     "(PyTorch/CUDA port)",
-        epilog=f"not ported yet: {', '.join(_NOT_PORTED)}")
+        epilog=f"not ported yet: {_MISSING}")
     sub = parser.add_subparsers(dest="command")
 
     enp = sub.add_parser("enhance", help="Enhance WAV file(s)")
@@ -285,8 +374,39 @@ def build_parser() -> argparse.ArgumentParser:
                     help="output model dir (default: "
                          "<SINCFORMER_MODEL_DIR>_serving)")
 
+    tp = sub.add_parser("train", help="Train the flagship (TIMIT + NOISEX-92 "
+                                      "or a synthetic corpus)")
+    tp.add_argument("--pipeline", default="dnn",
+                    choices=["agents", "dnn", "conformer", "dcse"],
+                    help="agents (Sincformer metacog); the others are not "
+                         "ported yet")
+    tp.add_argument("--epochs", type=int, default=None)
+    tp.add_argument("--max-train", type=int, default=100)
+    tp.add_argument("--max-test", type=int, default=20)
+    tp.add_argument("--resume", action="store_true",
+                    help="restore the newest checkpoint (full training "
+                         "state) and continue from the epoch after it")
+    tp.add_argument("--adversarial", action="store_true",
+                    help="the stage-3 adversarial loss (not ported yet)")
+    tp.add_argument("--synthetic", type=int, default=0, metavar="N",
+                    help="train on N synthetic utterances (no datasets "
+                         "needed)")
+    tp.add_argument("--synth-noises", default="white",
+                    choices=["white", "multi"], dest="synth_noises",
+                    help="--synthetic noise bank: one white noise or the "
+                         "4-class synthetic bank")
+    tp.add_argument("--synth-speech", default="formant",
+                    choices=["formant", "varied"], dest="synth_speech",
+                    help="--synthetic utterances: the fixed formant pattern "
+                         "or one randomized utterance per index")
+    tp.add_argument("--seed", type=int, default=0,
+                    help="training seed (weights, dropout, routing)")
+    tp.add_argument("--log-jsonl", default=None, metavar="PATH",
+                    dest="log_jsonl",
+                    help="write per-epoch metrics (JSONL) to PATH")
+
     ip = sub.add_parser("info", help="Print configuration and device")
-    for p in (enp, xp, ip):
+    for p in (enp, xp, tp, ip):
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu on request)")
     return parser
@@ -296,7 +416,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _NOT_PORTED:
         print(f"  '{argv[0]}' is not ported to sincformer_tpu_torch yet "
-              f"(still missing: {', '.join(_NOT_PORTED)}); use python -m "
+              f"(still missing: {_MISSING}); use python -m "
               f"sincformer_tpu.cli {argv[0]}", file=sys.stderr)
         return 2
     parser = build_parser()
@@ -305,6 +425,8 @@ def main(argv=None) -> int:
         return enhance(args)
     if args.command == "export":
         return export(args)
+    if args.command == "train":
+        return train(args)
     if args.command == "info":
         return info(args)
     parser.print_help()

@@ -35,6 +35,14 @@ folded and stored in float32 (1 MB of the flagship's 16 MB).
 ``load_dnn_from_jax`` and ``convert_quantized_dnn_from_jax`` do both for the
 mask DNN (Dense layers only).
 
+``load_train_state_from_jax`` carries a JAX train state across so that
+training continues in the port: the parameters keyed by the port's
+parameter names (the CPEA's recurrent kernels K as ``kernel_hh`` and their
+biases b as ``bias_hh``, separately, as the JAX tree holds them), the
+``model_state`` collections as buffers, and optax's AdamW moments ``mu`` and
+``nu`` mapped leaf for leaf the same way (every mapping is a transpose or a
+concatenation, so a moment maps as its parameter does) with its ``count``.
+
 Variants outside this slice (the BiLRU mixer, the reference PA cascade, the
 dual fine stream) raise. Every leaf must be placed and every torch
 parameter and buffer filled, with matching shapes, or it raises.
@@ -223,6 +231,81 @@ def load_from_jax(variables: Mapping, **overrides: Any
 
     return ({k: _tensor(v) for k, v in state.items()},
             {k: _tensor(v) for k, v in buffers.items()}, config)
+
+
+def _named_params(params: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    """A flax parameter tree (or a tree of its shape, e.g. an Adam moment)
+    → {port parameter name: array}, CPEA K and b separately."""
+    out = {}
+    for path, arr in _flatten(params).items():
+        if path[0] == "cpea" and path[1].startswith("LSTMCell_"):
+            continue
+        leaf, value = _param_leaf(path, arr)
+        out[".".join(path[:-1] + (leaf,))] = value
+    cpea = params["cpea"]
+    for layer in range(num_layers):
+        for direction, suffix in ((0, ""), (1, "_reverse")):
+            cell = cpea[f"LSTMCell_{2 * layer + direction}"]
+            key = f"cpea.lstm.{{}}_l{layer}{suffix}"
+            out[key.format("weight_ih")] = np.concatenate(
+                [cell[f"i{g}"]["kernel"] for g in _GATES], 1).T
+            out[key.format("kernel_hh")] = np.concatenate(
+                [cell[f"h{g}"]["kernel"] for g in _GATES], 1).T
+            out[key.format("bias_hh")] = np.concatenate(
+                [cell[f"h{g}"]["bias"] for g in _GATES])
+    return out
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (fields count, mu, nu) inside an optax
+    state, e.g. ``make_adamw``'s chain; a dict with those keys passes."""
+    if isinstance(opt_state, Mapping):
+        return opt_state["count"], opt_state["mu"], opt_state["nu"]
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return opt_state.count, opt_state.mu, opt_state.nu
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def load_train_state_from_jax(params: Mapping,
+                              model_state: Optional[Mapping] = None,
+                              opt_state: Any = None, **overrides: Any):
+    """A JAX train state (numpy leaves) → (params, buffers, opt_state,
+    config) for ``SincformerPipeline``: ``params`` keyed as the model's
+    ``named_parameters()``, ``buffers`` as its buffers, ``opt_state`` in the
+    form of ``train.state.AdamW`` (``{"mu", "nu", "count"}``, None when
+    ``opt_state`` is None). ``opt_state`` is optax's state (the
+    ``ScaleByAdamState`` in it is found) or ``{"count", "mu", "nu"}``."""
+    from sincformer_tpu_torch.agents.metacog import SincformerMetacog
+
+    _, buffers, config = load_from_jax({"params": params,
+                                        **(model_state or {})}, **overrides)
+    named = {k: _tensor(v) for k, v in _named_params(
+        params, config.cpea_layers).items()}
+    with torch.device("meta"):
+        skeleton = SincformerMetacog(config)
+    want = {k: tuple(p.shape) for k, p in skeleton.named_parameters()}
+    got = {k: tuple(v.shape) for k, v in named.items()}
+    if want != got:
+        raise ValueError(f"train state does not fill the port's parameters: "
+                         f"{sorted(set(want) ^ set(got))} "
+                         f"{ {k: (got[k], want[k]) for k in want if k in got and got[k] != want[k]} }")
+    for name, b in skeleton.named_buffers():
+        if name.startswith("cpea.lstm.bias_ih"):
+            buffers[name] = torch.zeros(b.shape)
+    opt = None
+    if opt_state is not None:
+        count, mu, nu = _adam_state(opt_state)
+        opt = {"mu": {k: _tensor(v) for k, v in _named_params(
+                   mu, config.cpea_layers).items()},
+               "nu": {k: _tensor(v) for k, v in _named_params(
+                   nu, config.cpea_layers).items()},
+               "count": int(np.asarray(count))}
+    return named, buffers, opt, config
 
 
 def _tensor(arr) -> torch.Tensor:

@@ -1,17 +1,25 @@
 """Audio framing, the auditory front-end's and the feature extractor's
-constants, and model sizes of the flagship, of DCSE and of the mask DNN.
+constants, the training data and loss settings, the curriculum, and model
+sizes of the flagship, of DCSE and of the mask DNN.
 
 A copy of what the port needs from ``sincformer_tpu/config.py`` (AudioConfig,
-GammatoneConfig, FeatureConfig, DNNConfig, ConformerConfig.attn_impl,
-AgentConfig, VQConfig, the inference fields of DCSEConfig) and of the
-``SincformerMetacog`` fields that ``default_metacog`` sets. The JAX
-package's ``SINCFORMER_*`` environment knobs are plain fields here with the
-same defaults; nothing reads the environment.
+GammatoneConfig, FeatureConfig, DataConfig, DNNConfig,
+ConformerConfig.attn_impl, AgentConfig, VQConfig, LossConfig,
+CurriculumConfig, the inference fields of DCSEConfig) and of the
+``SincformerMetacog`` fields that ``default_metacog`` sets. The model
+fields are plain fields with the JAX package's defaults; the data and loss
+fields read the same ``SINCFORMER_*`` environment knobs as the JAX package
+(``SINCFORMER_MAX_WAVE_SECONDS``, ``SINCFORMER_MASK_MSE_WEIGHT``, the
+dataset directories) when an instance is made.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
+from typing import Tuple
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @dataclass(frozen=True)
@@ -71,6 +79,41 @@ class FeatureConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """Noise grid, split and utterance length of the training data."""
+    noise_types: Tuple[str, ...] = ("babble", "white", "factory1",
+                                    "destroyerengine")
+    snr_levels: Tuple[int, ...] = (-5, 0, 5, 10)
+    train_split_seed: int = 42
+    train_fraction: float = 0.9
+    # pad / crop length of an utterance in training batches
+    max_wave_seconds: float = field(default_factory=lambda: float(
+        os.environ.get("SINCFORMER_MAX_WAVE_SECONDS", "4.0")))
+    timit_dir: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_TIMIT_DIR", os.path.join(_REPO, "DARPA-TIMIT", "data")))
+    noisex_dir: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_NOISEX_DIR", os.path.join(_REPO, "Noises", "NoiseX-92")))
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss weights of flagship training."""
+    perceptual_weight: float = 1.0      # the pipeline's default
+    commitment_weight: float = 0.25     # weight of the VQ loss
+    # stage-1/2 mask-domain MSE against the oracle PCIRM
+    mask_mse_weight: float = field(default_factory=lambda: float(
+        os.environ.get("SINCFORMER_MASK_MSE_WEIGHT", "1.0")))
+
+
+@dataclass(frozen=True)
+class CurriculumConfig:
+    """Epochs of the three curriculum stages."""
+    stage1_epochs: int = 15
+    stage2_epochs: int = 20
+    stage3_epochs: int = 15
+
+
+@dataclass(frozen=True)
 class DNNConfig:
     """The original paper's mask DNN: 594 -> 3 x 1024 -> 64 (inference
     fields; the optimiser's belong to the training slice)."""
@@ -82,7 +125,10 @@ class DNNConfig:
 
 @dataclass(frozen=True)
 class MetacogConfig:
-    """Sizes of ``SincformerMetacog`` at inference (defaults: the flagship)."""
+    """Sizes and training settings of ``SincformerMetacog`` (defaults: the
+    flagship). ``dropout`` and ``routing`` act in training only:
+    ``routing="gumbel"`` routes by Gumbel-softmax straight-through,
+    ``"softmax"`` by the softmax probabilities."""
     encoder_channels: int = 256
     sample_rate: int = 8000
     sinc_kernel_size: int = 251
@@ -104,8 +150,13 @@ class MetacogConfig:
     vq_commitment: float = 0.25
     memory_slots: int = 64
     episodic_slots: int = 16
+    dropout: float = 0.1
+    routing: str = "gumbel"         # "gumbel" | "softmax"
 
     def __post_init__(self):
+        if self.routing not in ("gumbel", "softmax"):
+            raise ValueError(f"routing must be 'gumbel' or 'softmax', got "
+                             f"{self.routing!r}")
         if self.pa_fine_act not in ("mulaw", "gelu"):
             raise ValueError(f"pa_fine_act must be 'mulaw' or 'gelu', got "
                              f"{self.pa_fine_act!r}")

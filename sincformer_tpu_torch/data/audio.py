@@ -1,6 +1,7 @@
-"""Audio file input on the host (``load_audio`` of
-``sincformer_tpu/data/audio.py``): WAV through ``scipy.io.wavfile`` with
-int16/int32 scaling, mono mixdown, linear-interpolation resampling."""
+"""Audio on the host (``sincformer_tpu/data/audio.py``): ``load_audio``
+reads WAV through ``scipy.io.wavfile`` with int16/int32 scaling, mono
+mixdown and linear-interpolation resampling; ``add_noise_at_snr`` mixes
+speech and noise at a target SNR."""
 
 from __future__ import annotations
 
@@ -28,3 +29,19 @@ def load_audio(filepath: str, target_sr: Optional[int] = None) -> np.ndarray:
     if sr != target_sr:
         audio = resample_linear(audio, sr, target_sr)
     return audio.astype(np.float32)
+
+
+def add_noise_at_snr(clean: np.ndarray, noise: np.ndarray,
+                     snr_db: float) -> np.ndarray:
+    """Mix ``clean`` with ``noise`` scaled to ``snr_db``: the noise is tiled
+    to the clean length and cropped from its start, the scale taken from
+    the power ratio (host numpy, float32 out)."""
+    clean = np.asarray(clean, np.float32)
+    noise = np.asarray(noise, np.float32)
+    if len(noise) < len(clean):
+        noise = np.tile(noise, int(np.ceil(len(clean) / len(noise))))
+    noise = noise[:len(clean)]
+    clean_power = np.mean(clean ** 2) + 1e-10
+    noise_power = np.mean(noise ** 2) + 1e-10
+    scale = np.sqrt(clean_power / (noise_power * 10.0 ** (snr_db / 10.0)))
+    return (clean + scale * noise).astype(np.float32)

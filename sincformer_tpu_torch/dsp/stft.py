@@ -9,6 +9,7 @@ is not used because its window-envelope check and edge handling differ.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -21,13 +22,22 @@ from sincformer_tpu_torch.utils.signal import (frame_signal, hann_window,
 
 def _padded_window(window: Optional[np.ndarray], win_length: int, n_fft: int,
                    device) -> torch.Tensor:
-    """Centre-pad a ``win_length`` window (default periodic Hann) to n_fft."""
+    """Centre-pad a ``win_length`` window (default periodic Hann) to n_fft.
+    The default window is made once per device: a copy from the host each
+    call would wait for the card."""
     if window is None:
-        window = hann_window(win_length, periodic=True)
+        return _default_window(win_length, n_fft, str(torch.device(device)))
     window = np.asarray(window, np.float32)
     left = (n_fft - window.shape[0]) // 2
     padded = np.pad(window, (left, n_fft - window.shape[0] - left))
     return torch.from_numpy(padded).to(device)
+
+
+@functools.lru_cache(maxsize=32)
+def _default_window(win_length: int, n_fft: int, device: str) -> torch.Tensor:
+    with torch.inference_mode(False), torch.no_grad():
+        return _padded_window(hann_window(win_length, periodic=True),
+                              win_length, n_fft, device)
 
 
 def stft(x: torch.Tensor, n_fft: int = 256, hop: int = 80,

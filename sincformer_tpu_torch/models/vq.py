@@ -1,8 +1,10 @@
-"""Scalar vector quantizer (``sincformer_tpu/models/vq.py``), forward only."""
+"""Scalar vector quantizer with a straight-through estimator
+(``sincformer_tpu/models/vq.py``)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -15,9 +17,16 @@ class VectorQuantizer(nn.Module):
         self.centroids = nn.Parameter(torch.linspace(0.0, 1.0, num_centroids))
 
     def forward(self, x: torch.Tensor):
-        """Returns (quantized, indices, vq_loss), as the JAX module does."""
+        """Returns (quantized, indices, vq_loss), as the JAX module does:
+        the codebook loss pulls the centroids, the commitment loss (weighted)
+        pulls x, and the quantized values pass x's gradient straight
+        through."""
         indices = torch.argmin((x[..., None] - self.centroids) ** 2, dim=-1)
-        q = self.centroids[indices]
-        err = torch.mean((x - q) ** 2)
-        # x + (q - x): the straight-through form, rounded as in JAX
-        return x + (q - x), indices, (1.0 + self.commitment_weight) * err
+        # one-hot times the centroids, summed, picks each value exactly; its
+        # backward is a reduction, where indexing's backward would scatter
+        # every element into M slots
+        q = (F.one_hot(indices, self.centroids.shape[0]).to(x.dtype)
+             * self.centroids).sum(-1)
+        codebook = torch.mean((x.detach() - q) ** 2)
+        commitment = self.commitment_weight * torch.mean((x - q.detach()) ** 2)
+        return x + (q - x).detach(), indices, commitment + codebook

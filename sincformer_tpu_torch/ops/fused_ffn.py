@@ -10,8 +10,12 @@ it once, keeps the normalised rows and the d_ff-wide intermediate in shared
 memory, streams the weights through it with asynchronous copies and takes
 both products on the tensor cores in split TF32 (f32-level results); on a
 CPU tensor it runs :func:`_fused_ffn_plain`. There is no fallback from one
-to the other: a CUDA tensor the kernel does not take raises. Inference
-only; the backward belongs to the training slice.
+to the other: a CUDA tensor the kernel does not take raises.
+
+Under autograd the call is one :class:`_FusedFFN` function, as in the JAX
+package: the forward is the kernel (the plain version on a CPU tensor), the
+backward recomputes the plain formula on the saved inputs and takes its
+gradient (there is no backward kernel).
 """
 
 from __future__ import annotations
@@ -82,20 +86,8 @@ def _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2):
                              f"{align} bytes")
 
 
-def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,
-              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-              b2: torch.Tensor) -> torch.Tensor:
-    """y = x + 0.5 * (swish(LN(x) . W1 + b1) . W2 + b2).
-
-    Args:
-        x: (..., d) activations.
-        ln_g, ln_b: LayerNorm scale and bias (d,).
-        w1: (d, d_ff); b1: (d_ff,); w2: (d_ff, d); b2: (d,), the JAX
-            package's (in, out) layout.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``fused_ffn.launches``) or raises.
-    """
+def _forward(x, ln_g, ln_b, w1, b1, w2, b2):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
         return _fused_ffn_plain(x, ln_g, ln_b, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -116,6 +108,46 @@ def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,
         raise RuntimeError(f"fused_ffn kernel launch failed: CUDA error {err}")
     fused_ffn.launches += 1
     return out
+
+
+class _FusedFFN(torch.autograd.Function):
+    """Forward through :func:`_forward`; backward = the gradient of the
+    plain formula, recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _forward(*args)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        args = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(True) for a in args]
+            out = _fused_ffn_plain(*leaves)
+            return torch.autograd.grad(out, leaves, grad_out)
+
+
+def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,
+              w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """y = x + 0.5 * (swish(LN(x) . W1 + b1) . W2 + b2).
+
+    Args:
+        x: (..., d) activations.
+        ln_g, ln_b: LayerNorm scale and bias (d,).
+        w1: (d, d_ff); b1: (d_ff,); w2: (d_ff, d); b2: (d,), the JAX
+            package's (in, out) layout.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``fused_ffn.launches``, forward launches only) or raises.
+    When an input needs a gradient the call is differentiable: the
+    backward is the plain formula's.
+    """
+    args = (x, ln_g, ln_b, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _FusedFFN.apply(*args)
+    return _forward(*args)
 
 
 fused_ffn.launches = 0

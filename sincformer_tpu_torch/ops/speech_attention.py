@@ -9,6 +9,12 @@ f32-level results); on a CPU tensor it runs
 tests compare with JAX and that ``chip_smoke.py`` compares with the kernel
 on the card. There is no fallback from one to the other: a CUDA tensor the
 kernel does not take raises.
+
+Under autograd the call is one :class:`_SpeechAttention` function, as the
+JAX package's custom VJP is: the forward is the kernel (the plain version on
+a CPU tensor), and the backward recomputes the plain formulation on the
+saved q, k, v and bias and takes its gradient. There is no backward kernel,
+in JAX or here.
 """
 
 from __future__ import annotations
@@ -28,13 +34,15 @@ def _speech_attention_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor,
                             bias: Optional[torch.Tensor] = None,
                             sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Plain f32 softmax attention, (B, T, H, dh) in and out."""
+    """Plain softmax attention, (B, T, H, dh) in and out: float32 (float64
+    for float64 inputs, a reference for rounding studies)."""
     scale = sm_scale if sm_scale is not None else 1.0 / float(q.shape[-1]) ** 0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt)) * scale
     if bias is not None:
-        s = s + bias[:, None, None, :].float()
+        s = s + bias[:, None, None, :].to(dt)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(dt)).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,31 +84,9 @@ def _check_cuda_args(q, k, v, bias):
                              f"{bias.device}")
 
 
-def speech_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None,
-                     sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Full-softmax attention tuned for speech-length T.
-
-    Args:
-        q, k, v: (B, T, H, dh).
-        bias: optional (B, T) f32 key-side additive bias (0 valid, -1e9
-            masked), the valid-frame mask in additive form.
-        sm_scale: score scale; default 1/sqrt(dh).
-
-    Returns:
-        (B, T, H, dh) attention output.
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``speech_attention.launches``) or raises.
-    """
-    if q.device.type == "cpu":
-        return _speech_attention_plain(q, k, v, bias, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"speech_attention runs on cpu or cuda, not "
-                         f"{q.device}")
-    _check_cuda_args(q, k, v, bias)
+def _launch(q, k, v, bias, scale):
+    """One launch of the kernel on CUDA tensors the caller has checked."""
     b, t, h, dh = q.shape
-    scale = sm_scale if sm_scale is not None else 1.0 / float(dh) ** 0.5
     out = torch.empty_like(q)
     fn = _kernel()
     with torch.cuda.device(q.device):
@@ -113,6 +99,66 @@ def speech_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"error {err}")
     speech_attention.launches += 1
     return out
+
+
+def _forward(q, k, v, bias, scale):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return _speech_attention_plain(q, k, v, bias, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"speech_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_cuda_args(q, k, v, bias)
+    return _launch(q, k, v, bias, scale)
+
+
+class _SpeechAttention(torch.autograd.Function):
+    """Forward through :func:`_forward`; backward = the gradient of the
+    plain formulation, recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _forward(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = _speech_attention_plain(*leaves, bias, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, leaves, grad_out)
+        return dq, dk, dv, None, None
+
+
+def speech_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Full-softmax attention tuned for speech-length T.
+
+    Args:
+        q, k, v: (B, T, H, dh).
+        bias: optional (B, T) f32 key-side additive bias (0 valid, -1e9
+            masked), the valid-frame mask in additive form; it takes no
+            gradient.
+        sm_scale: score scale; default 1/sqrt(dh).
+
+    Returns:
+        (B, T, H, dh) attention output.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``speech_attention.launches``, forward launches only) or
+    raises. When q, k or v needs a gradient the call is differentiable:
+    the backward is the plain formulation's.
+    """
+    scale = sm_scale if sm_scale is not None else 1.0 / float(
+        q.shape[-1]) ** 0.5
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if bias is not None:
+            bias = bias.detach()
+        return _SpeechAttention.apply(q, k, v, bias, scale)
+    return _forward(q, k, v, bias, scale)
 
 
 speech_attention.launches = 0

@@ -13,7 +13,9 @@ A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``; without CUDA the default raises instead of
 running anywhere else. ``output_gain`` is read at every call, so a changed
 gain takes effect at once. ``save_model`` / ``load_model`` write and read
-the serving checkpoints of ``train/state.py``.
+the serving checkpoints of ``train/state.py``; training is
+``train/agent_trainer.SincformerTrainer``, a ``SincformerPipeline`` that also
+saves and restores the optimizer state.
 """
 
 from __future__ import annotations
@@ -47,13 +49,24 @@ from sincformer_tpu_torch.utils.signal import (hann_window, overlap_add,
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must be present."""
+    """``device`` as a torch.device; a CUDA device must be present. The port
+    computes in float32 on the card: this turns TF32 off in cuBLAS and
+    cuDNN (PyTorch leaves it on in cuDNN), for the process."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available. sincformer_tpu_torch runs on the GPU by "
-            "default; pass device='cpu' to run on the CPU on purpose.")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available. sincformer_tpu_torch runs on the GPU "
+                "by default; pass device='cpu' to run on the CPU on purpose.")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def model_buffers(model: torch.nn.Module) -> dict:
+    """The buffers a checkpoint keeps: those of ``state_dict()``."""
+    keys = set(model.state_dict())
+    return {k: b for k, b in model.named_buffers() if k in keys}
 
 
 class _EnhancementPipeline:
@@ -134,11 +147,8 @@ class _EnhancementPipeline:
         int8 serving form (the parameters go through ``quantize_tree`` on
         this pipeline's device)."""
         name = name or self.FINAL_NAME
-        params = dict(self.model.named_parameters())
-        state = {"params": params,
-                 "model_state": {k: v for k, v in
-                                 self.model.state_dict().items()
-                                 if k not in params}}
+        state = {"params": dict(self.model.named_parameters()),
+                 "model_state": model_buffers(self.model)}
         save = save_checkpoint_quantized if quantize else save_checkpoint
         path = save(os.path.join(self.model_dir, name), state, self.step,
                     extra={"config": dataclasses.asdict(self.model.config)})
@@ -162,9 +172,12 @@ class _EnhancementPipeline:
                 f"{self.model_dir}")
         restored = restore_checkpoint(path)
         config = read_step_meta(path).get("config")
-        if config is not None and config != dataclasses.asdict(
-                self.model.config):
-            self.model = self.MODEL(self.CONFIG(**config)).to(
+        current = dataclasses.asdict(self.model.config)
+        # fields the checkpoint does not record (e.g. the training-only
+        # dropout and routing of an older serving checkpoint) keep the
+        # pipeline's values
+        if config is not None and {**current, **config} != current:
+            self.model = self.MODEL(self.CONFIG(**{**current, **config})).to(
                 self.device).eval()
         self.load_state(restored["params"], restored["model_state"])
         self.step = restored["step"]

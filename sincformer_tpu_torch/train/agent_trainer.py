@@ -1,0 +1,424 @@
+"""Training half of the flagship pipeline
+(``sincformer_tpu/train/agent_trainer.py``): the loss, the train and eval
+steps, the curriculum loop with its per-epoch re-mixing, the Gumbel
+temperature annealing, the validation-calibrated output gain, and best,
+final and resumable checkpoints: :class:`SincformerTrainer`, the serving
+``pipeline.SincformerPipeline`` with the training methods and the optimizer
+state in its checkpoints (the JAX package keeps both halves in one class).
+
+Curriculum (train/curriculum.py), one loss for every stage with the stage's
+terms switched by scalars:
+
+  stage 1: SI-SNR + 0.5·L1-magnitude + MR-STFT + mask MSE against the oracle
+           PCIRM, high SNRs only;
+  stage 2: + the perceptual STOI loss, a widening SNR range;
+  stage 3: + the VQ loss, every SNR.
+
+The adversarial branch of stage 3 is not ported (ROADMAP.md Queue 1 item 1).
+
+Random draws come from explicit generators: the weights from ``seed``,
+dropout from ``seed + 1`` and the Gumbel routing from ``seed + 2`` (the
+JAX package's three keys), all on the pipeline's device. One step makes no
+host synchronisation: the NaN guard, the clip and the AdamW update stay on
+the device; the losses are read once per epoch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from sincformer_tpu_torch.agents.metacog import SincformerMetacog
+from sincformer_tpu_torch.config import (AudioConfig, DataConfig, LossConfig,
+                                         MetacogConfig)
+from sincformer_tpu_torch.data.audio import add_noise_at_snr
+from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
+                                              heldout_noises)
+from sincformer_tpu_torch.dsp.stft import istft, stft
+from sincformer_tpu_torch.masks.pcirm import (compute_correlation_coefficients,
+                                              compute_pcirm,
+                                              compute_phase_differences)
+from sincformer_tpu_torch.pipeline import SincformerPipeline, model_buffers
+from sincformer_tpu_torch.train.curriculum import CurriculumScheduler
+from sincformer_tpu_torch.train.losses import (PerceptualSTOILoss,
+                                               mse_mask_loss,
+                                               multi_resolution_stft_loss,
+                                               si_snr_loss)
+from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, guard_nan_update,
+                                              make_adamw, merge_train_meta,
+                                              newest_checkpoint,
+                                              read_train_meta,
+                                              restore_checkpoint,
+                                              save_checkpoint)
+
+ADVERSARIAL_NOT_PORTED = (
+    "the adversarial branch (train/adversarial.py, the discriminator step "
+    "of agent_trainer.py) is not ported yet: ROADMAP.md Queue 1 item 1")
+LR = 5e-4           # peak of the warmup-cosine schedule
+
+
+def default_metacog(**overrides) -> SincformerMetacog:
+    """The flagship as the ``train`` verb builds it; ``SINCFORMER_MSA_BLOCKS``
+    sets the depth, as in the JAX package."""
+    kw = {"msa_blocks": int(os.environ.get("SINCFORMER_MSA_BLOCKS", "4"))}
+    kw.update(overrides)
+    return SincformerMetacog(MetacogConfig(**kw))
+
+
+class SincformerTrainer(SincformerPipeline):
+    """Curriculum training of the flagship, and its serving. ``seed`` draws
+    the weights (when none were loaded), the dropout masks and the Gumbel
+    noise; ``logger`` (a ``utils.observability.MetricsLogger``) takes one
+    record per epoch. ``use_adversarial=True`` raises: that branch is not
+    ported. As in the JAX pipeline, training starts from weights drawn from
+    ``seed`` unless a checkpoint or a state was loaded (``load_model``,
+    ``load_state``): a model given to the constructor is its skeleton."""
+
+    _CKPT_NAMES = ("sincformer_final", "best_sincformer")
+
+    def __init__(self, model=None, device="cuda", output_gain: float = 1.0,
+                 audio: AudioConfig = AudioConfig(),
+                 model_dir: Optional[str] = None, seed: int = 0,
+                 logger=None, use_adversarial: bool = False):
+        if use_adversarial:
+            raise NotImplementedError(ADVERSARIAL_NOT_PORTED)
+        super().__init__(model, device, output_gain, audio, model_dir)
+        loss = LossConfig()
+        self.seed = seed
+        self.perceptual_weight = loss.perceptual_weight
+        self.vq_weight = loss.commitment_weight
+        self.mask_mse_weight = loss.mask_mse_weight
+        self.stoi_loss = PerceptualSTOILoss(self.audio.sample_rate,
+                                            self.audio.fft_size)
+        self.logger = logger
+        self.curriculum = CurriculumScheduler()
+        self.tx = None                     # train.state.AdamW
+        self.opt_state = None
+        self.nan_count = torch.zeros((), dtype=torch.int32,
+                                     device=self.device)
+        self.dropout_generator = None
+        self.routing_generator = None
+        self._weights_loaded = False
+
+    # ── checkpoints: the serving ones plus the optimizer state ─────────
+
+    def load_state(self, state_dict, buffers=None) -> None:
+        super().load_state(state_dict, buffers)
+        self._weights_loaded = True
+
+    def save_model(self, name: Optional[str] = None,
+                   quantize: bool = False) -> str:
+        """As the serving pipeline; once training has made an optimizer
+        state, a float32 checkpoint also holds it and the NaN count."""
+        if quantize or self.opt_state is None:
+            return super().save_model(name, quantize)
+        name = name or self.FINAL_NAME
+        path = save_checkpoint(
+            os.path.join(self.model_dir, name),
+            {"params": self.params(), "model_state": model_buffers(self.model),
+             "opt_state": self.opt_state, "nan_count": self.nan_count},
+            self.step, extra={"config": dataclasses.asdict(self.model.config)})
+        merge_train_meta(self.model_dir, name,
+                         {"output_gain": float(self.output_gain)})
+        return path
+
+    def load_model(self, path: Optional[str] = None) -> str:
+        """As the serving pipeline, and the optimizer state and NaN count of
+        a full checkpoint (none from a serving one)."""
+        path = super().load_model(path)
+        restored = restore_checkpoint(path)
+        opt = restored.get("opt_state")
+        self.opt_state = None if opt is None else {
+            "mu": {k: v.to(self.device) for k, v in opt["mu"].items()},
+            "nu": {k: v.to(self.device) for k, v in opt["nu"].items()},
+            "count": int(opt["count"])}
+        self.nan_count = torch.tensor(int(restored.get("nan_count", 0)),
+                                      dtype=torch.int32, device=self.device)
+        return path
+
+    # ── state ───────────────────────────────────────────────────────────
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The trainable leaves, by name (CPEA K and b separately)."""
+        return dict(self.model.named_parameters())
+
+    def init_state(self, epochs: int, steps_per_epoch: int,
+                   init_params: Optional[bool] = None,
+                   reset_optimizer: bool = True) -> None:
+        """The optimizer for ``epochs`` × ``steps_per_epoch`` steps and its
+        zero state (``reset_optimizer=False`` keeps a restored one), fresh
+        generators, and, unless weights were loaded or drawn already
+        (``init_params`` overrides), weights drawn from ``seed``."""
+        if init_params is None:
+            init_params = not self._weights_loaded
+        if init_params:
+            self.model.init_params(torch.Generator().manual_seed(self.seed))
+            self._weights_loaded = True
+        self.tx = make_adamw(LR, epochs, steps_per_epoch)
+        if reset_optimizer or self.opt_state is None:
+            self.opt_state = self.tx.init(self.params())
+        self.dropout_generator = torch.Generator(
+            device=self.device).manual_seed(self.seed + 1)
+        self.routing_generator = torch.Generator(
+            device=self.device).manual_seed(self.seed + 2)
+
+    # ── loss ────────────────────────────────────────────────────────────
+
+    def _loss(self, noisy: torch.Tensor, clean: torch.Tensor, train: bool,
+              use_perceptual: float, use_vq: float, gumbel_tau=None,
+              use_mask_mse: Optional[float] = None):
+        """(total, aux). ``use_perceptual``, ``use_vq`` and ``use_mask_mse``
+        weight their terms (0 or 1 by curriculum stage); every term is
+        computed whatever its weight, as in the JAX package."""
+        a = self.audio
+        n_fft, hop, frame = a.fft_size, a.hop_size, a.frame_size
+        noisy_spec = stft(noisy, n_fft, hop, frame)
+        clean_spec = stft(clean, n_fft, hop, frame)
+        out = self.model(noisy, noisy_spec.real, noisy_spec.imag, train=train,
+                         gumbel_tau=gumbel_tau,
+                         dropout_generator=(self.dropout_generator
+                                            if train else None),
+                         routing_generator=(self.routing_generator
+                                            if train else None))
+        enh_r, enh_i = out["enhanced_real"], out["enhanced_imag"]
+        enh_wav = istft(torch.complex(enh_r, enh_i), n_fft, hop, frame,
+                        length=clean.shape[-1])
+
+        loss_sisnr = si_snr_loss(enh_wav, clean)
+        enh_mag = torch.sqrt(enh_r ** 2 + enh_i ** 2 + 1e-8)
+        clean_mag = torch.sqrt(clean_spec.real ** 2 + clean_spec.imag ** 2
+                               + 1e-8)
+        loss_mag = torch.mean(torch.abs(enh_mag - clean_mag))
+        loss_stft = multi_resolution_stft_loss(enh_wav, clean)
+        loss_stoi = self.stoi_loss(enh_mag.transpose(1, 2),
+                                   clean_mag.transpose(1, 2))
+        total = (loss_sisnr + 0.5 * loss_mag + loss_stft
+                 + use_perceptual * self.perceptual_weight * loss_stoi
+                 + use_vq * self.vq_weight * out["vq_loss"])
+        if use_mask_mse is not None:
+            # mask-domain supervision against the oracle PCIRM on the STFT
+            # grid, from the mixture's own (clean, noise) decomposition
+            with torch.no_grad():
+                noise_r = noisy_spec.real - clean_spec.real
+                noise_i = noisy_spec.imag - clean_spec.imag
+                noise_mag = torch.sqrt(noise_r ** 2 + noise_i ** 2 + 1e-8)
+                noisy_mag = torch.sqrt(noisy_spec.real ** 2
+                                       + noisy_spec.imag ** 2 + 1e-8)
+                phi1, phi2 = compute_phase_differences(
+                    torch.atan2(noisy_spec.imag, noisy_spec.real),
+                    torch.atan2(clean_spec.imag, clean_spec.real),
+                    torch.atan2(noise_i, noise_r))
+                rho_s, rho_n = compute_correlation_coefficients(
+                    noisy_mag, clean_mag, noise_mag, per_unit=True)
+                oracle = compute_pcirm(clean_mag, noise_mag, rho_s, rho_n,
+                                       phi1, phi2)
+            t_m = out["mask_mag"].shape[1]
+            loss_mask = mse_mask_loss(out["mask_mag"], oracle[:, :t_m])
+            total = total + use_mask_mse * self.mask_mse_weight * loss_mask
+        aux = {"sisnr": -loss_sisnr, "stoi_loss": loss_stoi,
+               "vq_loss": out["vq_loss"], "enh_mag": enh_mag,
+               "clean_mag": clean_mag, "enh_wav": enh_wav, "out": out}
+        return total, aux
+
+    def loss_and_grads(self, noisy: torch.Tensor, clean: torch.Tensor,
+                       use_perceptual: float, use_vq: float, gumbel_tau=None,
+                       use_mask_mse: Optional[float] = 1.0):
+        """A training forward and its gradients: (loss, sisnr, grads in the
+        order of :meth:`params`, None for a parameter nothing reads). The
+        model's buffers (MAA statistics, episodic bank, usage counters)
+        take their training updates."""
+        params = list(self.params().values())
+        loss, aux = self._loss(noisy, clean, True, use_perceptual, use_vq,
+                               gumbel_tau, use_mask_mse)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.detach(), aux["sisnr"].detach(), list(grads)
+
+    def train_step(self, noisy: torch.Tensor, clean: torch.Tensor,
+                   use_perceptual: float, use_vq: float, gumbel_tau=None,
+                   use_mask_mse: float = 1.0):
+        """One step: loss, gradients, the NaN guard (a non-finite loss or
+        gradient zeroes every gradient, and the optimizer still steps), the
+        clipped AdamW update. Returns the (loss, sisnr) device scalars."""
+        loss, sisnr, grads = self.loss_and_grads(
+            noisy, clean, use_perceptual, use_vq, gumbel_tau, use_mask_mse)
+        params = self.params()
+        grads, is_bad = guard_nan_update(grads, loss, params.values())
+        self.tx.update(params, grads, self.opt_state)
+        self.nan_count += is_bad.to(torch.int32)
+        self.step += 1
+        return loss, sisnr
+
+    @torch.no_grad()
+    def eval_step(self, noisy: torch.Tensor, clean: torch.Tensor,
+                  lengths: torch.Tensor):
+        """(loss, sisnr, Σ log α, count): α = ⟨clean, enh⟩ / ‖enh‖² per
+        utterance over its true samples, the oracle output gain; utterances
+        with α outside (1e-3, 1e3) or not finite are left out."""
+        loss, aux = self._loss(noisy, clean, False, 1.0, 1.0)
+        enh = aux["enh_wav"]
+        m = (torch.arange(clean.shape[-1], device=clean.device)[None, :]
+             < lengths[:, None]).to(clean.dtype)
+        alpha = (torch.sum(clean * enh * m, -1)
+                 / (torch.sum(enh * enh * m, -1) + 1e-12))
+        valid = torch.isfinite(alpha) & (alpha > 1e-3) & (alpha < 1e3)
+        lg_sum = torch.sum(torch.where(
+            valid, torch.log(torch.clamp(alpha, min=1e-12)),
+            torch.zeros_like(alpha)))
+        return loss, aux["sisnr"], lg_sum, torch.sum(valid)
+
+    # ── curriculum data ─────────────────────────────────────────────────
+
+    @staticmethod
+    def remix_for_stage(clean_signals: Sequence[np.ndarray],
+                        noises: Dict[str, np.ndarray],
+                        snr_levels: Sequence[float], max_len: int,
+                        epoch: int) -> WaveformDataset:
+        """Mix the clean sources at the stage's SNRs, the (noise, SNR)
+        assignment rotated by the epoch."""
+        keys = list(noises.keys())
+        pairs = []
+        for i, clean in enumerate(clean_signals):
+            clean = np.asarray(clean, np.float32)[:max_len]
+            noise = noises[keys[(i + epoch) % len(keys)]]
+            snr = snr_levels[(i + epoch) % len(snr_levels)]
+            pairs.append((add_noise_at_snr(clean, noise, snr), clean))
+        return WaveformDataset(pairs=pairs, max_len=max_len)
+
+    def _tensors(self, batch, *keys):
+        return [torch.from_numpy(np.asarray(batch[k])).to(self.device)
+                for k in keys]
+
+    def _validate(self, test_ds: WaveformDataset, batch_size: int):
+        out = [self.eval_step(*self._tensors(b, "noisy", "clean", "lengths"))
+               for b in batch_iterator(test_ds, batch_size, shuffle=False,
+                                       drop_last=False)]
+        return [[float(x) for x in row] for row in out]   # one sync
+
+    # ── training loop ───────────────────────────────────────────────────
+
+    def train(self, clean_train: Sequence[np.ndarray],
+              clean_test: Sequence[np.ndarray],
+              noises: Dict[str, np.ndarray], epochs: Optional[int] = None,
+              batch_size: int = 8, max_len: Optional[int] = None,
+              verbose: bool = True, resume: bool = False) -> List[dict]:
+        """Curriculum training from clean sources; returns one history
+        entry per epoch (the JAX package's keys).
+
+        ``resume=True`` restores the newest checkpoint across the final and
+        best families (parameters, buffers, optimizer state, step and NaN
+        count) and continues from the epoch after the one it was saved at.
+        Otherwise a pipeline with no training state yet makes one
+        (:meth:`init_state`) and one that has it carries on, as in JAX."""
+        fs = self.audio.sample_rate
+        max_len = max_len or int(fs * DataConfig().max_wave_seconds)
+        epochs = epochs or self.curriculum.total_epochs
+        steps_per_epoch = max(1, len(clean_train) // batch_size)
+        start_epoch = 0
+        resume_path = None
+        if resume:
+            resume_path = newest_checkpoint(self.model_dir, self._CKPT_NAMES)
+            if resume_path is None and verbose:
+                print("  --resume requested but no checkpoint found — "
+                      "starting fresh")
+        if resume_path is not None:
+            self.load_model(resume_path)
+            self.init_state(epochs, steps_per_epoch, init_params=False,
+                            reset_optimizer=False)
+            start_epoch = min(self.step // steps_per_epoch, epochs)
+            if verbose:
+                print(f"  Resuming from {resume_path} at step {self.step} → "
+                      f"epoch {start_epoch + 1}/{epochs}")
+        elif self.tx is None:
+            # a state already made or restored (load_model) carries on
+            self.init_state(epochs, steps_per_epoch, reset_optimizer=False)
+
+        test_ds = self.remix_for_stage(clean_test, heldout_noises(noises),
+                                       list(DataConfig().snr_levels),
+                                       max_len, 0)
+        best_val = float("inf")
+        if resume_path is not None and start_epoch > 0:
+            meta = read_train_meta(self.model_dir, "best_sincformer")
+            if (meta and np.isfinite(meta.get("best_val", np.inf))
+                    and meta.get("val_protocol") == VAL_PROTOCOL):
+                best_val = float(meta["best_val"])
+            else:
+                finite = [row[0] for row in self._validate(test_ds,
+                                                           batch_size)
+                          if np.isfinite(row[0])]
+                if finite:
+                    best_val = float(np.mean(finite))
+
+        history = []
+        last_stage = None
+        for epoch in range(start_epoch, epochs):
+            stage = self.curriculum.get_stage(epoch)
+            if verbose and stage["stage"] != last_stage:
+                print(f"  → {stage['description']}")
+                last_stage = stage["stage"]
+            loss_type = stage["loss_type"]
+            use_perc = 1.0 if "perceptual" in loss_type else 0.0
+            use_vq = 1.0 if stage["use_vq"] else 0.0
+            use_mmse = 1.0 if "mse" in loss_type else 0.0
+            # Gumbel temperature 2.0 → 0.5 over the run
+            gumbel_tau = max(0.5, 2.0 * float(np.exp(
+                -3.0 * epoch / max(epochs - 1, 1))))
+
+            train_ds = self.remix_for_stage(clean_train, noises,
+                                            stage["snr_levels"], max_len,
+                                            epoch)
+            t0 = time.time()
+            losses, sisnrs = [], []      # device scalars: one sync an epoch
+            for batch in batch_iterator(train_ds, batch_size, shuffle=True,
+                                        seed=self.seed, epoch=epoch):
+                noisy, clean = self._tensors(batch, "noisy", "clean")
+                loss, sisnr = self.train_step(noisy, clean, use_perc, use_vq,
+                                              gumbel_tau, use_mmse)
+                losses.append(loss)
+                sisnrs.append(sisnr)
+            n_b = len(losses)
+            tr_loss = float(torch.stack(losses).sum() / n_b) if n_b else 0.0
+            tr_sisnr = float(torch.stack(sisnrs).sum() / n_b) if n_b else 0.0
+
+            rows = self._validate(test_ds, batch_size)
+            finite = [r for r in rows if np.isfinite(r[0])]
+            # an all-NaN validation epoch is never an improvement
+            va_loss = (float(np.mean([r[0] for r in finite])) if finite
+                       else float("inf"))
+            va_sisnr = (float(np.mean([r[1] for r in finite])) if finite
+                        else 0.0)
+            lg = [r for r in finite if np.isfinite(r[2])]
+            lg_n = sum(int(r[3]) for r in lg)
+            if lg_n > 0:
+                # this epoch's weights with this epoch's calibrated gain
+                self.output_gain = float(np.exp(sum(r[2] for r in lg)
+                                                / lg_n))
+
+            improved = va_loss < best_val
+            if improved:
+                best_val = va_loss
+                self.save_model("best_sincformer")
+                merge_train_meta(self.model_dir, "best_sincformer",
+                                 {"best_val": va_loss, "epoch": epoch,
+                                  "step": int(self.step),
+                                  "val_protocol": VAL_PROTOCOL})
+            entry = {"epoch": epoch, "stage": stage["stage"],
+                     "train_loss": tr_loss, "val_loss": va_loss,
+                     "val_sisnr": va_sisnr,
+                     "nan_count": int(self.nan_count),
+                     "epoch_seconds": time.time() - t0}
+            history.append(entry)
+            if self.logger is not None:
+                self.logger.log({"pipeline": "sincformer", **entry})
+            if verbose:
+                print(f"  Epoch {epoch + 1:3d}/{epochs} "
+                      f"[S{stage['stage']}] | "
+                      f"Train: {tr_loss:.4f} (SI-SNR: {tr_sisnr:+.2f}) | "
+                      f"Val: {va_loss:.4f} (SI-SNR: {va_sisnr:+.2f}) | "
+                      f"{time.time() - t0:.1f}s {'*' if improved else ''}",
+                      flush=True)
+        return history

@@ -1,6 +1,6 @@
-"""Serving checkpoints (the checkpoint part of
-``sincformer_tpu/train/state.py``; optimizer state belongs to the training
-slice).
+"""Training state and checkpoints (``sincformer_tpu/train/state.py``): the
+warmup-cosine schedule, the AdamW optimizer of flagship training with its
+gradient clip, the NaN guard, and checkpoints.
 
 The directory layout is the JAX package's:
 
@@ -14,9 +14,12 @@ plain dictionaries of tensors, read back with ``weights_only=True``:
     {"params": {name: f32 tensor}, "model_state": {name: tensor}, "step": N}
     {"params_q": {name: tensor | {"q": int8, "s": f32, "axis": int}},
      "model_state": {...}, "step": N}                    (int8 serving form)
+    {"params": ..., "model_state": ..., "step": N,
+     "opt_state": {"mu": {...}, "nu": {...}, "count": N},
+     "nan_count": n}                                     (full training state)
 
-``params`` are the model's parameters and ``model_state`` its buffers, both
-keyed as in ``state_dict()``.
+``params`` are the model's parameters, keyed as in ``named_parameters()``
+or ``state_dict()``, and ``model_state`` its buffers.
 """
 
 from __future__ import annotations
@@ -24,13 +27,134 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from sincformer_tpu_torch.ops.quantize import dequantize_tree, quantize_tree
 
 PAYLOAD = "state.pt"
+
+# Version of the validation mixing, kept in best-checkpoint sidecars: 2 =
+# validation mixtures use held-out noise crops (data.loader.heldout_noises).
+# A resume trusts a persisted best_val only under the same protocol.
+VAL_PROTOCOL = 2
+
+
+def warmup_cosine_schedule(base_lr: float, total_epochs: int,
+                           steps_per_epoch: int,
+                           warmup_epochs: Optional[int] = None,
+                           floor: float = 0.01) -> Callable[[int], float]:
+    """Learning rate at step n (the optimizer's count before the update):
+    linear warmup over ``warmup_epochs`` (default clamp(total // 5, 1, 5)),
+    then cosine annealing to ``floor`` × the peak, changing once per epoch.
+    Computed in float32, as the JAX package's schedule is."""
+    if warmup_epochs is None:
+        warmup_epochs = max(1, min(5, total_epochs // 5))
+    f32 = np.float32
+
+    def schedule(step: int) -> float:
+        epoch = step // max(steps_per_epoch, 1)
+        if epoch < warmup_epochs:
+            factor = f32(epoch + 1) / f32(warmup_epochs)
+        else:
+            progress = f32(epoch - warmup_epochs) / f32(
+                max(1, total_epochs - warmup_epochs))
+            factor = max(f32(floor), f32(0.5) * (f32(1) + np.cos(
+                f32(math.pi) * progress, dtype=np.float32)))
+        return float(f32(base_lr) * f32(factor))
+
+    return schedule
+
+
+BETAS = (0.9, 0.98)
+EPS = 1e-8
+WEIGHT_DECAY = 0.01
+GRAD_CLIP = 5.0     # global gradient norm
+
+
+class AdamW:
+    """Global-norm gradient clipping, then AdamW with decoupled weight decay
+    on every parameter: ``optax.chain(clip_by_global_norm(GRAD_CLIP),
+    adamw(schedule, *BETAS, EPS, WEIGHT_DECAY))``, step for step.
+
+    The state is ``{"mu": {name: tensor}, "nu": {...}, "count": int}``. A
+    parameter without a gradient takes a zero gradient, so its moments still
+    decay and weight decay still acts on it, as optax does for a parameter
+    that no computation reads. The update runs on the parameters' device
+    with no host synchronisation.
+    """
+
+    def __init__(self, schedule: Callable[[int], float]):
+        self.schedule = schedule
+
+    @staticmethod
+    def init(params: Mapping[str, torch.Tensor]) -> dict:
+        return {"mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "count": 0}
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Sequence[torch.Tensor], state: dict) -> None:
+        """One step, in place on ``params`` (name → tensor) and ``state``;
+        ``grads`` in the order of ``params``."""
+        names = list(params)
+        ps = [params[k] for k in names]
+        gs = list(grads)
+        g_norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(gs)))
+        # optax: (g / ‖g‖) · clip when ‖g‖ ≥ clip
+        keep = g_norm < GRAD_CLIP
+        denom = torch.where(keep, torch.ones_like(g_norm), g_norm)
+        numer = torch.where(keep, torch.ones_like(g_norm),
+                            torch.full_like(g_norm, GRAD_CLIP))
+        gs = torch._foreach_mul(torch._foreach_div(gs, denom), numer)
+        mu = [state["mu"][k] for k in names]
+        nu = [state["nu"][k] for k in names]
+        b1, b2 = BETAS
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, gs, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, gs, gs, value=1.0 - b2)
+        lr = self.schedule(state["count"])
+        state["count"] += 1
+        n = np.float32(state["count"])
+        bc1 = float(np.float32(1) - np.float32(b1) ** n)
+        bc2 = float(np.float32(1) - np.float32(b2) ** n)
+        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        torch._foreach_add_(den, EPS)
+        u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        torch._foreach_add_(u, ps, alpha=WEIGHT_DECAY)
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(ps, u)
+
+
+def make_adamw(base_lr: float, total_epochs: int,
+               steps_per_epoch: int) -> AdamW:
+    """AdamW with gradient clipping and the warmup-cosine schedule, the
+    recipe of flagship and DCSE training."""
+    return AdamW(warmup_cosine_schedule(base_lr, total_epochs,
+                                        steps_per_epoch))
+
+
+def guard_nan_update(grads: Sequence[Optional[torch.Tensor]],
+                     loss: torch.Tensor,
+                     params: Sequence[torch.Tensor]
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Zero every gradient when the loss or any gradient is not finite;
+    a missing gradient (a parameter nothing reads) is a zero. Returns
+    (gradients, is_bad), all on the device: the optimizer then takes its
+    step with zero gradients (moments decay, weight decay acts, the count
+    advances), as in the JAX package, and ``is_bad`` feeds the NaN
+    counter."""
+    gs = [torch.zeros_like(p) if g is None else g
+          for g, p in zip(grads, params)]
+    finite = torch.isfinite(loss) & torch.isfinite(torch.stack(
+        torch._foreach_norm(gs, ord=float("inf")))).all()
+    zero = torch.zeros((), dtype=gs[0].dtype, device=gs[0].device)
+    return [torch.where(finite, g, zero) for g in gs], ~finite
 
 
 def latest_step_dir(base: str) -> Optional[str]:
@@ -51,6 +175,26 @@ def latest_step_dir(base: str) -> Optional[str]:
         if n > best_n:
             best, best_n = d, n
     return os.path.join(base, best) if best else None
+
+
+def checkpoint_step(path: str) -> int:
+    """Numeric step of a ``.../step_N`` checkpoint directory (-1 if none)."""
+    tail = os.path.basename(path.rstrip(os.sep))
+    try:
+        return int(tail[len("step_"):]) if tail.startswith("step_") else -1
+    except ValueError:
+        return -1
+
+
+def newest_checkpoint(model_dir: str, names) -> Optional[str]:
+    """The checkpoint with the highest step across the families ``names``
+    (e.g. final and best): where a resume continues from."""
+    best, best_n = None, -1
+    for name in names:
+        p = latest_step_dir(os.path.join(model_dir, name))
+        if p is not None and checkpoint_step(p) > best_n:
+            best, best_n = p, checkpoint_step(p)
+    return best
 
 
 def inference_ckpt_order(final_name: str, best_name: str) -> Tuple[str, str]:
@@ -130,12 +274,20 @@ def _write(ckpt_dir: str, step: int, payload: dict,
 def save_checkpoint(ckpt_dir: str, state: Mapping, step: int,
                     extra: Optional[dict] = None) -> str:
     """Persist ``state`` = ``{"params": {...}, "model_state": {...}}`` in
-    float32 under ``ckpt_dir/step_<step>``; ``extra`` goes to the
-    ``step_<step>.meta.json`` sidecar. Returns the checkpoint path."""
-    return _write(ckpt_dir, step, {
-        "params": dict(state["params"]),
-        "model_state": dict(state.get("model_state") or {}),
-        "step": int(step)}, extra)
+    float32 under ``ckpt_dir/step_<step>``, with the optimizer state
+    (``"opt_state"``) and ``"nan_count"`` when ``state`` holds them (a full
+    training checkpoint); ``extra`` goes to the ``step_<step>.meta.json``
+    sidecar. Returns the checkpoint path."""
+    payload = {"params": dict(state["params"]),
+               "model_state": dict(state.get("model_state") or {}),
+               "step": int(step)}
+    if state.get("opt_state") is not None:
+        opt = state["opt_state"]
+        payload["opt_state"] = {"mu": dict(opt["mu"]), "nu": dict(opt["nu"]),
+                                "count": int(opt["count"])}
+    if state.get("nan_count") is not None:
+        payload["nan_count"] = int(state["nan_count"])
+    return _write(ckpt_dir, step, payload, extra)
 
 
 def save_checkpoint_quantized(ckpt_dir: str, state: Mapping, step: int,
@@ -166,12 +318,18 @@ def restore_checkpoint(path: str) -> Dict:
     """Load a checkpoint written by :func:`save_checkpoint` or
     :func:`save_checkpoint_quantized` (detected from the sidecar's
     ``"quantized": true`` and dequantized on load). Returns
-    ``{"params", "model_state", "step"}`` with float32 tensors on the CPU."""
+    ``{"params", "model_state", "step"}`` with float32 tensors on the CPU,
+    and ``"opt_state"`` and ``"nan_count"`` from a full training
+    checkpoint."""
     payload = torch.load(os.path.join(os.path.abspath(path), PAYLOAD),
                          map_location="cpu", weights_only=True)
     if read_step_meta(path).get("quantized", False):
         params = dequantize_tree(payload["params_q"])
     else:
         params = payload["params"]
-    return {"params": params, "model_state": payload.get("model_state", {}),
-            "step": int(payload["step"])}
+    out = {"params": params, "model_state": payload.get("model_state", {}),
+           "step": int(payload["step"])}
+    for key in ("opt_state", "nan_count"):
+        if key in payload:
+            out[key] = payload[key]
+    return out
