@@ -40,7 +40,18 @@ its kernels:
     them), 20 steps on one batch with every loss term on (the loss must
     fall; time, device busy time, launches and peak memory of a step), and
     one step from the committed artifact held against the same step on
-    the CPU (loss, every gradient leaf, the parameters after AdamW).
+    the CPU (loss, every gradient leaf, the parameters after AdamW); the
+    same with the adversarial branch on (a fresh discriminator, its loss and
+    its parameters after Adam held too), and 10 such steps timed;
+  * evaluation: the ``evaluate`` verb in a process of its own over the
+    committed artifact and a seeded mask DNN saved by the port (every cell
+    full, no failure caught, the noisy row and the flagship's means held
+    against the JAX package's scores in
+    ``artifacts/r5/eval_grid_jax_cpu.json``), the metric sweep against the
+    CPU, one cell's device time by part; the ``calibrate`` verb on copies
+    of the artifact, card against CPU, persisted and read back;
+  * WAV input through the native decoder (built from ``native/wavio.cpp``)
+    and ``observability.trace`` around one flagship request.
 
 K1 and K3 are also held against their plain versions under autograd (the
 backward is the plain formulation's gradient, so the gradients are equal bit
@@ -118,13 +129,28 @@ TRAIN_FLIP_SHARE = 1e-4     # where the CPU's step is float64's: the share of
                             # elements whose step on the card may leave
                             # float64's by more than that step (the MR-STFT
                             # term's rounding; measured 4.5e-6 on an H100)
+DISC_GRAD_TOL = 1e-4        # each discriminator gradient leaf, card vs CPU,
+                            # of its largest magnitude (floored as below)
 GRAD_FLOOR = 1e-4           # a leaf's scale floored at this x the largest
                             # gradient (the SincConv cutoffs' gradients are
                             # rounding only; tests/test_torch_train_step.py)
 TRAIN_BATCH = (8, 32000)    # the train verb's batches: 8 x 4 s
+# evaluation: the [0, 1] metrics and SSNR (dB) of the noisy row against the
+# committed JAX reference and of the metric sweep card vs CPU; the noisy
+# row's P.862 is the same numpy code on the same inputs (the two machines'
+# numpy and scipy may differ in the last bits); the flagship's means through
+# the model on the card
+EVAL_UNIT_TOL = 1e-5
+EVAL_SSNR_TOL = 1e-4
+EVAL_P862_TOL = 1e-6
+EVAL_MEAN_TOL = {"stoi": 1e-4, "pesq": 1e-2, "ssnr": 1e-2, "csii": 1e-4,
+                 "ncm": 1e-4}
+GAIN_TOL = 1e-4             # calibrated gain, card vs CPU, relative
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5",
                         "sincformer_v4s0_best_serving_torch")
+EVAL_REFERENCE = os.path.join(REPO, "artifacts", "r5",
+                              "eval_grid_jax_cpu.json")
 
 
 def say(*parts):
@@ -915,7 +941,7 @@ def check_train(seed: int, smi: str, launches) -> dict:
     pipe.init_state(epochs=1, steps_per_epoch=20)
     noisy, clean_t = (torch.from_numpy(batch[k]).cuda()
                       for k in ("noisy", "clean"))
-    losses, step_ms = [], []
+    losses, step_ms, k1_steps = [], [], []
     torch.cuda.reset_peak_memory_stats()
     launches.reset()
     for i in range(20):
@@ -924,7 +950,9 @@ def check_train(seed: int, smi: str, launches) -> dict:
         loss, _ = pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)
         losses.append(float(loss))
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        launches.expect(f"training step {i}", speech_attention=2 * blocks)
+        k1_steps.append(launches.expect(
+            f"training step {i}",
+            speech_attention=2 * blocks)["speech_attention"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -934,7 +962,9 @@ def check_train(seed: int, smi: str, launches) -> dict:
         pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    launches.expect("profiled training step", speech_attention=2 * blocks)
+    k1_steps.append(launches.expect(
+        "profiled training step",
+        speech_attention=2 * blocks)["speech_attention"])
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
@@ -946,7 +976,8 @@ def check_train(seed: int, smi: str, launches) -> dict:
                   step_ms_median=median_ms, step_ms_first=step_ms[0],
                   device_busy_ms=busy_ms, device_busy_share=busy_ms / median_ms,
                   kernel_launches_per_step=n_kernels,
-                  k1_launches_per_step=2 * blocks, peak_memory_gb=peak_gb,
+                  k1_launches_per_step=k1_steps[-1],
+                  k1_launches_all_steps=sum(k1_steps), peak_memory_gb=peak_gb,
                   profiled_step_ms=prof_ms,
                   k1_device_ms=sum(k[1] for k in kernels
                                    if "speech_attention" in k[0]))
@@ -954,7 +985,8 @@ def check_train(seed: int, smi: str, launches) -> dict:
         f"{losses[0]:.4f} at step 1, {losses[-1]:.4f} at step 20 "
         f"(min {min(losses):.4f}); {median_ms:.2f} ms per step (median of "
         f"steps 2-20; step 1 {step_ms[0]:.1f} ms), peak memory "
-        f"{peak_gb:.2f} GB; K1 launches {2 * blocks} a step on {smi}")
+        f"{peak_gb:.2f} GB; K1 launches {sum(k1_steps[:-1])} in the 20 "
+        f"steps, {k1_steps[-1]} in the profiled step on {smi}")
     say(f"[train] profiled step: {prof_ms:.2f} ms wall, device busy "
         f"{busy_ms:.3f} ms ({busy_ms / median_ms:.3f} of the median step), "
         f"{n_kernels} kernel launches, K1 {result['k1_device_ms']:.4f} ms")
@@ -962,15 +994,86 @@ def check_train(seed: int, smi: str, launches) -> dict:
         say(f"[train]     {ms:9.4f} ms {calls:5d}x  {name[:90]}")
     if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
         raise AssertionError("the loss did not fall over 20 steps")
-    del pipe, noisy, clean_t
+    del pipe
+    torch.cuda.empty_cache()
+    result["adversarial_step"] = time_adversarial_step(
+        seed, smi, launches, noisy, clean_t, blocks)
+    del noisy, clean_t
     torch.cuda.empty_cache()
 
-    result.update(check_step_vs_cpu({k: v[:2] for k, v in batch.items()}))
+    small = {k: v[:2] for k, v in batch.items()}
+    result.update(check_step_vs_cpu(small))
+    result["adversarial"] = check_step_vs_cpu(small, adversarial=True)
     launches.reset()
     return result
 
 
-def check_step_vs_cpu(small: dict) -> dict:
+def time_adversarial_step(seed: int, smi: str, launches, noisy, clean,
+                          blocks: int) -> dict:
+    """The stage-3 step with the adversarial branch on (a fresh
+    discriminator, ``use_adv`` = 1, its Adam step after the generator's):
+    10 steps on the same batch as the 20 above, each holding K1's launches;
+    wall per step (median of steps 2-10), peak memory, and one profiled
+    step's device busy time and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sincformer_tpu_torch.train.agent_trainer import SincformerTrainer
+    pipe = SincformerTrainer(device="cuda", seed=seed, use_adversarial=True)
+    pipe.init_state(epochs=1, steps_per_epoch=10)
+    torch.cuda.reset_peak_memory_stats()
+    losses, disc_losses, step_ms, k1_steps = [], [], [], []
+    launches.reset()
+    for i in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = pipe.train_step(noisy, clean, 1.0, 1.0, 1.0, 1.0, 1.0)
+        losses.append(float(loss))
+        disc_losses.append(float(pipe.disc_loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1_steps.append(launches.expect(
+            f"adversarial training step {i}",
+            speech_attention=2 * blocks)["speech_attention"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.train_step(noisy, clean, 1.0, 1.0, 1.0, 1.0, 1.0)
+        torch.cuda.synchronize()
+    k1_steps.append(launches.expect(
+        "profiled adversarial step",
+        speech_attention=2 * blocks)["speech_attention"])
+    kernels = [(e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    out = {"step_ms_median": float(np.median(step_ms[1:])),
+           "step_ms_first": step_ms[0],
+           "device_busy_ms": sum(k[0] for k in kernels),
+           "kernel_launches_per_step": sum(k[1] for k in kernels),
+           "k1_launches_per_step": k1_steps[-1],
+           "k1_launches_all_steps": sum(k1_steps), "peak_memory_gb": peak_gb,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "disc_loss_first": disc_losses[0],
+           "disc_loss_last": disc_losses[-1],
+           "disc_adam_count": pipe.disc_opt_state["count"]}
+    say(f"[train] adversarial step (stage 3, use_adv 1, fresh "
+        f"discriminator), batch {TRAIN_BATCH}, 10 steps: "
+        f"{out['step_ms_median']:.2f} ms per step (median of steps 2-10; "
+        f"step 1 {step_ms[0]:.1f} ms), device busy "
+        f"{out['device_busy_ms']:.3f} ms, {out['kernel_launches_per_step']} "
+        f"kernel launches, K1 {k1_steps[-1]} ({sum(k1_steps[:-1])} in the 10 "
+        f"steps), "
+        f"peak memory {peak_gb:.2f} GB; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, discriminator loss "
+        f"{disc_losses[0]:.4f} -> {disc_losses[-1]:.4f} on {smi}")
+    if not (all(np.isfinite(losses + disc_losses))
+            and out["disc_adam_count"] == 11):
+        raise AssertionError("the adversarial steps are not as expected")
+    del pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
     """One training step of the full flagship from the committed artifact,
     dropout 0, softmax routing, on the card, on the CPU and on the CPU in
     float64 (the reference that tells float32 rounding from a fault), for
@@ -980,7 +1083,13 @@ def check_step_vs_cpu(small: dict) -> dict:
     rounding-dominated (ROADMAP.md Queue 3; :func:`attribute_mrstft` splits
     it by source). With it, the loss is held, and where the CPU's step is
     float64's the card's step is float64's too, but for a share of at most
-    TRAIN_FLIP_SHARE of those elements, each within twice its step."""
+    TRAIN_FLIP_SHARE of those elements, each within twice its step.
+
+    ``adversarial``: the stage-3 step with the adversarial branch on
+    (``use_adv`` = 1, a fresh discriminator drawn from seed 5 on the CPU
+    and copied to each device), then the discriminator's own step: its loss
+    within TRAIN_LOSS_TOL, its gradients and its parameters after Adam as
+    :func:`disc_step_faults` holds them (:func:`check_disc_step`)."""
     from unittest import mock
 
     import sincformer_tpu_torch as port
@@ -988,12 +1097,16 @@ def check_step_vs_cpu(small: dict) -> dict:
     from sincformer_tpu_torch.train.state import GRAD_CLIP, guard_nan_update
     cfg = port.MetacogConfig(dropout=0.0, routing="softmax")
     result = {}
+    tag = "[train] adversarial:" if adversarial else "[train]"
 
     def one_step(device, dtype, without_mrstft):
-        p = agent_trainer.SincformerTrainer(port.SincformerMetacog(cfg),
-                                            device=device, model_dir=ARTIFACT)
+        p = agent_trainer.SincformerTrainer(
+            port.SincformerMetacog(cfg), device=device, model_dir=ARTIFACT,
+            use_adversarial=adversarial)
         p.load_model()
         p.model.to(dtype)
+        if adversarial:
+            p.disc.to(dtype)
         p.init_state(epochs=1, steps_per_epoch=1)
         noisy, clean_t = (torch.from_numpy(small[k]).to(device, dtype)
                           for k in ("noisy", "clean"))
@@ -1003,18 +1116,29 @@ def check_step_vs_cpu(small: dict) -> dict:
             else agent_trainer.multi_resolution_stft_loss)
         t0 = time.perf_counter()
         with patch:
-            loss, _, grads = p.loss_and_grads(noisy, clean_t, 1.0, 1.0,
-                                              None, 1.0)
+            loss, _, grads = p.loss_and_grads(
+                noisy, clean_t, 1.0, 1.0, None, 1.0,
+                1.0 if adversarial else None)
         params = p.params()
         grads = dict(zip(params, grads))
         guarded, _ = guard_nan_update(list(grads.values()), loss,
                                       params.values())
         before = {k: v.detach().cpu().double() for k, v in params.items()}
         p.tx.update(params, guarded, p.opt_state)
+        disc = None
+        if adversarial:
+            dl, dgrads = p.disc_loss_and_grads(*p.last_mags)
+            d0 = {k: v.detach().cpu().double()
+                  for k, v in p.disc.named_parameters()}
+            p.disc_step(1.0)
+            disc = (float(dl), dict(zip(d0, (g.cpu().double()
+                                             for g in dgrads))), d0,
+                    {k: v.detach().cpu().double()
+                     for k, v in p.disc.named_parameters()})
         return (float(loss), {k: g.cpu().double() for k, g in grads.items()
                               if g is not None}, before,
                 {k: v.detach().cpu().double() for k, v in params.items()},
-                time.perf_counter() - t0)
+                time.perf_counter() - t0, disc)
 
     def grad_rows(g_cpu, g_gpu, g_64):
         floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_64.values())
@@ -1034,14 +1158,15 @@ def check_step_vs_cpu(small: dict) -> dict:
     for without in (True, False):
         what = ("without the MR-STFT term" if without
                 else "the whole loss, as trained")
-        (l_cpu, g_cpu, p0, p_cpu, t_cpu), (l_gpu, g_gpu, _, p_gpu, _), \
-            (l_64, g_64, _, p_64, t_64) = (
+        (l_cpu, g_cpu, p0, p_cpu, t_cpu, d_cpu), \
+            (l_gpu, g_gpu, _, p_gpu, _, d_gpu), \
+            (l_64, g_64, _, p_64, t_64, _) = (
                 one_step("cpu", torch.float32, without),
                 one_step("cuda", torch.float32, without),
                 one_step("cpu", torch.float64, without))
         rel = abs(l_gpu - l_cpu) / abs(l_cpu)
         rows = grad_rows(g_cpu, g_gpu, g_64)
-        say(f"[train] card vs CPU, one step from the committed artifact, "
+        say(f"{tag} card vs CPU, one step from the committed artifact, "
             f"{what}, dropout 0, softmax routing, batch (2, 32000): loss "
             f"{l_gpu:.6f} vs {l_cpu:.6f} ({l_64:.6f} in float64), "
             f"{rel:.3e} relative (limit {TRAIN_LOSS_TOL:g}); CPU step "
@@ -1056,6 +1181,8 @@ def check_step_vs_cpu(small: dict) -> dict:
             raise AssertionError(f"the training loss on the card left the "
                                  f"CPU's ({what})")
         key = "without_mrstft" if without else "as_trained"
+        if adversarial:
+            check_disc_step(d_cpu, d_gpu, what, result, key)
         result[f"card_vs_cpu_{key}"] = {
             "loss_rel": rel, "grad": rows[0][0],
             "grad_card_vs_float64": max(r[2] for r in rows),
@@ -1130,9 +1257,109 @@ def check_step_vs_cpu(small: dict) -> dict:
         if not t_flip <= TRAIN_FLIP_SHARE * t_n:
             raise AssertionError(f"the card's step left float64's where the "
                                  f"CPU's is float64's ({what})")
-    result["mrstft_attribution"] = attribute_mrstft(small, cfg)
+    if not adversarial:
+        result["mrstft_attribution"] = attribute_mrstft(small, cfg)
     torch.cuda.empty_cache()
     return result
+
+
+def disc_step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu) -> tuple:
+    """Hold the discriminator's step on the card against the CPU's: each
+    gradient leaf within DISC_GRAD_TOL of its largest magnitude (floored at
+    GRAD_FLOOR x the largest of all); of the elements whose CPU gradient
+    after the clip passes 1e-5, a share of at most TRAIN_FLIP_SHARE with
+    the other sign on the card; the parameters after Adam within
+    TRAIN_PARAM_TOL of their scale where the clipped gradients agree in
+    sign and pass 1e-5 (Adam's first step is lr x sign(g) there), within
+    twice the step elsewhere. Returns (faults, figures)."""
+    from sincformer_tpu_torch.train.state import GRAD_CLIP
+
+    def clipped(g):
+        norm = float(torch.sqrt(sum((v ** 2).sum() for v in g.values())))
+        return {k: v * min(1.0, GRAD_CLIP / norm) for k, v in g.items()}
+    gc, gg = clipped(g_cpu), clipped(g_gpu)
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_cpu.values())
+    faults = []
+    grad, grad_at, worst, other, n_el, n_big, flipped = (0.0, "", 0.0, 0, 0,
+                                                         0, 0)
+    for k, w in p_cpu.items():
+        off = float((g_gpu[k] - g_cpu[k]).abs().max()) / max(
+            float(g_cpu[k].abs().max()), floor)
+        if off >= grad:
+            grad, grad_at = off, k
+        big = gc[k].abs() >= 1e-5
+        n_big += int(big.sum())
+        flipped += int((big & (torch.sign(gc[k]) != torch.sign(gg[k]))
+                        ).sum())
+        scale = float(w.abs().max())
+        same = ((torch.sign(gc[k]) == torch.sign(gg[k])) & big
+                & (gg[k].abs() >= 1e-5))
+        diff = (p_gpu[k] - w).abs()
+        if same.any():
+            worst = max(worst, float(diff[same].max()) / scale)
+        step = float((w - d0[k]).abs().max())
+        if not bool((diff[~same] <= 2 * step + TRAIN_PARAM_TOL * scale
+                     ).all()):
+            faults.append(f"{k}: a parameter moved past its step")
+        other += int((~same).sum())
+        n_el += w.numel()
+    if not grad <= DISC_GRAD_TOL:
+        faults.append(f"gradient of {grad_at} {grad:.3e} of its scale")
+    if not flipped <= TRAIN_FLIP_SHARE * n_big:
+        faults.append(f"{flipped} of {n_big} gradient elements flipped sign")
+    if not worst <= TRAIN_PARAM_TOL:
+        faults.append(f"parameters {worst:.3e} of their scale")
+    return faults, {"grad": grad, "grad_worst_leaf": grad_at,
+                    "grad_elements_flipped": flipped,
+                    "grad_elements_past_1e-5": n_big, "param": worst,
+                    "param_elements_other": other, "elements": n_el}
+
+
+def check_disc_step(d_cpu, d_gpu, what: str, result: dict, key: str):
+    """The discriminator's step, card against CPU (:func:`disc_step_faults`),
+    and its loss within TRAIN_LOSS_TOL; then the same check on the card's
+    result with a sign flip planted, which it must refuse: twice the
+    allowed share of the smallest CPU gradients past 1e-5 of the largest
+    leaf negated and their parameter steps mirrored."""
+    from sincformer_tpu_torch.train.state import GRAD_CLIP
+    (dl_cpu, g_cpu, d0, p_cpu), (dl_gpu, g_gpu, _, p_gpu) = d_cpu, d_gpu
+    rel = abs(dl_gpu - dl_cpu) / abs(dl_cpu)
+    faults, figures = disc_step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu)
+
+    leaf = max(g_gpu, key=lambda k: g_gpu[k].numel())
+    n = 2 * int(TRAIN_FLIP_SHARE * figures["grad_elements_past_1e-5"]) + 1
+    norm = float(torch.sqrt(sum((v ** 2).sum() for v in g_cpu.values())))
+    mags = g_cpu[leaf].abs().flatten() * min(1.0, GRAD_CLIP / norm)
+    idx = torch.argsort(torch.where(mags >= 1e-5, mags,
+                                    torch.full_like(mags, float("inf"))))[:n]
+    g_bad, p_bad = dict(g_gpu), dict(p_gpu)
+    g_bad[leaf] = g_gpu[leaf].flatten().clone()
+    g_bad[leaf][idx] *= -1
+    g_bad[leaf] = g_bad[leaf].view_as(g_gpu[leaf])
+    p_bad[leaf] = p_gpu[leaf].flatten().clone()
+    p_bad[leaf][idx] = 2 * d0[leaf].flatten()[idx] - p_bad[leaf][idx]
+    p_bad[leaf] = p_bad[leaf].view_as(p_gpu[leaf])
+    planted, _ = disc_step_faults(g_cpu, g_bad, d0, p_cpu, p_bad)
+    say(f"[train] adversarial: the discriminator's step ({what}): loss "
+        f"{dl_gpu:.6f} vs {dl_cpu:.6f}, {rel:.3e} relative (limit "
+        f"{TRAIN_LOSS_TOL:g}); gradients up to {figures['grad']:.3e} of the "
+        f"leaf's scale ({figures['grad_worst_leaf']}; limit "
+        f"{DISC_GRAD_TOL:g}); {figures['grad_elements_flipped']} of "
+        f"{figures['grad_elements_past_1e-5']} clipped gradients past 1e-5 "
+        f"with the other sign (limit {TRAIN_FLIP_SHARE:g} of them); "
+        f"parameters after Adam {figures['param']:.3e} of the leaf's scale "
+        f"where the clipped gradients agree in sign and pass 1e-5 (limit "
+        f"{TRAIN_PARAM_TOL:g}), the other {figures['param_elements_other']} "
+        f"of {figures['elements']} elements within twice the step; "
+        f"{n} planted sign flips in {leaf}: {planted}")
+    result[f"disc_card_vs_cpu_{key}"] = {"loss_rel": rel, **figures,
+                                         "planted_flips": n}
+    if faults or not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"the discriminator's step on the card left the "
+                             f"CPU's: {faults}")
+    if not any("flipped sign" in f for f in planted):
+        raise AssertionError("a planted sign flip in the discriminator's "
+                             "gradients went unseen")
 
 
 def attribute_mrstft(small: dict, cfg) -> dict:
@@ -1235,6 +1462,278 @@ def attribute_mrstft(small: dict, cfg) -> dict:
             f"{r['cotangent_stft_path']:.3e} of the largest")
     del runs
     return out
+
+
+def device_busy_ms(fn) -> float:
+    """Sum of the kernel times of one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def check_evaluate(seed: int, smi: str, launches) -> dict:
+    """The ``evaluate`` verb in a process of its own on the card, over the
+    committed artifact's flagship and a seeded full-width mask DNN saved by
+    the port: every cell full, no failure caught, the noisy row and the
+    flagship's means held against the JAX package's scores
+    (``artifacts/r5/eval_grid_jax_cpu.json``); the metric sweep on the card
+    against the CPU; one cell's device time split."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.data.audio import add_noise_at_snr
+    from sincformer_tpu_torch.data.loader import load_noise_signals
+    from sincformer_tpu_torch.evaluation.batched import metrics_batch
+    from sincformer_tpu_torch.evaluation.grid import (METRICS,
+                                                      eval_utterances,
+                                                      grid_differences)
+    from sincformer_tpu_torch.evaluation.pesq import compute_pesq
+    blocks = port.MetacogConfig().msa_blocks
+    result = {}
+    runner = ("import json, sys\n"
+              "from sincformer_tpu_torch import cli\n"
+              "import sincformer_tpu_torch as port\n"
+              "rc = cli.main(sys.argv[1:])\n"
+              "print(json.dumps({n: getattr(port, n).launches for n in ("
+              "'speech_attention', 'quantize_int8', 'fused_ffn', 'meddis', "
+              "'conv1d_gn', 'env_act')}))\n"
+              "sys.exit(rc)\n")
+    with open(EVAL_REFERENCE) as f:
+        ref = json.load(f)
+    with tempfile.TemporaryDirectory() as model_dir:
+        shutil.copytree(os.path.join(ARTIFACT, "sincformer_final"),
+                        os.path.join(model_dir, "sincformer_final"))
+        dnn = port.create_dnn(port.FeatureConfig().dim).init_params(
+            torch.Generator().manual_seed(seed))
+        port.DNNPipeline("pcirm", device="cuda", model_dir=model_dir,
+                         model=dnn).save_model()
+        json_out = os.path.join(model_dir, "grid.json")
+        env = {**os.environ, "SINCFORMER_MODEL_DIR": model_dir,
+               "PYTHONPATH": REPO}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", runner, "evaluate",
+                               "--json-out", json_out], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=900)
+        verb_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines[-14:-1]:
+            say(f"[evaluate] | {line}")
+        if proc.returncode != 0:
+            say(proc.stderr[-3000:])
+            raise AssertionError(f"the evaluate verb exited "
+                                 f"{proc.returncode}")
+        failed = [line for line in lines if "FAILED" in line]
+        child = json.loads(lines[-1])
+        with open(json_out) as f:
+            got = json.load(f)
+        pipes = {"sincformer": port.SincformerPipeline(device="cuda",
+                                                       model_dir=model_dir),
+                 "pcirm": port.DNNPipeline("pcirm", device="cuda",
+                                           model_dir=model_dir)}
+        for pipe in pipes.values():
+            pipe.load_model()
+        n_snr = len(got["protocol"]["snr_levels"])
+        say(f"[evaluate] evaluate --json-out: exit 0 in {verb_s:.1f} s wall "
+            f"(process start, 2 models loaded, {got['protocol']['n_utterances']}"
+            f" utterances x {n_snr} SNRs x 3 methods x 5 metrics); "
+            f"{len(failed)} failures caught; kernel launches {child} on {smi}")
+        if failed or child != {**dict.fromkeys(child, 0),
+                               "speech_attention": n_snr * blocks}:
+            raise AssertionError(f"the evaluate verb's run is not as "
+                                 f"expected: {failed[:3]}")
+        launches.total["speech_attention"] += child["speech_attention"]
+        cells = got["results"]["white"]
+        if list(cells) != ["noisy", "pcirm", "sincformer"] or not all(
+                len(v) == 8 and np.all(np.isfinite(v))
+                for by_snr in cells.values() for cell in by_snr.values()
+                for v in cell.values()):
+            raise AssertionError("an evaluate cell is not full")
+
+        # the noisy row: the same mixtures, metric by metric
+        worst = {}
+        for k in METRICS:
+            worst[k] = max(abs(a - b) for snr, cell in cells["noisy"].items()
+                           for a, b in zip(cell[k],
+                                           ref["results"]["white"]["noisy"]
+                                           [snr][k]))
+        bars = {k: {"ssnr": EVAL_SSNR_TOL,
+                    "pesq": EVAL_P862_TOL}.get(k, EVAL_UNIT_TOL)
+                for k in METRICS}
+        say("[evaluate] noisy row vs the JAX reference on the CPU, largest "
+            "difference of one utterance: " + ", ".join(
+                f"{k} {worst[k]:.3e} (limit {bars[k]:g})" for k in METRICS))
+        flagship = grid_differences(got, ref, "sincformer")
+        say("[evaluate] sincformer (the committed artifact) on the card vs "
+            "JAX on the CPU: " + "; ".join(
+                f"{k} mean {got['summary'][f'sincformer.{k}'][0]:.6f} vs "
+                f"{ref['summary'][f'sincformer.{k}'][0]:.6f} (|d| "
+                f"{d['mean']:.3e}, limit {EVAL_MEAN_TOL[k]:g}; one utterance"
+                f" up to {d['utterance']:.3e} at {d['where']})"
+                for k, d in flagship.items()))
+        result.update(verb_s=verb_s, k1_launches=child["speech_attention"],
+                      noisy_vs_jax=worst,
+                      sincformer_vs_jax=flagship,
+                      means={m: {k: got["summary"][f"{m}.{k}"][0]
+                                 for k in METRICS}
+                             for m in ("noisy", "sincformer", "pcirm")})
+        if any(worst[k] > bars[k] for k in METRICS) or any(
+                d["mean"] > EVAL_MEAN_TOL[k] for k, d in flagship.items()):
+            raise AssertionError("the evaluation left the JAX reference")
+
+        # the metric sweep, card vs CPU, on the grid's pairs at 0 dB
+        clean = np.stack(eval_utterances(50))
+        noise = load_noise_signals(8000)["white"]
+        noisy = np.stack([add_noise_at_snr(c, noise, 0) for c in clean])
+        enhanced = pipes["sincformer"].enhance_batch(noisy)
+        launches.reset()
+        sweep = {dev: metrics_batch(clean, enhanced, device=dev)
+                 for dev in ("cuda", "cpu")}
+        diffs = {k: float(np.abs(sweep["cuda"][k] - sweep["cpu"][k]).max())
+                 for k in METRICS}
+        say("[evaluate] metrics_batch (8, 16000), sincformer at 0 dB, card "
+            "vs CPU: " + ", ".join(
+                f"{k} {diffs[k]:.3e}" for k in METRICS)
+            + f" (limits {EVAL_UNIT_TOL:g}, SSNR {EVAL_SSNR_TOL:g} dB)")
+        result["metrics_batch_card_vs_cpu"] = diffs
+        if any(diffs[k] > (EVAL_SSNR_TOL if k == "ssnr" else EVAL_UNIT_TOL)
+               for k in METRICS):
+            raise AssertionError("the metric sweep on the card left the CPU")
+
+        # one cell (one SNR) of the grid: device time by part, host P.862
+        lengths = np.full(len(clean), clean.shape[1])
+        split = {
+            "sincformer_ms": device_busy_ms(
+                lambda: pipes["sincformer"].enhance_batch(noisy)),
+            "pcirm_ms": device_busy_ms(
+                lambda: pipes["pcirm"].enhance_batch(noisy, lengths)),
+            "sweep_ms_per_method": device_busy_ms(
+                lambda: metrics_batch(clean, enhanced,
+                                      ("stoi", "ssnr", "csii", "ncm"))),
+        }
+        launches.expect("one cell's enhancement, profiled",
+                        speech_attention=blocks)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(lambda ce: compute_pesq(*ce), zip(clean,
+                                                             enhanced)))
+            split["p862_host_ms_per_method"] = (time.perf_counter()
+                                                - t0) * 1e3
+        say(f"[evaluate] one cell (8 utterances x 2 s, one SNR): device busy"
+            f" {split['sincformer_ms']:.3f} ms flagship enhancement, "
+            f"{split['pcirm_ms']:.3f} ms DNN enhancement, "
+            f"{split['sweep_ms_per_method']:.3f} ms metric sweep per method; "
+            f"host P.862 {split['p862_host_ms_per_method']:.1f} ms wall per "
+            f"method (8 threads); the verb has {n_snr} cells x 3 methods "
+            f"on {smi}")
+        result["cell_split"] = split
+        del pipes
+    torch.cuda.empty_cache()
+    return result
+
+
+def check_calibrate(launches) -> dict:
+    """The ``calibrate`` verb (--model sincformer --samples 8 --synthetic)
+    on a copy of the committed artifact, on the card and on the CPU: the
+    gains agree, each is persisted in its copy's sidecar, and a fresh load
+    on the card reads it."""
+    import shutil
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch import cli
+    from sincformer_tpu_torch.train.state import read_train_meta
+    blocks = port.MetacogConfig().msa_blocks
+    before = read_train_meta(ARTIFACT, "sincformer_final")["output_gain"]
+    gains, walls, k1 = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        for device in ("cuda", "cpu"):
+            model_dir = os.path.join(root, device)
+            shutil.copytree(os.path.join(ARTIFACT, "sincformer_final"),
+                            os.path.join(model_dir, "sincformer_final"))
+            os.environ["SINCFORMER_MODEL_DIR"] = model_dir
+            launches.reset()
+            t0 = time.perf_counter()
+            if cli.main(["calibrate", "--model", "sincformer", "--samples",
+                         "8", "--synthetic", "--device", device]) != 0:
+                raise AssertionError("the calibrate verb failed")
+            walls[device] = time.perf_counter() - t0
+            k1[device] = launches.expect(
+                f"calibrate on {device}",
+                speech_attention=blocks if device == "cuda" else 0
+            )["speech_attention"]
+            gains[device] = read_train_meta(
+                model_dir, "sincformer_final")["output_gain"]
+        fresh = port.SincformerPipeline(device="cuda", model_dir=os.path.join(
+            root, "cuda"))
+        fresh.load_model()
+    rel = abs(gains["cuda"] - gains["cpu"]) / gains["cpu"]
+    say(f"[calibrate] calibrate --model sincformer --samples 8 --synthetic "
+        f"on a copy of the artifact: output_gain {before:.6f} -> "
+        f"{gains['cuda']:.8f} on the card ({walls['cuda']:.2f} s wall, K1 "
+        f"{k1['cuda']} launches), {gains['cpu']:.8f} on the CPU "
+        f"({walls['cpu']:.2f} s, K1 {k1['cpu']}); {rel:.3e} relative (limit {GAIN_TOL:g}); "
+        f"persisted, a fresh load reads {fresh.output_gain:.8f}")
+    if not (rel <= GAIN_TOL and fresh.output_gain == gains["cuda"]
+            and gains["cuda"] != before):
+        raise AssertionError("the calibrated gain is not as expected")
+    return {"before": before, "card": gains["cuda"], "cpu": gains["cpu"],
+            "rel": rel, "wall_s": walls, "k1_launches": k1}
+
+
+def check_native_and_trace(seed: int, launches) -> dict:
+    """WAV input through the native decoder, built from native/wavio.cpp
+    into the package's build directory, equal to scipy's read; then
+    ``observability.trace`` around one flagship request from that input on
+    the card, which writes a Chrome trace holding K1."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.data import native
+    from sincformer_tpu_torch.data.audio import load_audio
+    from sincformer_tpu_torch.ops.build import BUILD_DIR
+    from sincformer_tpu_torch.utils.observability import trace
+    from scipy.io import wavfile
+    blocks = port.MetacogConfig().msa_blocks
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "in.wav")
+        wavfile.write(path, 8000, to_pcm(speechlike(
+            np.random.default_rng(seed + 7), 32000)))
+        reads = native.reads
+        t0 = time.perf_counter()
+        x = load_audio(path)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        lib = native.library_path()
+        if not (native.reads == reads + 1 and os.path.exists(lib)
+                and os.path.dirname(lib) == BUILD_DIR):
+            raise AssertionError("the native WAV decoder did not serve the "
+                                 "read")
+        if not np.array_equal(x, load_audio(path, use_native=False)):
+            raise AssertionError("the native decoder disagrees with scipy")
+        pipe = port.SincformerPipeline(device="cuda", model_dir=ARTIFACT)
+        pipe.load_model()
+        pipe.enhance_signal(x)                     # plans and caches
+        launches.reset()
+        with trace(os.path.join(d, "prof")) as log_dir:
+            pipe.enhance_signal(x)
+        launches.expect("traced flagship request", speech_attention=blocks)
+        files = os.listdir(log_dir)
+        with open(os.path.join(log_dir, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(os.path.join(log_dir, files[0]))
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "speech_attention" in e.get("name", "")]
+    n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    say(f"[native] load_audio of a 4 s int16 WAV through "
+        f"{os.path.relpath(lib, REPO)} ({read_ms:.2f} ms), equal to scipy's "
+        f"read; [trace] one flagship request under trace(): {files[0]}, "
+        f"{size} bytes, {n_kernels} kernel events, K1 {len(k1)}")
+    if len(files) != 1 or len(k1) != blocks:
+        raise AssertionError("the trace does not hold the request's kernels")
+    return {"native_read_ms": read_ms, "trace_bytes": size,
+            "trace_kernels": n_kernels, "trace_k1": len(k1)}
 
 
 def check_istft(seed: int) -> None:
@@ -1824,6 +2323,14 @@ def main() -> int:
     say("[train] " + json.dumps(train))
     launches.reset()
 
+    # ── phase 12: evaluation, calibration, WAV input and tracing ─────────
+    evaluation = check_evaluate(args.seed, smi, launches)
+    say("[evaluate] " + json.dumps(evaluation))
+    calibration = check_calibrate(launches)
+    say("[calibrate] " + json.dumps(calibration))
+    host = check_native_and_trace(args.seed, launches)
+    launches.reset()
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def row(name, source, replaces, err, timing, extra=None, **more):
@@ -1844,7 +2351,12 @@ def main() -> int:
             at_B16_T401=k1_time_60s, extra={"in_training_step": {
                 "launches_per_step": train["k1_launches_per_step"],
                 "forward_ms_B8_T400": train["forward_ms"],
-                "plain_backward_ms_B8_T400": train["plain_backward_ms"]}}),
+                "plain_backward_ms_B8_T400": train["plain_backward_ms"]},
+                "in_adversarial_step": {"launches_per_step": train[
+                    "adversarial_step"]["k1_launches_per_step"]},
+                "in_evaluate_verb": evaluation["k1_launches"],
+                "in_calibrate_verb": calibration["k1_launches"]["cuda"],
+                "in_traced_request": host["trace_k1"]}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),

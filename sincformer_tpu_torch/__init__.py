@@ -1,9 +1,11 @@
 """PyTorch and CUDA port of sincformer_tpu on an NVIDIA H100: flagship
 Sincformer-metacog, DCSE and original-paper DNN-mask enhancement, flagship
-curriculum training, the gammatone / Meddis auditory front-end, long-form,
-online and int8-export serving, with the TPU kernels rewritten by hand in
-CUDA C++ (csrc/: speech attention, int8 stochastic rounding, fused
-feed-forward, Meddis hair cell, conv + GroupNorm, envelope / activation).
+curriculum training (with its adversarial branch) and output-gain
+calibration, five-metric evaluation (``evaluation``), the gammatone /
+Meddis auditory front-end, long-form, online and int8-export serving, with
+the TPU kernels rewritten by hand in CUDA C++ (csrc/: speech attention,
+int8 stochastic rounding, fused feed-forward, Meddis hair cell, conv +
+GroupNorm, envelope / activation).
 
 Imports torch, numpy and the standard library only; nothing of JAX.
 """

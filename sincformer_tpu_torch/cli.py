@@ -10,15 +10,21 @@
     --mask-type`` for a mask DNN;
   * ``train --pipeline agents`` - curriculum training of the flagship on
     TIMIT + NOISEX-92, or on ``--synthetic N`` synthetic utterances (no
-    dataset needed); ``--resume`` continues from the newest checkpoint,
-    ``--log-jsonl`` writes one record per epoch;
+    dataset needed); ``--adversarial`` adds the stage-3 discriminator,
+    ``--resume`` continues from the newest checkpoint, ``--log-jsonl``
+    writes one record per epoch;
+  * ``evaluate`` (alias ``test``) - the five-metric grid (STOI, PESQ,
+    SSNR, CSII, NCM) over every trained model found, on TIMIT + NOISEX-92
+    or the synthetic fallbacks; ``--json-out`` writes every cell;
+  * ``calibrate`` - fit the output gain of a trained checkpoint on
+    held-out mixtures and persist it in its sidecar;
   * ``info`` - print the configuration and the device.
 
 Models are looked up and written under ``SINCFORMER_MODEL_DIR`` (default
 ``saved_models``), as in the JAX package's CLI. Everything runs on the card
-unless ``--device cpu`` is given. ``evaluate`` (``test``), ``calibrate`` and
-``demo``, ``train --pipeline dnn|dcse|conformer`` and ``train
---adversarial`` are not ported yet and say so.
+unless ``--device cpu`` is given. ``demo``, ``train --pipeline
+dnn|dcse|conformer`` and ``evaluate --distributed`` are not ported yet and
+say so.
 """
 
 from __future__ import annotations
@@ -30,9 +36,9 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = ("demo", "evaluate", "test", "calibrate")
+_NOT_PORTED = ("demo",)
 _MISSING = ", ".join(_NOT_PORTED + ("train --pipeline dnn|conformer|dcse",
-                                    "train --adversarial"))
+                                    "evaluate --distributed"))
 
 
 def _model_dir() -> str:
@@ -255,12 +261,10 @@ def train(args) -> int:
     """Train the flagship (``--pipeline agents``) on TIMIT + NOISEX-92, or
     on a synthetic corpus with ``--synthetic N``, then save the final
     checkpoint."""
-    if args.pipeline != "agents" or args.adversarial:
-        what = ("--adversarial" if args.pipeline == "agents"
-                else f"--pipeline {args.pipeline}")
-        print(f"  'train {what}' is not ported to sincformer_tpu_torch yet "
-              f"(still missing: {_MISSING}); use python -m "
-              f"sincformer_tpu.cli train", file=sys.stderr)
+    if args.pipeline != "agents":
+        print(f"  'train --pipeline {args.pipeline}' is not ported to "
+              f"sincformer_tpu_torch yet (still missing: {_MISSING}); use "
+              f"python -m sincformer_tpu.cli train", file=sys.stderr)
         return 2
     from sincformer_tpu_torch.config import AudioConfig, DataConfig
     from sincformer_tpu_torch.data.audio import load_audio
@@ -295,7 +299,8 @@ def train(args) -> int:
         noises = load_noise_signals(fs)
     pipe = agent_trainer.SincformerTrainer(
         agent_trainer.default_metacog(), device=args.device,
-        model_dir=_model_dir(), seed=args.seed, logger=logger)
+        model_dir=_model_dir(), seed=args.seed, logger=logger,
+        use_adversarial=args.adversarial)
     n_params = sum(p.numel() for p in pipe.model.parameters())
     print(f"  {n_params} parameters on {pipe.device}; {len(clean_tr)} "
           f"training and {len(clean_te)} validation utterances")
@@ -303,6 +308,73 @@ def train(args) -> int:
                resume=args.resume)
     print(f"  Saved {pipe.save_model()}")
     print("\nTraining complete!")
+    return 0
+
+
+def evaluate(args) -> int:
+    """The five-metric grid over every trained model under the model
+    directory (``evaluation/grid.py``); ``--ckpt best`` scores the
+    best-validation checkpoints instead of the final ones."""
+    from sincformer_tpu_torch.evaluation.grid import run_grid_evaluation
+    os.environ["SINCFORMER_CKPT_PREF"] = args.ckpt
+    try:
+        summary = run_grid_evaluation(
+            max_eval=args.max_eval, model_dir=_model_dir(),
+            distributed=args.distributed, use_mesh=args.mesh,
+            synth_noises=args.synth_noises, synth_speech=args.synth_speech,
+            json_out=args.json_out, device=args.device)
+    except NotImplementedError as e:
+        print(f"  {e}", file=sys.stderr)
+        return 2
+    return 0 if summary is not None else 1
+
+
+def calibrate(args) -> int:
+    """Fit the output gain of a trained checkpoint on held-out mixtures
+    and persist it in the checkpoint's sidecar: the TIMIT validation split
+    when the dataset is there (and ``--synthetic`` is not given), else
+    synthetic utterances of 2 s drawn from ``eval_sample_seed + 1`` (apart
+    from the training corpus and from the evaluation draw) with a fresh
+    white noise."""
+    from sincformer_tpu_torch.config import AudioConfig, DataConfig
+    from sincformer_tpu_torch.data.audio import load_audio
+    from sincformer_tpu_torch.data.loader import (WaveformDataset,
+                                                  find_speech_files,
+                                                  heldout_noises,
+                                                  load_noise_signals,
+                                                  train_test_split)
+
+    fs = AudioConfig().sample_rate
+    files = find_speech_files()
+    if files and not args.synthetic:
+        _, te_files = train_test_split(files, max_test=args.samples)
+        clean = [load_audio(f, fs) for f in te_files]
+        # the raw bank: calibrate_gain takes the held-out crops itself
+        noises = load_noise_signals(fs)
+        print(f"  Calibration set: {len(clean)} TIMIT val utterances "
+              f"(held-out noise crops)")
+    else:
+        from sincformer_tpu_torch.data.synthetic import synthetic_speech
+        rng = np.random.default_rng(DataConfig().eval_sample_seed + 1)
+        clean = [synthetic_speech(2.0) * (0.7 + 0.6 * rng.random())
+                 for _ in range(args.samples)]
+        noises = {"white": (rng.standard_normal(fs * 30) * 0.3
+                            ).astype(np.float32)}
+        print(f"  Calibration set: {len(clean)} synthetic utterances "
+              f"(fresh noise realization)")
+    make, _, _ = _family(args.model)
+    pipe = make(device=args.device, model_dir=_model_dir())
+    pipe.load_model()
+    before = pipe.output_gain
+    if args.model == "sincformer":
+        after = pipe.calibrate_gain(clean, noises)
+    else:
+        # DCSE takes an already mixed set: the held-out crops are taken
+        # here, once
+        after = pipe.calibrate_gain(WaveformDataset.from_arrays(
+            clean, heldout_noises(noises)))
+    print(f"  Output gain: {before:.4f} → {after:.4f} "
+          f"(persisted in the checkpoint sidecar)")
     return 0
 
 
@@ -387,7 +459,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="restore the newest checkpoint (full training "
                          "state) and continue from the epoch after it")
     tp.add_argument("--adversarial", action="store_true",
-                    help="the stage-3 adversarial loss (not ported yet)")
+                    help="the 3-scale adversarial loss in curriculum stage "
+                         "3, with its own discriminator optimizer")
     tp.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="train on N synthetic utterances (no datasets "
                          "needed)")
@@ -405,8 +478,45 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="log_jsonl",
                     help="write per-epoch metrics (JSONL) to PATH")
 
+    def eval_args(p):
+        p.add_argument("--max-eval", type=int, default=50)
+        p.add_argument("--mesh", action="store_true",
+                       help="shard the metric sweep over every visible "
+                            "device (one card: unsharded)")
+        p.add_argument("--distributed", action="store_true",
+                       help="multi-host grid partition (not ported yet)")
+        p.add_argument("--synth-noises", default="white",
+                       choices=["white", "multi"], dest="synth_noises",
+                       help="without NOISEX-92: one white noise or the "
+                            "4-class synthetic bank")
+        p.add_argument("--synth-speech", default="formant",
+                       choices=["formant", "varied"], dest="synth_speech",
+                       help="without TIMIT: the fixed formant pattern or "
+                            "one randomized utterance per index")
+        p.add_argument("--ckpt", default="final", choices=["final", "best"],
+                       help="checkpoint family to score")
+        p.add_argument("--json-out", default=None, metavar="PATH",
+                       dest="json_out",
+                       help="write every per-cell value and the summary "
+                            "as JSON to PATH")
+
+    ep = sub.add_parser("evaluate", help="Full 5-metric grid evaluation")
+    eval_args(ep)
+    tstp = sub.add_parser("test", help="Alias for evaluate")
+    eval_args(tstp)
+
+    cp = sub.add_parser("calibrate",
+                        help="Fit and persist the output-gain calibration "
+                             "of a trained checkpoint")
+    cp.add_argument("--model", default="sincformer",
+                    choices=["sincformer", "conformer"])
+    cp.add_argument("--samples", type=int, default=8,
+                    help="held-out utterances to fit the gain on")
+    cp.add_argument("--synthetic", action="store_true",
+                    help="the synthetic corpus even if TIMIT exists")
+
     ip = sub.add_parser("info", help="Print configuration and device")
-    for p in (enp, xp, tp, ip):
+    for p in (enp, xp, tp, ep, tstp, cp, ip):
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu on request)")
     return parser
@@ -427,6 +537,10 @@ def main(argv=None) -> int:
         return export(args)
     if args.command == "train":
         return train(args)
+    if args.command in ("evaluate", "test"):
+        return evaluate(args)
+    if args.command == "calibrate":
+        return calibrate(args)
     if args.command == "info":
         return info(args)
     parser.print_help()

@@ -42,6 +42,9 @@ biases b as ``bias_hh``, separately, as the JAX tree holds them), the
 ``model_state`` collections as buffers, and optax's AdamW moments ``mu`` and
 ``nu`` mapped leaf for leaf the same way (every mapping is a transpose or a
 concatenation, so a moment maps as its parameter does) with its ``count``.
+``load_discriminator_from_jax`` does the same for the adversarial branch's
+discriminator and its Adam moments (each (k, in, out) kernel transposed to
+torch's (out, in, k)).
 
 Variants outside this slice (the BiLRU mixer, the reference PA cascade, the
 dual fine stream) raise. Every leaf must be placed and every torch
@@ -306,6 +309,42 @@ def load_train_state_from_jax(params: Mapping,
                    nu, config.cpea_layers).items()},
                "count": int(np.asarray(count))}
     return named, buffers, opt, config
+
+
+def _disc_named(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``MultiScaleDiscriminator`` tree (or one of its shape, e.g.
+    an Adam moment; with or without the top ``params`` level) → {port
+    parameter name: tensor}, each (k, in, out) kernel as (out, in, k)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out = {}
+    for path, arr in _flatten(tree).items():
+        if path[-1] == "kernel_v":
+            arr = np.transpose(arr, (2, 1, 0))
+        out[".".join(path)] = _tensor(arr)
+    return out
+
+
+def load_discriminator_from_jax(params: Mapping, opt_state: Any = None):
+    """The adversarial branch's JAX train state → (params, opt_state) for
+    ``SincformerTrainer.load_disc_state``: the discriminator's parameters
+    keyed as ``MultiScaleDiscriminator.named_parameters()`` and, given
+    optax's state (the ``ScaleByAdamState`` in it is found) or
+    ``{"count", "mu", "nu"}``, its Adam moments in the form of
+    ``train.state.Adam`` (None when ``opt_state`` is None)."""
+    from sincformer_tpu_torch.train.adversarial import \
+        MultiScaleDiscriminator
+    named = _disc_named(params)
+    with torch.device("meta"):
+        skeleton = MultiScaleDiscriminator(
+            named["disc_0.conv_0.kernel_v"].shape[1])
+    _check_filled(skeleton, named)
+    opt = None
+    if opt_state is not None:
+        count, mu, nu = _adam_state(opt_state)
+        opt = {"mu": _disc_named(mu), "nu": _disc_named(nu),
+               "count": int(np.asarray(count))}
+    return named, opt
 
 
 def _tensor(arr) -> torch.Tensor:

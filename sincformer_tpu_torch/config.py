@@ -85,6 +85,7 @@ class DataConfig:
                                     "destroyerengine")
     snr_levels: Tuple[int, ...] = (-5, 0, 5, 10)
     train_split_seed: int = 42
+    eval_sample_seed: int = 99          # utterances drawn for evaluation
     train_fraction: float = 0.9
     # pad / crop length of an utterance in training batches
     max_wave_seconds: float = field(default_factory=lambda: float(
@@ -100,6 +101,7 @@ class LossConfig:
     """Loss weights of flagship training."""
     perceptual_weight: float = 1.0      # the pipeline's default
     commitment_weight: float = 0.25     # weight of the VQ loss
+    adversarial_weight: float = 0.5     # weight of the stage-3 GAN term
     # stage-1/2 mask-domain MSE against the oracle PCIRM
     mask_mse_weight: float = field(default_factory=lambda: float(
         os.environ.get("SINCFORMER_MASK_MSE_WEIGHT", "1.0")))
@@ -111,6 +113,17 @@ class CurriculumConfig:
     stage1_epochs: int = 15
     stage2_epochs: int = 20
     stage3_epochs: int = 15
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Metric settings. ``pesq_impl``: "auto" takes the ITU C library when
+    it is installed, else the native P.862 (``evaluation/p862.py``);
+    "clib" the C library only (raises without it); "native" always the
+    native P.862; "proxy" the log-spectral-distortion proxy on the
+    device."""
+    pesq_mode: str = "nb"
+    pesq_impl: str = "auto"
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """Audio on the host (``sincformer_tpu/data/audio.py``): ``load_audio``
-reads WAV through ``scipy.io.wavfile`` with int16/int32 scaling, mono
-mixdown and linear-interpolation resampling; ``add_noise_at_snr`` mixes
-speech and noise at a target SNR."""
+reads WAV through the native decoder (``data/native.py``) or, without it,
+``scipy.io.wavfile`` with int16/int32 scaling, mono mixdown and
+linear-interpolation resampling; ``add_noise_at_snr`` mixes speech and
+noise at a target SNR."""
 
 from __future__ import annotations
 
@@ -13,10 +14,21 @@ from sincformer_tpu_torch.config import AudioConfig
 from sincformer_tpu_torch.utils.signal import resample_linear
 
 
-def load_audio(filepath: str, target_sr: Optional[int] = None) -> np.ndarray:
-    """Load a WAV file as mono float32 at ``target_sr`` (default 8 kHz)."""
+def load_audio(filepath: str, target_sr: Optional[int] = None,
+               use_native: bool = True) -> np.ndarray:
+    """Load a WAV file as mono float32 at ``target_sr`` (default 8 kHz):
+    through the native decoder and resampler when ``use_native`` and the
+    library builds, else through scipy (the same numbers)."""
     from scipy.io import wavfile
     target_sr = target_sr or AudioConfig().sample_rate
+    if use_native and filepath.lower().endswith(".wav"):
+        from sincformer_tpu_torch.data import native
+        got = native.wav_read_mono(filepath)
+        if got is not None:
+            audio, sr = got
+            if sr != target_sr:
+                audio = native.resample_linear(audio, sr, target_sr)
+            return audio.astype(np.float32)
     sr, audio = wavfile.read(filepath)
     if audio.dtype == np.int16:
         audio = audio.astype(np.float32) / 32768.0

@@ -176,6 +176,23 @@ def _pad_to(x: np.ndarray, n: int) -> np.ndarray:
     return np.pad(x, (0, n - len(x))) if len(x) < n else x[:n]
 
 
+def remix_for_stage(clean_signals: Sequence[np.ndarray],
+                    noises: Dict[str, np.ndarray],
+                    snr_levels: Sequence[float], max_len: int,
+                    epoch: int) -> WaveformDataset:
+    """Mix the clean sources at the given SNRs, the (noise, SNR) assignment
+    rotated by ``epoch`` (the training curriculum's per-epoch mixing, and
+    the validation and calibration sets at epoch 0)."""
+    keys = list(noises.keys())
+    pairs = []
+    for i, clean in enumerate(clean_signals):
+        clean = np.asarray(clean, np.float32)[:max_len]
+        noise = noises[keys[(i + epoch) % len(keys)]]
+        snr = snr_levels[(i + epoch) % len(snr_levels)]
+        pairs.append((add_noise_at_snr(clean, noise, snr), clean))
+    return WaveformDataset(pairs=pairs, max_len=max_len)
+
+
 def batch_iterator(ds: WaveformDataset, batch_size: int,
                    shuffle: bool = True, seed: int = 0,
                    drop_last: bool = True, bucketed: bool = False,

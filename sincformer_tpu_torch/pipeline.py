@@ -12,8 +12,10 @@ of ``sincformer_tpu/train/agent_trainer.py``), :class:`DCSEPipeline` (of
 A pipeline runs on the card (``device="cuda"``, the default) unless the
 caller asks for ``device="cpu"``; without CUDA the default raises instead of
 running anywhere else. ``output_gain`` is read at every call, so a changed
-gain takes effect at once. ``save_model`` / ``load_model`` write and read
-the serving checkpoints of ``train/state.py``; training is
+gain takes effect at once; ``calibrate_gain`` fits it on held-out mixtures
+and persists it in the loaded checkpoint's sidecar. ``save_model`` /
+``load_model`` write and read the serving checkpoints of
+``train/state.py``; training is
 ``train/agent_trainer.SincformerTrainer``, a ``SincformerPipeline`` that also
 saves and restores the optimizer state.
 """
@@ -22,14 +24,17 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
-from sincformer_tpu_torch.config import (AudioConfig, DCSEConfig, DNNConfig,
-                                         GammatoneConfig, MetacogConfig)
+from sincformer_tpu_torch.config import (AudioConfig, DataConfig, DCSEConfig,
+                                         DNNConfig, GammatoneConfig,
+                                         MetacogConfig)
+from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
+                                              heldout_noises, remix_for_stage)
 from sincformer_tpu_torch.dsp.features import FeatureExtractor
 from sincformer_tpu_torch.dsp.gammatone import GammatoneFilterbank, erb_space
 from sincformer_tpu_torch.dsp.stft import (istft, real_edge_bins, stft,
@@ -89,6 +94,7 @@ class _EnhancementPipeline:
         self.model_dir = model_dir or os.environ.get("SINCFORMER_MODEL_DIR",
                                                      "saved_models")
         self.step = 0
+        self._loaded_ckpt_path: Optional[str] = None
 
     def _enhanced_spec(self, wav: torch.Tensor,
                        spec: torch.Tensor) -> torch.Tensor:
@@ -182,7 +188,37 @@ class _EnhancementPipeline:
         self.load_state(restored["params"], restored["model_state"])
         self.step = restored["step"]
         self.output_gain = resolve_output_gain(path)
+        self._loaded_ckpt_path = path
         return path
+
+    # ── output-gain calibration ─────────────────────────────────────────
+
+    def _calibrate(self, ds: WaveformDataset, batch_size: int,
+                   persist: bool) -> float:
+        """Fit the output gain on the (noisy, clean) pairs of ``ds``: the
+        residual log-gain α = ⟨clean, enh⟩ / ‖enh‖² of each utterance over
+        its true samples is measured through the current gain, so the new
+        gain is the current one times exp(mean log α) over the utterances
+        with a finite α in (1e-3, 1e3). ``persist`` writes it into the
+        loaded checkpoint's family sidecar, where every later load reads
+        it."""
+        logs = []
+        for batch in batch_iterator(ds, batch_size, shuffle=False,
+                                    drop_last=False):
+            enh = self.enhance_batch(batch["noisy"].astype(np.float32))
+            for i, n in enumerate(batch["lengths"]):
+                e, c = enh[i, :n], batch["clean"][i, :n]
+                alpha = float(np.dot(c, e) / (np.dot(e, e) + 1e-12))
+                if np.isfinite(alpha) and 1e-3 < alpha < 1e3:
+                    logs.append(np.log(alpha))
+        if not logs:
+            return float(self.output_gain)
+        self.output_gain = float(self.output_gain * np.exp(np.mean(logs)))
+        if persist and self._loaded_ckpt_path is not None:
+            fam = os.path.dirname(os.path.abspath(self._loaded_ckpt_path))
+            merge_train_meta(os.path.dirname(fam), os.path.basename(fam),
+                             {"output_gain": float(self.output_gain)})
+        return float(self.output_gain)
 
 
 class SincformerPipeline(_EnhancementPipeline):
@@ -197,6 +233,21 @@ class SincformerPipeline(_EnhancementPipeline):
         out = self.model(wav, spec.real, spec.imag)
         return torch.complex(out["enhanced_real"], out["enhanced_imag"])
 
+    def calibrate_gain(self, clean_signals: Sequence[np.ndarray],
+                       noises: Dict[str, np.ndarray], batch_size: int = 8,
+                       max_len: Optional[int] = None,
+                       persist: bool = True) -> float:
+        """Post-hoc output-gain calibration of a loaded checkpoint: mix
+        ``clean_signals`` (cut to ``max_len``, default 2 s) with held-out
+        crops of ``noises`` (``data.loader.heldout_noises``) at every SNR of
+        the grid, fit the gain (:meth:`_calibrate`), apply it and, with
+        ``persist``, write it into the loaded checkpoint's sidecar. Returns
+        the new gain."""
+        max_len = max_len or 2 * self.audio.sample_rate
+        ds = remix_for_stage(clean_signals, heldout_noises(noises),
+                             list(DataConfig().snr_levels), max_len, 0)
+        return self._calibrate(ds, batch_size, persist)
+
 
 class DCSEPipeline(_EnhancementPipeline):
     """DCSE (STFT → Conformer → bounded polar mask) enhancement of (B, N)
@@ -210,6 +261,14 @@ class DCSEPipeline(_EnhancementPipeline):
     def _enhanced_spec(self, wav, spec):
         enh_real, enh_imag, _ = self.model(spec.real, spec.imag)
         return torch.complex(enh_real, enh_imag)
+
+    def calibrate_gain(self, ds: WaveformDataset, batch_size: int = 8,
+                       persist: bool = True) -> float:
+        """Post-hoc output-gain calibration on an already mixed (noisy,
+        clean) dataset, which must use held-out noise crops
+        (``data.loader.heldout_noises``): see
+        ``SincformerPipeline.calibrate_gain``."""
+        return self._calibrate(ds, batch_size, persist)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, **kwargs) -> "DCSEPipeline":

@@ -12,13 +12,15 @@ terms switched by scalars:
   stage 1: SI-SNR + 0.5·L1-magnitude + MR-STFT + mask MSE against the oracle
            PCIRM, high SNRs only;
   stage 2: + the perceptual STOI loss, a widening SNR range;
-  stage 3: + the VQ loss, every SNR.
-
-The adversarial branch of stage 3 is not ported (ROADMAP.md Queue 1 item 1).
+  stage 3: + the VQ loss, every SNR, and with ``use_adversarial`` the
+           LSGAN generator term and feature matching against a multi-scale
+           spectral discriminator (``train/adversarial.py``), which takes its
+           own Adam step after each generator step.
 
 Random draws come from explicit generators: the weights from ``seed``,
-dropout from ``seed + 1`` and the Gumbel routing from ``seed + 2`` (the
-JAX package's three keys), all on the pipeline's device. One step makes no
+dropout from ``seed + 1``, the Gumbel routing from ``seed + 2`` and the
+discriminator's weights from ``seed + 5`` (the JAX package's keys), all on
+the pipeline's device. One step makes no
 host synchronisation: the NaN guard, the clip and the AdamW update stay on
 the device; the losses are read once per epoch.
 """
@@ -28,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -36,30 +39,32 @@ import torch
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
 from sincformer_tpu_torch.config import (AudioConfig, DataConfig, LossConfig,
                                          MetacogConfig)
-from sincformer_tpu_torch.data.audio import add_noise_at_snr
 from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
-                                              heldout_noises)
+                                              heldout_noises, remix_for_stage)
 from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.masks.pcirm import (compute_correlation_coefficients,
                                               compute_pcirm,
                                               compute_phase_differences)
 from sincformer_tpu_torch.pipeline import SincformerPipeline, model_buffers
+from sincformer_tpu_torch.train.adversarial import (MultiScaleDiscriminator,
+                                                    discriminator_loss,
+                                                    feature_matching_loss,
+                                                    generator_loss)
 from sincformer_tpu_torch.train.curriculum import CurriculumScheduler
 from sincformer_tpu_torch.train.losses import (PerceptualSTOILoss,
                                                mse_mask_loss,
                                                multi_resolution_stft_loss,
                                                si_snr_loss)
-from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, guard_nan_update,
+from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, Adam,
+                                              guard_nan_update,
                                               make_adamw, merge_train_meta,
                                               newest_checkpoint,
                                               read_train_meta,
                                               restore_checkpoint,
                                               save_checkpoint)
 
-ADVERSARIAL_NOT_PORTED = (
-    "the adversarial branch (train/adversarial.py, the discriminator step "
-    "of agent_trainer.py) is not ported yet: ROADMAP.md Queue 1 item 1")
 LR = 5e-4           # peak of the warmup-cosine schedule
+DISC_LR = 2e-4      # the discriminator's constant Adam rate
 
 
 def default_metacog(**overrides) -> SincformerMetacog:
@@ -74,10 +79,15 @@ class SincformerTrainer(SincformerPipeline):
     """Curriculum training of the flagship, and its serving. ``seed`` draws
     the weights (when none were loaded), the dropout masks and the Gumbel
     noise; ``logger`` (a ``utils.observability.MetricsLogger``) takes one
-    record per epoch. ``use_adversarial=True`` raises: that branch is not
-    ported. As in the JAX pipeline, training starts from weights drawn from
-    ``seed`` unless a checkpoint or a state was loaded (``load_model``,
-    ``load_state``): a model given to the constructor is its skeleton."""
+    record per epoch. ``use_adversarial=True`` adds the discriminator
+    (``self.disc``, with its Adam state ``disc_opt_state``): its term enters
+    the loss in stage 3, and every training step is followed by its own
+    step, gated by the stage (:meth:`disc_step`); a full checkpoint then has
+    a ``<name>_disc`` sibling at the generator's step. As in the JAX
+    pipeline, training starts from weights drawn from ``seed`` unless a
+    checkpoint or a state was loaded (``load_model``, ``load_state``,
+    ``load_disc_state``): a model given to the constructor is its
+    skeleton."""
 
     _CKPT_NAMES = ("sincformer_final", "best_sincformer")
 
@@ -85,14 +95,21 @@ class SincformerTrainer(SincformerPipeline):
                  audio: AudioConfig = AudioConfig(),
                  model_dir: Optional[str] = None, seed: int = 0,
                  logger=None, use_adversarial: bool = False):
-        if use_adversarial:
-            raise NotImplementedError(ADVERSARIAL_NOT_PORTED)
         super().__init__(model, device, output_gain, audio, model_dir)
         loss = LossConfig()
         self.seed = seed
         self.perceptual_weight = loss.perceptual_weight
         self.vq_weight = loss.commitment_weight
         self.mask_mse_weight = loss.mask_mse_weight
+        self.adv_weight = loss.adversarial_weight
+        self.disc = (MultiScaleDiscriminator(self.audio.n_freq).to(
+            self.device) if use_adversarial else None)
+        self.disc_tx = Adam(DISC_LR) if use_adversarial else None
+        self.disc_opt_state = None
+        # the detached (enhanced, clean) magnitudes of the last training
+        # forward: what the discriminator's step takes
+        self.last_mags = None
+        self.disc_loss = None
         self.stoi_loss = PerceptualSTOILoss(self.audio.sample_rate,
                                             self.audio.fft_size)
         self.logger = logger
@@ -104,6 +121,7 @@ class SincformerTrainer(SincformerPipeline):
         self.dropout_generator = None
         self.routing_generator = None
         self._weights_loaded = False
+        self._disc_loaded = False
 
     # ── checkpoints: the serving ones plus the optimizer state ─────────
 
@@ -111,10 +129,26 @@ class SincformerTrainer(SincformerPipeline):
         super().load_state(state_dict, buffers)
         self._weights_loaded = True
 
+    def load_disc_state(self, params, opt_state=None) -> None:
+        """Load the discriminator's parameters (every one, by name) and,
+        given, its Adam state ``{"mu", "nu", "count"}``."""
+        self.disc.load_state_dict(dict(params), strict=True)
+        self._disc_loaded = True
+        if opt_state is not None:
+            self.disc_opt_state = self._on_device(opt_state)
+
+    def _on_device(self, opt: dict) -> dict:
+        """An optimizer state ``{"mu", "nu", "count"}`` on this device."""
+        return {"mu": {k: v.to(self.device) for k, v in opt["mu"].items()},
+                "nu": {k: v.to(self.device) for k, v in opt["nu"].items()},
+                "count": int(opt["count"])}
+
     def save_model(self, name: Optional[str] = None,
                    quantize: bool = False) -> str:
         """As the serving pipeline; once training has made an optimizer
-        state, a float32 checkpoint also holds it and the NaN count."""
+        state, a float32 checkpoint also holds it and the NaN count, and the
+        discriminator with its Adam state goes to the ``<name>_disc``
+        family at the generator's step."""
         if quantize or self.opt_state is None:
             return super().save_model(name, quantize)
         name = name or self.FINAL_NAME
@@ -125,6 +159,10 @@ class SincformerTrainer(SincformerPipeline):
             self.step, extra={"config": dataclasses.asdict(self.model.config)})
         merge_train_meta(self.model_dir, name,
                          {"output_gain": float(self.output_gain)})
+        if self.disc is not None and self.disc_opt_state is not None:
+            save_checkpoint(os.path.join(self.model_dir, name + "_disc"),
+                            {"params": dict(self.disc.named_parameters()),
+                             "opt_state": self.disc_opt_state}, self.step)
         return path
 
     def load_model(self, path: Optional[str] = None) -> str:
@@ -133,10 +171,7 @@ class SincformerTrainer(SincformerPipeline):
         path = super().load_model(path)
         restored = restore_checkpoint(path)
         opt = restored.get("opt_state")
-        self.opt_state = None if opt is None else {
-            "mu": {k: v.to(self.device) for k, v in opt["mu"].items()},
-            "nu": {k: v.to(self.device) for k, v in opt["nu"].items()},
-            "count": int(opt["count"])}
+        self.opt_state = None if opt is None else self._on_device(opt)
         self.nan_count = torch.tensor(int(restored.get("nan_count", 0)),
                                       dtype=torch.int32, device=self.device)
         return path
@@ -153,7 +188,9 @@ class SincformerTrainer(SincformerPipeline):
         """The optimizer for ``epochs`` × ``steps_per_epoch`` steps and its
         zero state (``reset_optimizer=False`` keeps a restored one), fresh
         generators, and, unless weights were loaded or drawn already
-        (``init_params`` overrides), weights drawn from ``seed``."""
+        (``init_params`` overrides), weights drawn from ``seed``. With the
+        adversarial branch, the same for the discriminator: weights drawn
+        from ``seed + 5`` unless loaded, and its Adam state."""
         if init_params is None:
             init_params = not self._weights_loaded
         if init_params:
@@ -162,6 +199,14 @@ class SincformerTrainer(SincformerPipeline):
         self.tx = make_adamw(LR, epochs, steps_per_epoch)
         if reset_optimizer or self.opt_state is None:
             self.opt_state = self.tx.init(self.params())
+        if self.disc is not None:
+            if init_params or not self._disc_loaded:
+                self.disc.init_params(
+                    torch.Generator().manual_seed(self.seed + 5))
+                self._disc_loaded = True
+            if reset_optimizer or self.disc_opt_state is None:
+                self.disc_opt_state = self.disc_tx.init(
+                    dict(self.disc.named_parameters()))
         self.dropout_generator = torch.Generator(
             device=self.device).manual_seed(self.seed + 1)
         self.routing_generator = torch.Generator(
@@ -171,10 +216,13 @@ class SincformerTrainer(SincformerPipeline):
 
     def _loss(self, noisy: torch.Tensor, clean: torch.Tensor, train: bool,
               use_perceptual: float, use_vq: float, gumbel_tau=None,
-              use_mask_mse: Optional[float] = None):
-        """(total, aux). ``use_perceptual``, ``use_vq`` and ``use_mask_mse``
-        weight their terms (0 or 1 by curriculum stage); every term is
-        computed whatever its weight, as in the JAX package."""
+              use_mask_mse: Optional[float] = None,
+              use_adv: Optional[float] = None):
+        """(total, aux). ``use_perceptual``, ``use_vq``, ``use_mask_mse``
+        and ``use_adv`` weight their terms (0 or 1 by curriculum stage);
+        every term is computed whatever its weight, as in the JAX package.
+        The adversarial term (given ``use_adv`` and a discriminator) reads
+        the discriminator's parameters but gives them no gradient."""
         a = self.audio
         n_fft, hop, frame = a.fft_size, a.hop_size, a.frame_size
         noisy_spec = stft(noisy, n_fft, hop, frame)
@@ -220,6 +268,12 @@ class SincformerTrainer(SincformerPipeline):
             t_m = out["mask_mag"].shape[1]
             loss_mask = mse_mask_loss(out["mask_mag"], oracle[:, :t_m])
             total = total + use_mask_mse * self.mask_mse_weight * loss_mask
+        if use_adv is not None and self.disc is not None:
+            outs_fake = self.disc(enh_mag)
+            outs_real = self.disc(clean_mag)
+            g_loss = (generator_loss(outs_fake)
+                      + 0.1 * feature_matching_loss(outs_real, outs_fake))
+            total = total + use_adv * self.adv_weight * g_loss
         aux = {"sisnr": -loss_sisnr, "stoi_loss": loss_stoi,
                "vq_loss": out["vq_loss"], "enh_mag": enh_mag,
                "clean_mag": clean_mag, "enh_wav": enh_wav, "out": out}
@@ -227,30 +281,65 @@ class SincformerTrainer(SincformerPipeline):
 
     def loss_and_grads(self, noisy: torch.Tensor, clean: torch.Tensor,
                        use_perceptual: float, use_vq: float, gumbel_tau=None,
-                       use_mask_mse: Optional[float] = 1.0):
+                       use_mask_mse: Optional[float] = 1.0,
+                       use_adv: Optional[float] = None):
         """A training forward and its gradients: (loss, sisnr, grads in the
         order of :meth:`params`, None for a parameter nothing reads). The
         model's buffers (MAA statistics, episodic bank, usage counters)
-        take their training updates."""
+        take their training updates, and ``last_mags`` the detached
+        magnitudes that the discriminator's step takes."""
         params = list(self.params().values())
         loss, aux = self._loss(noisy, clean, True, use_perceptual, use_vq,
-                               gumbel_tau, use_mask_mse)
+                               gumbel_tau, use_mask_mse, use_adv)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        self.last_mags = (aux["enh_mag"].detach(), aux["clean_mag"].detach())
         return loss.detach(), aux["sisnr"].detach(), list(grads)
+
+    def disc_loss_and_grads(self, enh_mag: torch.Tensor,
+                            clean_mag: torch.Tensor):
+        """The discriminator's LSGAN loss on (clean, enhanced) magnitudes
+        and its gradients, in the order of ``disc.named_parameters()``."""
+        params = list(self.disc.parameters())
+        with torch.enable_grad():
+            dl = discriminator_loss(self.disc(clean_mag), self.disc(enh_mag))
+            grads = torch.autograd.grad(dl, params, allow_unused=True)
+        return dl.detach(), list(grads)
+
+    def disc_step(self, use_adv: float) -> torch.Tensor:
+        """The discriminator's step on the magnitudes of the last training
+        forward: its gradients times ``use_adv``, the NaN guard, the clipped
+        Adam update. The update is taken at ``use_adv`` = 0 too (zero
+        gradients: the count advances and the moments decay), as in JAX.
+        Returns the loss, a device scalar."""
+        dl, grads = self.disc_loss_and_grads(*self.last_mags)
+        params = dict(self.disc.named_parameters())
+        grads = [None if g is None else g * use_adv for g in grads]
+        grads, _ = guard_nan_update(grads, dl, params.values())
+        self.disc_tx.update(params, grads, self.disc_opt_state)
+        return dl
 
     def train_step(self, noisy: torch.Tensor, clean: torch.Tensor,
                    use_perceptual: float, use_vq: float, gumbel_tau=None,
-                   use_mask_mse: float = 1.0):
+                   use_mask_mse: float = 1.0, use_adv: float = 0.0):
         """One step: loss, gradients, the NaN guard (a non-finite loss or
         gradient zeroes every gradient, and the optimizer still steps), the
-        clipped AdamW update. Returns the (loss, sisnr) device scalars."""
+        clipped AdamW update; with the adversarial branch, then the
+        discriminator's step (:meth:`disc_step`), whose loss is kept in
+        ``disc_loss``. Returns the (loss, sisnr) device scalars."""
+        if self.tx is None:
+            raise RuntimeError("no optimizer state: call init_state() or "
+                               "train() first")
+        adv = use_adv if self.disc is not None else None
         loss, sisnr, grads = self.loss_and_grads(
-            noisy, clean, use_perceptual, use_vq, gumbel_tau, use_mask_mse)
+            noisy, clean, use_perceptual, use_vq, gumbel_tau, use_mask_mse,
+            adv)
         params = self.params()
         grads, is_bad = guard_nan_update(grads, loss, params.values())
         self.tx.update(params, grads, self.opt_state)
         self.nan_count += is_bad.to(torch.int32)
         self.step += 1
+        if self.disc is not None:
+            self.disc_loss = self.disc_step(use_adv)
         return loss, sisnr
 
     @torch.no_grad()
@@ -273,21 +362,7 @@ class SincformerTrainer(SincformerPipeline):
 
     # ── curriculum data ─────────────────────────────────────────────────
 
-    @staticmethod
-    def remix_for_stage(clean_signals: Sequence[np.ndarray],
-                        noises: Dict[str, np.ndarray],
-                        snr_levels: Sequence[float], max_len: int,
-                        epoch: int) -> WaveformDataset:
-        """Mix the clean sources at the stage's SNRs, the (noise, SNR)
-        assignment rotated by the epoch."""
-        keys = list(noises.keys())
-        pairs = []
-        for i, clean in enumerate(clean_signals):
-            clean = np.asarray(clean, np.float32)[:max_len]
-            noise = noises[keys[(i + epoch) % len(keys)]]
-            snr = snr_levels[(i + epoch) % len(snr_levels)]
-            pairs.append((add_noise_at_snr(clean, noise, snr), clean))
-        return WaveformDataset(pairs=pairs, max_len=max_len)
+    remix_for_stage = staticmethod(remix_for_stage)
 
     def _tensors(self, batch, *keys):
         return [torch.from_numpy(np.asarray(batch[k])).to(self.device)
@@ -298,6 +373,24 @@ class SincformerTrainer(SincformerPipeline):
                for b in batch_iterator(test_ds, batch_size, shuffle=False,
                                        drop_last=False)]
         return [[float(x) for x in row] for row in out]   # one sync
+
+    def _restore_disc(self, resume_path: str, verbose: bool) -> None:
+        """The discriminator and its Adam state from the ``_disc`` sibling
+        saved at the generator's step; a checkpoint without one (saved
+        without the adversarial branch) leaves the fresh discriminator,
+        with a RuntimeWarning."""
+        dpath = os.path.join(os.path.dirname(resume_path) + "_disc",
+                             os.path.basename(resume_path))
+        if os.path.isdir(dpath):
+            restored = restore_checkpoint(dpath)
+            self.load_disc_state(restored["params"], restored["opt_state"])
+            if verbose:
+                print(f"  Restored discriminator from {dpath}")
+        else:
+            warnings.warn(
+                f"adversarial resume: no discriminator checkpoint at {dpath} "
+                f"(a generator-only checkpoint); the discriminator restarts "
+                f"from init", RuntimeWarning)
 
     # ── training loop ───────────────────────────────────────────────────
 
@@ -333,6 +426,8 @@ class SincformerTrainer(SincformerPipeline):
             if verbose:
                 print(f"  Resuming from {resume_path} at step {self.step} → "
                       f"epoch {start_epoch + 1}/{epochs}")
+            if self.disc is not None:
+                self._restore_disc(resume_path, verbose)
         elif self.tx is None:
             # a state already made or restored (load_model) carries on
             self.init_state(epochs, steps_per_epoch, reset_optimizer=False)
@@ -364,6 +459,7 @@ class SincformerTrainer(SincformerPipeline):
             use_perc = 1.0 if "perceptual" in loss_type else 0.0
             use_vq = 1.0 if stage["use_vq"] else 0.0
             use_mmse = 1.0 if "mse" in loss_type else 0.0
+            use_adv = 1.0 if "adversarial" in loss_type else 0.0
             # Gumbel temperature 2.0 → 0.5 over the run
             gumbel_tau = max(0.5, 2.0 * float(np.exp(
                 -3.0 * epoch / max(epochs - 1, 1))))
@@ -377,7 +473,7 @@ class SincformerTrainer(SincformerPipeline):
                                         seed=self.seed, epoch=epoch):
                 noisy, clean = self._tensors(batch, "noisy", "clean")
                 loss, sisnr = self.train_step(noisy, clean, use_perc, use_vq,
-                                              gumbel_tau, use_mmse)
+                                              gumbel_tau, use_mmse, use_adv)
                 losses.append(loss)
                 sisnrs.append(sisnr)
             n_b = len(losses)

@@ -1,9 +1,10 @@
-"""Step timing and structured metric logging
-(``sincformer_tpu/utils/observability.py``): :class:`StepTimer`, EMA-smoothed
-wall time per step (time only around host synchronisation points: CUDA
-calls return before the card is done), and :class:`MetricsLogger`, an
-append-only JSONL log with optional stdout echo (the ``--log-jsonl`` file of
-``train``)."""
+"""Tracing, step timing and structured metric logging
+(``sincformer_tpu/utils/observability.py``): :func:`trace`, a
+``torch.profiler`` region written as a Chrome trace (Perfetto,
+``chrome://tracing``); :class:`StepTimer`, EMA-smoothed wall time per step
+(time only around host synchronisation points: CUDA calls return before
+the card is done); and :class:`MetricsLogger`, an append-only JSONL log
+with optional stdout echo (the ``--log-jsonl`` file of ``train``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,25 @@ import json
 import os
 import time
 from typing import Optional
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile a region, ``with trace("/tmp/prof"): step(...)``: host
+    operations, and the card's kernels when CUDA is present, written on
+    exit to ``<log_dir>/trace-<pid>-<n>.json``. Yields ``log_dir``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    n = len([f for f in os.listdir(log_dir) if f.startswith(
+        f"trace-{os.getpid()}-")])
+    prof.export_chrome_trace(os.path.join(
+        log_dir, f"trace-{os.getpid()}-{n}.json"))
 
 
 class StepTimer:

@@ -1,4 +1,5 @@
-"""Windowing, framing and PCM primitives (``sincformer_tpu/utils/signal.py``).
+"""Windowing, framing and PCM primitives, and the FFT-domain resampler and
+Hilbert envelope of the metrics (``sincformer_tpu/utils/signal.py``).
 
 Windows are computed in float64 with numpy and cast to float32, exactly as
 the JAX package builds them, so both packages start from the same bits.
@@ -96,3 +97,50 @@ def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     new_len = int(len(x) * sr_out / sr_in)
     idx = np.linspace(0, len(x) - 1, new_len)
     return np.interp(idx, np.arange(len(x)), x).astype(np.float32)
+
+
+def resample_poly_fft(x: torch.Tensor, sr_in: int, sr_out: int
+                      ) -> torch.Tensor:
+    """FFT-domain resampling of the last axis from ``sr_in`` to ``sr_out``
+    (``scipy.signal.resample`` for real input): the spectrum cut or
+    zero-padded to round(N · sr_out / sr_in) samples, the Nyquist bin of
+    an even-length cut doubled; on the tensor's device."""
+    if sr_in == sr_out:
+        return x
+    n = x.shape[-1]
+    m = int(round(n * sr_out / sr_in))
+    spec = torch.fft.rfft(x, dim=-1)
+    n_bins_out, n_bins_in = m // 2 + 1, spec.shape[-1]
+    if n_bins_out <= n_bins_in:
+        spec = spec[..., :n_bins_out]
+        if m % 2 == 0 and n_bins_out < n_bins_in:
+            last = torch.complex(spec[..., -1].real * 2.0,
+                                 torch.zeros_like(spec[..., -1].real))
+            spec = torch.cat([spec[..., :-1], last[..., None]], dim=-1)
+    else:
+        spec = torch.cat([spec, spec.new_zeros(
+            spec.shape[:-1] + (n_bins_out - n_bins_in,))], dim=-1)
+    out = torch.fft.irfft(spec, n=m, dim=-1) * (m / n)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _analytic_weights(n: int) -> np.ndarray:
+    h = np.zeros(n)
+    if n % 2 == 0:
+        h[0] = h[n // 2] = 1.0
+        h[1:n // 2] = 2.0
+    else:
+        h[0] = 1.0
+        h[1:(n + 1) // 2] = 2.0
+    return h.astype(np.float32)
+
+
+def hilbert_envelope(x: torch.Tensor) -> torch.Tensor:
+    """|analytic signal| along the last axis: one complex64 FFT, the
+    negative frequencies dropped and the positive ones doubled, one inverse
+    FFT; on the tensor's device."""
+    n = x.shape[-1]
+    spec = torch.fft.fft(x.to(torch.float32), dim=-1)
+    h = torch.from_numpy(_analytic_weights(n)).to(x.device)
+    return torch.abs(torch.fft.ifft(spec * h, dim=-1))

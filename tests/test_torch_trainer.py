@@ -122,8 +122,7 @@ def test_train_verb_in_process(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv", [["train"],
                                   ["train", "--pipeline", "dcse"],
-                                  ["train", "--pipeline", "agents",
-                                   "--adversarial"]])
+                                  ["train", "--pipeline", "conformer"]])
 def test_train_verb_names_what_is_not_ported(argv, capsys):
     from sincformer_tpu_torch import cli
     assert cli.main(argv) == 2
@@ -131,9 +130,15 @@ def test_train_verb_names_what_is_not_ported(argv, capsys):
 
 
 def test_adversarial_pipeline_raises():
-    from sincformer_tpu_torch.train.agent_trainer import SincformerTrainer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SincformerTrainer(device="cpu", use_adversarial=True)
+    """The adversarial trainer builds its discriminator; a step before
+    ``init_state`` made the optimizers raises and says so."""
+    from sincformer_tpu_torch.train.adversarial import \
+        MultiScaleDiscriminator
+    pipe = _pipe("unused")
+    pipe = type(pipe)(pipe.model, device="cpu", use_adversarial=True)
+    assert isinstance(pipe.disc, MultiScaleDiscriminator)
+    with pytest.raises(RuntimeError, match="init_state"):
+        _step(pipe, 1)
 
 
 def test_card_entry_points_turn_tf32_off(monkeypatch):
@@ -149,3 +154,67 @@ def test_card_entry_points_turn_tf32_off(monkeypatch):
     assert resolve_device("cuda").type == "cuda"
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+def test_native_wav_reader_equals_scipy(tmp_path):
+    """``load_audio`` decodes a written WAV through the native library,
+    built from native/wavio.cpp into the package's build directory, to
+    scipy's values: int16 mono at 8 kHz bit for bit, and int16 stereo at
+    16 kHz mixed down and resampled within float32 rounding."""
+    from scipy.io import wavfile
+
+    from sincformer_tpu_torch.data import native
+    from sincformer_tpu_torch.data.audio import load_audio
+    from sincformer_tpu_torch.ops.build import BUILD_DIR
+    mono = np.round(wave(90, (4000,)) * 32767).astype(np.int16)
+    stereo = np.round(wave(91, (3200, 2)) * 32767).astype(np.int16)
+    paths = [str(tmp_path / "mono.wav"), str(tmp_path / "stereo.wav")]
+    wavfile.write(paths[0], 8000, mono)
+    wavfile.write(paths[1], 16000, stereo)
+    before = native.reads
+    got = [load_audio(p) for p in paths]
+    assert native.reads == before + 2
+    assert os.path.dirname(native.library_path()) == BUILD_DIR
+    assert os.path.exists(native.library_path())
+    want = [load_audio(p, use_native=False) for p in paths]
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1].shape == want[1].shape == (1600,)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-6)
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    """``trace`` around one narrow flagship request writes a Chrome trace
+    that names the request's operators."""
+    from sincformer_tpu_torch import SincformerPipeline
+    from sincformer_tpu_torch.utils.observability import trace
+    pipe = SincformerPipeline(_pipe(tmp_path).model, device="cpu")
+    with trace(str(tmp_path / "prof")) as log_dir:
+        pipe.enhance_signal(wave(13, (4000,)))
+    files = os.listdir(log_dir)
+    assert len(files) == 1 and files[0].endswith(".json")
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv1d" in e.get("name", "") for e in events)
+
+
+def test_train_verb_adversarial(tmp_path, monkeypatch):
+    """``train --adversarial`` at narrow width: the discriminator takes its
+    Adam step after every generator step (gated off before stage 3, so its
+    count still advances), and the best and final checkpoints have their
+    ``_disc`` siblings at the generator's step."""
+    from sincformer_tpu_torch import cli
+    from sincformer_tpu_torch.train import agent_trainer
+    from sincformer_tpu_torch.train.state import restore_checkpoint
+    factory = agent_trainer.default_metacog
+    monkeypatch.setattr(agent_trainer, "default_metacog",
+                        lambda **kw: factory(**{**NARROW, **kw}))
+    monkeypatch.setenv("SINCFORMER_MAX_WAVE_SECONDS", "0.5")
+    monkeypatch.setenv("SINCFORMER_MODEL_DIR", str(tmp_path))
+    assert cli.main(["train", "--pipeline", "agents", "--synthetic", "6",
+                     "--epochs", "2", "--adversarial", "--device",
+                     "cpu"]) == 0
+    disc = restore_checkpoint(str(tmp_path / "sincformer_final_disc"
+                                  / "step_2"))
+    assert disc["opt_state"]["count"] == 2
+    assert "disc_0.conv_0.kernel_v" in disc["params"]
+    assert (tmp_path / "best_sincformer_disc").is_dir()
