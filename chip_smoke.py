@@ -51,7 +51,20 @@ its kernels:
     CPU, one cell's device time by part; the ``calibrate`` verb on copies
     of the artifact, card against CPU, persisted and read back;
   * WAV input through the native decoder (built from ``native/wavio.cpp``)
-    and ``observability.trace`` around one flagship request.
+    and ``observability.trace`` around one flagship request;
+  * DCSE training at full width: the ``train --pipeline conformer`` verb
+    in a process of its own (``--synthetic 40 --epochs 2``, K1 counted in
+    the child, its checkpoint serving one request), one dropout-0 step of
+    8 x 4 s with ``conv_norm`` "layer" and "batch" held against the CPU and
+    float64, the fused feed-forward (K3) in a validation pass and in a
+    dropout-0 step against the unfused one, and 20 timed steps;
+  * mask-DNN training: the ``train --pipeline dnn`` verb (RBM on) and
+    ``enhance --model pcirm`` from its checkpoint, the preprocessing card vs
+    CPU, one Adam step and one CD-1 step card vs CPU, and the OPT-PCIRM
+    swarm at ``PSOConfig()`` card vs CPU;
+  * a reference-format ``conformer_final.pt`` served on the card and the
+    CPU through ``DCSEPipeline.from_torch_checkpoint``, and the ``demo``
+    verb on the card.
 
 K1 and K3 are also held against their plain versions under autograd (the
 backward is the plain formulation's gradient, so the gradients are equal bit
@@ -146,6 +159,10 @@ EVAL_P862_TOL = 1e-6
 EVAL_MEAN_TOL = {"stoi": 1e-4, "pesq": 1e-2, "ssnr": 1e-2, "csii": 1e-4,
                  "ncm": 1e-4}
 GAIN_TOL = 1e-4             # calibrated gain, card vs CPU, relative
+DCSE_STATS_TOL = 1e-5       # BatchNorm running statistics after a training
+                            # forward, card vs CPU, of their scale (>= 1)
+CLIP_TOL = 1e-4             # the DCSE step's global-norm clip factor, card
+                            # vs CPU, relative
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5",
                         "sincformer_v4s0_best_serving_torch")
@@ -1089,7 +1106,7 @@ def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
     (``use_adv`` = 1, a fresh discriminator drawn from seed 5 on the CPU
     and copied to each device), then the discriminator's own step: its loss
     within TRAIN_LOSS_TOL, its gradients and its parameters after Adam as
-    :func:`disc_step_faults` holds them (:func:`check_disc_step`)."""
+    :func:`step_faults` holds them (:func:`check_disc_step`)."""
     from unittest import mock
 
     import sincformer_tpu_torch as port
@@ -1263,15 +1280,16 @@ def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
     return result
 
 
-def disc_step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu) -> tuple:
-    """Hold the discriminator's step on the card against the CPU's: each
-    gradient leaf within DISC_GRAD_TOL of its largest magnitude (floored at
-    GRAD_FLOOR x the largest of all); of the elements whose CPU gradient
-    after the clip passes 1e-5, a share of at most TRAIN_FLIP_SHARE with
-    the other sign on the card; the parameters after Adam within
-    TRAIN_PARAM_TOL of their scale where the clipped gradients agree in
-    sign and pass 1e-5 (Adam's first step is lr x sign(g) there), within
-    twice the step elsewhere. Returns (faults, figures)."""
+def step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu,
+                grad_tol: float = DISC_GRAD_TOL) -> tuple:
+    """Hold an Adam step on the card against the CPU's (the discriminator's,
+    the mask DNN's): each gradient leaf within ``grad_tol`` of its largest
+    magnitude (floored at GRAD_FLOOR x the largest of all); of the elements
+    whose CPU gradient after the clip passes 1e-5, a share of at most
+    TRAIN_FLIP_SHARE with the other sign on the card; the parameters after
+    Adam within TRAIN_PARAM_TOL of their scale where the clipped gradients
+    agree in sign and pass 1e-5 (Adam's first step is lr x sign(g) there),
+    within twice the step elsewhere. Returns (faults, figures)."""
     from sincformer_tpu_torch.train.state import GRAD_CLIP
 
     def clipped(g):
@@ -1303,7 +1321,7 @@ def disc_step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu) -> tuple:
             faults.append(f"{k}: a parameter moved past its step")
         other += int((~same).sum())
         n_el += w.numel()
-    if not grad <= DISC_GRAD_TOL:
+    if not grad <= grad_tol:
         faults.append(f"gradient of {grad_at} {grad:.3e} of its scale")
     if not flipped <= TRAIN_FLIP_SHARE * n_big:
         faults.append(f"{flipped} of {n_big} gradient elements flipped sign")
@@ -1315,19 +1333,15 @@ def disc_step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu) -> tuple:
                     "param_elements_other": other, "elements": n_el}
 
 
-def check_disc_step(d_cpu, d_gpu, what: str, result: dict, key: str):
-    """The discriminator's step, card against CPU (:func:`disc_step_faults`),
-    and its loss within TRAIN_LOSS_TOL; then the same check on the card's
-    result with a sign flip planted, which it must refuse: twice the
-    allowed share of the smallest CPU gradients past 1e-5 of the largest
-    leaf negated and their parameter steps mirrored."""
+def planted_flip_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu, n_big: int,
+                        grad_tol: float) -> tuple:
+    """:func:`step_faults` on the card's step with sign flips planted, which
+    it must refuse: twice the allowed share of the smallest CPU gradients
+    past 1e-5 of the largest leaf negated and their parameter steps
+    mirrored. Returns (faults, the number planted, the leaf)."""
     from sincformer_tpu_torch.train.state import GRAD_CLIP
-    (dl_cpu, g_cpu, d0, p_cpu), (dl_gpu, g_gpu, _, p_gpu) = d_cpu, d_gpu
-    rel = abs(dl_gpu - dl_cpu) / abs(dl_cpu)
-    faults, figures = disc_step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu)
-
     leaf = max(g_gpu, key=lambda k: g_gpu[k].numel())
-    n = 2 * int(TRAIN_FLIP_SHARE * figures["grad_elements_past_1e-5"]) + 1
+    n = 2 * int(TRAIN_FLIP_SHARE * n_big) + 1
     norm = float(torch.sqrt(sum((v ** 2).sum() for v in g_cpu.values())))
     mags = g_cpu[leaf].abs().flatten() * min(1.0, GRAD_CLIP / norm)
     idx = torch.argsort(torch.where(mags >= 1e-5, mags,
@@ -1339,7 +1353,20 @@ def check_disc_step(d_cpu, d_gpu, what: str, result: dict, key: str):
     p_bad[leaf] = p_gpu[leaf].flatten().clone()
     p_bad[leaf][idx] = 2 * d0[leaf].flatten()[idx] - p_bad[leaf][idx]
     p_bad[leaf] = p_bad[leaf].view_as(p_gpu[leaf])
-    planted, _ = disc_step_faults(g_cpu, g_bad, d0, p_cpu, p_bad)
+    faults, _ = step_faults(g_cpu, g_bad, d0, p_cpu, p_bad, grad_tol)
+    return faults, n, leaf
+
+
+def check_disc_step(d_cpu, d_gpu, what: str, result: dict, key: str):
+    """The discriminator's step, card against CPU (:func:`step_faults`),
+    and its loss within TRAIN_LOSS_TOL; then the same check with sign flips
+    planted (:func:`planted_flip_faults`), which it must refuse."""
+    (dl_cpu, g_cpu, d0, p_cpu), (dl_gpu, g_gpu, _, p_gpu) = d_cpu, d_gpu
+    rel = abs(dl_gpu - dl_cpu) / abs(dl_cpu)
+    faults, figures = step_faults(g_cpu, g_gpu, d0, p_cpu, p_gpu)
+    planted, n, leaf = planted_flip_faults(
+        g_cpu, g_gpu, d0, p_cpu, p_gpu, figures["grad_elements_past_1e-5"],
+        DISC_GRAD_TOL)
     say(f"[train] adversarial: the discriminator's step ({what}): loss "
         f"{dl_gpu:.6f} vs {dl_cpu:.6f}, {rel:.3e} relative (limit "
         f"{TRAIN_LOSS_TOL:g}); gradients up to {figures['grad']:.3e} of the "
@@ -1734,6 +1761,642 @@ def check_native_and_trace(seed: int, launches) -> dict:
         raise AssertionError("the trace does not hold the request's kernels")
     return {"native_read_ms": read_ms, "trace_bytes": size,
             "trace_kernels": n_kernels, "trace_k1": len(k1)}
+
+
+def run_verb(argv, env_extra: dict, what: str, timeout: int = 900):
+    """``cli.main(argv)`` in a process of its own on the card; returns
+    (the child's launch counts of K1 and K3, its standard output, wall s).
+    A non-zero exit fails the run."""
+    runner = ("import json, sys\n"
+              "from sincformer_tpu_torch import cli\n"
+              "from sincformer_tpu_torch.ops.fused_ffn import fused_ffn\n"
+              "from sincformer_tpu_torch.ops.speech_attention import "
+              "speech_attention\n"
+              "rc = cli.main(sys.argv[1:])\n"
+              "print(json.dumps({'speech_attention': "
+              "speech_attention.launches, 'fused_ffn': fused_ffn.launches}))"
+              "\nsys.exit(rc)\n")
+    env = {**os.environ, "PYTHONPATH": REPO, **env_extra}
+    env.pop("SINCFORMER_MAX_WAVE_SECONDS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", runner, *argv], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        say(proc.stdout[-2000:])
+        say(proc.stderr[-3000:])
+        raise AssertionError(f"{what} exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    return json.loads(lines[-1]), lines[:-1], wall
+
+
+def grads_vs(g_a: dict, g_b: dict, g_ref: dict, zero=()) -> list:
+    """Rows (|a - b| of the leaf's scale, leaf, |a - ref|, |b - ref|), worst
+    first; a leaf's scale is floored at GRAD_FLOOR x the largest reference
+    gradient. Leaves in ``zero`` (a gradient of zero in exact arithmetic)
+    are left out here."""
+    floor = GRAD_FLOOR * max(float(g.abs().max()) for g in g_ref.values())
+    rows = []
+    for k, w in g_ref.items():
+        if k in zero:
+            continue
+        scale = max(float(w.abs().max()), floor)
+        rows.append((float((g_a[k] - g_b[k]).abs().max()) / scale, k,
+                     float((g_a[k] - w).abs().max()) / scale,
+                     float((g_b[k] - w).abs().max()) / scale))
+    return sorted(rows, reverse=True)
+
+
+def steps_vs_float64(p0, p_cpu, p_gpu, p_64, g_cpu, g_64, g_gpu) -> tuple:
+    """``[train]``'s rule for the whole loss's step: where the CPU's step is
+    float64's (the clipped gradients agree in sign and pass 1e-5, well
+    above AdamW's eps of 1e-8), the count of elements, and of those whose
+    step on the card leaves float64's by more than its own float64 step;
+    and the three clip factors (card, CPU, float64)."""
+    from sincformer_tpu_torch.train.state import GRAD_CLIP
+
+    def clipped(g):
+        norm = float(torch.sqrt(sum((v ** 2).sum() for v in g.values())))
+        clip = min(1.0, GRAD_CLIP / norm)
+        return clip, {k: v * clip for k, v in g.items()}
+    (c_cpu, gc_all), (c_64, g6_all) = clipped(g_cpu), clipped(g_64)
+    c_gpu = clipped(g_gpu)[0]
+    n, past = 0, 0
+    for k, w in p_64.items():
+        gc, g6 = gc_all[k], g6_all[k]
+        trusted = ((torch.sign(gc) == torch.sign(g6)) & (gc.abs() >= 1e-5)
+                   & (g6.abs() >= 1e-5))
+        own = ((p_gpu[k] - w).abs()
+               / (w - p0[k]).abs().clamp_min(1e-30))[trusted]
+        n += int(trusted.sum())
+        past += int((own > 1.0).sum())
+    return n, past, (c_gpu, c_cpu, c_64)
+
+
+def dcse_batch(seed: int) -> dict:
+    """8 utterances of 4 s (the train verb's batch shape) from the
+    synthetic corpus, 0 and 5 dB."""
+    from sincformer_tpu_torch.cli import _synthetic_corpus
+    from sincformer_tpu_torch.data.loader import (batch_iterator,
+                                                  remix_for_stage)
+    clean, noises = _synthetic_corpus(TRAIN_BATCH[0], "multi", "varied")
+    ds = remix_for_stage(clean, noises, [0, 5], TRAIN_BATCH[1], seed)
+    return next(batch_iterator(ds, TRAIN_BATCH[0], shuffle=False))
+
+
+def dcse_step(state: dict, cfg, device: str, dtype, batch: dict) -> dict:
+    """One dropout-0 DCSE training step from ``state``: the loss, the
+    gradients of the whole loss and of the loss without the MR-STFT term
+    (the term's own gradients taken apart from the same forward), the
+    BatchNorm statistics after the forward, and the parameters before and
+    after the AdamW update; every tensor on the CPU in float64."""
+    from unittest import mock
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.train import dcse_trainer
+    from sincformer_tpu_torch.train.state import guard_nan_update
+    model = port.SpeechEnhancer(cfg)
+    model.load_state_dict(state)
+    p = dcse_trainer.DCSETrainer(model, device=device)
+    p.model.to(dtype)
+    p.init_state(epochs=1, steps_per_epoch=1, init_params=False)
+    noisy, clean = (torch.from_numpy(batch[k]).to(device, dtype)
+                    for k in ("noisy", "clean"))
+    terms = []
+    real = dcse_trainer.multi_resolution_stft_loss
+
+    def keep(pred, target):
+        terms.append(real(pred, target))
+        return terms[-1]
+    t0 = time.perf_counter()
+    with mock.patch.object(dcse_trainer, "multi_resolution_stft_loss", keep):
+        loss, _ = p._loss(noisy, clean, True)
+    params = p.params()
+    g_all = torch.autograd.grad(loss, list(params.values()),
+                                retain_graph=True, allow_unused=True)
+    g_mr = torch.autograd.grad(terms[0], list(params.values()),
+                               allow_unused=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def host(g, p_):
+        return (torch.zeros_like(p_) if g is None else g).detach().cpu(
+        ).double()
+    grads = {k: host(g, v) for (k, v), g in zip(params.items(), g_all)}
+    without = {k: grads[k] - host(g, v)
+               for (k, v), g in zip(params.items(), g_mr)}
+    stats = {k: b.detach().cpu().double()
+             for k, b in p.model.named_buffers()}
+    before = {k: v.detach().cpu().double() for k, v in params.items()}
+    guarded, _ = guard_nan_update(list(g_all), loss.detach(),
+                                  params.values())
+    p.tx.update(params, guarded, p.opt_state)
+    after = {k: v.detach().cpu().double() for k, v in params.items()}
+    return {"loss": float(loss.detach()), "grads": grads,
+            "without": without, "stats": stats, "before": before,
+            "after": after, "s": wall}
+
+
+def check_train_dcse(seed: int, smi: str, launches) -> dict:
+    """DCSE training on the card: the train verb end to end at full width,
+    one dropout-0 step of 8 x 4 s card vs CPU vs float64 with
+    ``conv_norm`` "layer" and "batch", the fused feed-forward (K3) in a
+    validation pass and under autograd, and the step's time."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
+    from sincformer_tpu_torch.train.state import latest_step_dir
+    cfg = port.DCSEConfig()
+    blocks = cfg.num_blocks
+    result = {}
+
+    # ── the train verb in a process of its own ──────────────────────────
+    with tempfile.TemporaryDirectory() as model_dir:
+        log = os.path.join(model_dir, "train.jsonl")
+        counts, lines, wall = run_verb(
+            ["train", "--pipeline", "conformer", "--synthetic", "40",
+             "--epochs", "2", "--seed", str(seed), "--log-jsonl", log],
+            {"SINCFORMER_MODEL_DIR": model_dir}, "train --pipeline conformer")
+        for line in lines[-6:]:
+            say(f"[train-dcse] | {line}")
+        records = [json.loads(line) for line in open(log)]
+        # 36 utterances in batches of 8: 4 steps an epoch; 4 validation
+        # utterances: one batch an epoch; one forward each
+        steps, evals = 2 * (36 // 8), 2
+        want_k1 = blocks * (steps + evals)
+        say(f"[train-dcse] train --pipeline conformer --synthetic 40 --epochs"
+            f" 2: exit 0 in {wall:.1f} s wall ({steps} steps of "
+            f"{TRAIN_BATCH}, {evals} validations, DCSEConfig() at 6,225,414 "
+            f"parameters); K1 launches {counts['speech_attention']} = "
+            f"{blocks} blocks x ({steps} steps + {evals} validation "
+            f"batches), K3 {counts['fused_ffn']}")
+        for r in records:
+            say(f"[train-dcse] epoch {r['epoch']}: train loss "
+                f"{r['train_loss']:.4f}, val loss {r['val_loss']:.4f}, val "
+                f"SI-SNR {r['val_sisnr']:+.2f} dB, nan_count "
+                f"{r['nan_count']}, {r['epoch_seconds']:.2f} s")
+        if (counts != {"speech_attention": want_k1, "fused_ffn": 0}
+                or len(records) != 2
+                or not all(np.isfinite(r["train_loss"])
+                           and np.isfinite(r["val_loss"])
+                           and r["nan_count"] == 0 for r in records)):
+            raise AssertionError("the DCSE train verb's run is not as "
+                                 "expected")
+        launches.total["speech_attention"] += counts["speech_attention"]
+        for family in ("best_conformer", "conformer_final"):
+            if latest_step_dir(os.path.join(model_dir, family)) is None:
+                raise AssertionError(f"no {family} checkpoint written")
+        served = port.DCSEPipeline(device="cuda", model_dir=model_dir)
+        path = served.load_model()
+        launches.reset()
+        out = served.enhance_signal(speechlike(np.random.default_rng(seed),
+                                               20000))
+        launches.expect("dcse enhance from the trained checkpoint",
+                        speech_attention=blocks)
+        if out.shape != (20000,) or not np.all(np.isfinite(out)):
+            raise AssertionError("serving the trained DCSE checkpoint failed")
+        say(f"[train-dcse] served one 2.5 s request on the card from "
+            f"{os.path.relpath(path, model_dir)} (output_gain "
+            f"{served.output_gain:.4f})")
+        result.update(verb_s=wall, verb_k1=counts["speech_attention"],
+                      epoch_s=[r["epoch_seconds"] for r in records])
+        del served
+
+    # ── one step card vs CPU vs float64, "layer" and "batch" ────────────
+    batch = dcse_batch(seed)
+    for norm in ("layer", "batch"):
+        step_cfg = port.DCSEConfig(conv_norm=norm, dropout=0.0)
+        state = port.SpeechEnhancer(step_cfg).training_init(
+            torch.Generator().manual_seed(seed)).state_dict()
+        launches.reset()
+        gpu = dcse_step(state, step_cfg, "cuda", torch.float32, batch)
+        k = launches.expect(f"dcse step ({norm})", speech_attention=blocks)
+        cpu = dcse_step(state, step_cfg, "cpu", torch.float32, batch)
+        f64 = dcse_step(state, step_cfg, "cpu", torch.float64, batch)
+        launches.expect("dcse step on the CPU")
+        rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        zero = ({n for n in state if n.endswith("depthwise.bias")}
+                if norm == "batch" else set())
+        rows = grads_vs(gpu["without"], cpu["without"], f64["without"], zero)
+        floor = GRAD_FLOOR * max(float(g.abs().max())
+                                 for g in f64["without"].values())
+        zero_worst = max([float(r["without"][n].abs().max()) / floor
+                          for r in (gpu, cpu) for n in zero] or [0.0])
+        rows_all = grads_vs(gpu["grads"], cpu["grads"], f64["grads"], zero)
+        n_trusted, past, clips = steps_vs_float64(
+            cpu["before"], cpu["after"], gpu["after"], f64["after"],
+            cpu["grads"], f64["grads"], gpu["grads"])
+        clip_rel = abs(clips[0] - clips[1]) / clips[1]
+        stats = max([float((gpu["stats"][n] - cpu["stats"][n]).abs().max())
+                     / max(1.0, float(cpu["stats"][n].abs().max()))
+                     for n in cpu["stats"]] or [0.0])
+        say(f"[train-dcse] {norm}: one step of {TRAIN_BATCH}, dropout 0, "
+            f"card vs CPU: loss {gpu['loss']:.6f} vs {cpu['loss']:.6f} "
+            f"({f64['loss']:.6f} in float64), {rel:.3e} relative (limit "
+            f"{TRAIN_LOSS_TOL:g}); gradients without the MR-STFT term up to "
+            f"{rows[0][0]:.3e} of the leaf's scale (limit {TRAIN_GRAD_TOL:g};"
+            f" {rows[0][1]}), card vs float64 {max(r[2] for r in rows):.3e},"
+            f" CPU vs float64 {max(r[3] for r in rows):.3e}; with it "
+            f"{rows_all[0][0]:.3e} card vs CPU (limit {TRAIN_GRAD_TOL:g}; "
+            f"{rows_all[0][1]}); K1 {k['speech_attention']} "
+            f"in the card's step; CPU step {cpu['s']:.1f} s, "
+            f"{f64['s']:.1f} s in float64")
+        n_el = sum(v.numel() for v in cpu["after"].values())
+        say(f"[train-dcse] {norm}: the whole loss's AdamW step, where the "
+            f"CPU's is float64's (the clipped gradients agree in sign and "
+            f"pass 1e-5: {n_trusted} of {n_el} elements): {past} on the "
+            f"card past float64's own step (limit {TRAIN_FLIP_SHARE:g} of "
+            f"them); clip factors {clips[0]:.7g} card, {clips[1]:.7g} CPU "
+            f"({clip_rel:.3e} relative, limit {CLIP_TOL:g}), {clips[2]:.7g} "
+            f"float64"
+            + (f"; BatchNorm statistics card vs CPU {stats:.3e} (limit "
+               f"{DCSE_STATS_TOL:g}); the depthwise bias in front of it, "
+               f"zero in exact arithmetic: {zero_worst:.3e} of the floor"
+               if norm == "batch" else ""))
+        result[f"card_vs_cpu_{norm}"] = {
+            "loss_rel": rel, "grad_without_mrstft": rows[0][0],
+            "grad_whole": rows_all[0][0], "trusted": n_trusted,
+            "elements": n_el, "clip_factors": clips,
+            "past_float64_step": past, "clip_rel": clip_rel,
+            "batch_stats": stats}
+        if not (rel <= TRAIN_LOSS_TOL and rows[0][0] <= TRAIN_GRAD_TOL
+                and rows_all[0][0] <= TRAIN_GRAD_TOL and clip_rel <= CLIP_TOL
+                and past <= TRAIN_FLIP_SHARE * n_trusted
+                and stats <= DCSE_STATS_TOL and zero_worst <= 1e-2):
+            raise AssertionError(f"the DCSE step on the card left the CPU's "
+                                 f"({norm})")
+        del gpu, cpu, f64
+    torch.cuda.empty_cache()
+
+    # ── the fused feed-forward: a validation pass, a dropout-0 step ─────
+    state = port.SpeechEnhancer(port.DCSEConfig(dropout=0.0)).training_init(
+        torch.Generator().manual_seed(seed)).state_dict()
+    fused_cfg = port.DCSEConfig(dropout=0.0, fused_ffn=True)
+    val = DCSETrainer(port.SpeechEnhancer(fused_cfg), device="cuda")
+    val.load_state(state)
+    tensors = [torch.from_numpy(batch[k]).cuda()
+               for k in ("noisy", "clean", "lengths")]
+    launches.reset()
+    fused_eval = [float(x) for x in val.eval_step(*tensors)]
+    v = launches.expect("dcse validation, fused", speech_attention=blocks,
+                        fused_ffn=2 * blocks)
+    plain = DCSETrainer(port.SpeechEnhancer(port.DCSEConfig(dropout=0.0)),
+                        device="cuda")
+    plain.load_state(state)
+    plain_eval = [float(x) for x in plain.eval_step(*tensors)]
+    launches.expect("dcse validation, unfused", speech_attention=blocks)
+    del val, plain
+    fused = dcse_step(state, fused_cfg, "cuda", torch.float32, batch)
+    s = launches.expect("dcse step, fused, dropout 0",
+                        speech_attention=blocks, fused_ffn=2 * blocks)
+    unfused = dcse_step(state, port.DCSEConfig(dropout=0.0), "cuda",
+                        torch.float32, batch)
+    launches.expect("dcse step, unfused", speech_attention=blocks)
+    rows = grads_vs(fused["without"], unfused["without"], unfused["without"])
+    eval_rel = abs(fused_eval[0] - plain_eval[0]) / abs(plain_eval[0])
+    step_rel = abs(fused["loss"] - unfused["loss"]) / abs(unfused["loss"])
+    say(f"[train-dcse] fused_ffn: validation of {TRAIN_BATCH} with K1 "
+        f"{v['speech_attention']} and K3 {v['fused_ffn']} launches, loss "
+        f"{fused_eval[0]:.6f} vs {plain_eval[0]:.6f} unfused ({eval_rel:.3e}"
+        f" relative); a dropout-0 step with K3 {s['fused_ffn']} launches "
+        f"under autograd: loss {step_rel:.3e} relative, gradients without "
+        f"the MR-STFT term up to {rows[0][0]:.3e} of the leaf's scale from "
+        f"the unfused step's (limit {TRAIN_GRAD_TOL:g}; {rows[0][1]})")
+    if not (eval_rel <= TRAIN_LOSS_TOL and step_rel <= TRAIN_LOSS_TOL
+            and rows[0][0] <= TRAIN_GRAD_TOL):
+        raise AssertionError("the fused DCSE step left the unfused one")
+    result.update(k1_in_validation=v["speech_attention"],
+                  k3_in_validation=v["fused_ffn"],
+                  k1_in_step=s["speech_attention"],
+                  k3_in_step_no_dropout=s["fused_ffn"],
+                  fused_vs_unfused_grad=rows[0][0])
+    del fused, unfused
+    torch.cuda.empty_cache()
+
+    # ── the step's time: DCSEConfig() (dropout 0.15), 20 steps ──────────
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pipe = DCSETrainer(device="cuda", seed=seed)
+    pipe.init_state(epochs=1, steps_per_epoch=20)
+    noisy, clean = tensors[:2]
+    step_ms, losses, k1 = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    for i in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = pipe.train_step(noisy, clean)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1.append(launches.expect(f"dcse training step {i}",
+                                  speech_attention=blocks)[
+            "speech_attention"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.train_step(noisy, clean)
+        torch.cuda.synchronize()
+    k1.append(launches.expect("profiled dcse step",
+                              speech_attention=blocks)["speech_attention"])
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(k[1] for k in kernels)
+    n_launch = sum(k[2] for k in kernels)
+    median = float(np.median(step_ms[1:]))
+    say(f"[train-dcse] DCSEConfig() (dropout 0.15), {TRAIN_BATCH}, 20 "
+        f"steps: loss {losses[0]:.4f} at step 1, {losses[-1]:.4f} at step "
+        f"20; {median:.2f} ms per step (median of steps 2-20; step 1 "
+        f"{step_ms[0]:.1f} ms), device busy {busy:.3f} ms "
+        f"({busy / median:.3f} of the step), {n_launch} kernel launches, "
+        f"K1 {k1[-1]} a step, peak memory {peak_gb:.2f} GB on {smi}")
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        raise AssertionError("the DCSE loss did not fall over 20 steps")
+    result.update(step_ms_median=median, step_ms_first=step_ms[0],
+                  device_busy_ms=busy, device_busy_share=busy / median,
+                  kernel_launches_per_step=n_launch,
+                  k1_launches_per_step=k1[-1], peak_memory_gb=peak_gb)
+    del pipe
+    torch.cuda.empty_cache()
+    launches.reset()
+    return result
+
+
+def check_train_dnn(seed: int, smi: str, launches) -> dict:
+    """Training of the original paper's mask DNN on the card: the train
+    verb (RBM on) and ``enhance --model pcirm`` from its checkpoint, the
+    preprocessing card vs CPU, one Adam step and one CD-1 step card vs CPU,
+    and the OPT-PCIRM swarm at PSOConfig() card vs CPU: its fitness on the
+    same positions, and the STOI of each device's best position."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch import cli
+    from sincformer_tpu_torch.masks.opt_pcirm import (compute_opt_pcirm,
+                                                      opt_pcirm_fitness)
+    from sincformer_tpu_torch.models.rbm import RBM, cd_uniform_shapes
+    from sincformer_tpu_torch.train.dnn_trainer import (
+        DNNTrainer, process_single_utterance)
+    from sincformer_tpu_torch.train.state import make_adam_plateau
+    from scipy.io import wavfile
+    result = {}
+
+    # ── the train verb, then enhance --model pcirm ──────────────────────
+    with tempfile.TemporaryDirectory() as d:
+        model_dir = os.path.join(d, "models")
+        log = os.path.join(d, "train.jsonl")
+        counts, lines, wall = run_verb(
+            ["train", "--pipeline", "dnn", "--synthetic", "40", "--epochs",
+             "2", "--seed", str(seed), "--log-jsonl", log],
+            {"SINCFORMER_MODEL_DIR": model_dir,
+             "SINCFORMER_CACHE_DIR": os.path.join(d, "cache")},
+            "train --pipeline dnn")
+        for line in lines[-4:]:
+            say(f"[train-dnn] | {line}")
+        records = [json.loads(line) for line in open(log)]
+        rbm_lines = [line for line in lines if "RBM Epoch" in line]
+        say(f"[train-dnn] train --pipeline dnn --synthetic 40 --epochs 2 "
+            f"(RBM on: {len(rbm_lines)} RBM epochs): exit 0 in {wall:.1f} s "
+            f"wall; kernel launches {counts}; epochs "
+            + ", ".join(f"{r['epoch']}: train {r['train_loss']:.5f}, val "
+                        f"{r['val_loss']:.5f}, {r['epoch_seconds']:.3f} s"
+                        for r in records))
+        if (counts != {"speech_attention": 0, "fused_ffn": 0}
+                or len(records) != 2 or len(rbm_lines) != 30
+                or not all(np.isfinite(r["train_loss"]) for r in records)):
+            raise AssertionError("the DNN train verb's run is not as "
+                                 "expected")
+        os.environ["SINCFORMER_MODEL_DIR"] = model_dir
+        x = speechlike(np.random.default_rng(seed + 8), 26400)
+        wavfile.write(os.path.join(d, "in.wav"), 8000, to_pcm(x))
+        launches.reset()
+        if cli.main(["enhance", os.path.join(d, "in.wav"),
+                     os.path.join(d, "out.wav"), "--model", "pcirm"]) != 0:
+            raise AssertionError("enhance --model pcirm from the trained "
+                                 "checkpoint failed")
+        launches.expect("enhance --model pcirm from the trained DNN")
+        out = wavfile.read(os.path.join(d, "out.wav"))[1]
+        if out.shape != x.shape or not np.all(np.isfinite(out)):
+            raise AssertionError("the trained DNN's output is bad")
+        result.update(verb_s=wall,
+                      epoch_s=[r["epoch_seconds"] for r in records])
+
+    # ── the preprocessing, card vs CPU ──────────────────────────────────
+    rng = np.random.default_rng(seed + 9)
+    clean, noise = speechlike(rng, 31000), speechlike(rng, 40000)
+    fe, gfb = port.FeatureExtractor(), port.GammatoneFilterbank()
+    worst = {}
+    for mask_type in ("irm", "pcirm", "opt_pcirm"):
+        f_g, m_g = process_single_utterance(clean, noise, 5, mask_type, fe,
+                                            gfb, device="cuda")
+        f_c, m_c = process_single_utterance(clean, noise, 5, mask_type, fe,
+                                            gfb, device="cpu")
+        t = f_c.shape[0]
+        raw_g, raw_c = f_g.reshape(t, 11, 54), f_c.reshape(t, 11, 54)
+        pad = (np.arange(t)[:, None] + np.arange(11)[None, :] - 5) >= t
+        for name, block in (("RASTA-PLP", slice(15, 28)),
+                            ("MFCC", slice(28, 41)),
+                            ("GFCC", slice(41, 54))):
+            scale = float(np.abs(raw_c[..., block]).max())
+            err = np.abs(raw_g[..., block] - raw_c[..., block]).max(-1)
+            worst[name] = max(worst.get(name, 0.0),
+                              float(err[~pad].max()) / scale)
+            worst[name + " (padding context)"] = max(
+                worst.get(name + " (padding context)", 0.0),
+                float(err[pad].max()) / scale)
+        worst[f"mask {mask_type}"] = float(np.abs(m_g - m_c).max())
+        worst[f"mask {mask_type} units off 1e-3"] = float(
+            np.mean(np.abs(m_g - m_c) > 1e-3))
+    say("[train-dnn] preprocessing of a 31,000-sample utterance at 5 dB, "
+        "card vs CPU, of each block's scale: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+    if not (worst["RASTA-PLP"] <= 1e-4 and worst["MFCC"] <= 1e-4
+            and worst["GFCC"] <= 1e-3
+            and worst["GFCC (padding context)"] <= DNN_TAIL_TOL
+            and all(worst[f"mask {m} units off 1e-3"] <= 1e-3
+                    for m in ("irm", "pcirm", "opt_pcirm"))):
+        raise AssertionError("the preprocessing on the card left the CPU's")
+    result["preprocessing"] = worst
+
+    # ── one Adam step and one CD-1 step, card vs CPU ────────────────────
+    g = np.random.default_rng(seed + 10)
+    feats = g.standard_normal((256, 594)).astype(np.float32)
+    masks = g.uniform(0, 1, (256, 64)).astype(np.float32)
+    steps = {}
+    for device in ("cuda", "cpu"):
+        tr = DNNTrainer(device=device, use_rbm_pretrain=False, seed=seed,
+                        dcfg=port.DNNConfig(dropout=0.0))
+        tr._init_model_state(1e-3, seed)
+        before = {k: v.detach().cpu().double()
+                  for k, v in tr.params().items()}
+        used, update = [], tr.tx.update
+
+        def keep(params, grads, state, used=used, update=update):
+            # the gradients the step hands its optimizer
+            used.extend(g.detach().cpu().double() for g in grads)
+            update(params, grads, state)
+        tr.tx.update = keep
+        f_t, m_t = (torch.from_numpy(a).to(device) for a in (feats, masks))
+        loss = tr.train_minibatch(f_t, m_t, torch.Generator(device=device))
+        steps[device] = (float(loss), before,
+                         {k: v.detach().cpu().double()
+                          for k, v in tr.params().items()},
+                         dict(zip(tr.params(), used)))
+    (l_g, b_g, a_g, gr_g), (l_c, b_c, a_c, gr_c) = steps["cuda"], steps["cpu"]
+    faults, adam = step_faults(gr_c, gr_g, b_c, a_c, a_g, TRAIN_GRAD_TOL)
+    planted, n_planted, leaf = planted_flip_faults(
+        gr_c, gr_g, b_c, a_c, a_g, adam["grad_elements_past_1e-5"],
+        TRAIN_GRAD_TOL)
+    # the card's optimizer alone: Adam in float64 on the card's gradients
+    exact = {k: v.clone() for k, v in b_g.items()}
+    ref = make_adam_plateau(1e-3)
+    ref.update(exact, [gr_g[k] for k in exact], ref.init(exact))
+    opt_worst = max(float((a_g[k] - w).abs().max() / w.abs().max())
+                    for k, w in exact.items())
+    rbm_c = RBM(594, 1024, seed=seed, device="cpu")
+    rbm_g = RBM(594, 1024, seed=seed, device="cuda")
+    v = torch.from_numpy(1.0 / (1.0 + np.exp(-feats)))
+    gen = torch.Generator().manual_seed(seed)
+    u = [torch.rand(s, generator=gen)
+         for s in cd_uniform_shapes(256, 594, 1024, 1)]
+    h_c = rbm_c.sample_hidden(rbm_c.params, v, u[0])
+    h_g = rbm_g.sample_hidden(rbm_g.params, v.cuda(), u[0].cuda())
+    flips = (h_c[1] != h_g[1].cpu())
+    ties = float((h_c[0] - u[0]).abs()[flips].max()) if flips.any() else 0.0
+    # the card's Bernoulli decisions imposed on the CPU's step: u = 1 - s
+    u_cpu = [1.0 - h_g[1].cpu()] + u[1:]
+    (w_g, vb_g, hb_g), e_g = rbm_g.cd_step(rbm_g.params, v.cuda(),
+                                           [x.cuda() for x in u])
+    (w_c, vb_c, hb_c), e_c = rbm_c.cd_step(rbm_c.params, v, u_cpu)
+    rbm_worst = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                    for a, b in ((w_g, w_c), (vb_g, vb_c), (hb_g, hb_c)))
+    say(f"[train-dnn] one Adam step (256 frames, full width, dropout 0), "
+        f"card vs CPU: loss {l_g:.7f} vs {l_c:.7f}; gradients up to "
+        f"{adam['grad']:.3e} of the leaf's scale ({adam['grad_worst_leaf']};"
+        f" limit {TRAIN_GRAD_TOL:g}); {adam['grad_elements_flipped']} of "
+        f"{adam['grad_elements_past_1e-5']} clipped gradients past 1e-5 with "
+        f"the other sign (limit {TRAIN_FLIP_SHARE:g} of them); parameters "
+        f"{adam['param']:.3e} of the leaf's scale where the clipped "
+        f"gradients agree in sign and pass 1e-5 (limit {TRAIN_PARAM_TOL:g}),"
+        f" the other {adam['param_elements_other']} of {adam['elements']} "
+        f"within twice the step; the card's Adam against float64 Adam on the"
+        f" card's gradients {opt_worst:.3e} of the leaf's scale, every "
+        f"element (limit {TRAIN_PARAM_TOL:g}); {n_planted} planted sign "
+        f"flips in {leaf}: {planted}; one CD-1 step (594 -> 1024, 256 "
+        f"frames) on the same uniforms: {int(flips.sum())} hidden samples "
+        f"flipped (|prob - u| up to {ties:.1e}), W and biases "
+        f"{rbm_worst:.3e} of their scale, reconstruction error "
+        f"{float(e_g):.7f} vs {float(e_c):.7f}")
+    if (faults or not opt_worst <= TRAIN_PARAM_TOL
+            or not rbm_worst <= TRAIN_PARAM_TOL or not ties < 1e-6
+            or not abs(l_g - l_c) <= TRAIN_LOSS_TOL * abs(l_c)):
+        raise AssertionError(f"the DNN's steps on the card left the CPU's: "
+                             f"{faults}")
+    if not any("flipped sign" in f for f in planted):
+        raise AssertionError("a planted sign flip in the DNN's gradients "
+                             "went unseen")
+    result.update(adam_loss_rel=abs(l_g - l_c) / abs(l_c), adam=adam,
+                  adam_vs_float64_optimizer=opt_worst,
+                  adam_planted_flips=n_planted, cd1=rbm_worst,
+                  cd1_flips=int(flips.sum()))
+
+    # ── OPT-PCIRM: the swarm at PSOConfig() on one 2 s utterance ────────
+    from sincformer_tpu_torch.data.audio import add_noise_at_snr
+    from sincformer_tpu_torch.masks.pcirm import (
+        compute_correlation_coefficients, compute_pcirm,
+        compute_phase_differences)
+    clean2 = speechlike(np.random.default_rng(seed + 11), 16000)
+    noisy2 = add_noise_at_snr(clean2, noise, 0)
+    best, fitness = {}, {}
+    probe = np.random.default_rng(seed + 13).uniform(0.0, 1.0, 30)
+    for device in ("cuda", "cpu"):
+        with torch.inference_mode():
+            (cm, cp), (nm, np_), (ym, yp) = (
+                gfb.get_tf_magnitudes(torch.from_numpy(s).to(device))
+                for s in (clean2, noise[:16000], noisy2))
+            rho_s, rho_n = compute_correlation_coefficients(ym, cm, nm)
+            phi1, phi2 = compute_phase_differences(yp, cp, np_)
+            pcirm = compute_pcirm(cm, nm, rho_s, rho_n, phi1, phi2)
+        fitness[device] = opt_pcirm_fitness(pcirm, noisy2, clean2)
+        t0 = time.perf_counter()
+        _, _, mid = compute_opt_pcirm(pcirm, noisy2, clean2,
+                                      rng=np.random.default_rng(seed))
+        best[device] = (mid, time.perf_counter() - t0)
+    probe_err = float(np.abs(fitness["cuda"](probe)
+                             - fitness["cpu"](probe)).max())
+    # each swarm's best, scored by the CPU's fitness
+    f_card, f_cpu = fitness["cpu"](np.array([best["cuda"][0],
+                                             best["cpu"][0]]))
+    say(f"[train-dnn] OPT-PCIRM swarm at PSOConfig() (30 particles, up to 100"
+        f" iterations, one batched STOI call each) on a 2 s utterance at "
+        f"0 dB: the fitness of 30 positions card vs CPU {probe_err:.3e} "
+        f"(limit 1e-5); best middle step {best['cuda'][0]:.7f} on the card "
+        f"in {best['cuda'][1]:.2f} s, {best['cpu'][0]:.7f} on the CPU in "
+        f"{best['cpu'][1]:.2f} s, STOI there {f_card:.7f} and {f_cpu:.7f} "
+        f"(limit 1e-5 apart: the swarms part where two fitness values tie "
+        f"to rounding, on a flat optimum)")
+    if not (probe_err <= 1e-5 and abs(f_card - f_cpu) <= 1e-5):
+        raise AssertionError("the swarm on the card left the CPU's")
+    result.update(pso_best=best["cuda"][0], pso_s=best["cuda"][1])
+    launches.reset()
+    return result
+
+
+def check_import(seed: int, launches) -> dict:
+    """A reference-format ``.pt`` (a BatchNorm DCSE at DCSEConfig()'s sizes
+    with moved running statistics, written by ``compat.torch_export``)
+    served through ``DCSEPipeline.from_torch_checkpoint`` on the card and
+    on the CPU."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.compat.torch_export import \
+        save_reference_checkpoint
+    cfg = port.DCSEConfig(conv_norm="batch")
+    model = port.SpeechEnhancer(cfg).training_init(
+        torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=g) * 0.5
+                    + (0.75 if name.endswith("var") else -0.25))
+    x = speechlike(np.random.default_rng(seed + 12), 32000)
+    with tempfile.TemporaryDirectory() as d:
+        pt = save_reference_checkpoint(model,
+                                       os.path.join(d, "conformer_final.pt"))
+        launches.reset()
+        card = port.DCSEPipeline.from_torch_checkpoint(pt, device="cuda")
+        got = card.enhance_signal(x)
+        launches.expect("reference .pt served on the card",
+                        speech_attention=cfg.num_blocks)
+        want = port.DCSEPipeline.from_torch_checkpoint(
+            pt, device="cpu").enhance_signal(x)
+        size = os.path.getsize(pt)
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    say(f"[import] a reference-format conformer_final.pt ({size} bytes, "
+        f"BatchNorm with running statistics) served through "
+        f"from_torch_checkpoint: card vs CPU {rel:.3e} of the peak (limit "
+        f"{WAVE_TOL:g}), K1 {cfg.num_blocks} launches")
+    if not rel <= WAVE_TOL:
+        raise AssertionError("the imported checkpoint's output on the card "
+                             "left the CPU's")
+    return {"card_vs_cpu": rel}
+
+
+def check_demo(launches) -> dict:
+    """The ``demo`` verb on the card."""
+    from sincformer_tpu_torch import cli
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    launches.reset()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["demo"])
+    wall = time.perf_counter() - t0
+    launches.expect("demo")
+    out = buf.getvalue()
+    stats = [line.strip() for line in out.splitlines() if "mean=" in line]
+    say(f"[demo] exit {rc} in {wall:.1f} s; {out.count('Metric')} metric "
+        f"tables; last mask statistics: " + " | ".join(stats[-3:]))
+    if rc != 0 or out.count("Metric") != 3 or "Demo complete" not in out:
+        raise AssertionError("the demo verb failed on the card")
+    return {"wall_s": wall}
 
 
 def check_istft(seed: int) -> None:
@@ -2331,6 +2994,15 @@ def main() -> int:
     host = check_native_and_trace(args.seed, launches)
     launches.reset()
 
+    # ── phase 13: DCSE and mask-DNN training, reference import, demo ─────
+    dcse_train = check_train_dcse(args.seed, smi, launches)
+    say("[train-dcse] " + json.dumps(dcse_train))
+    dnn_train = check_train_dnn(args.seed, smi, launches)
+    say("[train-dnn] " + json.dumps(dnn_train))
+    check_import(args.seed, launches)
+    check_demo(launches)
+    launches.reset()
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def row(name, source, replaces, err, timing, extra=None, **more):
@@ -2356,13 +3028,20 @@ def main() -> int:
                     "adversarial_step"]["k1_launches_per_step"]},
                 "in_evaluate_verb": evaluation["k1_launches"],
                 "in_calibrate_verb": calibration["k1_launches"]["cuda"],
-                "in_traced_request": host["trace_k1"]}),
+                "in_traced_request": host["trace_k1"],
+                "in_dcse_training_step": {
+                    "launches_per_step": dcse_train["k1_launches_per_step"]},
+                "in_dcse_validation": dcse_train["k1_in_validation"],
+                "in_dcse_train_verb": dcse_train["verb_k1"]}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),
         row("fused_ffn", "fused_ffn.cu",
             "sincformer_tpu/ops/fused_ffn.py:39", k3_err, k3_time,
-            at_rows6416=k3_time_60s),
+            at_rows6416=k3_time_60s, extra={
+                "in_dcse_validation": dcse_train["k3_in_validation"],
+                "in_dcse_step_no_dropout":
+                    dcse_train["k3_in_step_no_dropout"]}),
         row("meddis", "meddis.cu",
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",

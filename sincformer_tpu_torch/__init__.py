@@ -1,7 +1,9 @@
 """PyTorch and CUDA port of sincformer_tpu on an NVIDIA H100: flagship
 Sincformer-metacog, DCSE and original-paper DNN-mask enhancement, flagship
-curriculum training (with its adversarial branch) and output-gain
-calibration, five-metric evaluation (``evaluation``), the gammatone /
+curriculum training (with its adversarial branch), DCSE training, the mask
+DNN's training (oracle masks, particle swarm, RBM pretraining), reference
+PyTorch checkpoints in and out (``compat``), output-gain calibration,
+five-metric evaluation (``evaluation``), the gammatone /
 Meddis auditory front-end, long-form, online and int8-export serving, with
 the TPU kernels rewritten by hand in CUDA C++ (csrc/: speech attention,
 int8 stochastic rounding, fused feed-forward, Meddis hair cell, conv +
@@ -13,8 +15,8 @@ Imports torch, numpy and the standard library only; nothing of JAX.
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
 from sincformer_tpu_torch.compat.from_jax import (
     convert_quantized_dnn_from_jax, convert_quantized_from_jax,
-    load_dcse_from_jax, load_dnn_from_jax, load_from_jax,
-    load_train_state_from_jax)
+    load_dcse_from_jax, load_dcse_train_state_from_jax, load_dnn_from_jax,
+    load_from_jax, load_train_state_from_jax)
 from sincformer_tpu_torch.config import (AudioConfig, DCSEConfig, DNNConfig,
                                          FeatureConfig, GammatoneConfig,
                                          MetacogConfig)
@@ -46,6 +48,7 @@ __all__ = ["AudioConfig", "DCSEConfig", "DCSEPipeline", "DNNConfig",
            "convert_quantized_dnn_from_jax", "convert_quantized_from_jax",
            "create_dnn", "dequantize_int8", "dequantize_tree", "enhance_long",
            "env_act", "env_act_auto", "fused_ffn", "load_dcse_from_jax",
+           "load_dcse_train_state_from_jax",
            "load_dnn_from_jax", "load_from_jax", "load_train_state_from_jax",
            "meddis", "quantize_int8",
            "quantize_tree", "resolve_output_gain", "speech_attention"]

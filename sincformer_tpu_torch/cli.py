@@ -1,5 +1,8 @@
 """Command line of the port: ``python -m sincformer_tpu_torch.cli <verb>``.
 
+  * ``demo`` - the oracle masks (IRM, PCIRM, OPT-PCIRM) of a synthetic 2 s
+    signal at 0, 5 and 10 dB SNR, the scalar-gain reconstruction, the five
+    metrics and the mask statistics; no data or model needed;
   * ``enhance`` - enhance WAV file(s) with a trained model (the flagship,
     DCSE, or a mask DNN of the original paper: ``--model pcirm``,
     ``opt_pcirm``, ``irm``): long files through the streaming enhancer, many
@@ -8,23 +11,25 @@
   * ``export`` - write a trained checkpoint family as a compact int8
     serving artifact (a drop-in model directory); ``--model dnn
     --mask-type`` for a mask DNN;
-  * ``train --pipeline agents`` - curriculum training of the flagship on
-    TIMIT + NOISEX-92, or on ``--synthetic N`` synthetic utterances (no
-    dataset needed); ``--adversarial`` adds the stage-3 discriminator,
-    ``--resume`` continues from the newest checkpoint, ``--log-jsonl``
-    writes one record per epoch;
+  * ``train`` - train on TIMIT + NOISEX-92, or on ``--synthetic N``
+    synthetic utterances (no dataset needed): ``--pipeline dnn`` (the
+    default) the original paper's mask DNN (``--mask-type``, ``--no-rbm``),
+    ``--pipeline conformer`` (alias ``dcse``) DCSE, ``--pipeline agents``
+    the flagship's curriculum (``--adversarial`` adds the stage-3
+    discriminator); ``--resume`` continues from the newest checkpoint,
+    ``--log-jsonl`` writes one record per epoch;
   * ``evaluate`` (alias ``test``) - the five-metric grid (STOI, PESQ,
-    SSNR, CSII, NCM) over every trained model found, on TIMIT + NOISEX-92
-    or the synthetic fallbacks; ``--json-out`` writes every cell;
+    SSNR, CSII, NCM) over every trained model found (a reference
+    ``conformer_final.pt`` included), on TIMIT + NOISEX-92 or the synthetic
+    fallbacks; ``--json-out`` writes every cell;
   * ``calibrate`` - fit the output gain of a trained checkpoint on
     held-out mixtures and persist it in its sidecar;
   * ``info`` - print the configuration and the device.
 
 Models are looked up and written under ``SINCFORMER_MODEL_DIR`` (default
 ``saved_models``), as in the JAX package's CLI. Everything runs on the card
-unless ``--device cpu`` is given. ``demo``, ``train --pipeline
-dnn|dcse|conformer`` and ``evaluate --distributed`` are not ported yet and
-say so.
+unless ``--device cpu`` is given. ``evaluate --distributed`` is not ported
+yet and says so.
 """
 
 from __future__ import annotations
@@ -36,9 +41,8 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = ("demo",)
-_MISSING = ", ".join(_NOT_PORTED + ("train --pipeline dnn|conformer|dcse",
-                                    "evaluate --distributed"))
+_MISSING = ("evaluate --distributed, the flagship's --cpea ssm, --pa "
+            "reference and dual fine-stream variants")
 
 
 def _model_dir() -> str:
@@ -257,55 +261,173 @@ def _synthetic_corpus(n: int, noise_kind: str = "white",
     return clean, noises
 
 
+def demo(args) -> int:
+    """The oracle-mask demo on a synthetic 2 s signal at 0, 5 and 10 dB:
+    IRM, PCIRM and the fixed-step OPT-PCIRM from the gammatone analysis of
+    the clean, noise and noisy signals on the device, each applied as a
+    per-frame scalar gain, the five metrics of each against the clean
+    signal, and the masks' statistics."""
+    import torch
+
+    from sincformer_tpu_torch.config import AudioConfig
+    from sincformer_tpu_torch.data.audio import add_noise_at_snr
+    from sincformer_tpu_torch.data.synthetic import (synthetic_noise,
+                                                     synthetic_speech)
+    from sincformer_tpu_torch.dsp.gammatone import GammatoneFilterbank
+    from sincformer_tpu_torch.evaluation.csii import compute_csii
+    from sincformer_tpu_torch.evaluation.ncm import compute_ncm
+    from sincformer_tpu_torch.evaluation.pesq import compute_pesq
+    from sincformer_tpu_torch.evaluation.ssnr import compute_ssnr
+    from sincformer_tpu_torch.evaluation.stoi import compute_stoi
+    from sincformer_tpu_torch.masks.irm import compute_irm
+    from sincformer_tpu_torch.masks.opt_pcirm import (compute_snr_boundaries,
+                                                      quantize_pcirm,
+                                                      reconstruct_scalar_gain)
+    from sincformer_tpu_torch.masks.pcirm import (
+        compute_correlation_coefficients, compute_pcirm,
+        compute_phase_differences)
+    from sincformer_tpu_torch.pipeline import resolve_device
+
+    device = resolve_device(args.device)
+    print("=" * 70)
+    print("  Speech Enhancement Demo — Synthetic Signal (GPU port)")
+    print("=" * 70)
+    fs = AudioConfig().sample_rate
+    clean = synthetic_speech(2.0, fs)
+    noise = synthetic_noise(len(clean), seed=None)
+    gfb = GammatoneFilterbank(sample_rate=fs)
+
+    def on_device(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    for snr_db in (0, 5, 10):
+        print(f"\n{'─' * 60}\n  SNR = {snr_db} dB\n{'─' * 60}")
+        noisy = add_noise_at_snr(clean, noise, snr_db)
+        with torch.inference_mode():
+            clean_m, clean_p = gfb.get_tf_magnitudes(on_device(clean))
+            noisy_m, noisy_p = gfb.get_tf_magnitudes(on_device(noisy))
+            noise_m, noise_p = gfb.get_tf_magnitudes(
+                on_device(noise[:len(clean)]))
+            irm = compute_irm(clean_m, noise_m)
+            rho_s, rho_n = compute_correlation_coefficients(
+                noisy_m, clean_m, noise_m)
+            phi1, phi2 = compute_phase_differences(noisy_p, clean_p, noise_p)
+            pcirm = compute_pcirm(clean_m, noise_m, rho_s, rho_n, phi1, phi2)
+            opt = quantize_pcirm(pcirm, compute_snr_boundaries()[0])
+            outs = {"Noisy": noisy}
+            for name, mask in (("IRM", irm), ("PCIRM", pcirm),
+                               ("OPT-PCIRM", opt)):
+                outs[name] = reconstruct_scalar_gain(
+                    mask, on_device(noisy)).cpu().numpy()
+
+        cols = list(outs.keys())
+        print(f"\n  {'Metric':<12}" + "".join(f"{c:>12}" for c in cols))
+        print("  " + "─" * (12 + 12 * len(cols)))
+        for mname, fn in (("STOI", compute_stoi), ("PESQ", compute_pesq),
+                          ("SSNR (dB)", compute_ssnr), ("CSII", compute_csii),
+                          ("NCM", compute_ncm)):
+            print(f"  {mname:<12}" + "".join(
+                f"{fn(clean, outs[c], device=device):>12.4f}" for c in cols))
+
+        print("\n  Mask stats:")
+        for name, mask in (("IRM     ", irm), ("PCIRM   ", pcirm)):
+            print(f"    {name} — mean={float(mask.mean()):.3f}, "
+                  f"std={float(mask.std(unbiased=False)):.3f}")
+        uniq = np.unique(np.round(opt.cpu().numpy(), 4))
+        print(f"    OPT-PCIRM— unique values={uniq}, "
+              f"mean={float(opt.mean()):.3f}")
+    print(f"\n{'=' * 70}\n  Demo complete!\n{'=' * 70}\n")
+    return 0
+
+
 def train(args) -> int:
-    """Train the flagship (``--pipeline agents``) on TIMIT + NOISEX-92, or
-    on a synthetic corpus with ``--synthetic N``, then save the final
+    """Train the mask DNN (``--pipeline dnn``), DCSE (``conformer`` or
+    ``dcse``) or the flagship (``agents``) on TIMIT + NOISEX-92, or on a
+    synthetic corpus with ``--synthetic N``, then save the final
     checkpoint."""
-    if args.pipeline != "agents":
-        print(f"  'train --pipeline {args.pipeline}' is not ported to "
-              f"sincformer_tpu_torch yet (still missing: {_MISSING}); use "
-              f"python -m sincformer_tpu.cli train", file=sys.stderr)
-        return 2
     from sincformer_tpu_torch.config import AudioConfig, DataConfig
     from sincformer_tpu_torch.data.audio import load_audio
     from sincformer_tpu_torch.data.loader import (find_speech_files,
                                                   load_noise_signals,
                                                   train_test_split)
-    from sincformer_tpu_torch.train import agent_trainer
 
     logger = None
     if args.log_jsonl:
         from sincformer_tpu_torch.utils.observability import MetricsLogger
         logger = MetricsLogger(args.log_jsonl)
-    print("=" * 70)
-    print("  Speech Enhancement — Sincformer Metacog Training (GPU port)")
-    print("=" * 70)
-    fs = AudioConfig().sample_rate
+    synthetic = None
     if args.synthetic:
-        clean, noises = _synthetic_corpus(args.synthetic, args.synth_noises,
-                                          args.synth_speech)
-        split = max(1, int(0.9 * len(clean)))
-        clean_tr, clean_te = clean[:split], clean[split:]
+        synthetic = _synthetic_corpus(args.synthetic, args.synth_noises,
+                                      args.synth_speech)
+    elif not find_speech_files():
+        print(f"  No speech files in {DataConfig().timit_dir}",
+              file=sys.stderr)
+        return 1
+
+    if args.pipeline in ("conformer", "dcse"):
+        from sincformer_tpu_torch.data.loader import (WaveformDataset,
+                                                      heldout_noises)
+        from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
+        print("=" * 70)
+        print("  Speech Enhancement — DCSE Conformer Training (GPU port)")
+        print("=" * 70)
+        pipe = DCSETrainer(device=args.device, model_dir=_model_dir(),
+                           seed=args.seed, logger=logger)
+        if synthetic:
+            clean, noises = synthetic
+            split = max(1, int(0.9 * len(clean)))
+            train_ds = WaveformDataset.from_arrays(clean[:split], noises)
+            test_ds = WaveformDataset.from_arrays(clean[split:],
+                                                  heldout_noises(noises))
+        else:
+            train_ds, test_ds = pipe.prepare_data(max_train=args.max_train,
+                                                  max_test=args.max_test)
+        n_params = sum(p.numel() for p in pipe.model.parameters())
+        print(f"  {n_params} parameters on {pipe.device}; {len(train_ds)} "
+              f"training and {len(test_ds)} validation utterances")
+        pipe.train(train_ds, test_ds, epochs=args.epochs, resume=args.resume)
+    elif args.pipeline == "agents":
+        from sincformer_tpu_torch.train import agent_trainer
+        print("=" * 70)
+        print("  Speech Enhancement — Sincformer Metacog Training (GPU port)")
+        print("=" * 70)
+        fs = AudioConfig().sample_rate
+        if synthetic:
+            clean, noises = synthetic
+            split = max(1, int(0.9 * len(clean)))
+            clean_tr, clean_te = clean[:split], clean[split:]
+        else:
+            tr_files, te_files = train_test_split(
+                find_speech_files(), max_train=args.max_train,
+                max_test=args.max_test)
+            clean_tr = [load_audio(f, fs) for f in tr_files]
+            clean_te = [load_audio(f, fs) for f in te_files]
+            noises = load_noise_signals(fs)
+        pipe = agent_trainer.SincformerTrainer(
+            agent_trainer.default_metacog(), device=args.device,
+            model_dir=_model_dir(), seed=args.seed, logger=logger,
+            use_adversarial=args.adversarial)
+        n_params = sum(p.numel() for p in pipe.model.parameters())
+        print(f"  {n_params} parameters on {pipe.device}; {len(clean_tr)} "
+              f"training and {len(clean_te)} validation utterances")
+        pipe.train(clean_tr, clean_te, noises, epochs=args.epochs,
+                   resume=args.resume)
     else:
-        files = find_speech_files()
-        if not files:
-            print(f"  No speech files in {DataConfig().timit_dir}",
-                  file=sys.stderr)
-            return 1
-        tr_files, te_files = train_test_split(files, max_train=args.max_train,
-                                              max_test=args.max_test)
-        clean_tr = [load_audio(f, fs) for f in tr_files]
-        clean_te = [load_audio(f, fs) for f in te_files]
-        noises = load_noise_signals(fs)
-    pipe = agent_trainer.SincformerTrainer(
-        agent_trainer.default_metacog(), device=args.device,
-        model_dir=_model_dir(), seed=args.seed, logger=logger,
-        use_adversarial=args.adversarial)
-    n_params = sum(p.numel() for p in pipe.model.parameters())
-    print(f"  {n_params} parameters on {pipe.device}; {len(clean_tr)} "
-          f"training and {len(clean_te)} validation utterances")
-    pipe.train(clean_tr, clean_te, noises, epochs=args.epochs,
-               resume=args.resume)
+        from sincformer_tpu_torch.train.dnn_trainer import DNNTrainer
+        print("=" * 70)
+        print("  Speech Enhancement — DNN Training (GPU port)")
+        print("=" * 70)
+        pipe = DNNTrainer(mask_type=args.mask_type, device=args.device,
+                          model_dir=_model_dir(), seed=args.seed,
+                          logger=logger, use_rbm_pretrain=not args.no_rbm)
+        if synthetic:
+            train_ds, test_ds = pipe.prepare_arrays(*synthetic)
+        else:
+            train_ds, test_ds = pipe.prepare_data(max_train=args.max_train,
+                                                  max_test=args.max_test)
+        print(f"  {len(train_ds)} training and {len(test_ds)} test frames "
+              f"on {pipe.device}")
+        pipe.train(train_ds, test_ds, epochs=args.epochs, resume=args.resume)
     print(f"  Saved {pipe.save_model()}")
     print("\nTraining complete!")
     return 0
@@ -446,12 +568,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="output model dir (default: "
                          "<SINCFORMER_MODEL_DIR>_serving)")
 
-    tp = sub.add_parser("train", help="Train the flagship (TIMIT + NOISEX-92 "
-                                      "or a synthetic corpus)")
+    sub.add_parser("demo", help="Quick demo on synthetic data (no dataset "
+                                "or model needed)")
+
+    tp = sub.add_parser("train", help="Train on TIMIT + NOISEX-92 or a "
+                                      "synthetic corpus")
     tp.add_argument("--pipeline", default="dnn",
-                    choices=["agents", "dnn", "conformer", "dcse"],
-                    help="agents (Sincformer metacog); the others are not "
-                         "ported yet")
+                    choices=["dnn", "conformer", "dcse", "agents"],
+                    help="dnn (the original paper's mask DNN), conformer or "
+                         "dcse (DCSE), agents (Sincformer metacog)")
+    tp.add_argument("--mask-type", default="pcirm", choices=list(_MASK_TYPES),
+                    dest="mask_type", help="the mask DNN's target")
+    tp.add_argument("--no-rbm", action="store_true", dest="no_rbm",
+                    help="skip the mask DNN's RBM pretraining")
     tp.add_argument("--epochs", type=int, default=None)
     tp.add_argument("--max-train", type=int, default=100)
     tp.add_argument("--max-test", type=int, default=20)
@@ -473,7 +602,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="--synthetic utterances: the fixed formant pattern "
                          "or one randomized utterance per index")
     tp.add_argument("--seed", type=int, default=0,
-                    help="training seed (weights, dropout, routing)")
+                    help="training seed (weights, dropout, routing, "
+                         "minibatch order)")
     tp.add_argument("--log-jsonl", default=None, metavar="PATH",
                     dest="log_jsonl",
                     help="write per-epoch metrics (JSONL) to PATH")
@@ -516,7 +646,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="the synthetic corpus even if TIMIT exists")
 
     ip = sub.add_parser("info", help="Print configuration and device")
-    for p in (enp, xp, tp, ep, tstp, cp, ip):
+    for p in (sub.choices["demo"], enp, xp, tp, ep, tstp, cp, ip):
         p.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu on request)")
     return parser
@@ -524,13 +654,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        print(f"  '{argv[0]}' is not ported to sincformer_tpu_torch yet "
-              f"(still missing: {_MISSING}); use python -m "
-              f"sincformer_tpu.cli {argv[0]}", file=sys.stderr)
-        return 2
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.command == "demo":
+        return demo(args)
     if args.command == "enhance":
         return enhance(args)
     if args.command == "export":

@@ -23,8 +23,10 @@ with these conversions:
   * ``memory_bank/memory/x`` → ``memory.bank_x``; the other collections map
     ``<collection>/<module>/x`` → ``<module>.x``.
 
-``load_dcse_from_jax`` does the same for the DCSE tree (Dense, LayerNorm and
-the depthwise conv only). ``convert_quantized_from_jax`` takes the JAX
+``load_dcse_from_jax`` does the same for the DCSE tree (Dense, LayerNorm,
+GroupNorm, the depthwise conv, and BatchNorm with its ``batch_stats`` as
+buffers); ``load_dcse_train_state_from_jax`` also carries optax's AdamW
+state across, so that DCSE training continues in the port. ``convert_quantized_from_jax`` takes the JAX
 package's int8 serving tree (``{"q": int8, "s": f32}`` nodes, scales along
 the last axis) into the port's quantized form without rounding again: ``q``
 is transposed like its kernel, ``s`` is kept, and the channel axis becomes
@@ -365,44 +367,88 @@ def _check_filled(skeleton: torch.nn.Module, given: Mapping) -> None:
 
 
 def infer_dcse_config(variables: Mapping, **overrides: Any) -> DCSEConfig:
-    """Sizes of the ``SpeechEnhancer`` that ``variables`` belong to.
-    ``num_heads``, ``phase_bound_div``, ``attn_impl`` and ``fused_ffn``
-    leave no trace in the tree (the fused and unfused feed-forward modules
-    share their parameters): defaults unless overridden."""
+    """Sizes and conv-module norm of the ``SpeechEnhancer`` that
+    ``variables`` belong to (``bn`` parameters: "batch", ``gn``: "group",
+    else "layer"). ``num_heads``, ``phase_bound_div``, ``attn_impl``,
+    ``fused_ffn`` and the training fields leave no trace in the tree (the
+    fused and unfused feed-forward modules share their parameters):
+    defaults unless overridden."""
     params = variables["params"]
-    if set(variables) - {"params"}:
-        raise NotImplementedError(
-            f"collections {sorted(set(variables) - {'params'})}: "
-            f"conv_norm='batch' checkpoints are not ported yet (ROADMAP.md "
-            f"Queue 1)")
+    if set(variables) - {"params", "batch_stats"}:
+        raise ValueError(f"a SpeechEnhancer has params and batch_stats "
+                         f"only, got {sorted(variables)}")
     block0 = params["block_0"]
+    conv = block0["ConvolutionModule_0"]
+    norm = "batch" if "bn" in conv else "group" if "gn" in conv else "layer"
+    if (norm == "batch") != ("batch_stats" in variables):
+        raise ValueError("a conv_norm='batch' tree needs its batch_stats "
+                         "collection, and no other tree has one")
     found = dict(
         d_model=np.shape(params["input_proj"]["bias"])[0],
         num_blocks=_count(params, "block_"),
         ff_dim=np.shape(block0["FeedForwardModule_0"]["Dense_0"]["bias"])[0],
-        kernel_size=np.shape(
-            block0["ConvolutionModule_0"]["depthwise"]["kernel"])[0],
+        kernel_size=np.shape(conv["depthwise"]["kernel"])[0],
         n_freq=np.shape(params["mag_head"]["bias"])[0])
     return DCSEConfig(**{**{k: int(v) for k, v in found.items()},
-                         **overrides})
+                         "conv_norm": norm, **overrides})
+
+
+def _dcse_named(params: Mapping) -> Dict[str, np.ndarray]:
+    """A flax ``SpeechEnhancer`` parameter tree (or one of its shape, e.g.
+    an Adam moment) → {port parameter name: array}."""
+    out = {}
+    for path, arr in _flatten(params).items():
+        leaf, value = _param_leaf(path, arr)
+        out[".".join(path[:-1] + (leaf,))] = value
+    return out
+
+
+def _dcse_buffers(batch_stats: Optional[Mapping]) -> Dict[str, np.ndarray]:
+    """flax ``batch_stats`` (``block_i/ConvolutionModule_0/bn/{mean,
+    var}``) → the BatchNorm buffers, keyed by the same path."""
+    return {".".join(path): arr
+            for path, arr in _flatten(batch_stats or {}).items()}
 
 
 def load_dcse_from_jax(variables: Mapping, **overrides: Any
                        ) -> Tuple[Dict[str, torch.Tensor], DCSEConfig]:
-    """flax ``SpeechEnhancer`` variables (numpy leaves, ``params`` only) →
-    (state_dict, config). ``overrides`` set the config fields the tree does
-    not record, e.g. ``fused_ffn=True``."""
+    """flax ``SpeechEnhancer`` variables (numpy leaves: ``params`` and, for
+    ``conv_norm="batch"``, ``batch_stats``) → (state_dict with the
+    BatchNorm buffers, config). ``overrides`` set the config fields the
+    tree does not record, e.g. ``fused_ffn=True``."""
     from sincformer_tpu_torch.models.dcse import SpeechEnhancer
 
     config = infer_dcse_config(variables, **overrides)
-    state = {}
-    for path, arr in _flatten(variables["params"]).items():
-        leaf, value = _param_leaf(path, arr)
-        state[".".join(path[:-1] + (leaf,))] = value
+    state = {**_dcse_named(variables["params"]),
+             **_dcse_buffers(variables.get("batch_stats"))}
     with torch.device("meta"):
         skeleton = SpeechEnhancer(config)
     _check_filled(skeleton, state)
     return {k: _tensor(v) for k, v in state.items()}, config
+
+
+def load_dcse_train_state_from_jax(params: Mapping,
+                                   batch_stats: Optional[Mapping] = None,
+                                   opt_state: Any = None, **overrides: Any):
+    """A JAX DCSE train state (numpy leaves) → (params, buffers, opt_state,
+    config) for ``train.dcse_trainer.DCSETrainer``: the parameters keyed
+    as the model's ``named_parameters()``, the ``batch_stats`` as its
+    BatchNorm buffers, and optax's AdamW moments and count (the
+    ``ScaleByAdamState`` inside ``make_adamw``'s chain, or ``{"count",
+    "mu", "nu"}``) in the form of ``train.state.AdamW`` (None when
+    ``opt_state`` is None); each moment maps as its parameter does."""
+    variables = {"params": params}
+    if batch_stats:
+        variables["batch_stats"] = batch_stats
+    state, config = load_dcse_from_jax(variables, **overrides)
+    buffers = {k: state.pop(k) for k in _dcse_buffers(batch_stats)}
+    opt = None
+    if opt_state is not None:
+        count, mu, nu = _adam_state(opt_state)
+        opt = {"mu": {k: _tensor(v) for k, v in _dcse_named(mu).items()},
+               "nu": {k: _tensor(v) for k, v in _dcse_named(nu).items()},
+               "count": int(np.asarray(count))}
+    return state, buffers, opt, config
 
 
 def _quantized_leaves(flat: Mapping[tuple, Any]) -> Dict[str, Any]:

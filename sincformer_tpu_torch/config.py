@@ -1,11 +1,13 @@
 """Audio framing, the auditory front-end's and the feature extractor's
-constants, the training data and loss settings, the curriculum, and model
-sizes of the flagship, of DCSE and of the mask DNN.
+constants, the training data and loss settings, the curriculum, model sizes
+and training settings of the flagship, of DCSE, of the ComplexConformer and
+of the mask DNN, RBM pretraining, the particle swarm and the OPT-PCIRM
+quantizer.
 
 A copy of what the port needs from ``sincformer_tpu/config.py`` (AudioConfig,
-GammatoneConfig, FeatureConfig, DataConfig, DNNConfig,
-ConformerConfig.attn_impl, AgentConfig, VQConfig, LossConfig,
-CurriculumConfig, the inference fields of DCSEConfig) and of the
+GammatoneConfig, FeatureConfig, DataConfig, DNNConfig, RBMConfig, PSOConfig,
+OptPCIRMConfig, ConformerConfig, AgentConfig, VQConfig, LossConfig,
+CurriculumConfig, DCSEConfig) and of the
 ``SincformerMetacog`` fields that ``default_metacog`` sets. The model
 fields are plain fields with the JAX package's defaults; the data and loss
 fields read the same ``SINCFORMER_*`` environment knobs as the JAX package
@@ -94,6 +96,9 @@ class DataConfig:
         "SINCFORMER_TIMIT_DIR", os.path.join(_REPO, "DARPA-TIMIT", "data")))
     noisex_dir: str = field(default_factory=lambda: os.environ.get(
         "SINCFORMER_NOISEX_DIR", os.path.join(_REPO, "Noises", "NoiseX-92")))
+    # the mask DNN's per-utterance feature and mask cache
+    cache_dir: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_CACHE_DIR", "feature_cache"))
 
 
 @dataclass(frozen=True)
@@ -128,12 +133,56 @@ class EvalConfig:
 
 @dataclass(frozen=True)
 class DNNConfig:
-    """The original paper's mask DNN: 594 -> 3 x 1024 -> 64 (inference
-    fields; the optimiser's belong to the training slice)."""
+    """The original paper's mask DNN, 594 -> 3 x 1024 -> 64, and its Adam
+    training (the rate before any plateau reduction)."""
     hidden_layers: int = 3
     hidden_units: int = 1024
     dropout: float = 0.2
+    learning_rate: float = 1e-3
+    epochs: int = 50
+    batch_size: int = 256
     output_dim: int = 64            # one mask value per gammatone channel
+
+
+@dataclass(frozen=True)
+class RBMConfig:
+    """CD-k pretraining of the DNN's hidden layers."""
+    learning_rate: float = 0.01
+    epochs: int = 10
+    batch_size: int = 256
+    k_steps: int = 1
+    max_samples: int = 50000        # frames taken for pretraining
+
+
+@dataclass(frozen=True)
+class PSOConfig:
+    """The particle swarm of the OPT-PCIRM middle-step search."""
+    num_particles: int = 30
+    max_iter: int = 100
+    w: float = 0.7
+    c1: float = 1.5
+    c2: float = 1.5
+    bounds: Tuple[float, float] = (0.0, 1.0)
+
+
+@dataclass(frozen=True)
+class OptPCIRMConfig:
+    """Hard-mask quantization: M steps from the local criterion in dB."""
+    num_steps: int = 3
+    local_criterion_db: float = -15.0
+
+
+@dataclass(frozen=True)
+class ConformerConfig:
+    """Sizes of the ComplexConformer mask estimator (a library model: no
+    verb trains or serves it)."""
+    num_blocks: int = 6
+    d_model: int = 256
+    num_heads: int = 4
+    ff_dim: int = 1024
+    kernel_size: int = 31
+    dropout: float = 0.1
+    attn_impl: str = "speech"       # "speech" (kernel K1) | "xla" (plain)
 
 
 @dataclass(frozen=True)
@@ -183,29 +232,41 @@ class MetacogConfig:
 
 @dataclass(frozen=True)
 class DCSEConfig:
-    """Sizes of the DCSE ``SpeechEnhancer`` at inference (the inference
-    fields of the JAX package's ``DCSEConfig`` plus the ``n_freq`` and
-    ``conv_norm`` of its ``SpeechEnhancer``)."""
+    """The DCSE ``SpeechEnhancer``: the JAX package's ``DCSEConfig`` (sizes
+    and the AdamW recipe of its training) plus the ``n_freq``, ``conv_norm``
+    and ``remat`` of its ``SpeechEnhancer``. ``conv_norm``: "layer" (the
+    default), "batch" (the reference checkpoints' BatchNorm, statistics in
+    buffers) or "group" (GroupNorm of min(32, d_model) groups). ``dropout``
+    acts in training only. ``remat`` (recompute each block in the backward)
+    is not ported."""
     d_model: int = 256
     num_blocks: int = 4
     num_heads: int = 4
     ff_dim: int = 1024
     kernel_size: int = 31
+    dropout: float = 0.15
     phase_bound_div: float = 6.0    # phase within +-pi/6
     attn_impl: str = "speech"       # "speech" (kernel K1) | "xla" (plain)
     fused_ffn: bool = False         # feed-forward modules through kernel K3
+    lr: float = 5e-4                # peak of the warmup-cosine schedule
+    betas: Tuple[float, float] = (0.9, 0.98)
+    weight_decay: float = 0.01
+    grad_clip: float = 5.0
+    batch_size: int = 8
+    epochs: int = 50
+    mag_loss_weight: float = 0.5
     n_freq: int = 129
     conv_norm: str = "layer"
+    remat: bool = False
 
     def __post_init__(self):
         if self.d_model % self.num_heads:
             raise ValueError(f"d_model={self.d_model} is not a multiple of "
                              f"num_heads={self.num_heads}")
-        if self.conv_norm == "batch":
+        if self.conv_norm not in ("layer", "batch", "group"):
+            raise ValueError(f"conv_norm must be 'layer', 'batch' or "
+                             f"'group', got {self.conv_norm!r}")
+        if self.remat:
             raise NotImplementedError(
-                "conv_norm='batch' (the reference checkpoints' BatchNorm) is "
-                "not ported yet: it waits for the DCSE training slice "
-                "(ROADMAP.md Queue 1)")
-        if self.conv_norm != "layer":
-            raise ValueError(f"conv_norm must be 'layer' or 'batch', got "
-                             f"{self.conv_norm!r}")
+                "remat=True (recomputing each Conformer block in the "
+                "backward) is not ported (ROADMAP.md Queue 1)")

@@ -47,8 +47,9 @@ def discover_pipelines(model_dir: str,
                        device="cuda") -> Dict[str, object]:
     """Load the trained checkpoints found under ``model_dir`` on
     ``device``: the mask DNNs, DCSE and the flagship (``names`` restricts
-    the kinds). A reference-format ``.pt`` DCSE checkpoint is tried through
-    ``DCSEPipeline.from_torch_checkpoint``, which raises for now; every
+    the kinds). Without a DCSE checkpoint of the port, a reference-format
+    ``conformer_final.pt`` or ``best_conformer.pt`` is imported through
+    ``DCSEPipeline.from_torch_checkpoint``, as the JAX grid does; every
     failure is printed and the kind left out."""
     from sincformer_tpu_torch.pipeline import (DCSEPipeline, DNNPipeline,
                                                SincformerPipeline)
@@ -89,7 +90,7 @@ def discover_pipelines(model_dir: str,
                 try:
                     pipelines["conformer"] = \
                         DCSEPipeline.from_torch_checkpoint(
-                            pt, model_dir=model_dir)
+                            pt, model_dir=model_dir, device=device)
                     print(f"  + Imported reference checkpoint: {name}")
                     break
                 except Exception as e:

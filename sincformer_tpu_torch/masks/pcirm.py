@@ -1,6 +1,6 @@
-"""Phase-correlation ideal ratio mask (``sincformer_tpu/masks/pcirm.py``),
-the three functions that flagship training's mask loss uses to build its
-oracle on the STFT grid:
+"""Phase-correlation ideal ratio mask (``sincformer_tpu/masks/pcirm.py``):
+the oracle of the mask DNN's training data and of flagship training's mask
+loss, and its application:
 
     Z = ρs·|Cs·cos φ1|² / (ρs·|Cs·cos φ1|² + ρn·|Zn·cos φ2|²)
 """
@@ -51,3 +51,21 @@ def compute_pcirm(clean_mag, noise_mag, rho_s, rho_n, phi1, phi2,
     speech = rho_s * (torch.abs(clean_mag) * torch.abs(torch.cos(phi1))) ** 2
     noise = rho_n * (torch.abs(noise_mag) * torch.abs(torch.cos(phi2))) ** 2
     return torch.clamp(speech / (speech + noise + eps), 0.0, 1.0)
+
+
+def compute_pcirm_from_signals(noisy_frames, clean_frames, noise_frames,
+                               noisy_phase, clean_phase, noise_phase,
+                               clean_mag, noise_mag, eps: float = 1e-10):
+    """The PCIRM from frames, phases and magnitudes in one call: (pcirm,
+    ρs, ρn, φ1, φ2)."""
+    rho_s, rho_n = compute_correlation_coefficients(
+        noisy_frames, clean_frames, noise_frames, eps)
+    phi1, phi2 = compute_phase_differences(noisy_phase, clean_phase,
+                                           noise_phase)
+    pcirm = compute_pcirm(clean_mag, noise_mag, rho_s, rho_n, phi1, phi2, eps)
+    return pcirm, rho_s, rho_n, phi1, phi2
+
+
+def apply_pcirm(noisy_tf, pcirm):
+    """Enhanced = PCIRM ⊙ noisy."""
+    return noisy_tf * pcirm

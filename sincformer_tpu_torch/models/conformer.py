@@ -1,14 +1,17 @@
-"""Conformer block (``sincformer_tpu/models/conformer.py``).
+"""Conformer block and the complex-domain ComplexConformer
+(``sincformer_tpu/models/conformer.py``).
 
 Submodules carry the flax names (``FeedForwardModule_0``, ``LayerNorm_0``,
 ``qkv``, ...) so a state-dict key is the flax parameter path joined with
-dots (compat/from_jax.py). Normalisation layers use flax's eps 1e-6.
+dots (compat/from_jax.py). LayerNorm and GroupNorm use flax's eps 1e-6,
+BatchNorm flax's 1e-5.
 
 Dropout sits where the JAX block has it (after the feed-forward Swish and
 its second Dense, after the attention output projection, after the conv
 module's last pointwise layer). A forward given a ``generator`` is a
-training forward and draws its dropout masks from it; without one it is
-deterministic.
+training forward: it draws its dropout masks from it, and a BatchNorm
+normalises by the batch's statistics and steps its running ones; without
+one it is deterministic.
 """
 
 from __future__ import annotations
@@ -131,24 +134,114 @@ class DepthwiseConv(nn.Module):
         return y.transpose(1, 2)
 
 
+BN_EPS = 1e-5          # flax BatchNorm's epsilon
+BN_MOMENTUM = 0.99     # flax BatchNorm: ra <- 0.99 ra + 0.01 x
+
+
+def _fast_stats(x: torch.Tensor, dims):
+    """flax's statistics (``use_fast_variance``): the mean and
+    max(0, E[x²] - E[x]²) over ``dims``."""
+    mu = x.mean(dim=dims)
+    return mu, torch.clamp(torch.mean(x * x, dim=dims) - mu * mu, min=0.0)
+
+
+def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               running_mean: torch.Tensor, running_var: torch.Tensor,
+               train: bool, momentum: float = BN_MOMENTUM,
+               eps: float = BN_EPS) -> torch.Tensor:
+    """flax ``nn.BatchNorm`` on (B, T, D) with the feature axis last.
+
+    Training (``train=True``): normalise by the statistics of this batch,
+    taken over B and T (padded frames included, as in JAX), the variance
+    as max(0, E[x²] - E[x]²); then step the running statistics in place,
+    ``ra = momentum · ra + (1 - momentum) · stat`` with the *biased*
+    variance. Otherwise normalise by the running statistics. The output is
+    ``(x - mean) · (rsqrt(var + eps) · weight) + bias``, flax's order."""
+    if train:
+        mean, var = _fast_stats(x, (0, 1))
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_((1.0 - momentum)
+                                             * mean.detach())
+            running_var.mul_(momentum).add_((1.0 - momentum) * var.detach())
+    else:
+        mean, var = running_mean, running_var
+    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+class BatchNorm(nn.Module):
+    """Parameters ``weight`` (flax's scale) and ``bias``, running statistics
+    ``mean`` and ``var`` in buffers (flax's ``batch_stats``): see
+    :func:`batch_norm`."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x, train: bool = False):
+        return batch_norm(x, self.weight, self.bias, self.mean, self.var,
+                          train)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on (B, T, D): statistics per batch row and
+    group over T and the group's channels, flax's fast variance, eps 1e-6."""
+
+    def __init__(self, features: int, num_groups: int, eps: float = LN_EPS):
+        super().__init__()
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        b, t, d = x.shape
+        size = d // self.num_groups
+        mean, var = _fast_stats(x.reshape(b, t, self.num_groups, size),
+                                (1, 3))
+        mean = mean.repeat_interleave(size, dim=-1)[:, None, :]
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(size, dim=-1)
+        return (x - mean) * (mul[:, None, :] * self.weight) + self.bias
+
+
 class ConvolutionModule(nn.Module):
-    """LN → pointwise(2d) → GLU → depthwise(k) → LN → Swish → pointwise →
-    Dropout, residual (the flagship's ``norm="layer"``)."""
+    """LN → pointwise(2d) → GLU → depthwise(k) → norm → Swish → pointwise →
+    Dropout, residual. ``norm``: "layer" (``ln``, the flagship's and the
+    default), "batch" (``bn``, flax BatchNorm with running statistics) or
+    "group" (``gn``, GroupNorm of min(32, d_model) groups), the JAX names."""
 
     def __init__(self, d_model: int, kernel_size: int = 31,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, norm: str = "layer"):
         super().__init__()
         self.dropout = dropout
+        self.norm = norm
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.pointwise1 = nn.Linear(d_model, 2 * d_model)
         self.depthwise = DepthwiseConv(d_model, kernel_size)
-        self.ln = nn.LayerNorm(d_model, eps=LN_EPS)
+        if norm == "batch":
+            self.bn = BatchNorm(d_model)
+        elif norm == "group":
+            self.gn = GroupNorm(d_model, min(32, d_model))
+        elif norm == "layer":
+            self.ln = nn.LayerNorm(d_model, eps=LN_EPS)
+        else:
+            raise ValueError(f"norm must be 'layer', 'batch' or 'group', got "
+                             f"{norm!r}")
         self.pointwise2 = nn.Linear(d_model, d_model)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         y = F.glu(self.pointwise1(self.LayerNorm_0(x)), dim=-1)
-        y = F.silu(self.ln(self.depthwise(y)))
-        return x + dropout(self.pointwise2(y), self.dropout, generator)
+        y = self.depthwise(y)
+        if self.norm == "batch":
+            y = self.bn(y, train=generator is not None)
+        elif self.norm == "group":
+            y = self.gn(y)
+        else:
+            y = self.ln(y)
+        return x + dropout(self.pointwise2(F.silu(y)), self.dropout,
+                           generator)
 
 
 class ConformerBlock(nn.Module):
@@ -156,14 +249,15 @@ class ConformerBlock(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, d_ff: int,
                  kernel_size: int, attn_impl: str = "speech",
-                 fused_ffn: bool = False, dropout: float = 0.0):
+                 fused_ffn: bool = False, dropout: float = 0.0,
+                 conv_norm: str = "layer"):
         super().__init__()
         self.FeedForwardModule_0 = FeedForwardModule(d_model, d_ff, fused_ffn,
                                                      dropout)
         self.MultiHeadSelfAttention_0 = MultiHeadSelfAttention(
             d_model, num_heads, attn_impl, dropout)
         self.ConvolutionModule_0 = ConvolutionModule(d_model, kernel_size,
-                                                     dropout)
+                                                     dropout, conv_norm)
         self.FeedForwardModule_1 = FeedForwardModule(d_model, d_ff, fused_ffn,
                                                      dropout)
         self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -175,3 +269,53 @@ class ConformerBlock(nn.Module):
         x = self.ConvolutionModule_0(x, generator)
         x = self.FeedForwardModule_1(x, generator)
         return self.LayerNorm_0(x)
+
+
+class ComplexConformer(nn.Module):
+    """Complex STFT → complex mask: concat(re, im) → Linear(2F → d) → N
+    blocks → + global skip → Linear(d → 2F), split into (real, imag). A
+    library model, as in the JAX package: no verb trains or serves it."""
+
+    def __init__(self, n_freq: int = 129, d_model: int = 256,
+                 num_blocks: int = 6, num_heads: int = 4, d_ff: int = 1024,
+                 kernel_size: int = 31, dropout: float = 0.1,
+                 conv_norm: str = "layer", attn_impl: str = "speech"):
+        super().__init__()
+        self.n_freq = n_freq
+        self.num_blocks = num_blocks
+        self.input_proj = nn.Linear(2 * n_freq, d_model)
+        for i in range(num_blocks):
+            self.add_module(f"block_{i}", ConformerBlock(
+                d_model, num_heads, d_ff, kernel_size, attn_impl, False,
+                dropout, conv_norm))
+        self.output_proj = nn.Linear(d_model, 2 * n_freq)
+
+    def forward(self, stft_real, stft_imag,
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        x = self.input_proj(torch.cat([stft_real, stft_imag], dim=-1))
+        skip = x
+        for i in range(self.num_blocks):
+            x = getattr(self, f"block_{i}")(x, mask, generator)
+        x = self.output_proj(x + skip)
+        return x[..., :self.n_freq], x[..., self.n_freq:]
+
+    @staticmethod
+    def apply_mask(stft_real, stft_imag, mask_real, mask_imag):
+        """Ŝ = M̂ ⊙ Z, the complex product."""
+        return (mask_real * stft_real - mask_imag * stft_imag,
+                mask_real * stft_imag + mask_imag * stft_real)
+
+
+def default_complex_conformer(ccfg=None, acfg=None,
+                              **overrides) -> ComplexConformer:
+    """The ComplexConformer at ``ConformerConfig``'s sizes (6 blocks,
+    dropout 0.1) on ``AudioConfig``'s frequency bins."""
+    from sincformer_tpu_torch.config import AudioConfig, ConformerConfig
+    ccfg, acfg = ccfg or ConformerConfig(), acfg or AudioConfig()
+    kw = dict(n_freq=acfg.n_freq, d_model=ccfg.d_model,
+              num_blocks=ccfg.num_blocks, num_heads=ccfg.num_heads,
+              d_ff=ccfg.ff_dim, kernel_size=ccfg.kernel_size,
+              dropout=ccfg.dropout, attn_impl=ccfg.attn_impl)
+    kw.update(overrides)
+    return ComplexConformer(**kw)

@@ -15,9 +15,9 @@ running anywhere else. ``output_gain`` is read at every call, so a changed
 gain takes effect at once; ``calibrate_gain`` fits it on held-out mixtures
 and persists it in the loaded checkpoint's sidecar. ``save_model`` /
 ``load_model`` write and read the serving checkpoints of
-``train/state.py``; training is
-``train/agent_trainer.SincformerTrainer``, a ``SincformerPipeline`` that also
-saves and restores the optimizer state.
+``train/state.py``. Training is a subclass of each that also saves and
+restores the optimizer state: ``train/agent_trainer.SincformerTrainer``,
+``train/dcse_trainer.DCSETrainer`` and ``train/dnn_trainer.DNNTrainer``.
 """
 
 from __future__ import annotations
@@ -66,6 +66,14 @@ def resolve_device(device) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def with_training_state(pipe, state: dict, quantize: bool) -> dict:
+    """``state``, and once a trainer has made an optimizer state, in a
+    float32 checkpoint also that state and the NaN count."""
+    if not quantize and getattr(pipe, "opt_state", None) is not None:
+        state.update(opt_state=pipe.opt_state, nan_count=pipe.nan_count)
+    return state
 
 
 def model_buffers(model: torch.nn.Module) -> dict:
@@ -153,14 +161,20 @@ class _EnhancementPipeline:
         int8 serving form (the parameters go through ``quantize_tree`` on
         this pipeline's device)."""
         name = name or self.FINAL_NAME
-        state = {"params": dict(self.model.named_parameters()),
-                 "model_state": model_buffers(self.model)}
         save = save_checkpoint_quantized if quantize else save_checkpoint
-        path = save(os.path.join(self.model_dir, name), state, self.step,
+        path = save(os.path.join(self.model_dir, name),
+                    self._checkpoint_state(quantize), self.step,
                     extra={"config": dataclasses.asdict(self.model.config)})
         merge_train_meta(self.model_dir, name,
                          {"output_gain": float(self.output_gain)})
         return path
+
+    def _checkpoint_state(self, quantize: bool) -> dict:
+        """What a checkpoint holds: the parameters and the buffers, and a
+        trainer's optimizer state (:func:`with_training_state`)."""
+        return with_training_state(
+            self, {"params": dict(self.model.named_parameters()),
+                   "model_state": model_buffers(self.model)}, quantize)
 
     def load_model(self, path: Optional[str] = None) -> str:
         """Restore a checkpoint (``path`` = a ``.../family/step_N``
@@ -178,6 +192,9 @@ class _EnhancementPipeline:
                 f"{self.model_dir}")
         restored = restore_checkpoint(path)
         config = read_step_meta(path).get("config")
+        if config is not None:          # JSON keeps a tuple as a list
+            config = {k: tuple(v) if isinstance(v, list) else v
+                      for k, v in config.items()}
         current = dataclasses.asdict(self.model.config)
         # fields the checkpoint does not record (e.g. the training-only
         # dropout and routing of an older serving checkpoint) keep the
@@ -251,7 +268,10 @@ class SincformerPipeline(_EnhancementPipeline):
 
 class DCSEPipeline(_EnhancementPipeline):
     """DCSE (STFT → Conformer → bounded polar mask) enhancement of (B, N)
-    or (N,) waveforms."""
+    or (N,) waveforms, from the port's checkpoints (``load_model``) or from
+    a reference PyTorch checkpoint (``from_torch_checkpoint``, a
+    ``conv_norm="batch"`` model). Training is
+    ``train/dcse_trainer.DCSETrainer``."""
 
     MODEL = SpeechEnhancer
     CONFIG = DCSEConfig
@@ -271,13 +291,26 @@ class DCSEPipeline(_EnhancementPipeline):
         return self._calibrate(ds, batch_size, persist)
 
     @classmethod
-    def from_torch_checkpoint(cls, path: str, **kwargs) -> "DCSEPipeline":
-        """Reference ``.pt`` checkpoints carry BatchNorm statistics
-        (``conv_norm="batch"``), which this package does not model yet."""
-        raise NotImplementedError(
-            f"cannot load {path}: the reference .pt import needs "
-            f"conv_norm='batch', which waits for the DCSE training slice "
-            f"(ROADMAP.md Queue 1)")
+    def from_torch_checkpoint(cls, path: str, model_dir: Optional[str] = None,
+                              allow_pickle: bool = False, device="cuda",
+                              **model_overrides) -> "DCSEPipeline":
+        """A serving pipeline from a reference checkpoint
+        (``conformer_final.pt`` / ``best_conformer.pt``) through
+        ``compat.torch_import``: the architecture is read off the tensor
+        shapes (``num_heads`` is not in them: 4 unless overridden) and the
+        model built with ``conv_norm="batch"`` to carry the reference's
+        BatchNorm statistics. ``allow_pickle`` opts in to full unpickling
+        of a file that weights-only loading refuses."""
+        from sincformer_tpu_torch.compat.torch_import import \
+            load_reference_checkpoint
+        loaded = load_reference_checkpoint(path, allow_pickle=allow_pickle)
+        if loaded["kind"] != "dcse":
+            raise ValueError(f"{path} is not a DCSE checkpoint")
+        config = DCSEConfig(**{**loaded["config"], "conv_norm": "batch",
+                               **model_overrides})
+        pipe = cls(SpeechEnhancer(config), device=device, model_dir=model_dir)
+        pipe.load_state(loaded["state_dict"])
+        return pipe
 
 
 def mask_interp_matrix(centers: np.ndarray, freqs: np.ndarray) -> np.ndarray:
@@ -346,18 +379,27 @@ class DNNPipeline:
         if self.model is None:
             return None
         name = name or self.FINAL_NAME
-
-        def listed(a):
-            return None if a is None else np.asarray(a, np.float32).tolist()
-        extra = {"feat_mean": listed(self.feat_mean),
-                 "feat_std": listed(self.feat_std),
-                 "mask_type": self.mask_type,
-                 "feature_dim": self.feature_dim, "mask_dim": self.mask_dim,
-                 "config": self.model.sizes}
         save = save_checkpoint_quantized if quantize else save_checkpoint
         return save(os.path.join(self.model_dir, name),
-                    {"params": dict(self.model.named_parameters())},
-                    self.step, extra)
+                    self._checkpoint_state(quantize), self.step,
+                    self._sidecar())
+
+    def _checkpoint_state(self, quantize: bool) -> dict:
+        """What a checkpoint holds: the parameters, and a trainer's
+        optimizer state (:func:`with_training_state`)."""
+        return with_training_state(
+            self, {"params": dict(self.model.named_parameters())}, quantize)
+
+    def _sidecar(self) -> dict:
+        """The step's sidecar: feature statistics, mask type, sizes (a
+        trainer adds its schedule's progress)."""
+        def listed(a):
+            return None if a is None else np.asarray(a, np.float32).tolist()
+        return {"feat_mean": listed(self.feat_mean),
+                "feat_std": listed(self.feat_std),
+                "mask_type": self.mask_type,
+                "feature_dim": self.feature_dim, "mask_dim": self.mask_dim,
+                "config": self.model.sizes}
 
     def load_state(self, state_dict: Mapping[str, torch.Tensor],
                    sizes: Optional[Mapping] = None) -> None:

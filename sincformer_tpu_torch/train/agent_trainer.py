@@ -27,7 +27,6 @@ the device; the losses are read once per epoch.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import time
 import warnings
@@ -45,7 +44,7 @@ from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.masks.pcirm import (compute_correlation_coefficients,
                                               compute_pcirm,
                                               compute_phase_differences)
-from sincformer_tpu_torch.pipeline import SincformerPipeline, model_buffers
+from sincformer_tpu_torch.pipeline import SincformerPipeline
 from sincformer_tpu_torch.train.adversarial import (MultiScaleDiscriminator,
                                                     discriminator_loss,
                                                     feature_matching_loss,
@@ -59,8 +58,10 @@ from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, Adam,
                                               guard_nan_update,
                                               make_adamw, merge_train_meta,
                                               newest_checkpoint,
+                                              opt_state_to,
                                               read_train_meta,
                                               restore_checkpoint,
+                                              restore_training_state,
                                               save_checkpoint)
 
 LR = 5e-4           # peak of the warmup-cosine schedule
@@ -135,32 +136,20 @@ class SincformerTrainer(SincformerPipeline):
         self.disc.load_state_dict(dict(params), strict=True)
         self._disc_loaded = True
         if opt_state is not None:
-            self.disc_opt_state = self._on_device(opt_state)
-
-    def _on_device(self, opt: dict) -> dict:
-        """An optimizer state ``{"mu", "nu", "count"}`` on this device."""
-        return {"mu": {k: v.to(self.device) for k, v in opt["mu"].items()},
-                "nu": {k: v.to(self.device) for k, v in opt["nu"].items()},
-                "count": int(opt["count"])}
+            self.disc_opt_state = opt_state_to(opt_state, self.device)
 
     def save_model(self, name: Optional[str] = None,
                    quantize: bool = False) -> str:
-        """As the serving pipeline; once training has made an optimizer
-        state, a float32 checkpoint also holds it and the NaN count, and the
-        discriminator with its Adam state goes to the ``<name>_disc``
-        family at the generator's step."""
-        if quantize or self.opt_state is None:
-            return super().save_model(name, quantize)
-        name = name or self.FINAL_NAME
-        path = save_checkpoint(
-            os.path.join(self.model_dir, name),
-            {"params": self.params(), "model_state": model_buffers(self.model),
-             "opt_state": self.opt_state, "nan_count": self.nan_count},
-            self.step, extra={"config": dataclasses.asdict(self.model.config)})
-        merge_train_meta(self.model_dir, name,
-                         {"output_gain": float(self.output_gain)})
-        if self.disc is not None and self.disc_opt_state is not None:
-            save_checkpoint(os.path.join(self.model_dir, name + "_disc"),
+        """As the serving pipeline, the optimizer state and NaN count
+        included once training has made them; the discriminator with its
+        Adam state goes to the ``<name>_disc`` family at the generator's
+        step."""
+        path = super().save_model(name, quantize)
+        if (not quantize and self.opt_state is not None
+                and self.disc is not None
+                and self.disc_opt_state is not None):
+            save_checkpoint(os.path.join(self.model_dir,
+                                         (name or self.FINAL_NAME) + "_disc"),
                             {"params": dict(self.disc.named_parameters()),
                              "opt_state": self.disc_opt_state}, self.step)
         return path
@@ -169,11 +158,8 @@ class SincformerTrainer(SincformerPipeline):
         """As the serving pipeline, and the optimizer state and NaN count of
         a full checkpoint (none from a serving one)."""
         path = super().load_model(path)
-        restored = restore_checkpoint(path)
-        opt = restored.get("opt_state")
-        self.opt_state = None if opt is None else self._on_device(opt)
-        self.nan_count = torch.tensor(int(restored.get("nan_count", 0)),
-                                      dtype=torch.int32, device=self.device)
+        self.opt_state, self.nan_count = restore_training_state(path,
+                                                                self.device)
         return path
 
     # ── state ───────────────────────────────────────────────────────────

@@ -1,7 +1,8 @@
 """Training state and checkpoints (``sincformer_tpu/train/state.py``): the
-warmup-cosine schedule, the AdamW optimizer of flagship training and the
-Adam optimizer of its discriminator, both with the gradient clip, the NaN
-guard, and checkpoints.
+warmup-cosine schedule, the AdamW optimizer of flagship and DCSE training,
+the Adam optimizer of the discriminator, the mask DNN's Adam with a learning
+rate set between steps (ReduceLROnPlateau), all with the gradient clip, the
+NaN guard, and checkpoints.
 
 The directory layout is the JAX package's:
 
@@ -16,7 +17,7 @@ plain dictionaries of tensors, read back with ``weights_only=True``:
     {"params_q": {name: tensor | {"q": int8, "s": f32, "axis": int}},
      "model_state": {...}, "step": N}                    (int8 serving form)
     {"params": ..., "model_state": ..., "step": N,
-     "opt_state": {"mu": {...}, "nu": {...}, "count": N},
+     "opt_state": {"mu": {...}, "nu": {...}, "count": N[, "lr": x]},
      "nan_count": n}                                     (full training state)
 
 ``params`` are the model's parameters, keyed as in ``named_parameters()``
@@ -77,8 +78,9 @@ GRAD_CLIP = 5.0     # global gradient norm
 
 class AdamW:
     """Global-norm gradient clipping, then AdamW with decoupled weight decay
-    on every parameter: ``optax.chain(clip_by_global_norm(GRAD_CLIP),
-    adamw(schedule, *BETAS, EPS, WEIGHT_DECAY))``, step for step.
+    on every parameter: ``optax.chain(clip_by_global_norm(grad_clip),
+    adamw(schedule, *betas, EPS, weight_decay))``, step for step (by
+    default the recipe's BETAS, WEIGHT_DECAY and GRAD_CLIP).
 
     The state is ``{"mu": {name: tensor}, "nu": {...}, "count": int}``. A
     parameter without a gradient takes a zero gradient, so its moments still
@@ -87,11 +89,18 @@ class AdamW:
     with no host synchronisation.
     """
 
-    betas = BETAS
-    weight_decay = WEIGHT_DECAY
-
-    def __init__(self, schedule: Callable[[int], float]):
+    def __init__(self, schedule: Callable[[int], float],
+                 betas: Tuple[float, float] = BETAS,
+                 weight_decay: float = WEIGHT_DECAY,
+                 grad_clip: float = GRAD_CLIP):
         self.schedule = schedule
+        self.betas = tuple(betas)
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip
+
+    def learning_rate(self, state: dict) -> float:
+        """The rate of the step that ``state`` is about to take."""
+        return self.schedule(state["count"])
 
     @staticmethod
     def init(params: Mapping[str, torch.Tensor]) -> dict:
@@ -113,10 +122,10 @@ class AdamW:
         flat = torch.cat([g.reshape(-1) for g in gs])
         g_norm = torch.sqrt(torch.sum(flat * flat))
         # optax: (g / ‖g‖) · clip when ‖g‖ ≥ clip
-        keep = g_norm < GRAD_CLIP
+        keep = g_norm < self.grad_clip
         denom = torch.where(keep, torch.ones_like(g_norm), g_norm)
         numer = torch.where(keep, torch.ones_like(g_norm),
-                            torch.full_like(g_norm, GRAD_CLIP))
+                            torch.full_like(g_norm, self.grad_clip))
         gs = torch._foreach_mul(torch._foreach_div(gs, denom), numer)
         mu = [state["mu"][k] for k in names]
         nu = [state["nu"][k] for k in names]
@@ -125,7 +134,7 @@ class AdamW:
         torch._foreach_add_(mu, gs, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, gs, gs, value=1.0 - b2)
-        lr = self.schedule(state["count"])
+        lr = self.learning_rate(state)
         state["count"] += 1
         n = np.float32(state["count"])
         bc1 = float(np.float32(1) - np.float32(b1) ** n)
@@ -146,19 +155,56 @@ class Adam(AdamW):
     constant learning rate. Its state, its zero gradient for a parameter
     without one and the NaN guard that feeds it are AdamW's."""
 
-    betas = (0.9, 0.999)
-    weight_decay = 0.0
+    def __init__(self, lr: float):
+        super().__init__(lambda step: lr, betas=(0.9, 0.999),
+                         weight_decay=0.0)
+
+
+class PlateauAdam(Adam):
+    """The mask DNN's optimizer: ``optax.chain(clip_by_global_norm(5.0),
+    inject_hyperparams(adam)(learning_rate))``, step for step. As with
+    ``inject_hyperparams``, the learning rate is part of the state
+    (``state["lr"]``, applied as a float32), so the trainer can change it
+    between steps (:func:`set_injected_lr`) and a checkpoint keeps it."""
 
     def __init__(self, lr: float):
-        super().__init__(lambda step: lr)
+        super().__init__(lr)
+        self.base_lr = float(lr)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        state = super().init(params)
+        state["lr"] = self.base_lr
+        return state
+
+    def learning_rate(self, state: dict) -> float:
+        return float(np.float32(state["lr"]))
 
 
-def make_adamw(base_lr: float, total_epochs: int,
-               steps_per_epoch: int) -> AdamW:
+def make_adamw(base_lr: float, total_epochs: int, steps_per_epoch: int,
+               betas: Tuple[float, float] = BETAS,
+               weight_decay: float = WEIGHT_DECAY,
+               grad_clip: float = GRAD_CLIP) -> AdamW:
     """AdamW with gradient clipping and the warmup-cosine schedule, the
-    recipe of flagship and DCSE training."""
+    recipe of flagship and DCSE training (DCSE passes its config's betas,
+    weight decay and clip)."""
     return AdamW(warmup_cosine_schedule(base_lr, total_epochs,
-                                        steps_per_epoch))
+                                        steps_per_epoch),
+                 betas, weight_decay, grad_clip)
+
+
+def make_adam_plateau(base_lr: float) -> PlateauAdam:
+    """Adam with gradient clipping and an injectable learning rate, the
+    mask DNN's recipe (plateau reductions are the trainer's)."""
+    return PlateauAdam(base_lr)
+
+
+def set_injected_lr(opt_state: dict, lr: float) -> dict:
+    """Set the learning rate of a :class:`PlateauAdam` state, in place (and
+    returned): the next step takes it."""
+    if "lr" not in opt_state:
+        raise ValueError("not a PlateauAdam state: it has no learning rate")
+    opt_state["lr"] = float(lr)
+    return opt_state
 
 
 def guard_nan_update(grads: Sequence[Optional[torch.Tensor]],
@@ -276,6 +322,28 @@ def resolve_output_gain(step_dir: str) -> float:
     return g if math.isfinite(g) and g > 0 else 1.0
 
 
+def opt_state_to(opt: Mapping, device) -> dict:
+    """An optimizer state ``{"mu", "nu", "count"[, "lr"]}`` with its moments
+    on ``device``."""
+    out = {"mu": {k: v.to(device) for k, v in opt["mu"].items()},
+           "nu": {k: v.to(device) for k, v in opt["nu"].items()},
+           "count": int(opt["count"])}
+    if "lr" in opt:
+        out["lr"] = float(opt["lr"])
+    return out
+
+
+def restore_training_state(path: str, device):
+    """(optimizer state on ``device`` or None, NaN count as an int32 device
+    scalar) of the checkpoint at ``path``: what a full checkpoint holds
+    beside the weights (a serving one has neither: None and 0)."""
+    restored = restore_checkpoint(path)
+    opt = restored.get("opt_state")
+    return (None if opt is None else opt_state_to(opt, device),
+            torch.tensor(int(restored.get("nan_count", 0)), dtype=torch.int32,
+                         device=device))
+
+
 def _cpu(tree):
     if isinstance(tree, Mapping):
         return {k: _cpu(v) for k, v in tree.items()}
@@ -307,6 +375,8 @@ def save_checkpoint(ckpt_dir: str, state: Mapping, step: int,
         opt = state["opt_state"]
         payload["opt_state"] = {"mu": dict(opt["mu"]), "nu": dict(opt["nu"]),
                                 "count": int(opt["count"])}
+        if "lr" in opt:
+            payload["opt_state"]["lr"] = float(opt["lr"])
     if state.get("nan_count") is not None:
         payload["nan_count"] = int(state["nan_count"])
     return _write(ckpt_dir, step, payload, extra)

@@ -122,14 +122,19 @@ def test_speech_enhancer_matches_jax(fused):
 
 
 def test_unported_dcse_variants_raise():
+    """What the port leaves out raises: ``remat``; a tree that does not
+    fill the model (a ``batch_stats`` collection without BatchNorm
+    parameters, a missing head); a reference checkpoint that is not
+    there."""
     from sincformer_tpu_torch import (DCSEConfig, DCSEPipeline,
                                       load_dcse_from_jax)
-    with pytest.raises(NotImplementedError, match="batch"):
-        DCSEConfig(conv_norm="batch")
-    with pytest.raises(NotImplementedError, match="batch"):
-        DCSEPipeline.from_torch_checkpoint("conformer_final.pt")
+    with pytest.raises(NotImplementedError, match="remat"):
+        DCSEConfig(remat=True)
+    with pytest.raises(FileNotFoundError):
+        DCSEPipeline.from_torch_checkpoint("conformer_final.pt",
+                                           device="cpu")
     variables = dict(narrow_dcse(), batch_stats={"x": np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="batch"):
+    with pytest.raises(ValueError, match="batch"):
         load_dcse_from_jax(variables)
     broken = {"params": {k: v for k, v in narrow_dcse()["params"].items()
                          if k != "mag_head"}}
