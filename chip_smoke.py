@@ -64,7 +64,16 @@ its kernels:
     swarm at ``PSOConfig()`` card vs CPU;
   * a reference-format ``conformer_final.pt`` served on the card and the
     CPU through ``DCSEPipeline.from_torch_checkpoint``, and the ``demo``
-    verb on the card.
+    verb on the card;
+  * the flagship's variants at full width with seeded weights (the BiLRU
+    CPEA ``ssm``, the reference cascade PerceptionAgent, the dual fine
+    stream, ``reference`` + ``ssm``) beside the default flagship: each
+    request (4, 32000) on the card against the CPU, the ``export`` verb and
+    one request served from its artifact, the request and a training step
+    of 8 x 4 s timed (device busy time, launches, peak memory); a training
+    step of ``reference`` + ``ssm`` and of ``dual`` against the CPU and
+    float64, and ``train --pa reference --cpea ssm`` in a process of its
+    own, its checkpoint served by ``enhance``.
 
 K1 and K3 are also held against their plain versions under autograd (the
 backward is the plain formulation's gradient, so the gradients are equal bit
@@ -163,6 +172,17 @@ DCSE_STATS_TOL = 1e-5       # BatchNorm running statistics after a training
                             # forward, card vs CPU, of their scale (>= 1)
 CLIP_TOL = 1e-4             # the DCSE step's global-norm clip factor, card
                             # vs CPU, relative
+# the flagship's variants beside the default ([variants]); the last two
+# also take a training step against the CPU
+VARIANT_CONFIGS = (("default", {}), ("ssm", {"cpea_impl": "ssm"}),
+                   ("reference", {"pa_impl": "reference"}),
+                   ("dual", {"pa_fine_feats": "dual"}),
+                   ("reference+ssm", {"pa_impl": "reference",
+                                      "cpea_impl": "ssm"}))
+VARIANT_CPU_STEPS = ("reference+ssm", "dual")   # a step card vs CPU
+VARIANT_REPS = 10           # timed batch requests of each variant
+VARIANT_STEPS_TIMED = 5     # timed training steps of each variant
+VARIANTS = ("pa_impl", "pa_fine_feats", "cpea_impl")
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5",
                         "sincformer_v4s0_best_serving_torch")
@@ -239,6 +259,53 @@ def with_bound(timing: dict, flops: float, nbytes: float,
     timing["bound_ms"] = max(by_ops, by_bytes) * 1e3
     timing["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
     return timing
+
+
+def profile_once(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, device busy
+    ms, kernel launches, and its kernels as (name, ms, calls), longest
+    first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    return {"wall_ms": wall_ms, "busy_ms": sum(k[1] for k in kernels),
+            "launches": sum(k[2] for k in kernels), "kernels": kernels}
+
+
+def timed_steps(step, n: int, k1_per_step: int, launches,
+                what: str) -> dict:
+    """``n`` training steps on the card (``step()`` returns the loss), each
+    holding K1's launches to ``k1_per_step``, then one profiled step: the
+    losses, the wall ms of each step and their median over steps 2 to n,
+    K1's launches (the profiled step's last), the peak memory, and the
+    profiled step (:func:`profile_once`)."""
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    losses, step_ms, k1 = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1.append(launches.expect(f"{what} {i}", speech_attention=k1_per_step)[
+            "speech_attention"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_once(step)
+    k1.append(launches.expect(f"profiled {what}",
+                              speech_attention=k1_per_step)[
+        "speech_attention"])
+    return {"losses": losses, "step_ms": step_ms,
+            "median_ms": float(np.median(step_ms[1:])), "k1": k1,
+            "peak_gb": peak_gb, "profiled": prof}
 
 
 def wall_s(fn, reps: int = 3) -> float:
@@ -958,37 +1025,15 @@ def check_train(seed: int, smi: str, launches) -> dict:
     pipe.init_state(epochs=1, steps_per_epoch=20)
     noisy, clean_t = (torch.from_numpy(batch[k]).cuda()
                       for k in ("noisy", "clean"))
-    losses, step_ms, k1_steps = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    launches.reset()
-    for i in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)
-        losses.append(float(loss))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        k1_steps.append(launches.expect(
-            f"training step {i}",
-            speech_attention=2 * blocks)["speech_attention"])
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    k1_steps.append(launches.expect(
-        "profiled training step",
-        speech_attention=2 * blocks)["speech_attention"])
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda k: -k[1])
-    busy_ms = sum(k[1] for k in kernels)
-    n_kernels = sum(k[2] for k in kernels)
-    median_ms = float(np.median(step_ms[1:]))
+    run = timed_steps(
+        lambda: pipe.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)[0], 20,
+        2 * blocks, launches, "training step")
+    losses, step_ms, k1_steps = run["losses"], run["step_ms"], run["k1"]
+    prof = run["profiled"]
+    kernels, busy_ms, n_kernels = (prof["kernels"], prof["busy_ms"],
+                                   prof["launches"])
+    median_ms, peak_gb, prof_ms = (run["median_ms"], run["peak_gb"],
+                                   prof["wall_ms"])
     result.update(loss_first=losses[0], loss_last=losses[-1],
                   step_ms_median=median_ms, step_ms_first=step_ms[0],
                   device_busy_ms=busy_ms, device_busy_share=busy_ms / median_ms,
@@ -1032,46 +1077,30 @@ def time_adversarial_step(seed: int, smi: str, launches, noisy, clean,
     10 steps on the same batch as the 20 above, each holding K1's launches;
     wall per step (median of steps 2-10), peak memory, and one profiled
     step's device busy time and launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from sincformer_tpu_torch.train.agent_trainer import SincformerTrainer
     pipe = SincformerTrainer(device="cuda", seed=seed, use_adversarial=True)
     pipe.init_state(epochs=1, steps_per_epoch=10)
-    torch.cuda.reset_peak_memory_stats()
-    losses, disc_losses, step_ms, k1_steps = [], [], [], []
-    launches.reset()
-    for i in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    disc_losses = []
+
+    def step():
         loss, _ = pipe.train_step(noisy, clean, 1.0, 1.0, 1.0, 1.0, 1.0)
-        losses.append(float(loss))
         disc_losses.append(float(pipe.disc_loss))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        k1_steps.append(launches.expect(
-            f"adversarial training step {i}",
-            speech_attention=2 * blocks)["speech_attention"])
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pipe.train_step(noisy, clean, 1.0, 1.0, 1.0, 1.0, 1.0)
-        torch.cuda.synchronize()
-    k1_steps.append(launches.expect(
-        "profiled adversarial step",
-        speech_attention=2 * blocks)["speech_attention"])
-    kernels = [(e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    out = {"step_ms_median": float(np.median(step_ms[1:])),
+        return loss
+    run = timed_steps(step, 10, 2 * blocks, launches, "adversarial step")
+    losses, step_ms, k1_steps = run["losses"], run["step_ms"], run["k1"]
+    disc_losses = disc_losses[:10]
+    out = {"step_ms_median": run["median_ms"],
            "step_ms_first": step_ms[0],
-           "device_busy_ms": sum(k[0] for k in kernels),
-           "kernel_launches_per_step": sum(k[1] for k in kernels),
+           "device_busy_ms": run["profiled"]["busy_ms"],
+           "kernel_launches_per_step": run["profiled"]["launches"],
            "k1_launches_per_step": k1_steps[-1],
-           "k1_launches_all_steps": sum(k1_steps), "peak_memory_gb": peak_gb,
+           "k1_launches_all_steps": sum(k1_steps),
+           "peak_memory_gb": run["peak_gb"],
            "loss_first": losses[0], "loss_last": losses[-1],
            "disc_loss_first": disc_losses[0],
            "disc_loss_last": disc_losses[-1],
            "disc_adam_count": pipe.disc_opt_state["count"]}
+    peak_gb = run["peak_gb"]
     say(f"[train] adversarial step (stage 3, use_adv 1, fresh "
         f"discriminator), batch {TRAIN_BATCH}, 10 steps: "
         f"{out['step_ms_median']:.2f} ms per step (median of steps 2-10; "
@@ -1090,9 +1119,12 @@ def time_adversarial_step(seed: int, smi: str, launches, noisy, clean,
     return out
 
 
-def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
-    """One training step of the full flagship from the committed artifact,
-    dropout 0, softmax routing, on the card, on the CPU and on the CPU in
+def check_step_vs_cpu(small: dict, adversarial: bool = False,
+                      start=None, tag: str = "") -> dict:
+    """One training step of the full flagship from the committed artifact
+    (or, given ``start`` = (variant fields, state dict), of that variant
+    from those weights), dropout 0, softmax routing, on the card, on the
+    CPU and on the CPU in
     float64 (the reference that tells float32 rounding from a fault), for
     the loss without the multi-resolution STFT term and for the whole loss.
     The gradient and parameter bars are held on the loss without that term:
@@ -1112,15 +1144,21 @@ def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
     import sincformer_tpu_torch as port
     from sincformer_tpu_torch.train import agent_trainer
     from sincformer_tpu_torch.train.state import GRAD_CLIP, guard_nan_update
-    cfg = port.MetacogConfig(dropout=0.0, routing="softmax")
+    variant, state = start if start is not None else ({}, None)
+    cfg = port.MetacogConfig(dropout=0.0, routing="softmax", **variant)
     result = {}
-    tag = "[train] adversarial:" if adversarial else "[train]"
+    tag = tag or ("[train] adversarial:" if adversarial else "[train]")
+    origin = ("the committed artifact" if state is None
+              else "the given weights")
 
     def one_step(device, dtype, without_mrstft):
         p = agent_trainer.SincformerTrainer(
             port.SincformerMetacog(cfg), device=device, model_dir=ARTIFACT,
             use_adversarial=adversarial)
-        p.load_model()
+        if state is None:
+            p.load_model()
+        else:
+            p.load_state(state)
         p.model.to(dtype)
         if adversarial:
             p.disc.to(dtype)
@@ -1183,12 +1221,12 @@ def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
                 one_step("cpu", torch.float64, without))
         rel = abs(l_gpu - l_cpu) / abs(l_cpu)
         rows = grad_rows(g_cpu, g_gpu, g_64)
-        say(f"{tag} card vs CPU, one step from the committed artifact, "
+        say(f"{tag} card vs CPU, one step from {origin}, "
             f"{what}, dropout 0, softmax routing, batch (2, 32000): loss "
             f"{l_gpu:.6f} vs {l_cpu:.6f} ({l_64:.6f} in float64), "
             f"{rel:.3e} relative (limit {TRAIN_LOSS_TOL:g}); CPU step "
             f"{t_cpu:.1f} s, {t_64:.1f} s in float64")
-        say(f"[train]   gradients, of each leaf's scale (floored at "
+        say(f"{tag}   gradients, of each leaf's scale (floored at "
             f"{GRAD_FLOOR:g} x the largest): card vs CPU up to {rows[0][0]:.3e}"
             f"{f' (limit {TRAIN_GRAD_TOL:g})' if without else ''}; card vs "
             f"float64 up to {max(r[2] for r in rows):.3e}, CPU vs float64 up "
@@ -1247,13 +1285,13 @@ def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
                 if bool((own > 1.0).any()):
                     flips[k] = int((own > 1.0).sum())
                     t_flip += flips[k]
-        say(f"[train]   parameters after the AdamW step: {p_worst:.3e} of "
+        say(f"{tag}   parameters after the AdamW step: {p_worst:.3e} of "
             f"the leaf's scale where the two clipped gradients agree in sign "
             f"and pass 1e-5"
             f"{f' (limit {TRAIN_PARAM_TOL:g})' if without else ''}; the "
             f"other {flipped} of {n_el} elements within twice the step; "
             f"clip factors {c_cpu:.4g} (CPU) and {c_gpu:.4g} (card)")
-        say(f"[train]   where the CPU's step is float64's ({t_n} of {n_el} "
+        say(f"{tag}   where the CPU's step is float64's ({t_n} of {n_el} "
             f"elements): the card {t_worst:.3e} of the leaf's scale from "
             f"float64, {t_missed} elements past {TRAIN_PARAM_TOL:g}; up to "
             f"{t_step:.3e} of the element's float64 step, {t_flip} elements "
@@ -1274,7 +1312,7 @@ def check_step_vs_cpu(small: dict, adversarial: bool = False) -> dict:
         if not t_flip <= TRAIN_FLIP_SHARE * t_n:
             raise AssertionError(f"the card's step left float64's where the "
                                  f"CPU's is float64's ({what})")
-    if not adversarial:
+    if not adversarial and state is None:
         result["mrstft_attribution"] = attribute_mrstft(small, cfg)
     torch.cuda.empty_cache()
     return result
@@ -1491,18 +1529,6 @@ def attribute_mrstft(small: dict, cfg) -> dict:
     return out
 
 
-def device_busy_ms(fn) -> float:
-    """Sum of the kernel times of one call of ``fn`` (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-
-
 def check_evaluate(seed: int, smi: str, launches) -> dict:
     """The ``evaluate`` verb in a process of its own on the card, over the
     committed artifact's flagship and a seeded full-width mask DNN saved by
@@ -1635,13 +1661,15 @@ def check_evaluate(seed: int, smi: str, launches) -> dict:
         # one cell (one SNR) of the grid: device time by part, host P.862
         lengths = np.full(len(clean), clean.shape[1])
         split = {
-            "sincformer_ms": device_busy_ms(
-                lambda: pipes["sincformer"].enhance_batch(noisy)),
-            "pcirm_ms": device_busy_ms(
-                lambda: pipes["pcirm"].enhance_batch(noisy, lengths)),
-            "sweep_ms_per_method": device_busy_ms(
+            "sincformer_ms": profile_once(
+                lambda: pipes["sincformer"].enhance_batch(noisy))["busy_ms"],
+            "pcirm_ms": profile_once(
+                lambda: pipes["pcirm"].enhance_batch(noisy, lengths))[
+                "busy_ms"],
+            "sweep_ms_per_method": profile_once(
                 lambda: metrics_batch(clean, enhanced,
-                                      ("stoi", "ssnr", "csii", "ncm"))),
+                                      ("stoi", "ssnr", "csii", "ncm")))[
+                "busy_ms"],
         }
         launches.expect("one cell's enhancement, profiled",
                         speech_attention=blocks)
@@ -2075,36 +2103,14 @@ def check_train_dcse(seed: int, smi: str, launches) -> dict:
     torch.cuda.empty_cache()
 
     # ── the step's time: DCSEConfig() (dropout 0.15), 20 steps ──────────
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     pipe = DCSETrainer(device="cuda", seed=seed)
     pipe.init_state(epochs=1, steps_per_epoch=20)
     noisy, clean = tensors[:2]
-    step_ms, losses, k1 = [], [], []
-    torch.cuda.reset_peak_memory_stats()
-    launches.reset()
-    for i in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = pipe.train_step(noisy, clean)
-        losses.append(float(loss))
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        k1.append(launches.expect(f"dcse training step {i}",
-                                  speech_attention=blocks)[
-            "speech_attention"])
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        pipe.train_step(noisy, clean)
-        torch.cuda.synchronize()
-    k1.append(launches.expect("profiled dcse step",
-                              speech_attention=blocks)["speech_attention"])
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(k[1] for k in kernels)
-    n_launch = sum(k[2] for k in kernels)
-    median = float(np.median(step_ms[1:]))
+    run = timed_steps(lambda: pipe.train_step(noisy, clean)[0], 20, blocks,
+                      launches, "dcse training step")
+    losses, step_ms, k1 = run["losses"], run["step_ms"], run["k1"]
+    busy, n_launch = run["profiled"]["busy_ms"], run["profiled"]["launches"]
+    median, peak_gb = run["median_ms"], run["peak_gb"]
     say(f"[train-dcse] DCSEConfig() (dropout 0.15), {TRAIN_BATCH}, 20 "
         f"steps: loss {losses[0]:.4f} at step 1, {losses[-1]:.4f} at step "
         f"20; {median:.2f} ms per step (median of steps 2-20; step 1 "
@@ -2399,6 +2405,212 @@ def check_demo(launches) -> dict:
     return {"wall_s": wall}
 
 
+def check_variants(seed: int, smi: str, launches) -> dict:
+    """The flagship's variants at full width with seeded weights, beside the
+    default flagship: each serves ``enhance_batch`` (4, 32000) on the card
+    against the CPU, is saved, exported by the ``export`` verb, loaded as
+    the variant its keys show and serves one request, and is timed (the
+    batch request and a training step of 8 x 4 s: wall, device busy time,
+    launches, K1 launches, peak memory). ``reference`` + ``ssm`` and
+    ``dual`` also take a training step against the CPU at ``[train]``'s
+    bars, from ``[train]``'s start, the committed artifact, wherever the
+    variant has the artifact's parameter (the variant's own modules
+    seeded); ``train --pa reference --cpea ssm`` runs as a process of its
+    own and ``enhance`` serves its checkpoint."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch import cli
+    from sincformer_tpu_torch.cli import _synthetic_corpus
+    from sincformer_tpu_torch.data.loader import batch_iterator
+    from sincformer_tpu_torch.train.agent_trainer import SincformerTrainer
+    rng = np.random.default_rng(seed + 20)
+    batch16 = to_pcm(np.stack([speechlike(rng, 32000) for _ in range(4)]))
+    request = speechlike(rng, 20000)
+    clean, noises = _synthetic_corpus(TRAIN_BATCH[0], "multi", "varied")
+    ds = SincformerTrainer.remix_for_stage(clean, noises, [0, 5],
+                                           TRAIN_BATCH[1], 0)
+    tbatch = next(batch_iterator(ds, TRAIN_BATCH[0], shuffle=False))
+    result = {}
+    for name, variant in VARIANT_CONFIGS:
+        config = port.MetacogConfig(**variant)
+        blocks = config.msa_blocks
+        model = port.SincformerMetacog(config).init_params(
+            torch.Generator().manual_seed(seed))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        cpu_model = port.SincformerMetacog(config)
+        cpu_model.load_state_dict(state)
+        gpu = port.SincformerPipeline(model, device="cuda")
+        cpu = port.SincformerPipeline(cpu_model, device="cpu")
+        row = {"params": sum(p.numel() for p in model.parameters())}
+        launches.reset()
+        # each device's routing, read off its enhance_batch forward
+        routed = {}
+        hooks = [m.register_forward_hook(
+            lambda _m, _i, out, dev=dev: routed.__setitem__(
+                dev, {k: out[k].cpu() for k in ("decisions",
+                                                 "route_logits")}))
+            for m, dev in ((model, "card"), (cpu_model, "cpu"))]
+        got = gpu.enhance_batch(batch16)
+        launches.expect(f"[variants] {name} enhance_batch",
+                        speech_attention=blocks)
+        want = cpu.enhance_batch(batch16)
+        for h in hooks:
+            h.remove()
+        flips = routed["cpu"]["decisions"] != routed["card"]["decisions"]
+        logits = routed["cpu"]["route_logits"].sort(dim=-1,
+                                                    descending=True).values
+        margins = (logits[..., 0] - logits[..., 1])[flips]
+        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        row.update(card_vs_cpu=rel, decision_flips=int(flips.sum()))
+        say(f"[variants] {name} ({row['params']} params): enhance_batch "
+            f"(4, 32000) card vs CPU {rel:.3e} of the peak (limit "
+            f"{WAVE_TOL:g}), {int(flips.sum())} of {flips.numel()} MAA "
+            f"decisions differ" + (f" at CPU logit margins "
+                                   f"{margins.tolist()}" if flips.any()
+                                   else ""))
+        if not (got.shape == batch16.shape and np.all(np.isfinite(got))):
+            raise AssertionError(f"{name}: bad enhance_batch output")
+        if flips.any() and float(margins.max()) >= TIE_MARGIN:
+            raise AssertionError(f"{name}: an MAA decision flipped away "
+                                 f"from a near tie")
+        if not flips.any() and not rel <= WAVE_TOL:
+            raise AssertionError(f"{name}: card and CPU disagree: {rel}")
+
+        # export: save, the export verb, load as the keys show, serve
+        with tempfile.TemporaryDirectory() as d:
+            src, out = os.path.join(d, "src"), os.path.join(d, "serving")
+            gpu.model_dir = src
+            gpu.save_model()
+            os.environ["SINCFORMER_MODEL_DIR"] = src
+            launches.reset()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["export", "--model", "sincformer", "--ckpt",
+                               "final", "--out", out])
+            if rc != 0:
+                raise AssertionError(f"{name}: the export verb failed")
+            launches.expect(f"[variants] {name} export", quantize_int8=1)
+            served = port.SincformerPipeline(device="cuda", model_dir=out)
+            served.load_model()
+            shown = {k: getattr(served.model.config, k) for k in VARIANTS}
+            one = served.enhance_signal(request)
+            launches.expect(f"[variants] {name} served request",
+                            speech_attention=blocks)
+            if (shown != {k: getattr(config, k) for k in VARIANTS}
+                    or one.shape != request.shape
+                    or not np.all(np.isfinite(one))):
+                raise AssertionError(f"{name}: the exported artifact did "
+                                     f"not serve as its variant: {shown}")
+            del served
+
+        # time: the batch request, and a training step of 8 x 4 s
+        torch.cuda.reset_peak_memory_stats()
+        launches.reset()
+        wall = wall_s(lambda: gpu.enhance_batch(batch16), reps=VARIANT_REPS)
+        prof = profile_once(lambda: gpu.enhance_batch(batch16))
+        calls = 1 + VARIANT_REPS + 1        # warm-up, timed, profiled
+        k1 = launches.expect(f"[variants] {name} timed requests",
+                             speech_attention=calls * blocks)
+        row["enhance_batch"] = {
+            "wall_ms": wall * 1e3, "device_busy_ms": prof["busy_ms"],
+            "busy_share": prof["busy_ms"] / (wall * 1e3),
+            "launches": prof["launches"],
+            "k1_launches": k1["speech_attention"] // calls,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del gpu, cpu, cpu_model, model, got, want, routed
+        torch.cuda.empty_cache()
+        trainer = SincformerTrainer(port.SincformerMetacog(config),
+                                    device="cuda", seed=seed)
+        trainer.init_state(epochs=1, steps_per_epoch=VARIANT_STEPS_TIMED)
+        noisy, clean_t = (torch.from_numpy(tbatch[k]).cuda()
+                          for k in ("noisy", "clean"))
+        run = timed_steps(
+            lambda: trainer.train_step(noisy, clean_t, 1.0, 1.0, 1.0, 1.0)[0],
+            VARIANT_STEPS_TIMED, 2 * blocks, launches,
+            f"[variants] {name} training step")
+        losses, median = run["losses"], run["median_ms"]
+        busy = run["profiled"]["busy_ms"]
+        row["train_step"] = {
+            "wall_ms": median, "wall_ms_first": run["step_ms"][0],
+            "device_busy_ms": busy, "busy_share": busy / median,
+            "launches": run["profiled"]["launches"],
+            "k1_launches": run["k1"][-1], "peak_gb": run["peak_gb"],
+            "loss_first": losses[0], "loss_last": losses[-1]}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: a training loss is not finite")
+        for what, r in (("enhance_batch (4, 32000)", row["enhance_batch"]),
+                        (f"training step {TRAIN_BATCH}", row["train_step"])):
+            say(f"[variants] {name} {what}: {r['wall_ms']:.3f} ms wall, "
+                f"device busy {r['device_busy_ms']:.3f} ms (share "
+                f"{r['busy_share']:.3f}), {r['launches']} launches, K1 "
+                f"{r['k1_launches']}, peak {r['peak_gb']:.2f} GB on {smi}")
+        del trainer, noisy, clean_t
+        torch.cuda.empty_cache()
+        if name in VARIANT_CPU_STEPS:
+            # [train]'s step starts from the committed artifact: so does
+            # the variant's, where it has the artifact's parameter (name and
+            # shape); its own modules keep their seeded weights
+            small = {k: v[:2] for k, v in tbatch.items()}
+            trained = port.SincformerPipeline(device="cpu",
+                                              model_dir=ARTIFACT)
+            trained.load_model()
+            art = trained.model.state_dict()
+            warm = {k: (art[k].clone() if k in art
+                        and art[k].shape == v.shape else v)
+                    for k, v in state.items()}
+            row["step_vs_cpu"] = check_step_vs_cpu(
+                small, start=(variant, warm), tag=f"[variants] {name}:")
+            row["step_vs_cpu"]["from_artifact"] = sum(
+                v.numel() for k, v in state.items()
+                if k in art and art[k].shape == v.shape)
+            del trained, art, warm
+        launches.reset()
+        result[name] = row
+
+    # the train verb with --pa reference --cpea ssm, then enhance
+    with tempfile.TemporaryDirectory() as d:
+        argv = ["train", "--pipeline", "agents", "--pa", "reference",
+                "--cpea", "ssm", "--synthetic", "40", "--epochs", "2",
+                "--seed", str(seed)]
+        child, lines, wall = run_verb(argv, {"SINCFORMER_MODEL_DIR": d},
+                                      "train --pa reference --cpea ssm")
+        blocks = port.MetacogConfig().msa_blocks
+        want_k1 = blocks * (2 * 2 * (36 // 8) + 2)
+        for line in lines[-4:]:
+            say(f"[variants] | {line}")
+        say(f"[variants] {' '.join(argv)}: exit 0 in {wall:.1f} s wall; K1 "
+            f"launches {child['speech_attention']} (expected {want_k1})")
+        if child["speech_attention"] != want_k1:
+            raise AssertionError("the variant's train verb did not launch K1 "
+                                 "as expected")
+        launches.total["speech_attention"] += child["speech_attention"]
+        from scipy.io import wavfile
+        wav_in, wav_out = os.path.join(d, "in.wav"), os.path.join(d, "out.wav")
+        wavfile.write(wav_in, 8000, to_pcm(request))
+        os.environ["SINCFORMER_MODEL_DIR"] = d
+        launches.reset()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli.main(["enhance", wav_in, wav_out])
+        k1 = launches.read()["speech_attention"]
+        if rc != 0 or k1 < blocks or k1 % blocks:
+            raise AssertionError(f"enhance from the variant's checkpoint: "
+                                 f"exit {rc}, K1 {k1}")
+        launches.expect("[variants] enhance verb", speech_attention=k1)
+        out = wavfile.read(wav_out)[1]
+        served = port.SincformerPipeline(device="cuda", model_dir=d)
+        served.load_model()
+        c = served.model.config
+        say(f"[variants] enhance from its checkpoint ({c.pa_impl}, "
+            f"{c.cpea_impl}): exit 0, {len(out)} samples, K1 {k1}; "
+            + buf.getvalue().strip().splitlines()[0].strip())
+        if ((c.pa_impl, c.cpea_impl) != ("reference", "ssm")
+                or len(out) != len(request) or not np.all(np.isfinite(out))):
+            raise AssertionError("the variant's checkpoint did not serve")
+        result["train_verb"] = {"wall_s": wall,
+                                "k1_launches": child["speech_attention"],
+                                "enhance_k1": k1}
+    launches.reset()
+    return result
+
+
 def check_istft(seed: int) -> None:
     """The iSTFT on the card must not depend on the batch size: one batch of
     16 windows against four batches of 4 and against the CPU, on a spectrum
@@ -2547,6 +2759,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     say(f"[card] {smi}")
+    t_start = time.perf_counter()
+
+    def phase_done(what: str) -> None:
+        say(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2573,6 +2789,8 @@ def main() -> int:
         return 0
     check_istft(args.seed)
     launches = Launches()
+
+    phase_done("build and kernel checks")
 
     # ── phase 3: full-width flagship, a few requests on the card ─────────
     config = port.MetacogConfig()
@@ -2980,11 +3198,14 @@ def main() -> int:
                 f"{audio_s / wall:.1f}x real time on {smi}")
     launches.reset()
 
+    phase_done("serving, parity, DCSE, front-end and DNN phases")
+
     # ── phase 11: flagship training (the train verb, 20 steps, vs CPU) ───
     train = check_train(args.seed, smi, launches)
     train.update(time_attention_in_step(args.seed, smi))
     say("[train] " + json.dumps(train))
     launches.reset()
+    phase_done("[train]")
 
     # ── phase 12: evaluation, calibration, WAV input and tracing ─────────
     evaluation = check_evaluate(args.seed, smi, launches)
@@ -2993,6 +3214,7 @@ def main() -> int:
     say("[calibrate] " + json.dumps(calibration))
     host = check_native_and_trace(args.seed, launches)
     launches.reset()
+    phase_done("[evaluate], [calibrate], [native]")
 
     # ── phase 13: DCSE and mask-DNN training, reference import, demo ─────
     dcse_train = check_train_dcse(args.seed, smi, launches)
@@ -3002,6 +3224,13 @@ def main() -> int:
     check_import(args.seed, launches)
     check_demo(launches)
     launches.reset()
+    phase_done("[train-dcse], [train-dnn], [import], [demo]")
+
+    # ── phase 14: the flagship's variants beside the default ─────────────
+    variants = check_variants(args.seed, smi, launches)
+    say("[variants] " + json.dumps(variants))
+    launches.reset()
+    phase_done("[variants]")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3032,7 +3261,14 @@ def main() -> int:
                 "in_dcse_training_step": {
                     "launches_per_step": dcse_train["k1_launches_per_step"]},
                 "in_dcse_validation": dcse_train["k1_in_validation"],
-                "in_dcse_train_verb": dcse_train["verb_k1"]}),
+                "in_dcse_train_verb": dcse_train["verb_k1"],
+                "in_variants": {
+                    name: {"per_forward": variants[name]["enhance_batch"][
+                        "k1_launches"], "per_training_step": variants[name][
+                        "train_step"]["k1_launches"]}
+                    for name, _ in VARIANT_CONFIGS},
+                "in_variant_train_verb": variants["train_verb"][
+                    "k1_launches"]}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),

@@ -1,6 +1,8 @@
-"""Correlation-phase estimation agent (``sincformer_tpu/agents/cpea.py``),
-``impl="lstm"``: a bidirectional LSTM over the PA latent, then four heads
-(sigmoid correlations, tanh·π phases).
+"""Correlation-phase estimation agent (``sincformer_tpu/agents/cpea.py``):
+a bidirectional sequence mixer over the PA latent, then four heads (sigmoid
+correlations, tanh·π phases). ``impl="lstm"`` mixes with a BiLSTM,
+``impl="ssm"`` with the bidirectional LRU of ``agents/ssm.py`` (submodule
+``bilru``, as in JAX).
 
 The JAX cells are flax ``LSTMCell`` trees (gates i, f, g, o; input kernels
 without bias, recurrent kernels K with bias b), but the JAX CPEA recurs with
@@ -20,6 +22,8 @@ from typing import Dict, List
 
 import torch
 from torch import nn
+
+from sincformer_tpu_torch.agents.ssm import BiLRU
 
 
 class FlaxBiLSTM(nn.Module):
@@ -115,16 +119,24 @@ class CorrelationPhaseEstimationAgent(nn.Module):
     """z (B, D, T) channels-first → dict of (B, T, output_channels)."""
 
     def __init__(self, input_dim: int = 256, hidden_size: int = 128,
-                 num_layers: int = 2, output_channels: int = 64):
+                 num_layers: int = 2, output_channels: int = 64,
+                 impl: str = "lstm"):
         super().__init__()
-        self.lstm = FlaxBiLSTM(input_dim, hidden_size, num_layers)
+        if impl == "ssm":
+            self.bilru = BiLRU(input_dim, hidden_size, num_layers)
+        elif impl == "lstm":
+            self.lstm = FlaxBiLSTM(input_dim, hidden_size, num_layers)
+        else:
+            raise ValueError(f"impl must be 'lstm' or 'ssm', got {impl!r}")
+        self.impl = impl
         self.rho_s_head = nn.Linear(2 * hidden_size, output_channels)
         self.rho_n_head = nn.Linear(2 * hidden_size, output_channels)
         self.phi1_head = nn.Linear(2 * hidden_size, output_channels)
         self.phi2_head = nn.Linear(2 * hidden_size, output_channels)
 
     def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
-        x = self.lstm(z.transpose(1, 2))                  # (B, T, 2H)
+        mixer = self.bilru if self.impl == "ssm" else self.lstm
+        x = mixer(z.transpose(1, 2))                      # (B, T, 2H)
         return {"rho_s": torch.sigmoid(self.rho_s_head(x)),
                 "rho_n": torch.sigmoid(self.rho_n_head(x)),
                 "phi1": torch.tanh(self.phi1_head(x)) * math.pi,

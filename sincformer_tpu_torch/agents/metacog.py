@@ -1,7 +1,10 @@
 """SincformerMetacog (``sincformer_tpu/agents/metacog.py``).
 
     waveform → PerceptionAgentMXU → (z_real, z_imag, σ)   [T' = N // hop]
-    z → CPEA;  (z, CPEA, noisy STFT) → MSA → polar mask
+               (PerceptionAgent, the reference cascade, for pa_impl
+               "reference": T' = floor(ceil(N / 16) / 5))
+    z → CPEA (BiLSTM, or BiLRU for cpea_impl "ssm");
+    (z, CPEA, noisy STFT) → MSA → polar mask
     pooled z → EpisodicMemory → magnitude bias
     σ → MAA → route over {soft, resample, VQ-hard, unity}
     routed magnitude · e^{i·phase} ⊙ STFT, last frame repeated to the STFT
@@ -27,9 +30,38 @@ from sincformer_tpu_torch.agents.cpea import CorrelationPhaseEstimationAgent
 from sincformer_tpu_torch.agents.maa import MetacognitiveArbitrationAgent
 from sincformer_tpu_torch.agents.memory import EpisodicMemory
 from sincformer_tpu_torch.agents.msa import MaskSynthesisAgent
-from sincformer_tpu_torch.agents.perception import PerceptionAgentMXU
+from sincformer_tpu_torch.agents.perception import (PerceptionAgent,
+                                                    PerceptionAgentMXU)
+from sincformer_tpu_torch.agents.ssm import LRULayer
 from sincformer_tpu_torch.config import MetacogConfig
 from sincformer_tpu_torch.models.vq import VectorQuantizer
+
+
+def variant_of(names) -> Dict[str, str]:
+    """The variant fields that a model's parameter names show: the port's
+    state-dict keys, or a flax tree's paths joined with dots. ``cpea.bilru``
+    is the BiLRU, ``cpea.lstm`` (``cpea.LSTMCell_*`` in flax) the BiLSTM;
+    ``pa.downsample`` the reference cascade, ``pa.embed`` the mxu encoder,
+    whose ``pa.embed_norm`` is the dual stream and ``pa.act_mu`` the μ-law
+    fine stream (the JAX package's checkpoint autodetection). A part that
+    fits none is left out."""
+    names = set(names)
+
+    def has(*prefixes):
+        return any(n.startswith(prefixes) for n in names)
+    found = {}
+    if has("cpea.bilru."):
+        found["cpea_impl"] = "ssm"
+    elif has("cpea.lstm.", "cpea.LSTMCell_"):
+        found["cpea_impl"] = "lstm"
+    if has("pa.downsample."):
+        found["pa_impl"] = "reference"
+    elif has("pa.embed."):
+        found.update(pa_impl="mxu",
+                     pa_fine_feats="dual" if has("pa.embed_norm.")
+                     else "single",
+                     pa_fine_act="mulaw" if "pa.act_mu" in names else "gelu")
+    return found
 
 
 def _polar_mag(mask_r: torch.Tensor, mask_i: torch.Tensor) -> torch.Tensor:
@@ -44,12 +76,17 @@ class SincformerMetacog(nn.Module):
         super().__init__()
         c = config
         self.config = c
-        self.pa = PerceptionAgentMXU(c.encoder_channels, c.sample_rate,
-                                     c.sinc_kernel_size, c.hop,
-                                     c.pa_num_blocks, c.pa_env_pool,
-                                     c.pa_fine_act)
+        if c.pa_impl == "reference":
+            self.pa = PerceptionAgent(c.encoder_channels, c.sample_rate,
+                                      c.sinc_kernel_size, c.hop)
+        else:
+            self.pa = PerceptionAgentMXU(c.encoder_channels, c.sample_rate,
+                                         c.sinc_kernel_size, c.hop,
+                                         c.pa_num_blocks, c.pa_env_pool,
+                                         c.pa_fine_act, c.pa_fine_feats)
         self.cpea = CorrelationPhaseEstimationAgent(
-            c.encoder_channels, c.cpea_hidden, c.cpea_layers, c.cpea_channels)
+            c.encoder_channels, c.cpea_hidden, c.cpea_layers, c.cpea_channels,
+            c.cpea_impl)
         self.msa = MaskSynthesisAgent(
             c.encoder_channels, c.cpea_channels, c.d_model, c.n_freq,
             c.msa_blocks, c.num_heads, c.d_ff, c.kernel_size, c.attn_impl,
@@ -72,7 +109,7 @@ class SincformerMetacog(nn.Module):
             raise ValueError("a training forward needs a dropout_generator")
         drop = dropout_generator if train else None
         z_real, z_imag, sigma = self.pa(waveform)
-        # align the latent frames to the STFT grid (T' = N//hop ≤ T)
+        # align the latent frames to the STFT grid (T' ≤ T = N//hop + 1)
         t = min(z_real.shape[-1], stft_real.shape[-2])
         z_real, z_imag, sigma = z_real[..., :t], z_imag[..., :t], sigma[..., :t]
         sr, si = stft_real[:, :t], stft_imag[:, :t]
@@ -132,19 +169,26 @@ class SincformerMetacog(nn.Module):
         """Random weights drawn from ``generator`` only, after the flax
         initialisers' scales: N(0, 1/fan_in) matrices and kernels, the
         CPEA's recurrent kernels orthogonal per gate block (flax
-        ``orthogonal()``), zero biases, unit norm scales, N(0, 0.01²)
-        memory banks, a 0.01-scaled memory value projection; SincConv
-        cutoffs, VQ centroids, the MAA threshold and the companding
+        ``orthogonal()``), the BiLRU's recurrences by
+        ``ssm.LRULayer.init_params``, zero biases, unit norm scales,
+        N(0, 0.01²) memory banks, a 0.01-scaled memory value projection;
+        SincConv cutoffs, VQ centroids, the MAA threshold and the companding
         parameters keep their constants, and every buffer returns to its
         initial value."""
         fresh = SincformerMetacog(self.config)
         norms = (nn.LayerNorm, nn.GroupNorm)
         norm_params = {f"{m}.{p}" for m, mod in self.named_modules()
                        if isinstance(mod, norms) for p in ("weight", "bias")}
+        lru = {f"{m}.{p}": mod for m, mod in self.named_modules()
+               if isinstance(mod, LRULayer) for p, _ in
+               mod.named_parameters()}
         for name, p in self.named_parameters():
             def randn(std):
                 return torch.randn(p.shape, generator=generator) * std
-            if name in norm_params:
+            if name in lru:
+                if name.endswith(".nu_log"):    # once per layer, in order
+                    lru[name].init_params(generator)
+            elif name in norm_params:
                 p.copy_(torch.ones_like(p) if name.endswith("weight")
                         else torch.zeros_like(p))
             elif name in ("memory.keys", "memory.values"):

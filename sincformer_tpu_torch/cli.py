@@ -16,20 +16,23 @@
     default) the original paper's mask DNN (``--mask-type``, ``--no-rbm``),
     ``--pipeline conformer`` (alias ``dcse``) DCSE, ``--pipeline agents``
     the flagship's curriculum (``--adversarial`` adds the stage-3
-    discriminator); ``--resume`` continues from the newest checkpoint,
-    ``--log-jsonl`` writes one record per epoch;
+    discriminator, ``--pa reference`` the stride-2 cascade PerceptionAgent,
+    ``--cpea ssm`` the bidirectional LRU mixer); ``--resume`` continues from
+    the newest checkpoint, ``--log-jsonl`` writes one record per epoch;
   * ``evaluate`` (alias ``test``) - the five-metric grid (STOI, PESQ,
     SSNR, CSII, NCM) over every trained model found (a reference
     ``conformer_final.pt`` included), on TIMIT + NOISEX-92 or the synthetic
     fallbacks; ``--json-out`` writes every cell;
   * ``calibrate`` - fit the output gain of a trained checkpoint on
     held-out mixtures and persist it in its sidecar;
-  * ``info`` - print the configuration and the device.
+  * ``info`` - print the configuration, the device and the flagship
+    checkpoints under the model directory with their variants.
 
 Models are looked up and written under ``SINCFORMER_MODEL_DIR`` (default
-``saved_models``), as in the JAX package's CLI. Everything runs on the card
-unless ``--device cpu`` is given. ``evaluate --distributed`` is not ported
-yet and says so.
+``saved_models``), as in the JAX package's CLI; a flagship checkpoint of any
+variant is served as its weights show. Everything runs on the card unless
+``--device cpu`` is given. Only ``evaluate --distributed`` is not ported
+yet, and it says so.
 """
 
 from __future__ import annotations
@@ -41,8 +44,7 @@ import time
 
 import numpy as np
 
-_MISSING = ("evaluate --distributed, the flagship's --cpea ssm, --pa "
-            "reference and dual fine-stream variants")
+_MISSING = "evaluate --distributed"
 
 
 def _model_dir() -> str:
@@ -403,8 +405,13 @@ def train(args) -> int:
             clean_tr = [load_audio(f, fs) for f in tr_files]
             clean_te = [load_audio(f, fs) for f in te_files]
             noises = load_noise_signals(fs)
+        model = agent_trainer.default_metacog(cpea_impl=args.cpea,
+                                              pa_impl=args.pa)
+        print(f"  Variant: pa {model.config.pa_impl}, cpea "
+              f"{model.config.cpea_impl}, fine stream "
+              f"{model.config.pa_fine_act}/{model.config.pa_fine_feats}")
         pipe = agent_trainer.SincformerTrainer(
-            agent_trainer.default_metacog(), device=args.device,
+            model, device=args.device,
             model_dir=_model_dir(), seed=args.seed, logger=logger,
             use_adversarial=args.adversarial)
         n_params = sum(p.numel() for p in pipe.model.parameters())
@@ -526,7 +533,31 @@ def info(args) -> int:
         print(f"  Device:             {torch.cuda.get_device_name(0)} "
               f"(x{torch.cuda.device_count()})")
     print(f"\n  Model Dir:          {_model_dir()}")
+    for name, path, variant in flagship_checkpoints(_model_dir()):
+        print(f"  {name + ':':<20}{path} ({variant})")
     return 0
+
+
+def flagship_checkpoints(model_dir: str):
+    """(family, newest step, variant) of each flagship checkpoint family
+    under ``model_dir``; the variant as ``load_model`` reads it, from the
+    weights' names, or what fails to read."""
+    from sincformer_tpu_torch.agents.metacog import variant_of
+    from sincformer_tpu_torch.pipeline import SincformerPipeline
+    from sincformer_tpu_torch.train.state import (latest_step_dir,
+                                                  restore_checkpoint)
+    found = []
+    for name in (SincformerPipeline.FINAL_NAME, SincformerPipeline.BEST_NAME):
+        path = latest_step_dir(os.path.join(model_dir, name))
+        if path is None:
+            continue
+        try:
+            v = variant_of(restore_checkpoint(path)["params"])
+            variant = ", ".join(f"{k} {v[k]}" for k in sorted(v))
+        except (OSError, RuntimeError, KeyError) as e:
+            variant = f"unreadable: {e}"
+        found.append((name, path, variant))
+    return found
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -584,6 +615,11 @@ def build_parser() -> argparse.ArgumentParser:
     tp.add_argument("--epochs", type=int, default=None)
     tp.add_argument("--max-train", type=int, default=100)
     tp.add_argument("--max-test", type=int, default=20)
+    tp.add_argument("--pa", default="mxu", choices=["mxu", "reference"],
+                    help="PerceptionAgent formulation (agents pipeline)")
+    tp.add_argument("--cpea", default="lstm", choices=["lstm", "ssm"],
+                    help="CPEA sequence mixer: 'lstm' (reference parity) or"
+                         " 'ssm' (bidirectional LRU)")
     tp.add_argument("--resume", action="store_true",
                     help="restore the newest checkpoint (full training "
                          "state) and continue from the epoch after it")

@@ -48,8 +48,15 @@ concatenation, so a moment maps as its parameter does) with its ``count``.
 discriminator and its Adam moments (each (k, in, out) kernel transposed to
 torch's (out, in, k)).
 
-Variants outside this slice (the BiLRU mixer, the reference PA cascade, the
-dual fine stream) raise. Every leaf must be placed and every torch
+Every variant of the flagship carries over: the BiLRU mixer
+(``cpea/bilru``: ``in_proj``, ``ln_i``, ``glu_i`` as above, and each
+``lru_{fwd,bwd}_i``'s ``nu_log``, ``theta_log``, ``B_*``, ``C_*`` and ``D``
+as they are, in flax's layout), the reference PA cascade (its 1×1 heads
+are Conv kernels (1, in, out) → (out, in, 1)) and the dual stream
+(``pa/embed_norm``; the chunk LayerNorm has no parameters).
+:func:`infer_config` reads the variant off the tree as the JAX package
+reads it off a checkpoint's metadata (``agents.metacog.variant_of``), and a
+tree that fits no variant raises. Every leaf must be placed and every torch
 parameter and buffer filled, with matching shapes, or it raises.
 """
 
@@ -109,37 +116,45 @@ def infer_config(variables: Mapping, **overrides: Any) -> MetacogConfig:
     """Sizes and variant of the model that ``variables`` belong to.
 
     ``num_heads``, ``sample_rate`` and ``sinc_kernel_size`` leave no trace
-    in the tree: they take the flagship's values unless overridden.
+    in the tree, nor does ``hop`` in the reference cascade (it has no
+    frame-rate parameters): they take the flagship's values unless
+    overridden. The mxu encoder's own fields (blocks, envelope pool, fine
+    activation and streams) keep their defaults for the reference cascade.
     """
+    from sincformer_tpu_torch.agents.metacog import variant_of
+
     params = variables["params"]
     pa, cpea, msa = params["pa"], params["cpea"], params["msa"]
-    if "bilru" in cpea:
-        raise ValueError("cpea_impl='ssm' (BiLRU) checkpoints are not ported "
-                         "yet (ROADMAP.md Queue 1 item 15)")
-    if "downsample" in pa or "embed" not in pa:
-        raise ValueError("the reference-cascade PerceptionAgent "
-                         "(pa_impl='reference') is not ported yet (ROADMAP.md "
-                         "Queue 1 item 15)")
-    if "embed_norm" in pa:
-        raise ValueError("pa_fine_feats='dual' checkpoints are not ported yet "
-                         "(ROADMAP.md Queue 1 item 15)")
-    if not any(k.startswith("LSTMCell_") for k in cpea):
-        raise ValueError("no LSTMCell_* in params['cpea']: not a "
-                         "cpea_impl='lstm' checkpoint")
-    d = np.shape(pa["embed"]["bias"])[0]
+    variant = variant_of(".".join(path) for path in _flatten(
+        {"pa": pa, "cpea": cpea}))
+    if not {"pa_impl", "cpea_impl"} <= set(variant):
+        raise ValueError(
+            f"params fit no SincformerMetacog variant: the CPEA needs "
+            f"'bilru' (ssm) or LSTMCell_* (lstm), has {sorted(cpea)}; the "
+            f"PA needs 'downsample' (reference) or 'embed' (mxu), has "
+            f"{sorted(pa)}")
+    found: Dict[str, Any] = dict(variant)
     c_sinc = np.shape(pa["sinc"]["low_hz"])[0]
-    hop = np.shape(pa["embed"]["kernel"])[1] // c_sinc
-    env_in = np.shape(pa["embed_env"]["kernel"])[1]
+    if variant["pa_impl"] == "mxu":
+        d = np.shape(pa["embed"]["bias"])[0]
+        hop = np.shape(pa["embed"]["kernel"])[1] // c_sinc
+        env_in = np.shape(pa["embed_env"]["kernel"])[1]
+        found.update(hop=hop, pa_num_blocks=_count(pa, "block_"),
+                     pa_env_pool=hop * c_sinc // env_in)
+    else:
+        d = np.shape(pa["downsample"]["bias"])[0]
+    if variant["cpea_impl"] == "ssm":
+        bilru = cpea["bilru"]
+        found.update(cpea_hidden=np.shape(bilru["in_proj"]["bias"])[0] // 2,
+                     cpea_layers=_count(bilru, "ln_"))
+    else:
+        found.update(
+            cpea_hidden=np.shape(cpea["LSTMCell_0"]["hi"]["kernel"])[0],
+            cpea_layers=_count(cpea, "LSTMCell_") // 2)
     blocks = [k for k in msa if k.startswith("block_")]
     block0 = msa["block_0"]
-    found = dict(
+    found.update(
         encoder_channels=d,
-        hop=hop,
-        pa_num_blocks=_count(pa, "block_"),
-        pa_env_pool=hop * c_sinc // env_in,
-        pa_fine_act="mulaw" if "act_mu" in pa else "gelu",
-        cpea_hidden=np.shape(cpea["LSTMCell_0"]["hi"]["kernel"])[0],
-        cpea_layers=_count(cpea, "LSTMCell_") // 2,
         cpea_channels=np.shape(cpea["rho_s_head"]["bias"])[0],
         d_model=np.shape(msa["fusion2"]["bias"])[0],
         n_freq=np.shape(msa["mag_head"]["bias"])[0],
@@ -220,7 +235,8 @@ def load_from_jax(variables: Mapping, **overrides: Any
             continue
         leaf, value = _param_leaf(path, arr)
         state[".".join(path[:-1] + (leaf,))] = value
-    state.update(_lstm(params["cpea"], config.cpea_layers))
+    if config.cpea_impl == "lstm":
+        state.update(_lstm(params["cpea"], config.cpea_layers))
 
     buffers = {}
     for collection in _COLLECTIONS:
@@ -248,6 +264,8 @@ def _named_params(params: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
         leaf, value = _param_leaf(path, arr)
         out[".".join(path[:-1] + (leaf,))] = value
     cpea = params["cpea"]
+    if not any(k.startswith("LSTMCell_") for k in cpea):
+        return out                      # the BiLRU: every leaf as it is
     for layer in range(num_layers):
         for direction, suffix in ((0, ""), (1, "_reverse")):
             cell = cpea[f"LSTMCell_{2 * layer + direction}"]
@@ -536,7 +554,8 @@ def convert_quantized_from_jax(params_q: Mapping,
         path: node for path, node in flat.items()
         if not (path[0] == "cpea" and path[1].startswith("LSTMCell_"))}))
     # input-side LSTM matrices: the four gates' int8 kernels stacked
-    for layer in range(config.cpea_layers):
+    for layer in range(config.cpea_layers if config.cpea_impl == "lstm"
+                       else 0):
         for direction, suffix in ((0, ""), (1, "_reverse")):
             gates = [flat[("cpea", f"LSTMCell_{2 * layer + direction}",
                            f"i{g}", "kernel")] for g in _GATES]

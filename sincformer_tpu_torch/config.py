@@ -9,10 +9,13 @@ GammatoneConfig, FeatureConfig, DataConfig, DNNConfig, RBMConfig, PSOConfig,
 OptPCIRMConfig, ConformerConfig, AgentConfig, VQConfig, LossConfig,
 CurriculumConfig, DCSEConfig) and of the
 ``SincformerMetacog`` fields that ``default_metacog`` sets. The model
-fields are plain fields with the JAX package's defaults; the data and loss
-fields read the same ``SINCFORMER_*`` environment knobs as the JAX package
-(``SINCFORMER_MAX_WAVE_SECONDS``, ``SINCFORMER_MASK_MSE_WEIGHT``, the
-dataset directories) when an instance is made.
+fields are plain fields with the JAX package's defaults; the data, loss and
+PerceptionAgent-variant fields read the same ``SINCFORMER_*`` environment
+knobs as the JAX package (``SINCFORMER_MAX_WAVE_SECONDS``,
+``SINCFORMER_MASK_MSE_WEIGHT``, ``SINCFORMER_PA_FINE_ACT``,
+``SINCFORMER_PA_FINE_FEATS``, the dataset directories) when an instance is
+made; :data:`AGENTS` is the instance made at import, as the JAX package's
+``DEFAULT.agents``.
 """
 
 from __future__ import annotations
@@ -185,12 +188,34 @@ class ConformerConfig:
     attn_impl: str = "speech"       # "speech" (kernel K1) | "xla" (plain)
 
 
+# the flagship's variant fields and their values (the first: the default)
+VARIANTS = {"pa_impl": ("mxu", "reference"),
+            "pa_fine_act": ("mulaw", "gelu"),
+            "pa_fine_feats": ("single", "dual"),
+            "cpea_impl": ("lstm", "ssm")}
+
+
+@dataclass(frozen=True)
+class AgentConfig:
+    """The mxu encoder's fine-stream activation and feature streams that
+    ``train.agent_trainer.default_metacog`` builds, from
+    ``SINCFORMER_PA_FINE_ACT`` and ``SINCFORMER_PA_FINE_FEATS`` when an
+    instance is made (the JAX package's ``AgentConfig``)."""
+    pa_fine_act: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_PA_FINE_ACT", "mulaw"))
+    pa_fine_feats: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_PA_FINE_FEATS", "single"))
+
+
 @dataclass(frozen=True)
 class MetacogConfig:
     """Sizes and training settings of ``SincformerMetacog`` (defaults: the
     flagship). ``dropout`` and ``routing`` act in training only:
     ``routing="gumbel"`` routes by Gumbel-softmax straight-through,
-    ``"softmax"`` by the softmax probabilities."""
+    ``"softmax"`` by the softmax probabilities. ``pa_impl``,
+    ``pa_fine_act``, ``pa_fine_feats`` and ``cpea_impl`` select the
+    variant (:data:`VARIANTS`); ``pa_num_blocks``, ``pa_env_pool``,
+    ``pa_fine_act`` and ``pa_fine_feats`` shape the mxu encoder only."""
     encoder_channels: int = 256
     sample_rate: int = 8000
     sinc_kernel_size: int = 251
@@ -198,6 +223,11 @@ class MetacogConfig:
     pa_num_blocks: int = 3
     pa_env_pool: int = 8
     pa_fine_act: str = "mulaw"      # "mulaw" | "gelu"
+    pa_impl: str = "mxu"            # "mxu" (frame-rate encoder) |
+                                    # "reference" (stride-2 conv cascade)
+    pa_fine_feats: str = "single"   # "single" | "dual" (+ a per-frame
+                                    # normalised fine stream; mxu only)
+    cpea_impl: str = "lstm"         # "lstm" (BiLSTM) | "ssm" (BiLRU)
     cpea_hidden: int = 128
     cpea_layers: int = 2
     cpea_channels: int = 64
@@ -219,9 +249,10 @@ class MetacogConfig:
         if self.routing not in ("gumbel", "softmax"):
             raise ValueError(f"routing must be 'gumbel' or 'softmax', got "
                              f"{self.routing!r}")
-        if self.pa_fine_act not in ("mulaw", "gelu"):
-            raise ValueError(f"pa_fine_act must be 'mulaw' or 'gelu', got "
-                             f"{self.pa_fine_act!r}")
+        for name, allowed in VARIANTS.items():
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got "
+                                 f"{getattr(self, name)!r}")
         if self.d_model % self.num_heads:
             raise ValueError(f"d_model={self.d_model} is not a multiple of "
                              f"num_heads={self.num_heads}")
@@ -270,3 +301,7 @@ class DCSEConfig:
             raise NotImplementedError(
                 "remat=True (recomputing each Conformer block in the "
                 "backward) is not ported (ROADMAP.md Queue 1)")
+
+
+# read at import, as the JAX package reads its DEFAULT.agents
+AGENTS = AgentConfig()

@@ -37,11 +37,15 @@ def dropout(x: torch.Tensor, p: float,
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
-def same_pad(x: torch.Tensor, k: int) -> torch.Tensor:
-    """flax ``padding="SAME"`` for a stride-1 conv over the last axis:
-    (k-1)//2 before and the rest after (asymmetric for even k)."""
-    before = (k - 1) // 2
-    return F.pad(x, (before, k - 1 - before))
+def same_pad(x: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
+    """Zero-pad the last axis as flax's ``padding="SAME"`` does for a conv or
+    pool of window ``k`` and ``stride``: the output has ceil(T / stride)
+    steps, and of total = max((out - 1)·stride + k - T, 0) padded zeros,
+    total // 2 go before (asymmetric for an even total)."""
+    t = x.shape[-1]
+    out = -(-t // stride)
+    total = max((out - 1) * stride + k - t, 0)
+    return F.pad(x, (total // 2, total - total // 2))
 
 
 class FeedForwardModule(nn.Module):

@@ -308,10 +308,13 @@ def dequantize_int8(vals: torch.Tensor, scales: torch.Tensor,
 
 def channel_axis_of(name: str, ndim: int) -> int:
     """Output-channel axis of the parameter ``name``: 0 for the port's
-    ``weight`` tensors (Linear, Conv1d, LSTM ``weight_ih``/``weight_hh``),
-    the last axis for matrices kept in the JAX layout."""
+    ``weight`` tensors (Linear, Conv1d, LSTM ``weight_ih``/``weight_hh``)
+    and the CPEA's recurrent kernels ``kernel_hh`` (Kᵀ, gate units first),
+    the last axis for matrices kept in the JAX layout (the memory banks,
+    the BiLRU's ``B_*`` and ``C_*``)."""
     leaf = name.rsplit(".", 1)[-1]
-    return 0 if leaf == "weight" or leaf.startswith("weight_") else ndim - 1
+    return 0 if leaf == "weight" or leaf.startswith(("weight_", "kernel_hh")) \
+        else ndim - 1
 
 
 def is_quantized(node) -> bool:

@@ -29,7 +29,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from sincformer_tpu_torch.agents.metacog import SincformerMetacog
+from sincformer_tpu_torch.agents.metacog import SincformerMetacog, variant_of
 from sincformer_tpu_torch.config import (AudioConfig, DataConfig, DCSEConfig,
                                          DNNConfig, GammatoneConfig,
                                          MetacogConfig)
@@ -108,6 +108,11 @@ class _EnhancementPipeline:
                        spec: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    @staticmethod
+    def _variant(params: Mapping[str, torch.Tensor]) -> dict:
+        """The config fields that a checkpoint's parameter names fix."""
+        return {}
+
     def load_state(self, state_dict: Mapping[str, torch.Tensor],
                    buffers: Optional[Mapping[str, torch.Tensor]] = None
                    ) -> None:
@@ -180,7 +185,9 @@ class _EnhancementPipeline:
         """Restore a checkpoint (``path`` = a ``.../family/step_N``
         directory; default: the newest step of the preferred family under
         ``model_dir``). The model is rebuilt at the sizes the checkpoint's
-        sidecar records; the output gain comes from the family's sidecar."""
+        sidecar records and as the variant its weights show
+        (:meth:`_variant`; a sidecar that names another raises); the output
+        gain comes from the family's sidecar."""
         if path is None:
             for name in inference_ckpt_order(self.FINAL_NAME, self.BEST_NAME):
                 path = latest_step_dir(os.path.join(self.model_dir, name))
@@ -195,6 +202,14 @@ class _EnhancementPipeline:
         if config is not None:          # JSON keeps a tuple as a list
             config = {k: tuple(v) if isinstance(v, list) else v
                       for k, v in config.items()}
+        shown = self._variant(restored["params"])
+        wrong = {k: (config[k], v) for k, v in shown.items()
+                 if config is not None and k in config and config[k] != v}
+        if wrong:
+            raise ValueError(
+                f"{path}: the sidecar's config and the weights name other "
+                f"variants, (sidecar, weights): {wrong}")
+        config = {**(config or {}), **shown} or None
         current = dataclasses.asdict(self.model.config)
         # fields the checkpoint does not record (e.g. the training-only
         # dropout and routing of an older serving checkpoint) keep the
@@ -249,6 +264,13 @@ class SincformerPipeline(_EnhancementPipeline):
     def _enhanced_spec(self, wav, spec):
         out = self.model(wav, spec.real, spec.imag)
         return torch.complex(out["enhanced_real"], out["enhanced_imag"])
+
+    @staticmethod
+    def _variant(params):
+        """The flagship's variant from its keys (``cpea.bilru.*``,
+        ``pa.downsample.*``, ``pa.embed_norm.*``, ``pa.act_mu``), as the
+        JAX package matches its model to a checkpoint's tree."""
+        return variant_of(params)
 
     def calibrate_gain(self, clean_signals: Sequence[np.ndarray],
                        noises: Dict[str, np.ndarray], batch_size: int = 8,

@@ -24,15 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sincformer_tpu_torch.models.conformer import same_pad
+
 CHANNEL_SETS = ((64, 128, 256, 512), (64, 128, 256), (32, 64, 128))
-
-
-def _same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """Zero-pad the last axis of ``x`` as flax's SAME padding does."""
-    t = x.shape[-1]
-    out = -(-t // stride)
-    total = max((out - 1) * stride + kernel - t, 0)
-    return F.pad(x, (total // 2, total - total // 2))
 
 
 class NormedConv(nn.Module):
@@ -51,7 +45,7 @@ class NormedConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = torch.sqrt(torch.sum(self.kernel_v ** 2, dim=(1, 2)) + 1e-12)
         w = (self.kernel_v / norm[:, None, None]) * self.gain[:, None, None]
-        y = F.conv1d(_same_pad(x, self.kernel_size, self.stride), w,
+        y = F.conv1d(same_pad(x, self.kernel_size, self.stride), w,
                      stride=self.stride)
         return y + self.bias[:, None]
 
@@ -116,7 +110,7 @@ class MultiScaleDiscriminator(nn.Module):
         for i in range(len(CHANNEL_SETS)):
             outs.append(getattr(self, f"disc_{i}")(x))
             if i < len(CHANNEL_SETS) - 1:
-                x = F.avg_pool1d(_same_pad(x, 4, 2), 4, 2)
+                x = F.avg_pool1d(same_pad(x, 4, 2), 4, 2)
         return outs
 
 

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
-from sincformer_tpu_torch.config import (AudioConfig, DataConfig, LossConfig,
+from sincformer_tpu_torch.config import (AGENTS, AudioConfig,
+                                         DataConfig, LossConfig,
                                          MetacogConfig)
 from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
                                               heldout_noises, remix_for_stage)
@@ -69,9 +70,14 @@ DISC_LR = 2e-4      # the discriminator's constant Adam rate
 
 
 def default_metacog(**overrides) -> SincformerMetacog:
-    """The flagship as the ``train`` verb builds it; ``SINCFORMER_MSA_BLOCKS``
-    sets the depth, as in the JAX package."""
-    kw = {"msa_blocks": int(os.environ.get("SINCFORMER_MSA_BLOCKS", "4"))}
+    """The flagship as the ``train`` verb builds it, as in the JAX package:
+    the fine stream read at import (:data:`config.AGENTS`, from
+    ``SINCFORMER_PA_FINE_ACT`` and ``SINCFORMER_PA_FINE_FEATS``), the depth
+    from ``SINCFORMER_MSA_BLOCKS``; ``overrides`` (e.g. ``cpea_impl="ssm"``,
+    ``pa_impl="reference"``) set any field."""
+    kw = {"msa_blocks": int(os.environ.get("SINCFORMER_MSA_BLOCKS", "4")),
+          "pa_fine_act": AGENTS.pa_fine_act,
+          "pa_fine_feats": AGENTS.pa_fine_feats}
     kw.update(overrides)
     return SincformerMetacog(MetacogConfig(**kw))
 
@@ -155,8 +161,10 @@ class SincformerTrainer(SincformerPipeline):
         return path
 
     def load_model(self, path: Optional[str] = None) -> str:
-        """As the serving pipeline, and the optimizer state and NaN count of
-        a full checkpoint (none from a serving one)."""
+        """As the serving pipeline (the model rebuilt as the checkpoint's
+        variant and sizes, whatever the constructor was given), and the
+        optimizer state and NaN count of a full checkpoint (none from a
+        serving one)."""
         path = super().load_model(path)
         self.opt_state, self.nan_count = restore_training_state(path,
                                                                 self.device)

@@ -8,11 +8,17 @@ of ``model.init``) with seeded numpy values at flax's initialiser scales,
 fan-in normal kernels, but with every bias and norm offset non-zero: flax
 initialises those to zero, which would hide a bias put in the wrong place.
 The model_state collections hold what training leaves there (moved running
-statistics, a filled episodic bank)."""
+statistics, a filled episodic bank).
+
+:class:`Ahead` runs a file's JAX reference programs on background threads
+while its tests compute the port's side."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -47,19 +53,37 @@ def _fill(path, leaf, rng):
         return rng.uniform(0.5, 2.0, shape)
     if name == "centroids":
         return np.sort(rng.uniform(0.0, 1.0, shape))
+    if name == "nu_log":          # |λ| over the whole [0.9, 0.999] of init
+        return np.log(-np.log(rng.uniform(0.9, 0.999, shape)))
+    if name == "theta_log":       # phases in [1e-4, π/4]
+        return np.log(rng.uniform(1e-4, np.pi / 4, shape))
+    if name in ("B_re", "B_im", "C_re", "C_im"):     # (in, out)
+        return rng.standard_normal(shape) / np.sqrt(shape[0])
+    if name == "D":
+        return 1.0 + 0.1 * rng.standard_normal(shape)
     return 0.5 * rng.standard_normal(shape)  # memory banks, threshold
 
 
-@functools.lru_cache(maxsize=None)
-def narrow_model():
+_BUILD_LOCK = threading.Lock()
+
+
+def narrow_model(**variant):
     """(flax module, numpy variables, torch SincformerMetacog loaded from
-    them) at the NARROW widths, μ-law fine stream."""
+    them) at the NARROW widths, μ-law fine stream; ``variant`` sets the
+    flax model's ``pa_impl``, ``cpea_impl`` and ``pa_fine_feats``. Built
+    once per variant, whichever thread asks first."""
+    with _BUILD_LOCK:
+        return _narrow_model(**variant)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_model(**variant):
     from sincformer_tpu.agents.metacog import SincformerMetacog as JaxModel
     from sincformer_tpu_torch.agents.metacog import SincformerMetacog
     from sincformer_tpu_torch.compat.from_jax import load_from_jax
 
-    model = JaxModel(**NARROW, dropout=0.0, attn_impl="speech",
-                     pa_fine_act="mulaw")
+    model = JaxModel(**NARROW, **{"dropout": 0.0, "attn_impl": "speech",
+                                  "pa_fine_act": "mulaw", **variant})
     wav = jnp.zeros((1, 800))
     spec = jnp.zeros((1, 11, 129))
     shapes = jax.eval_shape(lambda: model.init(
@@ -88,6 +112,47 @@ def narrow_model():
     tmodel = SincformerMetacog(config).eval()
     tmodel.load_state_dict({**state, **buffers}, strict=True)
     return model, variables, tmodel
+
+
+class Ahead:
+    """One result of each of a file's JAX reference programs, computed on
+    background threads: :meth:`start` submits ``(fn, *args)`` jobs in the
+    order the tests use them, and ``ahead(fn, *args)`` waits for that
+    result. With two threads one job traces while another compiles (XLA's
+    compile releases the GIL), and both run beside the port's side of the
+    tests."""
+
+    def __init__(self):
+        self._futures = {}
+
+    @contextlib.contextmanager
+    def start(self, jobs, threads: int = 2):
+        """Run ``jobs`` for the body of the ``with``; on leaving it, drop
+        the jobs not begun and wait for those running."""
+        with ThreadPoolExecutor(threads) as pool:
+            for fn, *args in jobs:
+                self._futures[(fn, tuple(args))] = pool.submit(fn, *args)
+            try:
+                yield self
+            finally:
+                for future in self._futures.values():
+                    future.cancel()
+        self._futures.clear()
+
+    def __call__(self, fn, *args):
+        return self._futures[(fn, args)].result()
+
+
+def cancelled_biases(module) -> set:
+    """The conv biases of ``module``'s residual conv blocks that a GroupNorm
+    of one channel per group removes again (the reference cascade's narrow
+    blocks of 16 channels): their true gradient is 0, so both packages
+    return rounding there, and an optimizer steps by its sign."""
+    from sincformer_tpu_torch.agents.perception import _ConvBlock
+    return {f"{m}.{conv}.bias" for m, mod in module.named_modules()
+            if isinstance(mod, _ConvBlock)
+            and mod.gn1.num_groups == mod.gn1.num_channels
+            for conv in ("conv1", "conv2", "skip")}
 
 
 # narrow DCSE: 2 Conformer blocks, 2 heads of 16
