@@ -73,13 +73,23 @@ its kernels:
     of 8 x 4 s timed (device busy time, launches, peak memory); a training
     step of ``reference`` + ``ssm`` and of ``dual`` against the CPU and
     float64, and ``train --pa reference --cpea ssm`` in a process of its
-    own, its checkpoint served by ``enhance``.
+    own, its checkpoint served by ``enhance``;
+  * data parallelism on the one card (``[distributed]``): the flagship's
+    and DCSE's training steps on a one-rank NCCL mesh bit-equal to the
+    steps without a mesh; two ranks over gloo in processes of their own,
+    half of the 8 x 4 s batch each, against the one-process step with the
+    whole batch (the MAA statistics, the episodic bank and the BatchNorm
+    statistics among the buffers held), the ranks bit-equal; ``evaluate
+    --distributed`` in two processes against ``[evaluate]``'s grid; the
+    metric sweep split over devices against the unsharded one.
 
-K1 and K3 are also held against their plain versions under autograd (the
-backward is the plain formulation's gradient, so the gradients are equal bit
-for bit). K1, K2, K3 and K5 are timed from CUDA-graph replays (device
-time), their eager calls beside them; K2 also as the flagship's whole tree (73 leaves in
-one launch, against the CPU's tree bit for bit). ``--kernels-only`` stops
+K1, K3, K5 and K6 are also held against their plain versions under
+autograd (the backward is the plain formulation's gradient: K1's and K3's
+gradients are equal bit for bit, K5's and K6's within their bars, and a
+wrapper that drops the ``grad_fn`` must fail the check). K1, K2, K3 and K5
+are timed from CUDA-graph replays (device time), their eager calls beside
+them; K2 also as the flagship's whole tree (73 leaves in one launch,
+against the CPU's tree bit for bit). ``--kernels-only`` stops
 after the kernels' own checks (a new kernel's first run). Exits non-zero
 on any failure, and at once when no CUDA device is present.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -172,6 +182,9 @@ DCSE_STATS_TOL = 1e-5       # BatchNorm running statistics after a training
                             # forward, card vs CPU, of their scale (>= 1)
 CLIP_TOL = 1e-4             # the DCSE step's global-norm clip factor, card
                             # vs CPU, relative
+DIST_GRID_TOL = 1e-6        # evaluate --distributed and the split metric
+                            # sweep vs the one-process grid, per value (the
+                            # sweep's of max(1, |value|): SSNR is in dB)
 # the flagship's variants beside the default ([variants]); the last two
 # also take a training step against the CPU
 VARIANT_CONFIGS = (("default", {}), ("ssm", {"cpea_impl": "ssm"}),
@@ -851,7 +864,8 @@ def check_k6(seed: int, smi: str):
 
 
 def check_autograd(seed: int):
-    """K1 and K3 under autograd on the card: the forward is the kernel, the
+    """K1, K3, K5 and K6 under autograd on the card (K5 and K6:
+    :func:`check_autograd_k5_k6`). K1 and K3: the forward is the kernel, the
     backward the plain formulation's gradient on the saved inputs, so the
     gradients of a fixed cotangent equal the plain version's autograd bit
     for bit. K1 at a training step's shape (4, 400, 4, 64) with and without
@@ -910,7 +924,87 @@ def check_autograd(seed: int):
     if not (err <= KERNEL_TOL and equal and launched == 1):
         raise AssertionError("K3 under autograd disagrees with its plain "
                              "version")
+    check_autograd_k5_k6(g)
     return worst
+
+
+def autograd_err(fn, plain, args, g) -> float:
+    """The largest gradient error, of each gradient's scale, of ``fn``
+    against ``plain`` on ``args`` under one fixed cotangent per output;
+    infinite when an output of ``fn`` has no ``grad_fn`` (a wrapper that
+    drops the gradient)."""
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if any(o.grad_fn is None for o in outs):
+        return float("inf")
+    cots = [torch.randn(o.shape, device="cuda", generator=g) for o in outs]
+    got = torch.autograd.grad(outs, leaves, cots)
+    ref_leaves = [a.clone().requires_grad_(True) for a in args]
+    ref = plain(*ref_leaves)
+    want = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,),
+                               ref_leaves, cots)
+    return max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(got, want))
+
+
+def check_autograd_k5_k6(g) -> None:
+    """K5 and K6 under autograd on the card: the forward is the kernel, the
+    backward the plain version's gradient, recomputed; the gradients within
+    KERNEL_TOL (K5) and ENVACT_TOL (K6) of their scale of the plain
+    version's autograd. K5 at a PerceptionAgent block's strided conv and at
+    its residual conv with the skip; K6 through ``env_act`` and
+    ``env_act_auto``. A wrapper whose output lost its ``grad_fn`` (planted
+    by detaching it) must fail the same check."""
+    from sincformer_tpu_torch.ops.conv_gn import conv1d_gn, conv_gn_reference
+    from sincformer_tpu_torch.ops.envact import (env_act, env_act_auto,
+                                                 env_act_reference)
+    for t, cin, cout, k, s, act, skip in ((4000, 64, 128, 7, 2, True, False),
+                                          (400, 256, 256, 7, 1, True, True)):
+        t_out = -(-t // s)
+        args = [torch.randn(8, t, cin, device="cuda", generator=g),
+                torch.randn(k, cin, cout, device="cuda", generator=g)
+                / (k * cin) ** 0.5,
+                0.1 * torch.randn(cout, device="cuda", generator=g),
+                1.0 + 0.1 * torch.randn(cout, device="cuda", generator=g),
+                0.1 * torch.randn(cout, device="cuda", generator=g)]
+        if skip:
+            args.append(torch.randn(8, t_out, cout, device="cuda",
+                                    generator=g))
+
+        def kernel(*a, detach=False):
+            y = conv1d_gn(*a[:5], a[5] if skip else None, s, 16, act=act)
+            return y.detach() if detach else y
+
+        def plain(*a):
+            return conv_gn_reference(*a[:5], a[5] if skip else None,
+                                     stride=s, groups=16, act=act)
+        before = conv1d_gn.launches
+        err = autograd_err(kernel, plain, args, g)
+        launched = conv1d_gn.launches - before
+        planted = autograd_err(lambda *a: kernel(*a, detach=True), plain,
+                               args, g)
+        say(f"[autograd] K5 (8, {t}, {cin}->{cout}, k={k}, s={s}, skip="
+            f"{skip}): the {len(args)} gradients {err:.3e} of their scale "
+            f"from the plain autograd (limit {KERNEL_TOL:g}), kernel "
+            f"launches {launched}; a detached output: {planted}")
+        if not (err <= KERNEL_TOL and launched == 1) or planted <= KERNEL_TOL:
+            raise AssertionError("K5 under autograd disagrees with its plain "
+                                 "version")
+    args = [3 * torch.randn(8, 8000, 64, device="cuda", generator=g),
+            0.5 + 1.5 * torch.rand(64, device="cuda", generator=g)]
+    for name, fn in (("env_act", env_act), ("env_act_auto", env_act_auto)):
+        before = env_act.launches
+        err = autograd_err(fn, env_act_reference, args, g)
+        launched = env_act.launches - before
+        planted = autograd_err(lambda *a: tuple(o.detach() for o in fn(*a)),
+                               env_act_reference, args, g)
+        say(f"[autograd] K6 {name} (8, 8000, 64): dx, dscale {err:.3e} of "
+            f"their scale from the plain autograd (limit {ENVACT_TOL:g}), "
+            f"kernel launches {launched}; a detached output: {planted}")
+        if not (err <= ENVACT_TOL and launched == 1) or planted <= ENVACT_TOL:
+            raise AssertionError("K6 under autograd disagrees with its plain "
+                                 "version")
 
 
 def time_attention_in_step(seed: int, smi: str) -> dict:
@@ -1529,14 +1623,29 @@ def attribute_mrstft(small: dict, cfg) -> dict:
     return out
 
 
+def eval_models(seed: int, model_dir: str) -> None:
+    """The models ``evaluate`` scores in ``[evaluate]`` and
+    ``[distributed]``: the committed artifact's flagship and a seeded
+    full-width mask DNN saved by the port."""
+    import shutil
+
+    import sincformer_tpu_torch as port
+    shutil.copytree(os.path.join(ARTIFACT, "sincformer_final"),
+                    os.path.join(model_dir, "sincformer_final"))
+    dnn = port.create_dnn(port.FeatureConfig().dim).init_params(
+        torch.Generator().manual_seed(seed))
+    port.DNNPipeline("pcirm", device="cuda", model_dir=model_dir,
+                     model=dnn).save_model()
+
+
 def check_evaluate(seed: int, smi: str, launches) -> dict:
     """The ``evaluate`` verb in a process of its own on the card, over the
     committed artifact's flagship and a seeded full-width mask DNN saved by
     the port: every cell full, no failure caught, the noisy row and the
     flagship's means held against the JAX package's scores
     (``artifacts/r5/eval_grid_jax_cpu.json``); the metric sweep on the card
-    against the CPU; one cell's device time split."""
-    import shutil
+    against the CPU; one cell's device time split. The grid's per-cell
+    values are returned under ``"grid"``."""
     from concurrent.futures import ThreadPoolExecutor
 
     import sincformer_tpu_torch as port
@@ -1560,12 +1669,7 @@ def check_evaluate(seed: int, smi: str, launches) -> dict:
     with open(EVAL_REFERENCE) as f:
         ref = json.load(f)
     with tempfile.TemporaryDirectory() as model_dir:
-        shutil.copytree(os.path.join(ARTIFACT, "sincformer_final"),
-                        os.path.join(model_dir, "sincformer_final"))
-        dnn = port.create_dnn(port.FeatureConfig().dim).init_params(
-            torch.Generator().manual_seed(seed))
-        port.DNNPipeline("pcirm", device="cuda", model_dir=model_dir,
-                         model=dnn).save_model()
+        eval_models(seed, model_dir)
         json_out = os.path.join(model_dir, "grid.json")
         env = {**os.environ, "SINCFORMER_MODEL_DIR": model_dir,
                "PYTHONPATH": REPO}
@@ -1630,7 +1734,7 @@ def check_evaluate(seed: int, smi: str, launches) -> dict:
                 f" up to {d['utterance']:.3e} at {d['where']})"
                 for k, d in flagship.items()))
         result.update(verb_s=verb_s, k1_launches=child["speech_attention"],
-                      noisy_vs_jax=worst,
+                      grid=got["results"], noisy_vs_jax=worst,
                       sincformer_vs_jax=flagship,
                       means={m: {k: got["summary"][f"{m}.{k}"][0]
                                  for k in METRICS}
@@ -2611,6 +2715,570 @@ def check_variants(seed: int, smi: str, launches) -> dict:
     return result
 
 
+def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
+    """One dropout-0 training step on the card of the full flagship (from
+    the committed artifact, softmax routing) or of DCSE at ``DCSEConfig()``
+    sizes ("batch" norm, the fused feed-forward, seeded weights), on this
+    rank's block of ``batch`` (all of it without a mesh). First the whole
+    loss, its gradients and their global-norm clip factor (the buffers
+    restored after), then the step on the loss without the MR-STFT term
+    (its float32 gradient is rounding-dominated on either device:
+    ROADMAP.md Queue 3), profiled, with the all-reduces counted and timed
+    (the device synchronised around each). Returns host copies: the
+    losses, the whole loss's gradients and clip factor, the gradients the
+    optimizer was given, the parameters and buffers after, and the step's
+    measurements."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.ops.fused_ffn import fused_ffn
+    from sincformer_tpu_torch.ops.speech_attention import speech_attention
+    from sincformer_tpu_torch.parallel import shard_batch
+    from sincformer_tpu_torch.train import agent_trainer, dcse_trainer
+    if kind == "flagship":
+        cfg = port.MetacogConfig(dropout=0.0, routing="softmax")
+        p = agent_trainer.SincformerTrainer(
+            port.SincformerMetacog(cfg), device="cuda", model_dir=ARTIFACT,
+            mesh=mesh)
+        p.load_model()
+        p.init_state(epochs=1, steps_per_epoch=1)
+        module = agent_trainer
+        terms = (1.0, 1.0, None, 1.0)    # every term on, Gumbel unused
+
+        def whole(n, c):
+            return p.loss_and_grads(n, c, *terms)
+
+        def step(n, c):
+            return p.train_step(n, c, *terms)[0]
+    else:
+        cfg = port.DCSEConfig(dropout=0.0, conv_norm="batch", fused_ffn=True)
+        p = dcse_trainer.DCSETrainer(port.SpeechEnhancer(cfg), device="cuda",
+                                     seed=seed, mesh=mesh)
+        p.init_state(epochs=1, steps_per_epoch=1)
+        module = dcse_trainer
+
+        def whole(n, c):
+            return p.loss_and_grads(n, c)
+
+        def step(n, c):
+            return p.train_step(n, c)[0]
+    part = shard_batch(mesh, batch)
+    noisy, clean = (torch.from_numpy(part[k]).cuda()
+                    for k in ("noisy", "clean"))
+    saved = {k: b.clone() for k, b in p.model.named_buffers()}
+    speech_attention.launches = fused_ffn.launches = 0
+    loss_whole, _, grads_whole = whole(noisy, clean)
+    grads_whole = {k: g.detach().cpu() for k, g in zip(p.params(),
+                                                       grads_whole)
+                   if g is not None}
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum()
+                                for g in grads_whole.values())))
+    clip_whole = min(1.0, p.tx.grad_clip / norm)
+    before = (speech_attention.launches, fused_ffn.launches)
+    for k, b in p.model.named_buffers():
+        b.copy_(saved[k])
+    seen, reduce_ = {}, {"n": 0, "s": 0.0}
+    update, all_reduce = p.tx.update, dist.all_reduce
+
+    def record(params, grads, state):
+        seen["grads"] = {k: g.detach().cpu() for k, g in zip(params, grads)}
+        return update(params, grads, state)
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        reduce_["n"] += 1
+        reduce_["s"] += time.perf_counter() - t0
+        return out
+    p.tx.update = record
+    before_step = {k: v.detach().cpu() for k, v in
+                   p.model.named_parameters()}
+    speech_attention.launches = fused_ffn.launches = 0
+    loss = []
+    with mock.patch.object(module, "multi_resolution_stft_loss",
+                           lambda pred, target: pred.sum() * 0.0), \
+            mock.patch.object(dist, "all_reduce", timed):
+        prof = profile_once(lambda: loss.append(float(step(noisy, clean))))
+    host = lambda named: {k: t.detach().cpu() for k, t in named}  # noqa
+    out = {"loss_whole": float(loss_whole), "loss": loss[0],
+           "grads_whole": grads_whole, "norm_whole": norm,
+           "clip_whole": clip_whole, "buffers_before": host(saved.items()),
+           "grads": seen["grads"], "before": before_step,
+           "params": host(p.model.named_parameters()),
+           "buffers": host(p.model.named_buffers()),
+           "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+           "launches": prof["launches"], "k1": speech_attention.launches,
+           "k3": fused_ffn.launches,
+           "k1_total": before[0] + speech_attention.launches,
+           "k3_total": before[1] + fused_ffn.launches,
+           "all_reduces": reduce_["n"],
+           "all_reduce_ms": reduce_["s"] * 1e3}
+    speech_attention.launches = fused_ffn.launches = 0
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def stft_loss_rows(mesh, seed: int) -> tuple:
+    """The MR-STFT loss of seeded (8, 32000) waveforms on the card, inside
+    ``data_parallel(mesh)`` as the trainers compute it, and its gradient
+    with respect to this rank's rows of the prediction (every row without
+    a mesh), on the host. The halves differ (the second's target 4 times
+    louder, its error 4 times smaller), so the spectral convergence of a
+    half is not the batch's: its two norms must be global, and their
+    all-reduced backward must carry the other rank's share. On noise no
+    magnitude bin sits near zero, so the log-magnitude term's gradient is
+    well conditioned here, unlike in a training step's whole loss."""
+    from sincformer_tpu_torch.parallel import collectives, shard_batch
+    from sincformer_tpu_torch.train import losses
+    rng = np.random.default_rng(seed + 7)
+    rows = TRAIN_BATCH[0]
+    loud = np.where(np.arange(rows) < rows // 2, 1.0, 4.0)[:, None]
+    target = 0.1 * rng.standard_normal(TRAIN_BATCH) * loud
+    pred = target + 0.05 * rng.standard_normal(TRAIN_BATCH) / loud
+    part = shard_batch(mesh, {"pred": pred.astype(np.float32),
+                              "target": target.astype(np.float32)})
+    p = torch.from_numpy(part["pred"]).cuda().requires_grad_(True)
+    t = torch.from_numpy(part["target"]).cuda()
+    with collectives.data_parallel(mesh):
+        loss = losses.multi_resolution_stft_loss(p, t)
+    (grad,) = torch.autograd.grad(loss, p)
+    return float(loss.detach()), grad.cpu()
+
+
+def dp_child(rank: int, world: int, port_: int, batch_path: str,
+             out_path: str, seed: int) -> None:
+    """One rank of ``[distributed]`` (b): join a gloo group on the one
+    card, take this rank's block of the batch, run :func:`dp_case` for
+    the flagship and DCSE and :func:`stft_loss_rows`, also with the
+    spectral convergence's norms planted local, and save the results."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from sincformer_tpu_torch.parallel import init_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(f"tcp://127.0.0.1:{port_}", world, rank,
+                            backend="gloo", device="cuda"):
+        raise AssertionError("no process group")
+    mesh = make_mesh()
+    batch = dict(np.load(batch_path))
+    out = {kind: dp_case(kind, mesh, batch, seed)
+           for kind in ("flagship", "dcse")}
+    out["stft"] = stft_loss_rows(mesh, seed)
+    from sincformer_tpu_torch.train import losses
+    local = SimpleNamespace(norm=torch.linalg.vector_norm)
+    with mock.patch.object(losses, "collectives", local):
+        out["stft_fault"] = stft_loss_rows(mesh, seed)
+    torch.save(out, out_path)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argvs: list, what: str, env_of=lambda rank: {},
+              timeout: int = 600) -> list:
+    """``python -c code args`` for each rank's ``[code, *args]`` in
+    ``argvs``, all started together, each with the environment
+    ``env_of(rank)`` adds; waits for all (killing every one still running
+    when one fails or outlives ``timeout``) and returns each one's standard
+    output. A rank that exits non-zero fails the run."""
+    procs = [subprocess.Popen([sys.executable, "-c", *argv], cwd=REPO,
+                              env={**os.environ, "PYTHONPATH": REPO,
+                                   **env_of(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r, argv in enumerate(argvs)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                say(out[-2000:])
+                say(err[-3000:])
+                raise AssertionError(f"{what}: rank {r} exited "
+                                     f"{proc.returncode}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def dcse_norm_float64(case: dict, batch: dict, seed: int) -> float:
+    """The global norm of the DCSE whole loss's gradients on the whole
+    batch in float64 on the CPU, from the state :func:`dp_case` started
+    from (``case`` without a mesh): the measure of the batch's float32
+    conditioning that ``tests/test_torch_dcse_train.py`` takes."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.train import dcse_trainer
+    cfg = port.DCSEConfig(dropout=0.0, conv_norm="batch", fused_ffn=True)
+    p = dcse_trainer.DCSETrainer(port.SpeechEnhancer(cfg), device="cpu",
+                                 seed=seed)
+    p.model.load_state_dict({**case["before"], **case["buffers_before"]})
+    p.model.to(torch.float64)
+    noisy, clean = (torch.from_numpy(batch[k]).double()
+                    for k in ("noisy", "clean"))
+    grads = p.loss_and_grads(noisy, clean)[2]
+    return float(torch.sqrt(sum((g ** 2).sum() for g in grads
+                                if g is not None)))
+
+
+def dp_faults(got: dict, ref: dict, what: str,
+              norm64=None) -> list:
+    """A data-parallel step against the one-process step on the card with
+    the whole batch, at the card-vs-CPU training bars: the losses
+    TRAIN_LOSS_TOL relative; for DCSE, as ``[train-dcse]`` holds them, the
+    whole loss's gradients (each leaf TRAIN_GRAD_TOL of its largest
+    magnitude); its clip factor is printed beside the gradient norms and
+    ``norm64``, the one-process norm in float64: the MR-STFT term's
+    float32 gradient norm is rounding-dominated (ROADMAP.md Queue 3), so
+    :func:`stft_loss_rows` holds that term's global reductions on
+    well-conditioned inputs instead; the flagship's whole-loss figures
+    are printed, ``[train]`` holds no bar on them; the
+    gradients and the AdamW step as :func:`step_faults` holds a step
+    against another (each leaf TRAIN_GRAD_TOL of its largest magnitude,
+    the parameters TRAIN_PARAM_TOL of their scale where the clipped
+    gradients agree in sign and pass 1e-5); the buffers (the MAA
+    statistics, the episodic bank and its counts, the BatchNorm
+    statistics) DCSE_STATS_TOL of their scale (at least 1). Returns the
+    faults and prints the largest error of each kind."""
+    faults, worst = [], {}
+    for key in ("loss_whole", "loss"):
+        worst[key] = abs(got[key] - ref[key]) / abs(ref[key])
+        if worst[key] > TRAIN_LOSS_TOL:
+            faults.append(f"{key} {got[key]} vs {ref[key]}")
+    rows = grads_vs(got["grads_whole"], ref["grads_whole"],
+                    ref["grads_whole"])
+    worst["grads_whole"] = rows[0][0]
+    worst["clip"] = abs(got["clip_whole"] - ref["clip_whole"]) / ref[
+        "clip_whole"]
+    if what == "dcse":
+        off64 = [abs(r["norm_whole"] - norm64) / norm64 for r in (ref, got)]
+        if worst["grads_whole"] > TRAIN_GRAD_TOL:
+            faults.append(f"whole loss's gradient of {rows[0][1]} "
+                          f"{rows[0][0]:.3e} of its scale")
+    step, figures = step_faults(ref["grads"], got["grads"], ref["before"],
+                                ref["params"], got["params"],
+                                grad_tol=TRAIN_GRAD_TOL)
+    faults += step
+    worst["grads"], worst["params"] = figures["grad"], figures["param"]
+    worst["buffers"] = {}
+    for k, b in ref["buffers"].items():
+        b64, g64 = b.double(), got["buffers"][k].double()
+        err = float((g64 - b64).abs().max()) / max(1.0, float(
+            b64.abs().max()))
+        worst["buffers"][k] = err
+        if err > DCSE_STATS_TOL:
+            faults.append(f"buffer {k}: {err:.3e}")
+    top = sorted(worst["buffers"].items(), key=lambda kv: -kv[1])[:4]
+    say(f"[distributed] {what} vs one process with the whole batch: loss "
+        f"{worst['loss_whole']:.3e}, without the MR-STFT term "
+        f"{worst['loss']:.3e} (limit {TRAIN_LOSS_TOL:g}); the whole loss's "
+        f"gradients {worst['grads_whole']:.3e} ({rows[0][1]}) and clip "
+        f"factor {got['clip_whole']:.7g} vs {ref['clip_whole']:.7g}, "
+        f"{worst['clip']:.3e} relative"
+        + (f" (gradients: limit {TRAIN_GRAD_TOL:g}; the clip factor "
+           f"unbarred: the gradient norms {ref['norm_whole']:.7g} one "
+           f"process, {got['norm_whole']:.7g} two ranks, {norm64:.7g} in "
+           f"float64, {off64[0]:.3e} and {off64[1]:.3e} from it)"
+           if what == "dcse" else " (no bar in [train])")
+        + f"; gradients without the term "
+        f"{worst['grads']:.3e} (limit {TRAIN_GRAD_TOL:g}); parameters "
+        f"after AdamW {worst['params']:.3e} (limit {TRAIN_PARAM_TOL:g}; "
+        f"{figures['param_elements_other']} of {figures['elements']} "
+        f"elements held to twice the step, "
+        f"{figures['grad_elements_flipped']} flipped signs); "
+        f"buffers, largest {', '.join(f'{k} {e:.3e}' for k, e in top)} "
+        f"(limit {DCSE_STATS_TOL:g})")
+    return faults
+
+
+def bit_equal(a: dict, b: dict) -> list:
+    """The entries of two :func:`dp_case` results that differ in any
+    bit."""
+    diff = [k for k in ("loss_whole", "clip_whole", "loss") if a[k] != b[k]]
+    for key in ("grads_whole", "grads", "params", "buffers"):
+        diff += [f"{key} {k}" for k in b[key]
+                 if not torch.equal(a[key][k], b[key][k])]
+    return diff
+
+
+def check_distributed(seed: int, smi: str, launches, eval_grid: dict
+                      ) -> dict:
+    """Data parallelism on the one card: (a) the flagship and DCSE steps
+    on a one-rank NCCL mesh bit-equal to the steps without a mesh; (b) two
+    ranks over gloo in processes of their own, half the batch each, against
+    the one-process step with the whole batch, their parameters and
+    buffers bit-equal; (c) ``evaluate --distributed`` in two processes
+    against ``[evaluate]``'s grid; (d) the metric sweep split over three
+    and over two devices (the cyclic pad) against the unsharded one."""
+    import torch.distributed as dist
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.data.loader import load_noise_signals
+    from sincformer_tpu_torch.evaluation.grid import (eval_utterances,
+                                                      evaluate_grid)
+    from sincformer_tpu_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    result = {}
+    batch = dcse_batch(seed)
+    blocks = port.MetacogConfig().msa_blocks
+    dcse_blocks = port.DCSEConfig().num_blocks
+
+    # (a) one rank over NCCL against no mesh, with cuDNN's deterministic
+    # algorithms (its default weight gradients add by atomics, so two runs
+    # of one step differ in the last bits without a mesh too)
+    import warnings
+    launches.reset()
+    faults = []
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ref = {kind: dp_case(kind, None, batch, seed)
+                   for kind in ("flagship", "dcse")}
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                    f"{free_port()}", world_size=1, rank=0)
+            try:
+                one = {kind: dp_case(kind, make_mesh(), batch, seed)
+                       for kind in ("flagship", "dcse")}
+            finally:
+                dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    loose = sorted({str(w.message).split(".")[0][:120] for w in caught
+                    if "deterministic" in str(w.message)})
+    say(f"[distributed] (a) operations without a deterministic "
+        f"implementation on this path: {loose or 'none'}")
+    for kind in ("flagship", "dcse"):
+        diff = bit_equal(one[kind], ref[kind])
+        n = 3 + sum(len(ref[kind][k]) for k in ("grads_whole", "grads",
+                                                "params", "buffers"))
+        say(f"[distributed] (a) {kind} step {TRAIN_BATCH}, one-rank NCCL "
+            f"mesh vs no mesh: {len(diff)} of {n} entries differ in any bit "
+            f"{diff[:4]}")
+        faults += [f"one rank vs no mesh, {kind}: {d}" for d in diff[:5]]
+    # K1 and K3 in the step (its forward; the backward is the plain
+    # recompute): the flagship's MSA runs twice a forward
+    for kind, k1, k3 in (("flagship", 2 * blocks, 0),
+                         ("dcse", dcse_blocks, 2 * dcse_blocks)):
+        for r in (ref[kind], one[kind]):
+            if (r["k1"], r["k3"]) != (k1, k3):
+                faults.append(f"{kind}: K1, K3 launches {r['k1']}, "
+                              f"{r['k3']} in a step, expected {k1}, {k3}")
+    for r in (*ref.values(), *one.values()):
+        launches.total["speech_attention"] += r["k1_total"]
+        launches.total["fused_ffn"] += r["k3_total"]
+    for kind in ("flagship", "dcse"):
+        r = ref[kind]
+        say(f"[distributed] one process, {kind} step {TRAIN_BATCH} (cuDNN "
+            f"deterministic): "
+            f"{r['wall_ms']:.2f} ms wall (profiled), device busy "
+            f"{r['busy_ms']:.3f} ms, {r['launches']} launches, K1 {r['k1']},"
+            f" K3 {r['k3']} on {smi}")
+
+    # (b) two ranks over gloo on the one card, half the batch each
+    with tempfile.TemporaryDirectory() as tmp:
+        batch_path = os.path.join(tmp, "batch.npz")
+        np.savez(batch_path, noisy=batch["noisy"], clean=batch["clean"])
+        port_ = free_port()
+        t0 = time.perf_counter()
+        run_ranks(
+            [["import sys, chip_smoke\n"
+              "chip_smoke.dp_child(int(sys.argv[1]), int(sys.argv[2]), "
+              "int(sys.argv[3]), sys.argv[4], sys.argv[5], "
+              "int(sys.argv[6]))\n", str(r), "2", str(port_), batch_path,
+              os.path.join(tmp, f"rank{r}.pt"), str(seed)] for r in range(2)],
+            "[distributed] (b)")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    norm64 = dcse_norm_float64(ref["dcse"], batch, seed)
+    for kind in ("flagship", "dcse"):
+        diff = bit_equal(ranks[0][kind], ranks[1][kind])
+        say(f"[distributed] (b) {kind}: the two ranks' losses, gradients, "
+            f"parameters and buffers differ in {len(diff)} entries")
+        faults += [f"{kind} ranks differ: {d}" for d in diff[:5]]
+        faults += [f"{kind}: {f}" for f in dp_faults(
+            ranks[0][kind], ref[kind], kind,
+            norm64 if kind == "dcse" else None)]
+        maa = {k: (float(ranks[0][kind]["buffers"][k]),
+                   float(ref[kind]["buffers"][k]))
+               for k in ("maa.running_mean", "maa.running_var")
+               if k in ref[kind]["buffers"]}
+        if maa:
+            bank = max(float((ranks[0][kind]["buffers"][k]
+                              - ref[kind]["buffers"][k]).abs().max())
+                       for k in ref[kind]["buffers"] if "bank_" in k)
+            say(f"[distributed] (b) flagship: MAA statistics (two ranks, one "
+                f"process) {maa}; episodic bank largest |delta| {bank:.3e}")
+        for r, out in enumerate(ranks):
+            o = out[kind]
+            say(f"[distributed] (b) rank {r} {kind} step on "
+                f"{TRAIN_BATCH[0] // 2} x 4 s: {o['wall_ms']:.2f} ms wall "
+                f"(profiled, the device synchronised around each "
+                f"all-reduce), device busy {o['busy_ms']:.3f} ms, "
+                f"{o['launches']} launches, K1 {o['k1']}, K3 {o['k3']}, "
+                f"{o['all_reduces']} all-reduces taking "
+                f"{o['all_reduce_ms']:.2f} ms")
+            want = ((2 * blocks, 0) if kind == "flagship"
+                    else (dcse_blocks, 2 * dcse_blocks))
+            if (o["k1"], o["k3"]) != want:
+                faults.append(f"{kind} rank {r}: K1, K3 launches "
+                              f"{o['k1']}, {o['k3']}, expected {want}")
+            launches.total["speech_attention"] += o["k1_total"]
+            launches.total["fused_ffn"] += o["k3_total"]
+    result["two_ranks"] = {
+        kind: [{k: ranks[r][kind][k] for k in (
+            "wall_ms", "busy_ms", "launches", "k1", "k3", "all_reduces",
+            "all_reduce_ms")} for r in range(2)]
+        for kind in ("flagship", "dcse")}
+    result["one_process"] = {kind: {k: ref[kind][k] for k in (
+        "wall_ms", "busy_ms", "launches", "k1", "k3")}
+        for kind in ("flagship", "dcse")}
+    # the MR-STFT loss alone, well conditioned: its spectral convergence's
+    # global norms and their all-reduced backward (stft_loss_rows); the
+    # ranks' losses average to the batch's, and each rank's gradient over
+    # the world size is the batch's at its rows
+    one_loss, one_grad = stft_loss_rows(None, seed)
+    stft = {}
+    for key in ("stft", "stft_fault"):
+        loss = sum(r[key][0] for r in ranks) / len(ranks)
+        grad = torch.cat([r[key][1] for r in ranks]) / len(ranks)
+        stft[key] = (abs(loss - one_loss) / abs(one_loss),
+                     float((grad - one_grad).abs().max())
+                     / float(one_grad.abs().max()))
+    say(f"[distributed] (b) the MR-STFT loss of {TRAIN_BATCH} seeded noise "
+        f"(halves 4x apart in level), two ranks vs one process on the "
+        f"card: loss {stft['stft'][0]:.3e} relative (limit "
+        f"{TRAIN_LOSS_TOL:g}), gradient {stft['stft'][1]:.3e} of its scale "
+        f"(limit {TRAIN_GRAD_TOL:g}); with the spectral convergence's norms "
+        f"planted local: {stft['stft_fault'][0]:.3e} and "
+        f"{stft['stft_fault'][1]:.3e} (must fail)")
+    if stft["stft"][0] > TRAIN_LOSS_TOL or stft["stft"][1] > TRAIN_GRAD_TOL:
+        faults.append("the MR-STFT loss over two ranks left one process's")
+    if (stft["stft_fault"][0] <= TRAIN_LOSS_TOL
+            and stft["stft_fault"][1] <= TRAIN_GRAD_TOL):
+        faults.append("the planted local spectral convergence passed")
+    result["stft_loss"] = stft
+    result["two_ranks_s"] = ranks_s
+    say(f"[distributed] (b) two processes over gloo: {ranks_s:.1f} s wall "
+        f"(process start, the model, two steps each)")
+    torch.cuda.empty_cache()
+
+    # (c) evaluate --distributed in two processes on the card
+    runner = ("import json, sys\n"
+              "from sincformer_tpu_torch import cli\n"
+              "from sincformer_tpu_torch.ops.speech_attention import "
+              "speech_attention\n"
+              "rc = cli.main(sys.argv[1:])\n"
+              "print(json.dumps({'speech_attention': "
+              "speech_attention.launches}))\n"
+              "sys.exit(rc)\n")
+    with tempfile.TemporaryDirectory() as model_dir:
+        eval_models(seed, model_dir)
+        port_ = free_port()
+        t0 = time.perf_counter()
+        outs = run_ranks(
+            [[runner, "evaluate", "--distributed", "--json-out",
+              os.path.join(model_dir, f"grid_{r}.json")] for r in range(2)],
+            "[distributed] (c) evaluate --distributed",
+            env_of=lambda r: {"RANK": str(r), "WORLD_SIZE": "2",
+                              "LOCAL_RANK": "0",
+                              "MASTER_ADDR": "127.0.0.1",
+                              "MASTER_PORT": str(port_),
+                              "SINCFORMER_MODEL_DIR": model_dir})
+        verb_s = time.perf_counter() - t0
+        wrote = [os.path.exists(os.path.join(model_dir, f"grid_{r}.json"))
+                 for r in range(2)]
+        with open(os.path.join(model_dir, "grid_0.json")) as f:
+            got = json.load(f)["results"]
+    k1 = [json.loads(o.strip().splitlines()[-1])["speech_attention"]
+          for o in outs]
+    tables = ["GRAND SUMMARY" in o for o in outs]
+    worst, cells = 0.0, 0
+    for noise, methods in eval_grid.items():
+        for method, by_snr in methods.items():
+            for snr, metric_vals in by_snr.items():
+                for k, vals in metric_vals.items():
+                    other = got[noise][method][snr][k]
+                    if len(other) != len(vals):
+                        raise AssertionError(f"cell {method} {snr} {k} has "
+                                             f"{len(other)} values")
+                    worst = max(worst, max(abs(a - b) for a, b in
+                                           zip(other, vals)))
+                    cells += 1
+    say(f"[distributed] (c) evaluate --distributed, 2 processes on the card "
+        f"over gloo: exit 0 in {verb_s:.1f} s wall; K1 launches per rank "
+        f"{k1}; tables printed by {sum(tables)} of 2; --json-out written by "
+        f"rank(s) {[r for r in range(2) if wrote[r]]}; {cells} cell x "
+        f"metric lists vs [evaluate]'s one-process grid: largest |delta| "
+        f"{worst:.3e} (limit {DIST_GRID_TOL:g})")
+    if (worst > DIST_GRID_TOL or wrote != [True, False] or not all(tables)
+            or sum(k1) != len(eval_grid["white"]["noisy"]) * blocks):
+        faults.append("evaluate --distributed left the one-process grid")
+    launches.total["speech_attention"] += sum(k1)
+    result["evaluate"] = {"verb_s": verb_s, "k1_per_rank": k1,
+                          "max_abs_delta": worst}
+
+    # (d) the metric sweep split over devices, a 3-utterance bucket
+    cleans = eval_utterances(3)
+    noises = load_noise_signals(8000)
+    pipe = port.SincformerPipeline(device="cuda", model_dir=ARTIFACT)
+    pipe.load_model()
+    pipes = {"sincformer": pipe}
+    launches.reset()
+    # the device metrics: P.862 runs on host threads row by row whatever
+    # the split
+    metrics = ("stoi", "ssnr", "csii", "ncm")
+    want = evaluate_grid(cleans, noises, pipes, [0.0], metrics,
+                         verbose=False)
+    sweep = {}
+    for n_dev in (3, 2):
+        got = evaluate_grid(cleans, noises, pipes, [0.0], metrics,
+                            verbose=False,
+                            mesh=[torch.device("cuda", 0)] * n_dev)
+        sweep[n_dev] = max(
+            abs(a - b) / max(1.0, abs(b)) for m, cell in want["white"].items()
+            for k, vals in cell[0.0].items()
+            for a, b in zip(got["white"][m][0.0][k], vals))
+        if any(len(v) != 3 for cell in got["white"].values()
+               for v in cell[0.0].values()):
+            raise AssertionError("a padded row reached the results")
+    launches.expect("[distributed] (d) three grids of one cell",
+                    speech_attention=3 * blocks)
+    say(f"[distributed] (d) evaluate_grid, 3 utterances at 0 dB, the device "
+        f"metrics' sweep "
+        f"split over [cuda:0] x 3 and x 2 (one padded row) vs unsharded: "
+        f"largest |delta| / max(1, |value|) {sweep[3]:.3e} and "
+        f"{sweep[2]:.3e} (limit {DIST_GRID_TOL:g})")
+    if max(sweep.values()) > DIST_GRID_TOL:
+        faults.append("the split sweep left the unsharded one")
+    result["sweep_split_max_abs_delta"] = sweep
+    del pipe, pipes
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    say(f"[distributed] phase wall {result['phase_s']:.1f} s on {smi}")
+    if faults:
+        raise AssertionError("[distributed]: " + "; ".join(faults[:10]))
+    return result
+
+
 def check_istft(seed: int) -> None:
     """The iSTFT on the card must not depend on the batch size: one batch of
     16 windows against four batches of 4 and against the CPU, on a spectrum
@@ -3209,6 +3877,7 @@ def main() -> int:
 
     # ── phase 12: evaluation, calibration, WAV input and tracing ─────────
     evaluation = check_evaluate(args.seed, smi, launches)
+    eval_grid = evaluation.pop("grid")
     say("[evaluate] " + json.dumps(evaluation))
     calibration = check_calibrate(launches)
     say("[calibrate] " + json.dumps(calibration))
@@ -3231,6 +3900,12 @@ def main() -> int:
     say("[variants] " + json.dumps(variants))
     launches.reset()
     phase_done("[variants]")
+
+    # ── phase 15: data parallelism on the one card ──────────────────────
+    distributed = check_distributed(args.seed, smi, launches, eval_grid)
+    say("[distributed] " + json.dumps(distributed))
+    launches.reset()
+    phase_done("[distributed]")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
@@ -3268,7 +3943,12 @@ def main() -> int:
                         "train_step"]["k1_launches"]}
                     for name, _ in VARIANT_CONFIGS},
                 "in_variant_train_verb": variants["train_verb"][
-                    "k1_launches"]}),
+                    "k1_launches"],
+                "in_distributed": {
+                    "per_rank_step": {kind: distributed["two_ranks"][kind][0][
+                        "k1"] for kind in ("flagship", "dcse")},
+                    "per_rank_evaluate": distributed["evaluate"][
+                        "k1_per_rank"]}}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),
@@ -3277,7 +3957,9 @@ def main() -> int:
             at_rows6416=k3_time_60s, extra={
                 "in_dcse_validation": dcse_train["k3_in_validation"],
                 "in_dcse_step_no_dropout":
-                    dcse_train["k3_in_step_no_dropout"]}),
+                    dcse_train["k3_in_step_no_dropout"],
+                "in_distributed_dcse_step_per_rank":
+                    distributed["two_ranks"]["dcse"][0]["k3"]}),
         row("meddis", "meddis.cu",
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",

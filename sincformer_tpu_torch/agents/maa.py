@@ -10,7 +10,9 @@ gradient flows back to σ, as in the JAX module (the buffers keep their
 values only); then the route is Gumbel-softmax straight-through
 (``routing="gumbel"``: the forward value is the one-hot argmax of the
 perturbed softmax, the gradient the perturbed softmax's) or the softmax
-probabilities themselves (``routing="softmax"``).
+probabilities themselves (``routing="softmax"``). In a data-parallel step
+the batch's statistics are the global batch's (``parallel/collectives.py``),
+as in JAX's sharded step.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sincformer_tpu_torch.parallel import collectives
 
 SOFT_MASK, RESAMPLE, HARD_MASK, ESCALATE = 0, 1, 2, 3
 MOMENTUM = 0.1            # EMA of the running σ statistics in training
@@ -60,8 +64,8 @@ class MetacognitiveArbitrationAgent(nn.Module):
             sigma = sigma[:, 0, :]
         mean, var = self.running_mean, self.running_var
         if train:
-            mean = (1 - MOMENTUM) * mean + MOMENTUM * sigma.mean()
-            var = (1 - MOMENTUM) * var + MOMENTUM * sigma.var(unbiased=False)
+            mean = (1 - MOMENTUM) * mean + MOMENTUM * collectives.mean(sigma)
+            var = (1 - MOMENTUM) * var + MOMENTUM * collectives.var(sigma)
             with torch.no_grad():
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)

@@ -8,6 +8,8 @@ updated bank, and counts which slot each query hit (buffers, the JAX
 of the detached query and of the written value go into the least recently
 used slot when the best cosine to a stored key is below 0.7 (a new
 environment), and into that best slot by an EMA of momentum 0.5 otherwise.
+In a data-parallel step the means and the counts are the global batch's
+(``parallel/collectives.py``), so every rank writes the same bank.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 
 from sincformer_tpu_torch.agents.perception import gelu
 from sincformer_tpu_torch.models.conformer import LN_EPS
+from sincformer_tpu_torch.parallel import collectives
 
 
 WRITE_THRESHOLD = 0.7     # best cosine below this: a new environment
@@ -57,8 +60,8 @@ class EpisodicMemory(nn.Module):
     def _write(self, query: torch.Tensor, write_value: torch.Tensor) -> None:
         """One write of the batch means into the episodic bank, on the
         device, with no host synchronisation."""
-        emb = query.detach().mean(dim=0)
-        val = write_value.detach().mean(dim=0)
+        emb = collectives.mean(query.detach(), dim=0)
+        val = collectives.mean(write_value.detach(), dim=0)
         en = emb / (torch.linalg.vector_norm(emb) + 1e-8)
         sims = _unit(self.bank_keys) @ en                   # (ep,)
         best = torch.argmax(sims)
@@ -89,9 +92,11 @@ class EpisodicMemory(nn.Module):
         top = torch.argmax(similarity, dim=-1)
         if train:
             with torch.no_grad():
-                self.usage_count.add_(F.one_hot(
+                self.usage_count.add_(collectives.sum(F.one_hot(
                     top, self.usage_count.shape[0]).sum(0).to(
-                        self.usage_count.dtype))
-                self.num_queries.add_(top.shape[0])
+                        self.usage_count.dtype)))
+                # the ranks of a data-parallel step hold equal blocks
+                self.num_queries.add_(top.shape[0]
+                                      * collectives.world_size())
         return {"bias": bias * gate, "gate": gate, "top_indices": top,
                 "similarity": torch.max(similarity, dim=-1).values}

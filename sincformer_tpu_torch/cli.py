@@ -22,7 +22,9 @@
   * ``evaluate`` (alias ``test``) - the five-metric grid (STOI, PESQ,
     SSNR, CSII, NCM) over every trained model found (a reference
     ``conformer_final.pt`` included), on TIMIT + NOISEX-92 or the synthetic
-    fallbacks; ``--json-out`` writes every cell;
+    fallbacks; ``--json-out`` writes every cell; ``--mesh`` splits the
+    metric sweep over every visible card, ``--distributed`` deals the
+    (noise, SNR) cells to the processes that ``torchrun`` starts;
   * ``calibrate`` - fit the output gain of a trained checkpoint on
     held-out mixtures and persist it in its sidecar;
   * ``info`` - print the configuration, the device and the flagship
@@ -31,8 +33,7 @@
 Models are looked up and written under ``SINCFORMER_MODEL_DIR`` (default
 ``saved_models``), as in the JAX package's CLI; a flagship checkpoint of any
 variant is served as its weights show. Everything runs on the card unless
-``--device cpu`` is given. Only ``evaluate --distributed`` is not ported
-yet, and it says so.
+``--device cpu`` is given. Every verb of the JAX package's CLI is ported.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import time
 
 import numpy as np
 
-_MISSING = "evaluate --distributed"
+_MISSING = ""          # what of the JAX package's CLI is not ported
 
 
 def _model_dir() -> str:
@@ -446,15 +447,11 @@ def evaluate(args) -> int:
     best-validation checkpoints instead of the final ones."""
     from sincformer_tpu_torch.evaluation.grid import run_grid_evaluation
     os.environ["SINCFORMER_CKPT_PREF"] = args.ckpt
-    try:
-        summary = run_grid_evaluation(
-            max_eval=args.max_eval, model_dir=_model_dir(),
-            distributed=args.distributed, use_mesh=args.mesh,
-            synth_noises=args.synth_noises, synth_speech=args.synth_speech,
-            json_out=args.json_out, device=args.device)
-    except NotImplementedError as e:
-        print(f"  {e}", file=sys.stderr)
-        return 2
+    summary = run_grid_evaluation(
+        max_eval=args.max_eval, model_dir=_model_dir(),
+        distributed=args.distributed, use_mesh=args.mesh,
+        synth_noises=args.synth_noises, synth_speech=args.synth_speech,
+        json_out=args.json_out, device=args.device)
     return 0 if summary is not None else 1
 
 
@@ -565,8 +562,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="sincformer_tpu_torch",
         description="Speech enhancement on the GPU: Sincformer metacog, "
                     "the DCSE Conformer and the original paper's mask DNN "
-                    "(PyTorch/CUDA port)",
-        epilog=f"not ported yet: {_MISSING}")
+                    "(PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="command")
 
     enp = sub.add_parser("enhance", help="Enhance WAV file(s)")
@@ -650,7 +646,14 @@ def build_parser() -> argparse.ArgumentParser:
                        help="shard the metric sweep over every visible "
                             "device (one card: unsharded)")
         p.add_argument("--distributed", action="store_true",
-                       help="multi-host grid partition (not ported yet)")
+                       help="deal the (noise x SNR) cells to the processes "
+                            "of a group and merge them: start one process "
+                            "per card with torchrun, which sets RANK, "
+                            "WORLD_SIZE, MASTER_ADDR, MASTER_PORT and "
+                            "LOCAL_RANK (the card), e.g. torchrun "
+                            "--nproc_per_node=2 -m sincformer_tpu_torch.cli "
+                            "evaluate --distributed; the parts meet in "
+                            "<SINCFORMER_MODEL_DIR>/_distributed_eval")
         p.add_argument("--synth-noises", default="white",
                        choices=["white", "multi"], dest="synth_noises",
                        help="without NOISEX-92: one white noise or the "

@@ -40,7 +40,15 @@ def metrics_batch(clean: np.ndarray, enhanced: np.ndarray,
                   device="cuda") -> Dict[str, np.ndarray]:
     """{metric: (B,) float array} for (B, N) pairs of equal length. The
     device metrics run on ``device``; PESQ (unless ``pesq_impl="proxy"``)
-    and, when pystoi is installed, STOI run on host threads meanwhile."""
+    and, when pystoi is installed, STOI run on host threads meanwhile,
+    once over the B rows.
+
+    ``device`` may be a list of devices: the device metrics' batch is then
+    split over them in contiguous blocks, as JAX shards it over its mesh's
+    "data" axis, padded cyclically to a multiple of their count
+    (``np.resize``: 3 rows on 8 devices repeat them) with the padded rows
+    dropped after. Every block is queued on its device before any result
+    is read back, so the devices run together."""
     pesq_impl = pesq_impl or EvalConfig().pesq_impl
     host_pesq = "pesq" in metrics and pesq_impl != "proxy"
     # pystoi, when installed, is what the host entry point dispatches to
@@ -63,10 +71,25 @@ def metrics_batch(clean: np.ndarray, enhanced: np.ndarray,
             futs["stoi"] = [pool.submit(compute_stoi, c, e, fs)
                             for c, e in zip(cs, es)]
     if device_metrics:
-        c, e = f32_on(clean, device), f32_on(enhanced, device)
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else [device])
+        n, per = len(clean), len(devices)
+        cb, eb = np.asarray(clean), np.asarray(enhanced)
+        if n % per:
+            padded = n + (-n) % per
+            cb = np.resize(cb, (padded,) + cb.shape[1:])
+            eb = np.resize(eb, (padded,) + eb.shape[1:])
+        step = len(cb) // per
+        parts = []
         with torch.inference_mode():
-            dev = {k: METRIC_TORCH[k](c, e, fs) for k in device_metrics}
-        out.update({k: v.cpu().numpy() for k, v in dev.items()})
+            for i, dev in enumerate(devices):
+                c = f32_on(cb[i * step:(i + 1) * step], dev)
+                e = f32_on(eb[i * step:(i + 1) * step], dev)
+                parts.append({k: METRIC_TORCH[k](c, e, fs)
+                              for k in device_metrics})
+        out.update({k: np.concatenate([p[k].cpu().numpy()
+                                       for p in parts])[:n]
+                    for k in device_metrics})
     for k, fl in futs.items():
         out[k] = np.asarray([f.result() for f in fl])
     if pool is not None:

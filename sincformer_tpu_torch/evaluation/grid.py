@@ -7,9 +7,14 @@ Utterances are zero-padded to length buckets (multiples of 4000 samples),
 so each (noise, SNR, bucket) cell is one batched enhancement call; metrics
 are taken on the true lengths, in one device sweep (``batched.py``) when a
 bucket's lengths are equal and by the host entry points otherwise. A
-failed enhancement is printed and counted, never dropped silently. The
-serial path for a pipeline without ``enhance_batch`` and the multi-host
-grid are not ported (ROADMAP.md Queue 1 item 6).
+failed enhancement is printed and counted, never dropped silently. Every
+pipeline of the port has ``enhance_batch``, so JAX's serial path for one
+without it is not needed.
+
+Scale-out, as in JAX: ``evaluate_grid(mesh=...)`` splits the metric
+sweep's batch over a list of devices (one process), and
+:func:`evaluate_grid_distributed` deals the (noise, SNR) cells to the
+processes of a group and merges their parts.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import inspect
 import json
 import os
+import pickle
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -32,14 +38,18 @@ from sincformer_tpu_torch.evaluation.ncm import compute_ncm
 from sincformer_tpu_torch.evaluation.pesq import compute_pesq
 from sincformer_tpu_torch.evaluation.ssnr import compute_ssnr
 from sincformer_tpu_torch.evaluation.stoi import compute_stoi
+from sincformer_tpu_torch.parallel import collectives
+from sincformer_tpu_torch.parallel.distributed import (init_distributed,
+                                                       is_primary,
+                                                       merge_grid_results,
+                                                       partition_grid_cells,
+                                                       process_count,
+                                                       process_index)
 
 METRICS = ("stoi", "pesq", "ssnr", "csii", "ncm")
 _METRIC_FNS = {"stoi": compute_stoi, "pesq": compute_pesq,
                "ssnr": compute_ssnr, "csii": compute_csii,
                "ncm": compute_ncm}
-MULTI_HOST_NOT_PORTED = (
-    "the multi-host grid evaluation (evaluate --distributed) is not ported "
-    "to sincformer_tpu_torch yet: ROADMAP.md Queue 1 item 6")
 
 
 def discover_pipelines(model_dir: str,
@@ -104,7 +114,7 @@ def evaluate_grid(clean_signals: Sequence[np.ndarray],
                   snr_levels: Optional[Sequence[float]] = None,
                   metrics: Sequence[str] = METRICS,
                   verbose: bool = True, bucket_quantum: int = 4000,
-                  device="cuda") -> Dict:
+                  device="cuda", mesh: Optional[Sequence] = None) -> Dict:
     """results[noise][method][snr][metric] = [value per utterance], the
     methods being "noisy" and each pipeline's name.
 
@@ -113,7 +123,15 @@ def evaluate_grid(clean_signals: Sequence[np.ndarray],
     when a bucket's lengths are equal (and it holds more than one
     utterance), else through the host entry points. Every pipeline must
     have ``enhance_batch`` (JAX's serial path for one without it is not
-    ported: every pipeline of the port has it)."""
+    ported: every pipeline of the port has it).
+
+    ``mesh``: a list of devices (e.g. every visible card) over which the
+    metric sweep's device metrics are split in contiguous blocks, all
+    queued before any is read back, as JAX shards the sweep over its
+    mesh's "data" axis (:func:`metrics_batch`). A bucket that does not
+    divide is padded cyclically (``np.resize``: a 3-utterance bucket on 8
+    devices repeats it), and the padded rows are dropped from the results;
+    the host metrics (PESQ) run once over the real rows."""
     snr_levels = list(snr_levels or DataConfig().snr_levels)
     fs = AudioConfig().sample_rate
     methods = ["noisy"] + list(pipelines.keys())
@@ -131,7 +149,7 @@ def evaluate_grid(clean_signals: Sequence[np.ndarray],
     def _metrics_for(clean_list, sig_list):
         if len({len(c) for c in clean_list}) == 1 and len(clean_list) > 1:
             vals = metrics_batch(np.stack(clean_list), np.stack(sig_list),
-                                 metrics, fs=fs, device=device)
+                                 metrics, fs=fs, device=mesh or device)
             return [{k: float(vals[k][i]) for k in metrics}
                     for i in range(len(clean_list))]
         out = []
@@ -187,9 +205,41 @@ def evaluate_grid(clean_signals: Sequence[np.ndarray],
     return results
 
 
-def evaluate_grid_distributed(*args, **kwargs) -> Dict:
-    """The multi-host grid: not ported (ROADMAP.md Queue 1 item 6)."""
-    raise NotImplementedError(MULTI_HOST_NOT_PORTED)
+def evaluate_grid_distributed(clean_signals: Sequence[np.ndarray],
+                              noises: Dict[str, np.ndarray],
+                              pipelines: Dict[str, object],
+                              snr_levels: Optional[Sequence[float]] = None,
+                              out_dir: Optional[str] = None,
+                              **kwargs) -> Dict:
+    """The grid over the processes of a group: the (noise, SNR) cells are
+    dealt round-robin (``parallel.partition_grid_cells``), each process
+    evaluates its sub-grid with :func:`evaluate_grid` (``kwargs``), writes
+    its part to the shared ``out_dir``, waits at a barrier and merges every
+    part (``merge_grid_results``), so each process returns the whole grid.
+    A single process returns :func:`evaluate_grid`'s result exactly."""
+    snr_levels = list(snr_levels or DataConfig().snr_levels)
+    per_noise: Dict[str, List[float]] = {}
+    for n, s in partition_grid_cells(list(noises), snr_levels):
+        per_noise.setdefault(n, []).append(s)
+    part: Dict = {}
+    for n, snrs in per_noise.items():
+        part.update(evaluate_grid(clean_signals, {n: noises[n]}, pipelines,
+                                  snrs, **kwargs))
+    if process_count() == 1:
+        return part
+    if not out_dir:
+        raise ValueError("the grid over several processes needs a shared "
+                         "out_dir")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"grid_part_{process_index()}.pkl"),
+              "wb") as f:
+        pickle.dump(part, f)
+    collectives.barrier()
+    parts = []
+    for p in range(process_count()):
+        with open(os.path.join(out_dir, f"grid_part_{p}.pkl"), "rb") as f:
+            parts.append(pickle.load(f))
+    return merge_grid_results(parts)
 
 
 def _mean(vals):
@@ -311,10 +361,18 @@ def run_grid_evaluation(max_eval: int = 50, model_dir: Optional[str] = None,
     noises, evaluate on ``device``, print the tables; ``json_out`` writes
     every per-cell value, the protocol and the grand summary as JSON (the
     JAX package's layout). Returns the summary (None without models).
-    ``use_mesh`` on one card evaluates unsharded, as JAX does on one
-    device; ``distributed`` and more than one card are not ported."""
+
+    ``use_mesh`` splits the metric sweep over every visible card (the
+    ``mesh`` of :func:`evaluate_grid`; one card or the CPU: unsharded, as
+    JAX on one device). ``distributed`` joins the process group first
+    (``parallel.init_distributed`` over gloo: the processes exchange only a
+    barrier and files) and deals the cells to the processes
+    (:func:`evaluate_grid_distributed`); every process prints the merged
+    tables and rank 0 alone writes ``json_out``."""
     if distributed:
-        raise NotImplementedError(MULTI_HOST_NOT_PORTED)
+        # before anything is loaded on the card: the process picks its
+        # card (LOCAL_RANK) there
+        init_distributed(backend="gloo", device=device)
     model_dir = model_dir or os.environ.get("SINCFORMER_MODEL_DIR",
                                             "saved_models")
     fs = AudioConfig().sample_rate
@@ -334,18 +392,29 @@ def run_grid_evaluation(max_eval: int = 50, model_dir: Optional[str] = None,
     print(f"\n  Evaluating {len(clean_signals)} utterances × "
           f"{len(noises)} noises × {len(snr_levels)} SNRs")
     print(f"  Methods: noisy, {', '.join(pipelines.keys())}")
+    mesh = None
     if use_mesh:
         if torch.device(device).type == "cuda" \
                 and torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "a metric sweep sharded over several cards is not ported "
-                "yet: ROADMAP.md Queue 1 item 6")
-        print("  --mesh requested but only one device is visible — "
-              "running unsharded")
-    results = evaluate_grid(clean_signals, noises, pipelines, snr_levels,
-                            metrics, device=device)
+            mesh = [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+            print(f"  Metric sweep sharded over {len(mesh)} cards")
+        else:
+            print("  --mesh requested but only one device is visible — "
+                  "running unsharded")
+    if distributed:
+        print(f"  Distributed grid: process {process_index()} of "
+              f"{process_count()}")
+        results = evaluate_grid_distributed(
+            clean_signals, noises, pipelines, snr_levels,
+            out_dir=os.path.join(model_dir, "_distributed_eval"),
+            metrics=metrics, device=device, mesh=mesh)
+    else:
+        results = evaluate_grid(clean_signals, noises, pipelines,
+                                snr_levels, metrics, device=device,
+                                mesh=mesh)
     summary = print_grid_tables(results, snr_levels, metrics)
-    if json_out:
+    if json_out and is_primary():
         payload = {
             "protocol": {"max_eval": max_eval,
                          "n_utterances": len(clean_signals),

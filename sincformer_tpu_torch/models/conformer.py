@@ -24,6 +24,7 @@ from torch import nn
 
 from sincformer_tpu_torch.ops.attention import dot_product_attention
 from sincformer_tpu_torch.ops.fused_ffn import LN_EPS, fused_ffn
+from sincformer_tpu_torch.parallel import collectives
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -156,13 +157,17 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """flax ``nn.BatchNorm`` on (B, T, D) with the feature axis last.
 
     Training (``train=True``): normalise by the statistics of this batch,
-    taken over B and T (padded frames included, as in JAX), the variance
+    taken over B and T (padded frames included, as in JAX; in a
+    data-parallel step over every rank's B, ``parallel/collectives.py``,
+    so the running statistics agree on every rank), the variance
     as max(0, E[x²] - E[x]²); then step the running statistics in place,
     ``ra = momentum · ra + (1 - momentum) · stat`` with the *biased*
     variance. Otherwise normalise by the running statistics. The output is
     ``(x - mean) · (rsqrt(var + eps) · weight) + bias``, flax's order."""
     if train:
-        mean, var = _fast_stats(x, (0, 1))
+        mean = collectives.mean(x, dim=(0, 1))
+        var = torch.clamp(collectives.mean(x * x, dim=(0, 1)) - mean * mean,
+                          min=0.0)
         with torch.no_grad():
             running_mean.mul_(momentum).add_((1.0 - momentum)
                                              * mean.detach())

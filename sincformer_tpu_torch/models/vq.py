@@ -1,5 +1,8 @@
 """Scalar vector quantizer with a straight-through estimator
-(``sincformer_tpu/models/vq.py``)."""
+(``sincformer_tpu/models/vq.py``). Its codebook and commitment losses are
+means over the batch's mask values, equal in shape on every rank of a
+data-parallel step, so they stay local: the trainer averages the ranks'
+gradients (``parallel/collectives.py``)."""
 
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ flagship path needs.
     JAX package's ``T > 2048`` hand-off to a flash kernel is not needed,
     since K1's online softmax runs any T in fixed shared memory.
   * ``impl="xla"``: the plain PyTorch attention, on any device.
-  * ``impl="ring"`` and ``impl="flash"`` are later work (ROADMAP.md).
+  * ``impl="ring"`` (context parallel) is the next slice's (ROADMAP.md
+    Queue 1 item 7d); ``impl="flash"`` is JAX's library kernel (Queue 1
+    item 8).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "ring":
         raise NotImplementedError(
             "impl='ring' (context-parallel attention) is not ported yet: "
-            "ROADMAP.md Queue 1 item 16 (multi-GPU)")
+            "ROADMAP.md Queue 1 item 7d (context parallel)")
     if impl == "flash":
         raise NotImplementedError(
             "impl='flash' is not ported yet: ROADMAP.md Queue 2, note on "

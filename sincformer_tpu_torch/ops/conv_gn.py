@@ -11,8 +11,11 @@ tensor cores in split TF32, not by a library); on a CPU tensor it runs
 :func:`conv_gn_reference`, the plain PyTorch version. There is no fallback
 from one to the other. Any kernel size and stride are taken; the TPU
 kernel's geometry guards belonged to its DMA window. Like the JAX package,
-no model calls this. Forward only; the JAX backward is the reference's, so
-a later training slice differentiates :func:`conv_gn_reference`.
+no model calls this. Differentiable on either device: on the card the
+forward is the kernel and the backward the gradient of
+:func:`conv_gn_reference`, recomputed (JAX's ``custom_vjp`` backward is
+the plain formulation's too); the optional ``skip`` gets a gradient when
+it is given.
 """
 
 from __future__ import annotations
@@ -88,27 +91,9 @@ def _kernel():
     return fn
 
 
-def conv1d_gn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              gamma: torch.Tensor, beta: torch.Tensor,
-              skip: Optional[torch.Tensor], stride: int, groups: int,
-              eps: float = 1e-6, act: bool = True) -> torch.Tensor:
-    """Fused Conv1d(SAME, stride) → GroupNorm(groups) [→ + skip] [→ GELU].
-
-    Args:
-        x: (B, T, Cin). w: (K, Cin, Cout). b, gamma, beta: (Cout,).
-        skip: optional (B, Tout, Cout), added after the GroupNorm's affine
-            and before the activation.
-        act: apply the tanh-GELU at the end.
-
-    Returns (B, Tout, Cout), Tout = ceil(T / stride). A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernels (counted once per call
-    in ``conv1d_gn.launches``) or raises.
-    """
-    if x.device.type == "cpu":
-        return conv_gn_reference(x, w, b, gamma, beta, skip, stride=stride,
-                                 groups=groups, eps=eps, act=act)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv1d_gn runs on cpu or cuda, not {x.device}")
+def _forward(x, w, b, gamma, beta, skip, stride: int, groups: int,
+             eps: float, act: bool) -> torch.Tensor:
+    """The kernels on CUDA tensors, counted in ``conv1d_gn.launches``."""
     _check_shapes(x, w, b, gamma, beta, skip, stride, groups)
     tensors = [("x", x), ("w", w), ("b", b), ("gamma", gamma), ("beta", beta)]
     if skip is not None:
@@ -149,6 +134,61 @@ def conv1d_gn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                            f"{err}")
     conv1d_gn.launches += 1
     return out
+
+
+class _ConvGN(torch.autograd.Function):
+    """Forward through :func:`_forward`; backward = the gradient of
+    :func:`conv_gn_reference`, recomputed on the saved inputs (``skip``'s
+    only when it was given)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gamma, beta, skip, stride, groups, eps, act):
+        ctx.conf = dict(stride=stride, groups=groups, eps=eps, act=act)
+        ctx.has_skip = skip is not None
+        ctx.save_for_backward(x, w, b, gamma, beta,
+                              *((skip,) if ctx.has_skip else ()))
+        return _forward(x, w, b, gamma, beta, skip, stride, groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            skip = leaves[5] if ctx.has_skip else None
+            out = conv_gn_reference(*leaves[:5], skip, **ctx.conf)
+            grads = torch.autograd.grad(out, leaves, grad_out)
+        return (*grads[:5], grads[5] if ctx.has_skip else None,
+                None, None, None, None)
+
+
+def conv1d_gn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              gamma: torch.Tensor, beta: torch.Tensor,
+              skip: Optional[torch.Tensor], stride: int, groups: int,
+              eps: float = 1e-6, act: bool = True) -> torch.Tensor:
+    """Fused Conv1d(SAME, stride) → GroupNorm(groups) [→ + skip] [→ GELU].
+
+    Args:
+        x: (B, T, Cin). w: (K, Cin, Cout). b, gamma, beta: (Cout,).
+        skip: optional (B, Tout, Cout), added after the GroupNorm's affine
+            and before the activation.
+        act: apply the tanh-GELU at the end.
+
+    Returns (B, Tout, Cout), Tout = ceil(T / stride). A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels (counted once per call
+    in ``conv1d_gn.launches``, forward launches only) or raises. When an
+    input needs a gradient the call is differentiable: the backward is the
+    plain version's.
+    """
+    if x.device.type == "cpu":
+        return conv_gn_reference(x, w, b, gamma, beta, skip, stride=stride,
+                                 groups=groups, eps=eps, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv1d_gn runs on cpu or cuda, not {x.device}")
+    args = (x, w, b, gamma, beta, skip)
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in args):
+        return _ConvGN.apply(*args, stride, groups, eps, act)
+    return _forward(*args, stride, groups, eps, act)
 
 
 conv1d_gn.launches = 0

@@ -11,8 +11,9 @@ is no fallback from one to the other. N must be a multiple of 8 (the plain
 version's reshape has the same limit); the TPU kernel's block tiling and its
 "no tiling" branch have no counterpart here. Like the JAX package, no model
 calls this: it is reached through :func:`env_act` and :func:`env_act_auto`.
-Forward only; the JAX backward is the reference's, so a later training
-slice differentiates :func:`env_act_reference`.
+Differentiable on either device, as JAX's: on the card the forward is the
+kernel and the backward the gradient of :func:`env_act_reference`,
+recomputed.
 """
 
 from __future__ import annotations
@@ -61,18 +62,9 @@ def _kernel():
     return fn
 
 
-def env_act(x: torch.Tensor, scale: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, N, C) sinc output, (C,) scale → (gelu(x*scale),
-    log1p(pool8(|x|))).
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``env_act.launches``) or raises.
-    """
-    if x.device.type == "cpu":
-        return env_act_reference(x, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"env_act runs on cpu or cuda, not {x.device}")
+def _forward(x: torch.Tensor, scale: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors, counted in ``env_act.launches``."""
     _check_shapes(x, scale)
     for name, t in (("x", x), ("scale", scale)):
         if t.dtype != torch.float32:
@@ -97,6 +89,43 @@ def env_act(x: torch.Tensor, scale: torch.Tensor
         raise RuntimeError(f"env_act kernel launch failed: CUDA error {err}")
     env_act.launches += 1
     return y, env
+
+
+class _EnvAct(torch.autograd.Function):
+    """Forward through :func:`_forward`; backward = the gradient of
+    :func:`env_act_reference`, recomputed on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.save_for_backward(x, scale)
+        return _forward(x, scale)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_env):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            outs = env_act_reference(*leaves)
+            return torch.autograd.grad(outs, leaves, (grad_y, grad_env))
+
+
+def env_act(x: torch.Tensor, scale: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, N, C) sinc output, (C,) scale → (gelu(x*scale),
+    log1p(pool8(|x|))).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``env_act.launches``, forward launches only) or raises.
+    When an input needs a gradient the call is differentiable: the backward
+    is the plain version's.
+    """
+    if x.device.type == "cpu":
+        return env_act_reference(x, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"env_act runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _EnvAct.apply(x, scale)
+    return _forward(x, scale)
 
 
 env_act.launches = 0

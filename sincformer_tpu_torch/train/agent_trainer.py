@@ -23,6 +23,22 @@ discriminator's weights from ``seed + 5`` (the JAX package's keys), all on
 the pipeline's device. One step makes no
 host synchronisation: the NaN guard, the clip and the AdamW update stay on
 the device; the losses are read once per epoch.
+
+Data parallelism (``mesh=``, a DeviceMesh with a ``"data"`` axis, JAX's
+``mesh``): the parameters and optimizer states start as rank 0's; each rank
+takes its block of every batch that ``batch_iterator`` yields to one
+process (``parallel.shard_batch``); the batch-wide reductions inside the
+step are global (``parallel/collectives.py``: the MAA statistics, the
+episodic write and its counts, the MR-STFT spectral convergence, the NaN
+flag), the gradients and the reported losses are averaged over the ranks
+before the guard and the clip, and the discriminator's step is
+data-parallel the same way. Validation batches are split too (a batch
+that does not divide runs whole on every rank) and their sums
+all-reduced. Only rank 0 writes checkpoints, sidecars and logs; a resume
+reads after a barrier. The ranks' parameters stay bit-identical. Each rank
+draws its dropout and Gumbel noise from its own generators (seeds offset
+by the rank; rank 0's are a single process's), where JAX draws the global
+batch's.
 """
 
 from __future__ import annotations
@@ -45,6 +61,9 @@ from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.masks.pcirm import (compute_correlation_coefficients,
                                               compute_pcirm,
                                               compute_phase_differences)
+from sincformer_tpu_torch.parallel import collectives
+from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
+                                                rank_seed, shard_batch)
 from sincformer_tpu_torch.pipeline import SincformerPipeline
 from sincformer_tpu_torch.train.adversarial import (MultiScaleDiscriminator,
                                                     discriminator_loss,
@@ -94,17 +113,19 @@ class SincformerTrainer(SincformerPipeline):
     pipeline, training starts from weights drawn from ``seed`` unless a
     checkpoint or a state was loaded (``load_model``, ``load_state``,
     ``load_disc_state``): a model given to the constructor is its
-    skeleton."""
+    skeleton. ``mesh`` (a DeviceMesh with a ``"data"`` axis) makes the
+    training data-parallel over its ranks (module docstring)."""
 
     _CKPT_NAMES = ("sincformer_final", "best_sincformer")
 
     def __init__(self, model=None, device="cuda", output_gain: float = 1.0,
                  audio: AudioConfig = AudioConfig(),
                  model_dir: Optional[str] = None, seed: int = 0,
-                 logger=None, use_adversarial: bool = False):
+                 logger=None, use_adversarial: bool = False, mesh=None):
         super().__init__(model, device, output_gain, audio, model_dir)
         loss = LossConfig()
         self.seed = seed
+        self.mesh = mesh
         self.perceptual_weight = loss.perceptual_weight
         self.vq_weight = loss.commitment_weight
         self.mask_mse_weight = loss.mask_mse_weight
@@ -201,10 +222,25 @@ class SincformerTrainer(SincformerPipeline):
             if reset_optimizer or self.disc_opt_state is None:
                 self.disc_opt_state = self.disc_tx.init(
                     dict(self.disc.named_parameters()))
+        seed = rank_seed(self.seed, self.mesh)
         self.dropout_generator = torch.Generator(
-            device=self.device).manual_seed(self.seed + 1)
+            device=self.device).manual_seed(seed + 1)
         self.routing_generator = torch.Generator(
-            device=self.device).manual_seed(self.seed + 2)
+            device=self.device).manual_seed(seed + 2)
+        if self.mesh is not None:
+            self._broadcast_state()
+
+    def _broadcast_state(self) -> None:
+        """Rank 0's parameters, buffers and optimizer states on every rank
+        of the mesh (also the discriminator's)."""
+        tensors = [*self.model.parameters(), *self.model.buffers(),
+                   *self.opt_state["mu"].values(),
+                   *self.opt_state["nu"].values()]
+        if self.disc is not None:
+            tensors += [*self.disc.parameters(),
+                        *self.disc_opt_state["mu"].values(),
+                        *self.disc_opt_state["nu"].values()]
+        collectives.broadcast_(tensors, self.mesh)
 
     # ── loss ────────────────────────────────────────────────────────────
 
@@ -283,11 +319,14 @@ class SincformerTrainer(SincformerPipeline):
         take their training updates, and ``last_mags`` the detached
         magnitudes that the discriminator's step takes."""
         params = list(self.params().values())
-        loss, aux = self._loss(noisy, clean, True, use_perceptual, use_vq,
-                               gumbel_tau, use_mask_mse, use_adv)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with collectives.data_parallel(self.mesh):
+            loss, aux = self._loss(noisy, clean, True, use_perceptual,
+                                   use_vq, gumbel_tau, use_mask_mse, use_adv)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         self.last_mags = (aux["enh_mag"].detach(), aux["clean_mag"].detach())
-        return loss.detach(), aux["sisnr"].detach(), list(grads)
+        loss, sisnr, *grads = collectives.average_over_ranks(
+            [loss.detach(), aux["sisnr"].detach(), *grads], self.mesh)
+        return loss, sisnr, list(grads)
 
     def disc_loss_and_grads(self, enh_mag: torch.Tensor,
                             clean_mag: torch.Tensor):
@@ -297,7 +336,9 @@ class SincformerTrainer(SincformerPipeline):
         with torch.enable_grad():
             dl = discriminator_loss(self.disc(clean_mag), self.disc(enh_mag))
             grads = torch.autograd.grad(dl, params, allow_unused=True)
-        return dl.detach(), list(grads)
+        dl, *grads = collectives.average_over_ranks([dl.detach(), *grads],
+                                                    self.mesh)
+        return dl, list(grads)
 
     def disc_step(self, use_adv: float) -> torch.Tensor:
         """The discriminator's step on the magnitudes of the last training
@@ -336,13 +377,19 @@ class SincformerTrainer(SincformerPipeline):
             self.disc_loss = self.disc_step(use_adv)
         return loss, sisnr
 
-    @torch.no_grad()
     def eval_step(self, noisy: torch.Tensor, clean: torch.Tensor,
                   lengths: torch.Tensor):
         """(loss, sisnr, Σ log α, count): α = ⟨clean, enh⟩ / ‖enh‖² per
         utterance over its true samples, the oracle output gain; utterances
-        with α outside (1e-3, 1e3) or not finite are left out."""
-        loss, aux = self._loss(noisy, clean, False, 1.0, 1.0)
+        with α outside (1e-3, 1e3) or not finite are left out. With a mesh
+        the inputs are this rank's block and the results the global
+        batch's (the means averaged, the sums summed over the ranks)."""
+        return self._eval(noisy, clean, lengths, self.mesh)
+
+    @torch.no_grad()
+    def _eval(self, noisy, clean, lengths, mesh):
+        with collectives.data_parallel(mesh):
+            loss, aux = self._loss(noisy, clean, False, 1.0, 1.0)
         enh = aux["enh_wav"]
         m = (torch.arange(clean.shape[-1], device=clean.device)[None, :]
              < lengths[:, None]).to(clean.dtype)
@@ -352,7 +399,8 @@ class SincformerTrainer(SincformerPipeline):
         lg_sum = torch.sum(torch.where(
             valid, torch.log(torch.clamp(alpha, min=1e-12)),
             torch.zeros_like(alpha)))
-        return loss, aux["sisnr"], lg_sum, torch.sum(valid)
+        return collectives.mean_and_sum_over_ranks(
+            (loss, aux["sisnr"]), (lg_sum, torch.sum(valid)), mesh)
 
     # ── curriculum data ─────────────────────────────────────────────────
 
@@ -363,9 +411,11 @@ class SincformerTrainer(SincformerPipeline):
                 for k in keys]
 
     def _validate(self, test_ds: WaveformDataset, batch_size: int):
-        out = [self.eval_step(*self._tensors(b, "noisy", "clean", "lengths"))
-               for b in batch_iterator(test_ds, batch_size, shuffle=False,
-                                       drop_last=False)]
+        out = [self._eval(*self._tensors(b, "noisy", "clean", "lengths"),
+                          mesh)
+               for b, mesh in blocks_for_ranks(batch_iterator(
+                   test_ds, batch_size, shuffle=False, drop_last=False),
+                   self.mesh)]
         return [[float(x) for x in row] for row in out]   # one sync
 
     def _restore_disc(self, resume_path: str, verbose: bool) -> None:
@@ -407,7 +457,10 @@ class SincformerTrainer(SincformerPipeline):
         steps_per_epoch = max(1, len(clean_train) // batch_size)
         start_epoch = 0
         resume_path = None
+        primary = data_rank(self.mesh) == 0
+        verbose = verbose and primary
         if resume:
+            collectives.barrier(self.mesh)       # rank 0's writes are done
             resume_path = newest_checkpoint(self.model_dir, self._CKPT_NAMES)
             if resume_path is None and verbose:
                 print("  --resume requested but no checkpoint found — "
@@ -465,6 +518,7 @@ class SincformerTrainer(SincformerPipeline):
             losses, sisnrs = [], []      # device scalars: one sync an epoch
             for batch in batch_iterator(train_ds, batch_size, shuffle=True,
                                         seed=self.seed, epoch=epoch):
+                batch = shard_batch(self.mesh, batch)
                 noisy, clean = self._tensors(batch, "noisy", "clean")
                 loss, sisnr = self.train_step(noisy, clean, use_perc, use_vq,
                                               gumbel_tau, use_mmse, use_adv)
@@ -491,18 +545,19 @@ class SincformerTrainer(SincformerPipeline):
             improved = va_loss < best_val
             if improved:
                 best_val = va_loss
-                self.save_model("best_sincformer")
-                merge_train_meta(self.model_dir, "best_sincformer",
-                                 {"best_val": va_loss, "epoch": epoch,
-                                  "step": int(self.step),
-                                  "val_protocol": VAL_PROTOCOL})
+                if primary:
+                    self.save_model("best_sincformer")
+                    merge_train_meta(self.model_dir, "best_sincformer",
+                                     {"best_val": va_loss, "epoch": epoch,
+                                      "step": int(self.step),
+                                      "val_protocol": VAL_PROTOCOL})
             entry = {"epoch": epoch, "stage": stage["stage"],
                      "train_loss": tr_loss, "val_loss": va_loss,
                      "val_sisnr": va_sisnr,
                      "nan_count": int(self.nan_count),
                      "epoch_seconds": time.time() - t0}
             history.append(entry)
-            if self.logger is not None:
+            if self.logger is not None and primary:
                 self.logger.log({"pipeline": "sincformer", **entry})
             if verbose:
                 print(f"  Epoch {epoch + 1:3d}/{epochs} "

@@ -20,6 +20,16 @@ running statistics once) and the step make no host synchronisation; the
 losses are read once per epoch. Kernel K1 runs every forward
 (``attn_impl="speech"``) and, with ``fused_ffn`` and dropout 0, kernel K3
 too, both under autograd with their plain backward.
+
+Data parallelism (``mesh=``, as JAX's trainer takes it) works as the
+flagship trainer's (``train/agent_trainer.py``): rank 0's state on every
+rank, each rank's block of every batch, the gradients and losses averaged
+over the ranks before the guard and the clip, validation split and
+all-reduced, rank 0 alone writing. Inside the step the "batch" BatchNorm
+statistics are the global B × T's (``models/conformer.batch_norm``), so
+the running statistics agree on every rank, and the MR-STFT spectral
+convergence is global; SI-SNR and the magnitude L1 are means over equal
+per-rank shapes and stay local.
 """
 
 from __future__ import annotations
@@ -38,6 +48,9 @@ from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
                                               train_test_split)
 from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.models.dcse import default_speech_enhancer
+from sincformer_tpu_torch.parallel import collectives
+from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
+                                                rank_seed, shard_batch)
 from sincformer_tpu_torch.pipeline import DCSEPipeline
 from sincformer_tpu_torch.train.losses import (multi_resolution_stft_loss,
                                                si_snr_loss)
@@ -56,14 +69,16 @@ class DCSETrainer(DCSEPipeline):
     ``utils.observability.MetricsLogger``) takes one record per epoch.
     Without ``model``, the model is ``default_speech_enhancer()``.
     ``compute_dtype`` other than None (the JAX package's bf16 path) is not
-    ported: kernels K1 and K3 are float32 kernels."""
+    ported: kernels K1 and K3 are float32 kernels. ``mesh`` (a DeviceMesh
+    with a ``"data"`` axis) makes the training data-parallel over its
+    ranks."""
 
     _CKPT_NAMES = ("conformer_final", "best_conformer")
 
     def __init__(self, model=None, device="cuda", output_gain: float = 1.0,
                  audio: AudioConfig = AudioConfig(),
                  model_dir: Optional[str] = None, seed: int = 0,
-                 logger=None, compute_dtype=None):
+                 logger=None, compute_dtype=None, mesh=None):
         if compute_dtype is not None:
             raise NotImplementedError(
                 "compute_dtype (bf16 DCSE training) is not ported: kernels "
@@ -71,6 +86,7 @@ class DCSETrainer(DCSEPipeline):
         super().__init__(model or default_speech_enhancer(), device,
                          output_gain, audio, model_dir)
         self.seed = seed
+        self.mesh = mesh
         self.logger = logger
         self.tx = None                      # train.state.AdamW
         self.opt_state = None
@@ -136,7 +152,13 @@ class DCSETrainer(DCSEPipeline):
         if reset_optimizer or self.opt_state is None:
             self.opt_state = self.tx.init(self.params())
         self.dropout_generator = torch.Generator(
-            device=self.device).manual_seed(self.seed + 1)
+            device=self.device).manual_seed(rank_seed(self.seed, self.mesh)
+                                            + 1)
+        if self.mesh is not None:
+            collectives.broadcast_(
+                [*self.model.parameters(), *self.model.buffers(),
+                 *self.opt_state["mu"].values(),
+                 *self.opt_state["nu"].values()], self.mesh)
 
     # ── loss and steps ──────────────────────────────────────────────────
 
@@ -167,9 +189,12 @@ class DCSETrainer(DCSEPipeline):
         """A training forward and its gradients: (loss, sisnr, grads in the
         order of :meth:`params`, None for a parameter nothing reads)."""
         params = list(self.params().values())
-        loss, (sisnr, _) = self._loss(noisy, clean, True)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        return loss.detach(), sisnr.detach(), list(grads)
+        with collectives.data_parallel(self.mesh):
+            loss, (sisnr, _) = self._loss(noisy, clean, True)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        loss, sisnr, *grads = collectives.average_over_ranks(
+            [loss.detach(), sisnr.detach(), *grads], self.mesh)
+        return loss, sisnr, list(grads)
 
     def train_step(self, noisy: torch.Tensor, clean: torch.Tensor):
         """One step: loss, gradients, the NaN guard (a non-finite loss or
@@ -187,14 +212,19 @@ class DCSETrainer(DCSEPipeline):
         self.step += 1
         return loss, sisnr
 
-    @torch.no_grad()
     def eval_step(self, noisy: torch.Tensor, clean: torch.Tensor,
                   lengths: torch.Tensor):
         """(loss, sisnr, Σ log α, count) of a deterministic forward: α =
         ⟨clean, enh⟩ / ‖enh‖² per utterance over its true samples;
         utterances with α outside (1e-3, 1e3) or not finite are left
-        out."""
-        loss, (sisnr, enh) = self._loss(noisy, clean, False)
+        out. With a mesh the inputs are this rank's block and the results
+        the global batch's."""
+        return self._eval(noisy, clean, lengths, self.mesh)
+
+    @torch.no_grad()
+    def _eval(self, noisy, clean, lengths, mesh):
+        with collectives.data_parallel(mesh):
+            loss, (sisnr, enh) = self._loss(noisy, clean, False)
         m = (torch.arange(clean.shape[-1], device=clean.device)[None, :]
              < lengths[:, None]).to(clean.dtype)
         alpha = (torch.sum(clean * enh * m, -1)
@@ -203,7 +233,8 @@ class DCSETrainer(DCSEPipeline):
         lg_sum = torch.sum(torch.where(
             valid, torch.log(torch.clamp(alpha, min=1e-12)),
             torch.zeros_like(alpha)))
-        return loss, sisnr, lg_sum, torch.sum(valid)
+        return collectives.mean_and_sum_over_ranks(
+            (loss, sisnr), (lg_sum, torch.sum(valid)), mesh)
 
     # ── training loop ───────────────────────────────────────────────────
 
@@ -213,9 +244,11 @@ class DCSETrainer(DCSEPipeline):
 
     def _validate(self, test_ds: WaveformDataset, batch_size: int,
                   bucketed: bool):
-        out = [self.eval_step(*self._tensors(b, "noisy", "clean", "lengths"))
-               for b in batch_iterator(test_ds, batch_size, shuffle=False,
-                                       drop_last=False, bucketed=bucketed)]
+        out = [self._eval(*self._tensors(b, "noisy", "clean", "lengths"),
+                          mesh)
+               for b, mesh in blocks_for_ranks(batch_iterator(
+                   test_ds, batch_size, shuffle=False, drop_last=False,
+                   bucketed=bucketed), self.mesh)]
         return [[float(x) for x in row] for row in out]   # one sync
 
     def train(self, train_ds: WaveformDataset, test_ds: WaveformDataset,
@@ -238,7 +271,10 @@ class DCSETrainer(DCSEPipeline):
         steps_per_epoch = max(1, len(train_ds) // batch_size)
         start_epoch = 0
         resume_path = None
+        primary = data_rank(self.mesh) == 0
+        verbose = verbose and primary
         if resume:
+            collectives.barrier(self.mesh)       # rank 0's writes are done
             resume_path = newest_checkpoint(self.model_dir, self._CKPT_NAMES)
             if resume_path is None and verbose:
                 print("  resume requested but no checkpoint found — "
@@ -273,8 +309,8 @@ class DCSETrainer(DCSEPipeline):
             for batch in batch_iterator(train_ds, batch_size, shuffle=True,
                                         seed=self.seed, epoch=epoch,
                                         bucketed=bucketed):
-                loss, sisnr = self.train_step(
-                    *self._tensors(batch, "noisy", "clean"))
+                loss, sisnr = self.train_step(*self._tensors(
+                    shard_batch(self.mesh, batch), "noisy", "clean"))
                 losses.append(loss)
                 sisnrs.append(sisnr)
             n_b = len(losses)
@@ -298,17 +334,18 @@ class DCSETrainer(DCSEPipeline):
             improved = va_loss < best_val
             if improved:
                 best_val = va_loss
-                self.save_model("best_conformer")
-                merge_train_meta(self.model_dir, "best_conformer",
-                                 {"best_val": va_loss, "epoch": epoch,
-                                  "step": int(self.step),
-                                  "val_protocol": VAL_PROTOCOL})
+                if primary:
+                    self.save_model("best_conformer")
+                    merge_train_meta(self.model_dir, "best_conformer",
+                                     {"best_val": va_loss, "epoch": epoch,
+                                      "step": int(self.step),
+                                      "val_protocol": VAL_PROTOCOL})
             entry = {"epoch": epoch, "train_loss": tr_loss,
                      "val_loss": va_loss, "val_sisnr": va_sisnr,
                      "nan_count": int(self.nan_count),
                      "epoch_seconds": time.time() - t0}
             history.append(entry)
-            if self.logger is not None:
+            if self.logger is not None and primary:
                 self.logger.log({"pipeline": "dcse", **entry})
             if verbose:
                 print(f"  Epoch {epoch + 1:3d}/{epochs} | "

@@ -1,7 +1,15 @@
 """Training losses of the flagship (``sincformer_tpu/train/losses.py``):
 SI-SNR, multi-resolution STFT, the mask MSE and the differentiable
 perceptual STOI loss. Batched and differentiable; the STFTs go through
-``dsp/stft.py``."""
+``dsp/stft.py``.
+
+In a data-parallel step each rank computes these on its own rows. A mean
+over equal per-rank shapes stays local, and the trainer averages the
+ranks' gradients: SI-SNR (a mean over rows), the log-magnitude L1 of the
+MR-STFT loss, the mask MSE and the perceptual STOI loss (means over rows
+and the rest). So do the magnitude L1 and the VQ loss of the trainers.
+The spectral convergence of the MR-STFT loss is a ratio of norms over the
+whole batch: its two norms are global (``parallel/collectives.norm``)."""
 
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ import torch
 
 from sincformer_tpu_torch.config import AudioConfig
 from sincformer_tpu_torch.dsp.stft import stft
+from sincformer_tpu_torch.parallel import collectives
 
 
 def si_snr_loss(estimated: torch.Tensor, target: torch.Tensor,
@@ -54,8 +63,8 @@ def multi_resolution_stft_loss(predicted: torch.Tensor, target: torch.Tensor,
         # the default window is the periodic Hann of ``win`` samples
         pred_mag = torch.abs(stft(predicted, fft, hop, win))
         tgt_mag = torch.abs(stft(target, fft, hop, win))
-        sc = (torch.linalg.vector_norm(tgt_mag - pred_mag)
-              / (torch.linalg.vector_norm(tgt_mag) + eps))
+        sc = (collectives.norm(tgt_mag - pred_mag)
+              / (collectives.norm(tgt_mag) + eps))
         lm = torch.mean(torch.abs(torch.log(pred_mag + eps)
                                   - torch.log(tgt_mag + eps)))
         loss = loss + sc + lm

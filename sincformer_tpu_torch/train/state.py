@@ -216,13 +216,17 @@ def guard_nan_update(grads: Sequence[Optional[torch.Tensor]],
     (gradients, is_bad), all on the device: the optimizer then takes its
     step with zero gradients (moments decay, weight decay acts, the count
     advances), as in the JAX package, and ``is_bad`` feeds the NaN
-    counter."""
+    counter. In a data-parallel step the flag is already global: the
+    trainers pass the loss and gradients after ``average_over_ranks``,
+    whose all-reduce carries a non-finite value on any rank to every rank,
+    so every rank zeroes its step together."""
     gs = [torch.zeros_like(p) if g is None else g
           for g, p in zip(grads, params)]
     finite = torch.isfinite(loss) & torch.isfinite(torch.stack(
         torch._foreach_norm(gs, ord=float("inf")))).all()
+    is_bad = ~finite
     zero = torch.zeros((), dtype=gs[0].dtype, device=gs[0].device)
-    return [torch.where(finite, g, zero) for g in gs], ~finite
+    return [torch.where(~is_bad, g, zero) for g in gs], is_bad
 
 
 def latest_step_dir(base: str) -> Optional[str]:

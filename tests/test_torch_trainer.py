@@ -127,15 +127,14 @@ def test_train_verb_names_what_is_not_ported(argv, capsys, tmp_path,
                                              monkeypatch):
     """Every pipeline of ``train`` is ported: without a dataset (and
     without ``--synthetic``) each says that the speech files are missing
-    (exit 1), none that it is not ported; the parser's epilog names what
-    still is not (the multi-host grid), and no pipeline of ``train``."""
+    (exit 1), none that it is not ported; nothing of the CLI is missing
+    (``_MISSING`` is empty)."""
     from sincformer_tpu_torch import cli
     monkeypatch.setenv("SINCFORMER_TIMIT_DIR", str(tmp_path))
     assert cli.main(argv + ["--device", "cpu"]) == 1
     err = capsys.readouterr().err
     assert "No speech files" in err and "not ported" not in err
-    assert "evaluate --distributed" in cli._MISSING
-    assert "train" not in cli._MISSING
+    assert cli._MISSING == ""
 
 
 def test_adversarial_pipeline_raises():

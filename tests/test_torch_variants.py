@@ -735,7 +735,7 @@ def test_info_names_each_checkpoints_variant(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     line = next(x for x in out.splitlines() if "best_sincformer:" in x)
     assert "cpea_impl ssm" in line and "pa_impl reference" in line
-    assert cli._MISSING == "evaluate --distributed"
+    assert cli._MISSING == ""
 
 
 @pytest.mark.gpu
