@@ -81,7 +81,17 @@ its kernels:
     whole batch (the MAA statistics, the episodic bank and the BatchNorm
     statistics among the buffers held), the ranks bit-equal; ``evaluate
     --distributed`` in two processes against ``[evaluate]``'s grid; the
-    metric sweep split over devices against the unsharded one.
+    metric sweep split over devices against the unsharded one;
+  * tensor and context parallelism (``[parallel]``): the DCSE and flagship
+    steps on a (1, 2) ("data", "model") mesh of two gloo ranks, each with
+    the whole batch and half of every split parameter, against the
+    one-process steps of ``[distributed]``; a DCSE-width ConformerBlock on
+    12,000 frames with ring attention and the halo-exchange conv over two
+    ranks against one process with K1 (a planted hop that keeps the
+    gradient must fail), the halo conv against ``F.conv1d``; the
+    multi-device dry run on four processes; a one-rank NCCL model axis
+    bit-equal to no mesh; a probe, in two processes of its own, of
+    whether gloo gathers and sends CUDA tensors on this card.
 
 K1, K3, K5 and K6 are also held against their plain versions under
 autograd (the backward is the plain formulation's gradient: K1's and K3's
@@ -276,8 +286,8 @@ def with_bound(timing: dict, flops: float, nbytes: float,
 
 def profile_once(fn) -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, device busy
-    ms, kernel launches, and its kernels as (name, ms, calls), longest
-    first."""
+    ms (of which ``copy_ms`` in memory copies and sets), kernel launches,
+    and its kernels as (name, ms, calls), longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -291,6 +301,8 @@ def profile_once(fn) -> dict:
                       if e.device_type == DeviceType.CUDA),
                      key=lambda k: -k[1])
     return {"wall_ms": wall_ms, "busy_ms": sum(k[1] for k in kernels),
+            "copy_ms": sum(k[1] for k in kernels
+                           if k[0].startswith(("Memcpy", "Memset"))),
             "launches": sum(k[2] for k in kernels), "kernels": kernels}
 
 
@@ -2727,7 +2739,10 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
     (the device synchronised around each). Returns host copies: the
     losses, the whole loss's gradients and clip factor, the gradients the
     optimizer was given, the parameters and buffers after, and the step's
-    measurements."""
+    measurements. On a mesh with a model axis (tensor parallelism) the
+    gradients and parameters are gathered whole, the all-gathers are
+    counted and timed too, and the parameter bytes this rank holds are
+    returned."""
     from unittest import mock
 
     import torch.distributed as dist
@@ -2735,7 +2750,8 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
     import sincformer_tpu_torch as port
     from sincformer_tpu_torch.ops.fused_ffn import fused_ffn
     from sincformer_tpu_torch.ops.speech_attention import speech_attention
-    from sincformer_tpu_torch.parallel import shard_batch
+    from sincformer_tpu_torch.parallel import collectives, shard_batch
+    from sincformer_tpu_torch.parallel.sharding import gathered
     from sincformer_tpu_torch.train import agent_trainer, dcse_trainer
     if kind == "flagship":
         cfg = port.MetacogConfig(dropout=0.0, routing="softmax")
@@ -2764,59 +2780,77 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
 
         def step(n, c):
             return p.train_step(n, c)[0]
+    def whole_of(named: dict) -> dict:
+        return {k: t.detach().cpu() for k, t in gathered(
+            named, p.model, mesh).items()}
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in p.model.parameters())
     part = shard_batch(mesh, batch)
     noisy, clean = (torch.from_numpy(part[k]).cuda()
                     for k in ("noisy", "clean"))
     saved = {k: b.clone() for k, b in p.model.named_buffers()}
     speech_attention.launches = fused_ffn.launches = 0
     loss_whole, _, grads_whole = whole(noisy, clean)
-    grads_whole = {k: g.detach().cpu() for k, g in zip(p.params(),
-                                                       grads_whole)
-                   if g is not None}
+    grads_whole = whole_of({k: g for k, g in zip(p.params(), grads_whole)
+                            if g is not None})
     norm = float(torch.sqrt(sum((g.double() ** 2).sum()
                                 for g in grads_whole.values())))
     clip_whole = min(1.0, p.tx.grad_clip / norm)
     before = (speech_attention.launches, fused_ffn.launches)
     for k, b in p.model.named_buffers():
         b.copy_(saved[k])
-    seen, reduce_ = {}, {"n": 0, "s": 0.0}
-    update, all_reduce = p.tx.update, dist.all_reduce
+    seen = {}
+    counted = {name: {"n": 0, "s": 0.0} for name in ("all_reduce",
+                                                     "all_gather")}
+    update = p.tx.update
 
-    def record(params, grads, state):
-        seen["grads"] = {k: g.detach().cpu() for k, g in zip(params, grads)}
-        return update(params, grads, state)
+    def record(params, grads, state, **norm):
+        seen["grads"] = {k: g.detach() for k, g in zip(params, grads)}
+        return update(params, grads, state, **norm)
 
-    def timed(tensor, *args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = all_reduce(tensor, *args, **kwargs)
-        torch.cuda.synchronize()
-        reduce_["n"] += 1
-        reduce_["s"] += time.perf_counter() - t0
-        return out
+    def timed(name):
+        call = getattr(dist, name)
+
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(*args, **kwargs)
+            torch.cuda.synchronize()
+            counted[name]["n"] += 1
+            counted[name]["s"] += time.perf_counter() - t0
+            return out
+        return run
     p.tx.update = record
-    before_step = {k: v.detach().cpu() for k, v in
-                   p.model.named_parameters()}
+    before_step = whole_of(dict(p.model.named_parameters()))
     speech_attention.launches = fused_ffn.launches = 0
+    staged = collectives.COUNTS["host_staged"]
     loss = []
     with mock.patch.object(module, "multi_resolution_stft_loss",
                            lambda pred, target: pred.sum() * 0.0), \
-            mock.patch.object(dist, "all_reduce", timed):
+            mock.patch.object(dist, "all_reduce", timed("all_reduce")), \
+            mock.patch.object(dist, "all_gather", timed("all_gather")):
         prof = profile_once(lambda: loss.append(float(step(noisy, clean))))
+    staged = collectives.COUNTS["host_staged"] - staged
+    seen["grads"] = whole_of(seen["grads"])
     host = lambda named: {k: t.detach().cpu() for k, t in named}  # noqa
     out = {"loss_whole": float(loss_whole), "loss": loss[0],
            "grads_whole": grads_whole, "norm_whole": norm,
            "clip_whole": clip_whole, "buffers_before": host(saved.items()),
            "grads": seen["grads"], "before": before_step,
-           "params": host(p.model.named_parameters()),
+           "params": whole_of(dict(p.model.named_parameters())),
            "buffers": host(p.model.named_buffers()),
+           "param_bytes": param_bytes,
            "wall_ms": prof["wall_ms"], "busy_ms": prof["busy_ms"],
+           "copy_ms": prof["copy_ms"],
            "launches": prof["launches"], "k1": speech_attention.launches,
            "k3": fused_ffn.launches,
            "k1_total": before[0] + speech_attention.launches,
            "k3_total": before[1] + fused_ffn.launches,
-           "all_reduces": reduce_["n"],
-           "all_reduce_ms": reduce_["s"] * 1e3}
+           "all_reduces": counted["all_reduce"]["n"],
+           "all_reduce_ms": counted["all_reduce"]["s"] * 1e3,
+           "all_gathers": counted["all_gather"]["n"],
+           "all_gather_ms": counted["all_gather"]["s"] * 1e3,
+           "host_staged": staged}
     speech_attention.launches = fused_ffn.launches = 0
     del p
     torch.cuda.empty_cache()
@@ -2937,7 +2971,7 @@ def dcse_norm_float64(case: dict, batch: dict, seed: int) -> float:
 
 
 def dp_faults(got: dict, ref: dict, what: str,
-              norm64=None) -> list:
+              norm64=None, tag: str = "[distributed]") -> list:
     """A data-parallel step against the one-process step on the card with
     the whole batch, at the card-vs-CPU training bars: the losses
     TRAIN_LOSS_TOL relative; for DCSE, as ``[train-dcse]`` holds them, the
@@ -2965,7 +2999,7 @@ def dp_faults(got: dict, ref: dict, what: str,
     worst["grads_whole"] = rows[0][0]
     worst["clip"] = abs(got["clip_whole"] - ref["clip_whole"]) / ref[
         "clip_whole"]
-    if what == "dcse":
+    if norm64 is not None:
         off64 = [abs(r["norm_whole"] - norm64) / norm64 for r in (ref, got)]
         if worst["grads_whole"] > TRAIN_GRAD_TOL:
             faults.append(f"whole loss's gradient of {rows[0][1]} "
@@ -2984,7 +3018,7 @@ def dp_faults(got: dict, ref: dict, what: str,
         if err > DCSE_STATS_TOL:
             faults.append(f"buffer {k}: {err:.3e}")
     top = sorted(worst["buffers"].items(), key=lambda kv: -kv[1])[:4]
-    say(f"[distributed] {what} vs one process with the whole batch: loss "
+    say(f"{tag} {what} vs one process with the whole batch: loss "
         f"{worst['loss_whole']:.3e}, without the MR-STFT term "
         f"{worst['loss']:.3e} (limit {TRAIN_LOSS_TOL:g}); the whole loss's "
         f"gradients {worst['grads_whole']:.3e} ({rows[0][1]}) and clip "
@@ -2994,7 +3028,7 @@ def dp_faults(got: dict, ref: dict, what: str,
            f"unbarred: the gradient norms {ref['norm_whole']:.7g} one "
            f"process, {got['norm_whole']:.7g} two ranks, {norm64:.7g} in "
            f"float64, {off64[0]:.3e} and {off64[1]:.3e} from it)"
-           if what == "dcse" else " (no bar in [train])")
+           if norm64 is not None else " (no bar in [train])")
         + f"; gradients without the term "
         f"{worst['grads']:.3e} (limit {TRAIN_GRAD_TOL:g}); parameters "
         f"after AdamW {worst['params']:.3e} (limit {TRAIN_PARAM_TOL:g}; "
@@ -3109,6 +3143,7 @@ def check_distributed(seed: int, smi: str, launches, eval_grid: dict
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
     norm64 = dcse_norm_float64(ref["dcse"], batch, seed)
+    ONE_PROCESS_STEPS["dcse_norm64"] = norm64
     for kind in ("flagship", "dcse"):
         diff = bit_equal(ranks[0][kind], ranks[1][kind])
         say(f"[distributed] (b) {kind}: the two ranks' losses, gradients, "
@@ -3276,6 +3311,403 @@ def check_distributed(seed: int, smi: str, launches, eval_grid: dict
     say(f"[distributed] phase wall {result['phase_s']:.1f} s on {smi}")
     if faults:
         raise AssertionError("[distributed]: " + "; ".join(faults[:10]))
+    ONE_PROCESS_STEPS.update(ref)
+    return result
+
+
+# the one-process steps of [distributed] (a), cuDNN deterministic, which
+# [parallel] (a) and (d) hold their steps against
+ONE_PROCESS_STEPS: dict = {}
+CP_FRAMES = 12000           # [parallel] (b): 120 s of 8 kHz audio at hop 80
+CP_BLOCK = dict(d_model=256, num_heads=4, d_ff=1024, kernel_size=31)
+CP_LOSS_TOL = 1e-5          # the ring block against one process: the loss,
+CP_X_GRAD_TOL = 3e-5        # relative; the input gradient and each
+CP_P_GRAD_TOL = 5e-4        # parameter's, of their scale (JAX's bars)
+CP_CONV_TOL = 1e-5          # the halo conv against F.conv1d, of the scale
+
+
+def cp_block(seed: int):
+    """The DCSE-width ConformerBlock of ``[parallel]`` (b) with seeded
+    weights (norm scales off 1, biases off 0), its input and the loss's
+    cotangent, on the card; ``attn_impl`` "speech" (K1)."""
+    from sincformer_tpu_torch.models.conformer import ConformerBlock
+    g = torch.Generator().manual_seed(seed + 11)
+    blk = ConformerBlock(**CP_BLOCK, attn_impl="speech")
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if p.ndim >= 2:
+                p.copy_(torch.randn(p.shape, generator=g)
+                        / float(p[0].numel()) ** 0.5)
+            elif name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g))
+    x = torch.randn((1, CP_FRAMES, CP_BLOCK["d_model"]), generator=g)
+    cot = torch.randn(x.shape, generator=g)
+    return blk.cuda(), x.cuda(), cot.cuda()
+
+
+def cp_step(blk, x, cot, rows=slice(None)) -> dict:
+    """sum(block(x[:, rows]) · cot[:, rows]) and its gradients with respect
+    to the whole input and every parameter (a rank's shares of the
+    sums), timed (ms of the forward and backward) with the peak memory of
+    this process."""
+    x = x.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss = torch.sum(blk(x[:, rows]) * cot[:, rows])
+    gx, *gp = torch.autograd.grad(loss, [x, *blk.parameters()])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"loss": float(loss.detach()), "x_grad": gx.cpu(),
+            "grads": {k: g.cpu() for (k, _), g in
+                      zip(blk.named_parameters(), gp)},
+            "ms": ms, "peak_gb": (torch.cuda.max_memory_allocated() - base)
+            / 1e9}
+
+
+def cp_case(mesh, seed: int) -> dict:
+    """``[parallel]`` (b) on this rank: the ring block on its half of the
+    frames (``attn_impl="ring"`` and the halo conv under ``ring_mesh``),
+    twice (the second timed), then with a hop whose backward keeps the
+    gradient on the rank it reached (planted); the halo conv alone."""
+    from unittest import mock
+
+    from sincformer_tpu_torch.ops.attention import ring_mesh
+    from sincformer_tpu_torch.ops.cp_conv import cp_depthwise_conv
+    from sincformer_tpu_torch.parallel import collectives
+    blk, x, cot = cp_block(seed)
+    blk.MultiHeadSelfAttention_0.attn_impl = "ring"
+    n, r = mesh.size(0), mesh.get_local_rank("data")
+    tl = CP_FRAMES // n
+    rows = slice(r * tl, (r + 1) * tl)
+    with ring_mesh(mesh, "data"):
+        cp_step(blk, x, cot, rows)
+        hops = collectives.COUNTS["hop"]
+        out = {"ring": cp_step(blk, x, cot, rows)}
+        out["hops"] = collectives.COUNTS["hop"] - hops
+        with mock.patch.object(collectives._Hop, "backward",
+                               staticmethod(lambda ctx, g: (g, None, None))):
+            out["kept_hop"] = cp_step(blk, x, cot, rows)["x_grad"]
+    w = blk.ConvolutionModule_0.depthwise
+    out["conv"] = cp_depthwise_conv(x, w.weight, w.bias, mesh).detach().cpu()
+    return out
+
+
+def tp_cp_child(rank: int, world: int, port_: int, batch_path: str,
+                out_path: str, seed: int) -> None:
+    """One rank of ``[parallel]`` (a) and (b): join a gloo group on the one
+    card; (a) the DCSE and flagship steps of :func:`dp_case` on a (1, 2)
+    ("data", "model") mesh, each rank with the whole batch and half of
+    every split parameter; (b) :func:`cp_case` on the two-rank sequence
+    axis. Saves the results."""
+    import torch.distributed as dist
+
+    from sincformer_tpu_torch.parallel import (collectives, init_distributed,
+                                               make_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(f"tcp://127.0.0.1:{port_}", world, rank,
+                            backend="gloo", device="cuda"):
+        raise AssertionError("no process group")
+    batch = dict(np.load(batch_path))
+    mesh = make_mesh(axis_names=("data", "model"), shape=(1, world))
+    out = {}
+    for kind in ("dcse", "flagship"):
+        collectives.COUNTS.clear()
+        out[kind] = dp_case(kind, mesh, batch, seed)
+        out[kind]["counts"] = dict(collectives.COUNTS)
+    collectives.COUNTS.clear()
+    out["cp"] = cp_case(make_mesh(axis_names=("data",)), seed)
+    out["cp"]["counts"] = dict(collectives.COUNTS)
+    torch.save(out, out_path)
+    dist.destroy_process_group()
+
+
+def gloo_cuda_probe(rank: int, port_: int) -> None:
+    """One of two ranks of a gloo group on the one card, with a 20 s
+    timeout: does gloo gather CUDA tensors itself, and does its
+    ``send``/``recv`` carry them (the hop, ``parallel/collectives.py``)?
+    Prints a JSON line as each is answered; a refusal is an answer, not a
+    failure (gloo may abort the process from its transport's thread:
+    :func:`probe_gloo_cuda` reads that from the standard error)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port_}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=20))
+    want = torch.arange(4, dtype=torch.float32, device="cuda")
+    answers = {}
+    try:
+        parts = [torch.zeros_like(want) for _ in range(2)]
+        dist.all_gather(parts, want + rank)
+        ok = all(torch.equal(p, want + r) for r, p in enumerate(parts))
+        answers["all_gather"] = "yes" if ok else "no: wrong values"
+    except (RuntimeError, ValueError) as e:
+        answers["all_gather"] = f"no: {str(e).splitlines()[0][:100]}"
+    print(json.dumps(answers), flush=True)
+    answers = {}
+    try:
+        if rank == 0:
+            dist.send(want + 5, dst=1)
+            got = want + 5
+        else:
+            got = torch.zeros_like(want)
+            dist.recv(got, src=0)
+        ok = torch.equal(got, want + 5)
+        answers["send_recv"] = "yes" if ok else "no: wrong values"
+    except (RuntimeError, ValueError) as e:
+        answers["send_recv"] = f"no: {str(e).splitlines()[0][:100]}"
+    print(json.dumps(answers), flush=True)
+    os._exit(0)       # the group may be broken: no teardown
+
+
+def probe_gloo_cuda() -> dict:
+    """:func:`gloo_cuda_probe` in two processes of their own: each
+    question's answers on the two ranks; a rank that died before it
+    answered gives its exit code and the last line of its standard
+    error."""
+    port_ = free_port()
+    code = ("import sys, chip_smoke\n"
+            "chip_smoke.gloo_cuda_probe(int(sys.argv[1]), int(sys.argv[2]))\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(port_)],
+                              cwd=REPO, env={**os.environ, "PYTHONPATH": REPO},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    answers = {"all_gather": set(), "send_recv": set()}
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            got = {}
+            for line in out.splitlines():
+                if line.startswith("{"):
+                    got.update(json.loads(line))
+            why = next((line.strip() for line in reversed(err.splitlines())
+                        if line.strip()), "")
+            for k, seen in answers.items():
+                seen.add(got.get(k, f"no: rank {r} exited {proc.returncode}"
+                                    f": {why[:120]}"))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {k: " / ".join(sorted(v)) for k, v in answers.items()}
+
+
+def check_parallel(seed: int, smi: str, launches) -> dict:
+    """Tensor and context parallelism on the one card: (a) two gloo ranks on
+    a (1, 2) model axis, each with the whole batch, against the
+    one-process steps of ``[distributed]`` at its bars, each rank's
+    parameter bytes against one process's; (b) a DCSE-width ConformerBlock
+    on 12,000 frames, two ranks of 6,000 with ring attention and the halo
+    conv against the one-process block with K1, and the halo conv against
+    ``F.conv1d``, a planted hop that keeps the gradient failing;
+    ``impl="flash"`` through K1; (c) the dry run on four processes; (d) a
+    one-rank NCCL model axis bit-equal to no mesh. First, what gloo does
+    with CUDA tensors here (:func:`gloo_cuda_probe`), printed."""
+    import torch.distributed as dist
+
+    import sincformer_tpu_torch as port
+    import torch.nn.functional as F
+    from sincformer_tpu_torch.models.conformer import same_pad
+    from sincformer_tpu_torch.parallel import make_mesh
+    from sincformer_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    result, faults = {}, []
+    batch = dcse_batch(seed)
+    blocks = port.MetacogConfig().msa_blocks
+    dcse_blocks = port.DCSEConfig().num_blocks
+    if not ONE_PROCESS_STEPS:         # [parallel] run without [distributed]
+        torch.backends.cudnn.deterministic = True
+        try:
+            ONE_PROCESS_STEPS.update({kind: dp_case(kind, None, batch, seed)
+                                      for kind in ("flagship", "dcse")})
+        finally:
+            torch.backends.cudnn.deterministic = False
+    ref = ONE_PROCESS_STEPS
+
+    # (b)'s one-process block first, with K1, in this process
+    launches.reset()
+    blk, x, cot = cp_block(seed)
+    cp_step(blk, x, cot)
+    one = cp_step(blk, x, cot)
+    launches.expect("[parallel] (b) one-process block, two steps",
+                    speech_attention=2)
+    w = blk.ConvolutionModule_0.depthwise
+    with torch.no_grad():
+        conv_ref = F.conv1d(same_pad(x.transpose(1, 2), w.kernel_size),
+                            w.weight, w.bias, groups=w.weight.shape[0]
+                            ).transpose(1, 2).cpu()
+    del blk, x, cot
+    torch.cuda.empty_cache()
+
+    # what gloo does with CUDA tensors on this card, in two processes of
+    # their own (a refused send can break its group)
+    gloo = probe_gloo_cuda()
+    say(f"[parallel] gloo with CUDA tensors on this card: all_gather "
+        f"{gloo['all_gather']}; send/recv {gloo['send_recv']} (the port "
+        f"gathers CUDA tensors through gloo itself and stages the hop's "
+        f"send/recv through host memory)")
+    result["gloo_cuda"] = gloo
+
+    # (a) and (b) in two processes of their own
+    with tempfile.TemporaryDirectory() as tmp:
+        batch_path = os.path.join(tmp, "batch.npz")
+        np.savez(batch_path, noisy=batch["noisy"], clean=batch["clean"])
+        port_ = free_port()
+        t0 = time.perf_counter()
+        run_ranks(
+            [["import sys, chip_smoke\n"
+              "chip_smoke.tp_cp_child(int(sys.argv[1]), int(sys.argv[2]), "
+              "int(sys.argv[3]), sys.argv[4], sys.argv[5], "
+              "int(sys.argv[6]))\n", str(r), "2", str(port_), batch_path,
+              os.path.join(tmp, f"rank{r}.pt"), str(seed)] for r in range(2)],
+            "[parallel] (a), (b)")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    result["two_ranks_s"] = ranks_s
+    result["tp"] = {}
+    for kind in ("dcse", "flagship"):
+        diff = bit_equal(ranks[0][kind], ranks[1][kind])
+        say(f"[parallel] (a) {kind}: the two model ranks' gathered "
+            f"gradients, parameters and buffers differ in {len(diff)} "
+            f"entries")
+        faults += [f"TP {kind} ranks differ: {d}" for d in diff[:5]]
+        if kind == "dcse" and "dcse_norm64" not in ref:
+            ref["dcse_norm64"] = dcse_norm_float64(ref["dcse"], batch, seed)
+        faults += [f"TP {kind}: {f}" for f in dp_faults(
+            ranks[0][kind], ref[kind], f"{kind} on the (1, 2) model axis",
+            ref["dcse_norm64"] if kind == "dcse" else None, "[parallel] (a)")]
+        want = ((2 * blocks, 0) if kind == "flagship"
+                else (dcse_blocks, 2 * dcse_blocks))
+        one_bytes = sum(t.numel() * 4 for t in ref[kind]["params"].values())
+        for r, out in enumerate(ranks):
+            o = out[kind]
+            say(f"[parallel] (a) rank {r} {kind} step {TRAIN_BATCH} on the "
+                f"(1, 2) mesh: parameters {o['param_bytes'] / 1e6:.3f} MB "
+                f"held (one process {one_bytes / 1e6:.3f} MB, "
+                f"{o['param_bytes'] / one_bytes:.3f}); {o['wall_ms']:.2f} ms "
+                f"wall (profiled, the device synchronised around each "
+                f"collective), device busy {o['busy_ms']:.3f} ms (memory "
+                f"copies {o['copy_ms']:.3f}), {o['launches']} launches, K1 "
+                f"{o['k1']}, K3 {o['k3']}; "
+                f"{o['all_gathers']} all-gathers {o['all_gather_ms']:.2f} ms, "
+                f"{o['all_reduces']} all-reduces {o['all_reduce_ms']:.2f} ms, "
+                f"{o['host_staged']} staged through the host; model-axis "
+                f"collectives of the whole run {o['counts']}")
+            if (o["k1"], o["k3"]) != want:
+                faults.append(f"TP {kind} rank {r}: K1, K3 launches "
+                              f"{o['k1']}, {o['k3']}, expected {want}")
+            if not o["param_bytes"] < one_bytes:
+                faults.append(f"TP {kind} rank {r} holds every parameter")
+            launches.total["speech_attention"] += o["k1_total"]
+            launches.total["fused_ffn"] += o["k3_total"]
+        result["tp"][kind] = [{k: out[kind][k] for k in (
+            "wall_ms", "busy_ms", "copy_ms", "launches", "k1", "k3",
+            "all_reduces",
+            "all_reduce_ms", "all_gathers", "all_gather_ms", "host_staged",
+            "param_bytes")} for out in ranks]
+        result["tp"][kind + "_one_process"] = {
+            "param_bytes": one_bytes, **{k: ref[kind][k] for k in (
+                "wall_ms", "busy_ms", "copy_ms", "launches")}}
+
+    # (b) against the one-process block
+    got = [r["cp"] for r in ranks]
+    loss = sum(g["ring"]["loss"] for g in got)
+    x_grad = sum(g["ring"]["x_grad"] for g in got)
+    kept = sum(g["kept_hop"] for g in got)
+    scale = lambda t: float(t.abs().max())  # noqa: E731
+    errs = {"loss": abs(loss - one["loss"]) / abs(one["loss"]),
+            "x_grad": scale(x_grad - one["x_grad"]) / scale(one["x_grad"]),
+            "grads": max(scale(sum(g["ring"]["grads"][k] for g in got) - w)
+                         / scale(w) for k, w in one["grads"].items()),
+            "conv": scale(torch.cat([g["conv"] for g in got], dim=1)
+                          - conv_ref) / scale(conv_ref),
+            "kept_hop_x_grad": scale(kept - one["x_grad"])
+            / scale(one["x_grad"])}
+    say(f"[parallel] (b) ConformerBlock {CP_BLOCK} on 1 x {CP_FRAMES} frames,"
+        f" two ranks of {CP_FRAMES // 2} (ring attention, halo conv) vs one "
+        f"process with K1: loss {errs['loss']:.3e} relative (limit "
+        f"{CP_LOSS_TOL:g}), input gradient {errs['x_grad']:.3e} of its scale "
+        f"(limit {CP_X_GRAD_TOL:g}), parameter gradients {errs['grads']:.3e} "
+        f"(limit {CP_P_GRAD_TOL:g}); the halo conv vs F.conv1d "
+        f"{errs['conv']:.3e} (limit {CP_CONV_TOL:g}); a hop whose backward "
+        f"keeps the gradient: input gradient {errs['kept_hop_x_grad']:.3e} "
+        f"(must fail)")
+    for r, g in enumerate(got):
+        say(f"[parallel] (b) rank {r}: forward and backward "
+            f"{g['ring']['ms']:.2f} ms, peak {g['ring']['peak_gb']:.3f} GB "
+            f"over its start ({g['hops']} hops); one process "
+            f"{one['ms']:.2f} ms, peak {one['peak_gb']:.3f} GB, on {smi}")
+    if (errs["loss"] > CP_LOSS_TOL or errs["x_grad"] > CP_X_GRAD_TOL
+            or errs["grads"] > CP_P_GRAD_TOL or errs["conv"] > CP_CONV_TOL):
+        faults.append(f"the ring block left one process's: {errs}")
+    if errs["kept_hop_x_grad"] <= CP_X_GRAD_TOL:
+        faults.append("the planted hop that keeps the gradient passed")
+    result["cp"] = {"errors": errs, "one_process": {
+        k: one[k] for k in ("ms", "peak_gb")}, "ranks": [
+        {"ms": g["ring"]["ms"], "peak_gb": g["ring"]["peak_gb"],
+         "hops": g["hops"]} for g in got]}
+
+    # impl="flash": what JAX runs off a TPU, K1 here
+    from sincformer_tpu_torch.ops.attention import dot_product_attention
+    g = torch.Generator().manual_seed(seed + 13)
+    q, k, v = (torch.randn((4, 400, 4, 64), generator=g).cuda()
+               for _ in range(3))
+    launches.reset()
+    flash = dot_product_attention(q, k, v, impl="flash")
+    launches.expect("[parallel] impl='flash'", speech_attention=1)
+    same = torch.equal(flash, dot_product_attention(q, k, v, impl="speech"))
+    launches.expect("[parallel] impl='speech'", speech_attention=1)
+    say(f"[parallel] impl='flash' at (4, 400, 4, 64): one K1 launch, equal "
+        f"to impl='speech' bit for bit: {same}")
+    if not same:
+        faults.append("impl='flash' left impl='speech'")
+
+    # (c) the dry run on four processes on the card
+    t0 = time.perf_counter()
+    tail = dryrun_multichip(4, device="cuda")
+    result["dryrun"] = {"tail": tail, "s": time.perf_counter() - t0}
+    say(f"[parallel] (c) {tail} ({result['dryrun']['s']:.1f} s wall)")
+
+    # (d) a one-rank NCCL model axis against no mesh
+    launches.reset()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            single = dp_case("dcse", make_mesh(
+                axis_names=("data", "model"), shape=(1, 1)), batch, seed)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    diff = bit_equal(single, ref["dcse"])
+    say(f"[parallel] (d) DCSE step {TRAIN_BATCH} on a one-rank NCCL "
+        f"(data, model) mesh vs no mesh: {len(diff)} entries differ in any "
+        f"bit {diff[:4]}")
+    faults += [f"one-rank model axis vs no mesh: {d}" for d in diff[:5]]
+    launches.total["speech_attention"] += single["k1_total"]
+    launches.total["fused_ffn"] += single["k3_total"]
+    launches.reset()
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    say(f"[parallel] phase wall {result['phase_s']:.1f} s on {smi}")
+    if faults:
+        raise AssertionError("[parallel]: " + "; ".join(faults[:10]))
     return result
 
 
@@ -3907,6 +4339,12 @@ def main() -> int:
     launches.reset()
     phase_done("[distributed]")
 
+    # ── phase 16: tensor and context parallelism, the dry run ────────────
+    parallel = check_parallel(args.seed, smi, launches)
+    say("[parallel] " + json.dumps(parallel))
+    launches.reset()
+    phase_done("[parallel]")
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def row(name, source, replaces, err, timing, extra=None, **more):
@@ -3948,7 +4386,10 @@ def main() -> int:
                     "per_rank_step": {kind: distributed["two_ranks"][kind][0][
                         "k1"] for kind in ("flagship", "dcse")},
                     "per_rank_evaluate": distributed["evaluate"][
-                        "k1_per_rank"]}}),
+                        "k1_per_rank"]},
+                "in_tensor_parallel_step_per_rank": {
+                    kind: parallel["tp"][kind][0]["k1"]
+                    for kind in ("flagship", "dcse")}}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),
@@ -3959,7 +4400,9 @@ def main() -> int:
                 "in_dcse_step_no_dropout":
                     dcse_train["k3_in_step_no_dropout"],
                 "in_distributed_dcse_step_per_rank":
-                    distributed["two_ranks"]["dcse"][0]["k3"]}),
+                    distributed["two_ranks"]["dcse"][0]["k3"],
+                "in_tensor_parallel_dcse_step_per_rank":
+                    parallel["tp"]["dcse"][0]["k3"]}),
         row("meddis", "meddis.cu",
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",

@@ -12,6 +12,11 @@ K and b as the separate parameters they are in JAX and composes that matrix
 in every forward, then runs PyTorch's LSTM (cuDNN on the card) on it. The
 JAX cells ``LSTMCell_{0,1,2,3}`` are layer 0 forward, layer 0 backward,
 layer 1 forward, layer 1 backward (compat/from_jax.py).
+
+Tensor parallelism (``parallel/sharding.py``): each gate's kernels split on
+their H outputs, so a rank holds its part of each of the four row blocks
+of a folded matrix; the LSTM gathers them and runs whole (cuDNN takes the
+whole matrix), and the heads compute their column blocks.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from sincformer_tpu_torch.agents.ssm import BiLRU
+from sincformer_tpu_torch.parallel import sharding as tp
 
 
 class FlaxBiLSTM(nn.Module):
@@ -68,13 +74,13 @@ class FlaxBiLSTM(nn.Module):
 
     def recurrent_matrix(self, sfx: str) -> torch.Tensor:
         """Kᵀ + b·1ᵀ (4H, H): row g of the JAX matrix's column g."""
-        return (getattr(self, f"kernel_hh{sfx}")
+        return (tp.whole(getattr(self, f"kernel_hh{sfx}"))
                 + getattr(self, f"bias_hh{sfx}")[:, None])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weights = []
         for sfx in self._all_suffixes():
-            weights += [getattr(self, f"weight_ih{sfx}"),
+            weights += [tp.whole(getattr(self, f"weight_ih{sfx}")),
                         self.recurrent_matrix(sfx),
                         getattr(self, f"bias_ih{sfx}"),
                         getattr(self, f"bias_hh{sfx}")]
@@ -137,7 +143,7 @@ class CorrelationPhaseEstimationAgent(nn.Module):
     def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         mixer = self.bilru if self.impl == "ssm" else self.lstm
         x = mixer(z.transpose(1, 2))                      # (B, T, 2H)
-        return {"rho_s": torch.sigmoid(self.rho_s_head(x)),
-                "rho_n": torch.sigmoid(self.rho_n_head(x)),
-                "phi1": torch.tanh(self.phi1_head(x)) * math.pi,
-                "phi2": torch.tanh(self.phi2_head(x)) * math.pi}
+        return {"rho_s": torch.sigmoid(tp.linear(self.rho_s_head, x)),
+                "rho_n": torch.sigmoid(tp.linear(self.rho_n_head, x)),
+                "phi1": torch.tanh(tp.linear(self.phi1_head, x)) * math.pi,
+                "phi2": torch.tanh(tp.linear(self.phi2_head, x)) * math.pi}

@@ -12,7 +12,9 @@ values only); then the route is Gumbel-softmax straight-through
 perturbed softmax, the gradient the perturbed softmax's) or the softmax
 probabilities themselves (``routing="softmax"``). In a data-parallel step
 the batch's statistics are the global batch's (``parallel/collectives.py``),
-as in JAX's sharded step.
+as in JAX's sharded step. Its Dense layers go through
+``parallel/sharding.py`` (tensor parallelism: ``fc1`` and ``fc2`` split at
+64 features).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sincformer_tpu_torch.parallel import collectives
+from sincformer_tpu_torch.parallel import sharding as tp
 
 SOFT_MASK, RESAMPLE, HARD_MASK, ESCALATE = 0, 1, 2, 3
 MOMENTUM = 0.1            # EMA of the running σ statistics in training
@@ -71,9 +74,9 @@ class MetacognitiveArbitrationAgent(nn.Module):
                 self.running_var.copy_(var)
                 self.num_updates.add_(1)
         normalized = (sigma - mean) / (torch.sqrt(var) + 1e-8)
-        x = F.relu(self.fc1(normalized[..., None]))
-        x = F.relu(self.fc2(x))
-        logits = self.fc3(x)                              # (B, T, 4)
+        x = F.relu(tp.linear(self.fc1, normalized[..., None]))
+        x = F.relu(tp.linear(self.fc2, x))
+        logits = tp.linear(self.fc3, x)                   # (B, T, 4)
         probs = F.softmax(logits, dim=-1)
         if train and self.routing == "gumbel":
             if uniform is None:

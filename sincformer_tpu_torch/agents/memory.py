@@ -9,7 +9,10 @@ of the detached query and of the written value go into the least recently
 used slot when the best cosine to a stored key is below 0.7 (a new
 environment), and into that best slot by an EMA of momentum 0.5 otherwise.
 In a data-parallel step the means and the counts are the global batch's
-(``parallel/collectives.py``), so every rank writes the same bank.
+(``parallel/collectives.py``), so every rank writes the same bank. Under
+tensor parallelism the projections compute their column blocks and the
+key bank, split on its features, is gathered before the similarity
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 from sincformer_tpu_torch.agents.perception import gelu
 from sincformer_tpu_torch.models.conformer import LN_EPS
 from sincformer_tpu_torch.parallel import collectives
+from sincformer_tpu_torch.parallel import sharding as tp
 
 
 WRITE_THRESHOLD = 0.7     # best cosine below this: a new environment
@@ -78,8 +82,9 @@ class EpisodicMemory(nn.Module):
     def forward(self, embedding: torch.Tensor, train: bool = False,
                 write_value: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
-        query = self.key_proj2(gelu(self.key_ln(self.key_proj1(embedding))))
-        keys, values = self.keys, self.values
+        query = tp.linear(self.key_proj2, gelu(self.key_ln(
+            tp.linear(self.key_proj1, embedding))))
+        keys, values = tp.whole(self.keys), tp.whole(self.values)
         if self.episodic_slots > 0:
             if write_value is not None:
                 self._write(query, write_value)
@@ -87,8 +92,9 @@ class EpisodicMemory(nn.Module):
             values = torch.cat([values, self.bank_values], dim=0)
         similarity = _unit(query) @ _unit(keys).T     # temperature 1
         retrieved = F.softmax(similarity, dim=-1) @ values
-        bias = torch.tanh(self.value_proj(retrieved))
-        gate = torch.sigmoid(self.gate(torch.cat([query, retrieved], dim=-1)))
+        bias = torch.tanh(tp.linear(self.value_proj, retrieved))
+        gate = torch.sigmoid(tp.linear(self.gate, torch.cat(
+            [query, retrieved], dim=-1)))
         top = torch.argmax(similarity, dim=-1)
         if train:
             with torch.no_grad():

@@ -1,7 +1,8 @@
 """Mask synthesis agent (``sincformer_tpu/agents/msa.py``): fused features →
 fusion MLP → Conformer blocks → bounded polar mask (phase within ±π/8).
 A forward given a ``generator`` runs its blocks' dropout from it (the JAX
-module's ``deterministic=False``)."""
+module's ``deterministic=False``). Every Dense goes through
+``parallel/sharding.py`` (tensor parallelism)."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 
 from sincformer_tpu_torch.agents.perception import gelu
 from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
+from sincformer_tpu_torch.parallel import sharding as tp
 
 
 class MaskSynthesisAgent(nn.Module):
@@ -50,11 +52,12 @@ class MaskSynthesisAgent(nn.Module):
             [z_real.transpose(1, 2), z_imag.transpose(1, 2), cpea["rho_s"],
              cpea["rho_n"], cpea["phi1"], cpea["phi2"],
              noisy_stft_real * norm, noisy_stft_imag * norm], dim=-1)
-        x = gelu(self.fusion_ln1(self.fusion1(fused)))
-        x = self.fusion_ln2(self.fusion2(x))
+        x = gelu(self.fusion_ln1(tp.linear(self.fusion1, fused)))
+        x = self.fusion_ln2(tp.linear(self.fusion2, x))
         for i in range(self.num_blocks):
             x = getattr(self, f"block_{i}")(x, generator=generator)
-        h = gelu(self.head_hidden(x))
-        mask_mag = torch.sigmoid(self.mag_head(h))
-        mask_phase = torch.tanh(self.phase_head(h)) * self.phase_bound
+        h = gelu(tp.linear(self.head_hidden, x))
+        mask_mag = torch.sigmoid(tp.linear(self.mag_head, h))
+        mask_phase = torch.tanh(tp.linear(self.phase_head, h)) \
+            * self.phase_bound
         return mask_mag * torch.cos(mask_phase), mask_mag * torch.sin(mask_phase)

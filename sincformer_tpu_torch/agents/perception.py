@@ -11,7 +11,9 @@ three residual stride-2 blocks, a stride-2 downsample, a 5× average pool
 (VALID: the tail is dropped) onto the frame grid, and 1×1 heads. Layout
 inside is (B, C, T), PyTorch's conv layout; every conv pads as flax's SAME
 does (``models.conformer.same_pad``), asymmetric for even kernels and for
-stride 2 on even lengths.
+stride 2 on even lengths. Every conv and Dense goes through
+``parallel/sharding.py`` (tensor parallelism: a split weight computes its
+block of output channels and the blocks are gathered).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch import nn
 
 from sincformer_tpu_torch.agents.sincnet import SincConv1d
 from sincformer_tpu_torch.models.conformer import LN_EPS, same_pad
+from sincformer_tpu_torch.parallel import sharding as tp
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +34,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-class _SameConv1d(nn.Conv1d):
+class _Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` whose weight may be split over the model ranks."""
+
+    def forward(self, x):
+        return tp.conv1d(self, x)
+
+
+class _SameConv1d(_Conv1d):
     """Conv over (B, C, T) with flax SAME padding, at its stride."""
 
     def forward(self, x):
@@ -51,7 +61,7 @@ class _ConvBlock(nn.Module):
         self.conv2 = _SameConv1d(out_ch, out_ch, 3)
         self.gn2 = nn.GroupNorm(g, out_ch, eps=LN_EPS)
         # k = 1: flax's SAME pads nothing at any stride
-        self.skip = nn.Conv1d(in_ch, out_ch, 1, stride=stride)
+        self.skip = _Conv1d(in_ch, out_ch, 1, stride=stride)
         self.gn_skip = nn.GroupNorm(g, out_ch, eps=LN_EPS)
 
     def forward(self, x):
@@ -127,10 +137,10 @@ class PerceptionAgentMXU(nn.Module):
             h = getattr(self, f"block_{i}")(h)
 
         h_t = h.transpose(1, 2)                           # (B, T, D)
-        z_real = self.gn_real(self.real_proj(h_t).transpose(1, 2))
-        z_imag = self.gn_imag(self.imag_proj(h_t).transpose(1, 2))
+        z_real = self.gn_real(tp.linear(self.real_proj, h_t).transpose(1, 2))
+        z_imag = self.gn_imag(tp.linear(self.imag_proj, h_t).transpose(1, 2))
         u = gelu(self.unc1(h)).transpose(1, 2)
-        log_var = self.unc2(u).transpose(1, 2)            # (B, 1, T)
+        log_var = tp.linear(self.unc2, u).transpose(1, 2)  # (B, 1, T)
         sigma = torch.exp(0.5 * torch.clamp(log_var, -10.0, 10.0))
         return z_real, z_imag, sigma
 
@@ -154,12 +164,12 @@ class PerceptionAgent(nn.Module):
         self.downsample = _SameConv1d(d, d, 5, stride=2)
         self.down_norm = nn.GroupNorm(16, d, eps=LN_EPS)
         self.pool = align_hop // 16
-        self.real_proj = nn.Conv1d(d, d, 1)
+        self.real_proj = _Conv1d(d, d, 1)
         self.gn_real = nn.GroupNorm(16, d, eps=LN_EPS)
-        self.imag_proj = nn.Conv1d(d, d, 1)
+        self.imag_proj = _Conv1d(d, d, 1)
         self.gn_imag = nn.GroupNorm(16, d, eps=LN_EPS)
         self.unc1 = _SameConv1d(d, d // 4, 3)
-        self.unc2 = nn.Conv1d(d // 4, 1, 1)
+        self.unc2 = _Conv1d(d // 4, 1, 1)
 
     def forward(self, waveform: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -10,7 +10,9 @@ real arithmetic), through :func:`associative_scan`, which combines in the
 order the JAX package's ``lax.associative_scan`` does. ``B_*`` and ``C_*``
 are kept in flax's (in, out) layout under flax's names, so their channel
 is the last axis (``ops.quantize.channel_axis_of``), as the JAX package's
-``quantize_tree`` takes it.
+``quantize_tree`` takes it. Under tensor parallelism (``parallel/
+sharding.py``) the Dense layers compute their column blocks and a split
+``B_*`` or ``C_*`` is gathered before its product.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sincformer_tpu_torch.models.conformer import LN_EPS
+from sincformer_tpu_torch.parallel import sharding as tp
 
 D_STATE = 128           # the JAX CPEA builds its BiLRU with this state size
 
@@ -93,11 +96,11 @@ class LRULayer(nn.Module):
         lam_re, lam_im = mag * torch.cos(theta), mag * torch.sin(theta)
         gamma = torch.sqrt(torch.clamp(1.0 - mag * mag, min=1e-8))
         seq = torch.flip(x, dims=[1]) if self.reverse else x
-        bx_re = (seq @ self.B_re) * gamma                          # (B,T,H)
-        bx_im = (seq @ self.B_im) * gamma
+        bx_re = (seq @ tp.whole(self.B_re)) * gamma                # (B,T,H)
+        bx_im = (seq @ tp.whole(self.B_im)) * gamma
         lr, li = lam_re.expand_as(bx_re), lam_im.expand_as(bx_im)
         _, _, hr, hi = associative_scan(_combine, (lr, li, bx_re, bx_im))
-        y = hr @ self.C_re - hi @ self.C_im                        # Re(h·C)
+        y = hr @ tp.whole(self.C_re) - hi @ tp.whole(self.C_im)    # Re(h·C)
         if self.reverse:
             y = torch.flip(y, dims=[1])
         return y + x * self.D
@@ -138,12 +141,13 @@ class BiLRU(nn.Module):
             self.add_module(f"glu_{i}", nn.Linear(d, 2 * d))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.in_proj(x)
+        x = tp.linear(self.in_proj, x)
         for i in range(self.num_layers):
             residual = x
             x = getattr(self, f"ln_{i}")(x)
             x = getattr(self, f"lru_fwd_{i}")(x) + getattr(
                 self, f"lru_bwd_{i}")(x)
-            x = getattr(self, f"glu_{i}")(F.gelu(x, approximate="tanh"))
+            x = tp.linear(getattr(self, f"glu_{i}"),
+                          F.gelu(x, approximate="tanh"))
             x = residual + F.glu(x, dim=-1)
         return x

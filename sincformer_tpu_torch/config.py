@@ -268,8 +268,8 @@ class DCSEConfig:
     and ``remat`` of its ``SpeechEnhancer``. ``conv_norm``: "layer" (the
     default), "batch" (the reference checkpoints' BatchNorm, statistics in
     buffers) or "group" (GroupNorm of min(32, d_model) groups). ``dropout``
-    acts in training only. ``remat`` (recompute each block in the backward)
-    is not ported."""
+    acts in training only. ``remat`` recomputes each Conformer block in the
+    backward instead of keeping its activations (``models/dcse.py``)."""
     d_model: int = 256
     num_blocks: int = 4
     num_heads: int = 4
@@ -297,10 +297,6 @@ class DCSEConfig:
         if self.conv_norm not in ("layer", "batch", "group"):
             raise ValueError(f"conv_norm must be 'layer', 'batch' or "
                              f"'group', got {self.conv_norm!r}")
-        if self.remat:
-            raise NotImplementedError(
-                "remat=True (recomputing each Conformer block in the "
-                "backward) is not ported (ROADMAP.md Queue 1)")
 
 
 # read at import, as the JAX package reads its DEFAULT.agents

@@ -12,6 +12,15 @@ module's last pointwise layer). A forward given a ``generator`` is a
 training forward: it draws its dropout masks from it, and a BatchNorm
 normalises by the batch's statistics and steps its running ones; without
 one it is deterministic.
+
+Tensor parallelism: every Dense and the depthwise conv go through
+``parallel/sharding.py`` (a split weight computes its column block and
+gathers); the fused feed-forward gathers its two weights and runs kernel
+K3 whole. Context parallelism: under ``ops.ring_mesh`` the block's input
+is this rank's block of frames; ``attn_impl="ring"`` attends over every
+rank's frames, the depthwise conv exchanges halo frames
+(``ops/cp_conv.py``), and the "batch" and "group" norms take their
+statistics over every rank's frames.
 """
 
 from __future__ import annotations
@@ -22,9 +31,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sincformer_tpu_torch.ops.attention import dot_product_attention
+from sincformer_tpu_torch.ops.attention import (active_ring_mesh,
+                                                dot_product_attention)
+from sincformer_tpu_torch.ops.cp_conv import cp_depthwise_conv_in_mesh
 from sincformer_tpu_torch.ops.fused_ffn import LN_EPS, fused_ffn
 from sincformer_tpu_torch.parallel import collectives
+from sincformer_tpu_torch.parallel import sharding as tp
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -60,7 +72,8 @@ class FeedForwardModule(nn.Module):
     kernel reads the weights as (in, out), the transposes of
     ``Linear.weight``: under autograd they are transposed views made
     contiguous, so the gradient reaches the weights; without it they are
-    made once and again only when a weight was rewritten or moved.
+    made once and again only when a weight was rewritten or moved. Split
+    weights (tensor parallelism) are gathered first, every call.
     """
 
     def __init__(self, d_model: int, d_ff: int, fused: bool = False,
@@ -75,6 +88,9 @@ class FeedForwardModule(nn.Module):
 
     def _in_out_weights(self):
         w0, w1 = self.Dense_0.weight, self.Dense_1.weight
+        if hasattr(w0, "tp_split") or hasattr(w1, "tp_split"):
+            w0, w1 = tp.whole(w0), tp.whole(w1)
+            return w0.t().contiguous(), w1.t().contiguous()
         if torch.is_grad_enabled() and (w0.requires_grad or w1.requires_grad):
             return w0.t().contiguous(), w1.t().contiguous()
         # (a tensor made under inference_mode has no version counter)
@@ -91,15 +107,16 @@ class FeedForwardModule(nn.Module):
             ln = self.LayerNorm_0
             return fused_ffn(x.contiguous(), ln.weight, ln.bias, w1,
                              self.Dense_0.bias, w2, self.Dense_1.bias)
-        y = F.silu(self.Dense_0(self.LayerNorm_0(x)))
+        y = F.silu(tp.linear(self.Dense_0, self.LayerNorm_0(x)))
         y = dropout(y, self.dropout, generator)
-        y = dropout(self.Dense_1(y), self.dropout, generator)
+        y = dropout(tp.linear(self.Dense_1, y), self.dropout, generator)
         return x + 0.5 * y
 
 
 class MultiHeadSelfAttention(nn.Module):
     """Pre-LN multi-head self-attention with residual; the fused ``qkv``
-    projection splits in q, k, v order."""
+    projection splits in q, k, v order. A forward given a ``generator`` is
+    a training forward for ``ops.attention``'s ``impl="ring"`` rules."""
 
     def __init__(self, d_model: int, num_heads: int, attn_impl: str = "speech",
                  dropout: float = 0.0):
@@ -117,15 +134,33 @@ class MultiHeadSelfAttention(nn.Module):
         h = self.num_heads
         # the split's views are strided: the kernel takes contiguous copies,
         # through which the gradient flows back to qkv
+        qkv = tp.linear(self.qkv, self.LayerNorm_0(x))
         q, k, v = (y.reshape(b, t, h, d // h).contiguous()
-                   for y in self.qkv(self.LayerNorm_0(x)).split(d, dim=-1))
-        o = dot_product_attention(q, k, v, mask=mask, impl=self.attn_impl)
-        return x + dropout(self.out(o.reshape(b, t, d)), self.dropout,
-                           generator)
+                   for y in qkv.split(d, dim=-1))
+        o = dot_product_attention(q, k, v, mask=mask, impl=self.attn_impl,
+                                  train=generator is not None)
+        return x + dropout(tp.linear(self.out, o.reshape(b, t, d)),
+                           self.dropout, generator)
+
+
+def _sequence_mean(stat: torch.Tensor) -> torch.Tensor:
+    """A mean over this rank's frames made the mean over the whole
+    sequence under an ``ops.ring_mesh`` context (every rank's block is as
+    long); ``stat`` itself outside one."""
+    ctx = active_ring_mesh()
+    if ctx is None:
+        return stat
+    return collectives.mean_over(stat, ctx[0].get_group(ctx[1]))
 
 
 class DepthwiseConv(nn.Module):
-    """SAME-padded stride-1 depthwise conv over time on (B, T, D)."""
+    """SAME-padded stride-1 depthwise conv over time on (B, T, D). Under an
+    ``ops.ring_mesh`` context, with an odd kernel and a block of frames at
+    least as long as the halo, it exchanges (k - 1) / 2 halo frames with
+    the neighbouring ranks (``ops/cp_conv.py``), as the JAX module does;
+    otherwise it runs the same conv on every rank's frames gathered and
+    keeps this rank's block (JAX's fallback, the conv over the whole
+    sequence). The parameters keep their names either way."""
 
     def __init__(self, features: int, kernel_size: int):
         super().__init__()
@@ -134,8 +169,24 @@ class DepthwiseConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        y = F.conv1d(same_pad(x.transpose(1, 2), self.kernel_size),
-                     self.weight, self.bias, groups=self.weight.shape[0])
+        k = self.kernel_size
+        ctx = active_ring_mesh()
+        if ctx is None:
+            return self._conv(x)
+        if k % 2 == 1 and x.shape[1] >= (k - 1) // 2:
+            return cp_depthwise_conv_in_mesh(x, tp.whole(self.weight),
+                                             self.bias, *ctx)
+        mesh, seq_axis = ctx
+        tl, r = x.shape[1], mesh.get_local_rank(seq_axis)
+        # each rank's gradient of the whole reaches every rank's frames
+        whole = collectives.gather(x, 1, group=mesh.get_group(seq_axis),
+                                   summed=True)
+        return self._conv(whole)[:, r * tl:(r + 1) * tl]
+
+    def _conv(self, x):
+        y = tp.depthwise_conv1d(same_pad(x.transpose(1, 2),
+                                         self.kernel_size),
+                                self.weight, self.bias)
         return y.transpose(1, 2)
 
 
@@ -145,9 +196,11 @@ BN_MOMENTUM = 0.99     # flax BatchNorm: ra <- 0.99 ra + 0.01 x
 
 def _fast_stats(x: torch.Tensor, dims):
     """flax's statistics (``use_fast_variance``): the mean and
-    max(0, E[x²] - E[x]²) over ``dims``."""
-    mu = x.mean(dim=dims)
-    return mu, torch.clamp(torch.mean(x * x, dim=dims) - mu * mu, min=0.0)
+    max(0, E[x²] - E[x]²) over ``dims``, which hold the time axis (over
+    the whole sequence under ``ops.ring_mesh``)."""
+    mu = _sequence_mean(x.mean(dim=dims))
+    return mu, torch.clamp(_sequence_mean(torch.mean(x * x, dim=dims))
+                           - mu * mu, min=0.0)
 
 
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -159,15 +212,16 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     Training (``train=True``): normalise by the statistics of this batch,
     taken over B and T (padded frames included, as in JAX; in a
     data-parallel step over every rank's B, ``parallel/collectives.py``,
-    so the running statistics agree on every rank), the variance
+    so the running statistics agree on every rank; under ``ops.ring_mesh``
+    over every rank's frames), the variance
     as max(0, E[x²] - E[x]²); then step the running statistics in place,
     ``ra = momentum · ra + (1 - momentum) · stat`` with the *biased*
     variance. Otherwise normalise by the running statistics. The output is
     ``(x - mean) · (rsqrt(var + eps) · weight) + bias``, flax's order."""
     if train:
-        mean = collectives.mean(x, dim=(0, 1))
-        var = torch.clamp(collectives.mean(x * x, dim=(0, 1)) - mean * mean,
-                          min=0.0)
+        mean = _sequence_mean(collectives.mean(x, dim=(0, 1)))
+        var = torch.clamp(_sequence_mean(collectives.mean(x * x, dim=(0, 1)))
+                          - mean * mean, min=0.0)
         with torch.no_grad():
             running_mean.mul_(momentum).add_((1.0 - momentum)
                                              * mean.detach())
@@ -241,7 +295,7 @@ class ConvolutionModule(nn.Module):
         self.pointwise2 = nn.Linear(d_model, d_model)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        y = F.glu(self.pointwise1(self.LayerNorm_0(x)), dim=-1)
+        y = F.glu(tp.linear(self.pointwise1, self.LayerNorm_0(x)), dim=-1)
         y = self.depthwise(y)
         if self.norm == "batch":
             y = self.bn(y, train=generator is not None)
@@ -249,8 +303,8 @@ class ConvolutionModule(nn.Module):
             y = self.gn(y)
         else:
             y = self.ln(y)
-        return x + dropout(self.pointwise2(F.silu(y)), self.dropout,
-                           generator)
+        return x + dropout(tp.linear(self.pointwise2, F.silu(y)),
+                           self.dropout, generator)
 
 
 class ConformerBlock(nn.Module):
@@ -302,11 +356,12 @@ class ComplexConformer(nn.Module):
     def forward(self, stft_real, stft_imag,
                 mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        x = self.input_proj(torch.cat([stft_real, stft_imag], dim=-1))
+        x = tp.linear(self.input_proj,
+                      torch.cat([stft_real, stft_imag], dim=-1))
         skip = x
         for i in range(self.num_blocks):
             x = getattr(self, f"block_{i}")(x, mask, generator)
-        x = self.output_proj(x + skip)
+        x = tp.linear(self.output_proj, x + skip)
         return x[..., :self.n_freq], x[..., self.n_freq:]
 
     @staticmethod

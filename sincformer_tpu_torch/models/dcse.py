@@ -12,6 +12,13 @@ training forward with dropout takes the unfused math, as JAX does);
 ``config.conv_norm`` picks each conv module's norm. A forward given a
 ``generator`` is a training forward (dropout drawn from it, BatchNorm on the
 batch's statistics); without one it is the deterministic serving forward.
+
+``config.remat`` recomputes each Conformer block in the backward
+(``torch.utils.checkpoint``, JAX's ``nn.remat`` per block) with the same
+dropout masks (the generator's state replayed) and one step of the
+BatchNorm running statistics, so its gradients are the ones without it,
+bit for bit. Every Dense goes through ``parallel/sharding.py`` (tensor
+parallelism).
 """
 
 from __future__ import annotations
@@ -20,11 +27,44 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from sincformer_tpu_torch.config import DCSEConfig
 from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
 from sincformer_tpu_torch.models.init import variance_scaling_
+from sincformer_tpu_torch.parallel import sharding as tp
+
+
+def rematerialised(block: nn.Module, x: torch.Tensor,
+                   mask: Optional[torch.Tensor],
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``block(x, mask, generator)`` whose activations are recomputed in the
+    backward instead of kept. The recompute draws the forward's dropout
+    masks again (``generator``'s state is set back to where the forward
+    found it, then restored), and its BatchNorm step of the running
+    statistics is undone, so the running statistics move once, as under
+    JAX's ``nn.remat``."""
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x_):
+        if not calls:
+            calls.append(True)
+            return block(x_, mask, generator)
+        resume = None if generator is None else generator.get_state()
+        buffers = [b.clone() for b in block.buffers()]
+        if generator is not None:
+            generator.set_state(start)
+        try:
+            return block(x_, mask, generator)
+        finally:
+            if generator is not None:
+                generator.set_state(resume)
+            with torch.no_grad():
+                for b, saved in zip(block.buffers(), buffers):
+                    b.copy_(saved)
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
 
 
 class SpeechEnhancer(nn.Module):
@@ -49,13 +89,17 @@ class SpeechEnhancer(nn.Module):
                 mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        x = self.input_proj(self.input_norm(
+        x = tp.linear(self.input_proj, self.input_norm(
             torch.cat([noisy_real, noisy_imag], dim=-1)))
+        remat = self.config.remat and torch.is_grad_enabled()
         for i in range(self.config.num_blocks):
-            x = getattr(self, f"block_{i}")(x, mask, generator)
+            block = getattr(self, f"block_{i}")
+            x = (rematerialised(block, x, mask, generator) if remat
+                 else block(x, mask, generator))
         x = self.output_norm(x)
-        mask_mag = torch.sigmoid(self.mag_head(x))
-        mask_phase = torch.tanh(self.phase_head(x)) * self.phase_bound
+        mask_mag = torch.sigmoid(tp.linear(self.mag_head, x))
+        mask_phase = (torch.tanh(tp.linear(self.phase_head, x))
+                      * self.phase_bound)
         mask_real = mask_mag * torch.cos(mask_phase)
         mask_imag = mask_mag * torch.sin(mask_phase)
         enh_real = mask_real * noisy_real - mask_imag * noisy_imag

@@ -58,10 +58,20 @@ def data_rank(mesh, axis: str = "data") -> int:
     return 0 if mesh is None else mesh.get_local_rank(axis)
 
 
+def model_rank(mesh, axis: str = "model") -> int:
+    """This rank's place along the model axis (0 without a mesh or without
+    that axis)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
 def rank_seed(seed: int, mesh) -> int:
     """The seed of this rank's noise generators (dropout, Gumbel): each rank
     draws its own rows' noise, where JAX's sharded step draws the global
-    batch's; rank 0's (and one process's) is ``seed``."""
+    batch's; rank 0's (and one process's) is ``seed``. Keyed on the data
+    rank alone: the ranks of one model group compute the same rows and
+    draw the same noise."""
     return seed + 1000 * data_rank(mesh)
 
 

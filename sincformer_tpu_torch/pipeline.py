@@ -77,9 +77,13 @@ def with_training_state(pipe, state: dict, quantize: bool) -> dict:
 
 
 def model_buffers(model: torch.nn.Module) -> dict:
-    """The buffers a checkpoint keeps: those of ``state_dict()``."""
-    keys = set(model.state_dict())
-    return {k: b for k, b in model.named_buffers() if k in keys}
+    """The buffers a checkpoint keeps: those of ``state_dict()``, the
+    persistent ones (read off the modules, without building the state
+    dict, which would compose weights from split parameters)."""
+    return {f"{m}.{k}" if m else k: b
+            for m, mod in model.named_modules()
+            for k, b in mod._buffers.items()
+            if b is not None and k not in mod._non_persistent_buffers_set}
 
 
 class _EnhancementPipeline:

@@ -39,6 +39,19 @@ reads after a barrier. The ranks' parameters stay bit-identical. Each rank
 draws its dropout and Gumbel noise from its own generators (seeds offset
 by the rank; rank 0's are a single process's), where JAX draws the global
 batch's.
+
+Tensor parallelism (a mesh with a ``"model"`` axis of several ranks, as in
+JAX, ``parallel/sharding.py``): after the broadcast each rank keeps only
+its slice of every parameter the JAX rule splits, and of its AdamW
+moments; the forward and backward run inside
+``collectives.model_parallel`` (each split layer computes its column block
+and gathers); the clip and the NaN guard read the gradients' global norm
+(``collectives.global_norm``); the replicated leaves' gradients are
+averaged over the model ranks, so they stay bit-identical. The
+ranks of one model group take the same rows and draw the same noise. A
+checkpoint gathers every leaf and is written whole by the first rank, in
+the unsharded format; a resume re-shards it. The discriminator stays
+replicated, as in JAX.
 """
 
 from __future__ import annotations
@@ -63,7 +76,10 @@ from sincformer_tpu_torch.masks.pcirm import (compute_correlation_coefficients,
                                               compute_phase_differences)
 from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
-                                                rank_seed, shard_batch)
+                                                model_rank, rank_seed,
+                                                shard_batch)
+from sincformer_tpu_torch.parallel.sharding import (shard_state_params,
+                                                    split_flags)
 from sincformer_tpu_torch.pipeline import SincformerPipeline
 from sincformer_tpu_torch.train.adversarial import (MultiScaleDiscriminator,
                                                     discriminator_loss,
@@ -75,7 +91,9 @@ from sincformer_tpu_torch.train.losses import (PerceptualSTOILoss,
                                                multi_resolution_stft_loss,
                                                si_snr_loss)
 from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, Adam,
-                                              guard_nan_update,
+                                              broadcast_state,
+                                              gathered_state,
+                                              guard_nan_update, guarded,
                                               make_adamw, merge_train_meta,
                                               newest_checkpoint,
                                               opt_state_to,
@@ -154,6 +172,9 @@ class SincformerTrainer(SincformerPipeline):
     # ── checkpoints: the serving ones plus the optimizer state ─────────
 
     def load_state(self, state_dict, buffers=None) -> None:
+        if any(split_flags(self.model)):   # whole tensors: unsplit skeleton
+            self.model = type(self.model)(self.model.config).to(
+                self.device).eval()
         super().load_state(state_dict, buffers)
         self._weights_loaded = True
 
@@ -166,11 +187,16 @@ class SincformerTrainer(SincformerPipeline):
             self.disc_opt_state = opt_state_to(opt_state, self.device)
 
     def save_model(self, name: Optional[str] = None,
-                   quantize: bool = False) -> str:
+                   quantize: bool = False) -> Optional[str]:
         """As the serving pipeline, the optimizer state and NaN count
         included once training has made them; the discriminator with its
         Adam state goes to the ``<name>_disc`` family at the generator's
-        step."""
+        step. With a model axis every model rank calls it (the split
+        leaves are gathered) and the first writes; the others return
+        None."""
+        if model_rank(self.mesh) != 0:
+            self._checkpoint_state(quantize)
+            return None
         path = super().save_model(name, quantize)
         if (not quantize and self.opt_state is not None
                 and self.disc is not None
@@ -181,6 +207,12 @@ class SincformerTrainer(SincformerPipeline):
                              "opt_state": self.disc_opt_state}, self.step)
         return path
 
+    def _checkpoint_state(self, quantize: bool) -> dict:
+        """As the serving pipeline's; with a model axis every split
+        parameter and its AdamW moments gathered whole (a collective)."""
+        return gathered_state(super()._checkpoint_state(quantize),
+                              self.model, self.mesh)
+
     def load_model(self, path: Optional[str] = None) -> str:
         """As the serving pipeline (the model rebuilt as the checkpoint's
         variant and sizes, whatever the constructor was given), and the
@@ -190,6 +222,10 @@ class SincformerTrainer(SincformerPipeline):
         self.opt_state, self.nan_count = restore_training_state(path,
                                                                 self.device)
         return path
+
+    def _enhanced_spec(self, wav, spec):
+        with collectives.model_parallel(self.mesh):
+            return super()._enhanced_spec(wav, spec)
 
     # ── state ───────────────────────────────────────────────────────────
 
@@ -229,18 +265,19 @@ class SincformerTrainer(SincformerPipeline):
             device=self.device).manual_seed(seed + 2)
         if self.mesh is not None:
             self._broadcast_state()
+            self.opt_state = shard_state_params(self.model, self.opt_state,
+                                                self.mesh)
 
     def _broadcast_state(self) -> None:
         """Rank 0's parameters, buffers and optimizer states on every rank
-        of the mesh (also the discriminator's)."""
-        tensors = [*self.model.parameters(), *self.model.buffers(),
-                   *self.opt_state["mu"].values(),
-                   *self.opt_state["nu"].values()]
+        of the mesh (also the discriminator's); a split parameter's slice
+        and moments go over the data axis only."""
+        extra = []
         if self.disc is not None:
-            tensors += [*self.disc.parameters(),
-                        *self.disc_opt_state["mu"].values(),
-                        *self.disc_opt_state["nu"].values()]
-        collectives.broadcast_(tensors, self.mesh)
+            extra = [*self.disc.parameters(),
+                     *self.disc_opt_state["mu"].values(),
+                     *self.disc_opt_state["nu"].values()]
+        broadcast_state(self.model, self.opt_state, self.mesh, extra)
 
     # ── loss ────────────────────────────────────────────────────────────
 
@@ -319,14 +356,16 @@ class SincformerTrainer(SincformerPipeline):
         take their training updates, and ``last_mags`` the detached
         magnitudes that the discriminator's step takes."""
         params = list(self.params().values())
-        with collectives.data_parallel(self.mesh):
+        with collectives.data_parallel(self.mesh), \
+                collectives.model_parallel(self.mesh):
             loss, aux = self._loss(noisy, clean, True, use_perceptual,
                                    use_vq, gumbel_tau, use_mask_mse, use_adv)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         self.last_mags = (aux["enh_mag"].detach(), aux["clean_mag"].detach())
         loss, sisnr, *grads = collectives.average_over_ranks(
             [loss.detach(), aux["sisnr"].detach(), *grads], self.mesh)
-        return loss, sisnr, list(grads)
+        return loss, sisnr, collectives.average_replicated(
+            grads, split_flags(self.model), self.mesh)
 
     def disc_loss_and_grads(self, enh_mag: torch.Tensor,
                             clean_mag: torch.Tensor):
@@ -369,8 +408,9 @@ class SincformerTrainer(SincformerPipeline):
             noisy, clean, use_perceptual, use_vq, gumbel_tau, use_mask_mse,
             adv)
         params = self.params()
-        grads, is_bad = guard_nan_update(grads, loss, params.values())
-        self.tx.update(params, grads, self.opt_state)
+        grads, is_bad, norm = guarded(grads, loss, params, self.model,
+                                      self.mesh)
+        self.tx.update(params, grads, self.opt_state, norm=norm)
         self.nan_count += is_bad.to(torch.int32)
         self.step += 1
         if self.disc is not None:
@@ -388,7 +428,8 @@ class SincformerTrainer(SincformerPipeline):
 
     @torch.no_grad()
     def _eval(self, noisy, clean, lengths, mesh):
-        with collectives.data_parallel(mesh):
+        with collectives.data_parallel(mesh), \
+                collectives.model_parallel(self.mesh):
             loss, aux = self._loss(noisy, clean, False, 1.0, 1.0)
         enh = aux["enh_wav"]
         m = (torch.arange(clean.shape[-1], device=clean.device)[None, :]
@@ -457,8 +498,9 @@ class SincformerTrainer(SincformerPipeline):
         steps_per_epoch = max(1, len(clean_train) // batch_size)
         start_epoch = 0
         resume_path = None
-        primary = data_rank(self.mesh) == 0
-        verbose = verbose and primary
+        primary = data_rank(self.mesh) == 0      # its model group saves
+        writer = primary and model_rank(self.mesh) == 0
+        verbose = verbose and writer
         if resume:
             collectives.barrier(self.mesh)       # rank 0's writes are done
             resume_path = newest_checkpoint(self.model_dir, self._CKPT_NAMES)
@@ -547,6 +589,7 @@ class SincformerTrainer(SincformerPipeline):
                 best_val = va_loss
                 if primary:
                     self.save_model("best_sincformer")
+                if writer:
                     merge_train_meta(self.model_dir, "best_sincformer",
                                      {"best_val": va_loss, "epoch": epoch,
                                       "step": int(self.step),
@@ -557,7 +600,7 @@ class SincformerTrainer(SincformerPipeline):
                      "nan_count": int(self.nan_count),
                      "epoch_seconds": time.time() - t0}
             history.append(entry)
-            if self.logger is not None and primary:
+            if self.logger is not None and writer:
                 self.logger.log({"pipeline": "sincformer", **entry})
             if verbose:
                 print(f"  Epoch {epoch + 1:3d}/{epochs} "

@@ -29,7 +29,10 @@ all-reduced, rank 0 alone writing. Inside the step the "batch" BatchNorm
 statistics are the global B × T's (``models/conformer.batch_norm``), so
 the running statistics agree on every rank, and the MR-STFT spectral
 convergence is global; SI-SNR and the magnitude L1 are means over equal
-per-rank shapes and stay local.
+per-rank shapes and stay local. A ``"model"`` axis splits the parameters
+as the flagship trainer's does (tensor parallelism: each rank's slices,
+the global gradient norm for the clip and the guard, checkpoints gathered
+and written whole).
 """
 
 from __future__ import annotations
@@ -50,11 +53,15 @@ from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.models.dcse import default_speech_enhancer
 from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
-                                                rank_seed, shard_batch)
+                                                model_rank, rank_seed,
+                                                shard_batch)
+from sincformer_tpu_torch.parallel.sharding import (shard_state_params,
+                                                    split_flags)
 from sincformer_tpu_torch.pipeline import DCSEPipeline
 from sincformer_tpu_torch.train.losses import (multi_resolution_stft_loss,
                                                si_snr_loss)
-from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, guard_nan_update,
+from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, broadcast_state,
+                                              gathered_state, guarded,
                                               make_adamw, merge_train_meta,
                                               newest_checkpoint,
                                               read_train_meta,
@@ -71,7 +78,7 @@ class DCSETrainer(DCSEPipeline):
     ``compute_dtype`` other than None (the JAX package's bf16 path) is not
     ported: kernels K1 and K3 are float32 kernels. ``mesh`` (a DeviceMesh
     with a ``"data"`` axis) makes the training data-parallel over its
-    ranks."""
+    ranks, and a ``"model"`` axis tensor-parallel."""
 
     _CKPT_NAMES = ("conformer_final", "best_conformer")
 
@@ -116,11 +123,31 @@ class DCSETrainer(DCSEPipeline):
     # ── checkpoints: the serving ones plus the optimizer state ─────────
 
     def load_state(self, state_dict, buffers=None) -> None:
+        if any(split_flags(self.model)):   # whole tensors: unsplit skeleton
+            self.model = type(self.model)(self.model.config).to(
+                self.device).eval()
         super().load_state(state_dict, buffers)
         self._weights_loaded = True
 
     def params(self):
         return dict(self.model.named_parameters())
+
+    def save_model(self, name: Optional[str] = None,
+                   quantize: bool = False) -> Optional[str]:
+        """As the serving pipeline; with a model axis every model rank
+        calls it (the split leaves are gathered) and the first writes."""
+        if model_rank(self.mesh) != 0:
+            self._checkpoint_state(quantize)
+            return None
+        return super().save_model(name, quantize)
+
+    def _checkpoint_state(self, quantize: bool) -> dict:
+        return gathered_state(super()._checkpoint_state(quantize),
+                              self.model, self.mesh)
+
+    def _enhanced_spec(self, wav, spec):
+        with collectives.model_parallel(self.mesh):
+            return super()._enhanced_spec(wav, spec)
 
     def load_model(self, path: Optional[str] = None) -> str:
         """As the serving pipeline, and the optimizer state and NaN count of
@@ -155,10 +182,9 @@ class DCSETrainer(DCSEPipeline):
             device=self.device).manual_seed(rank_seed(self.seed, self.mesh)
                                             + 1)
         if self.mesh is not None:
-            collectives.broadcast_(
-                [*self.model.parameters(), *self.model.buffers(),
-                 *self.opt_state["mu"].values(),
-                 *self.opt_state["nu"].values()], self.mesh)
+            broadcast_state(self.model, self.opt_state, self.mesh)
+            self.opt_state = shard_state_params(self.model, self.opt_state,
+                                                self.mesh)
 
     # ── loss and steps ──────────────────────────────────────────────────
 
@@ -189,12 +215,14 @@ class DCSETrainer(DCSEPipeline):
         """A training forward and its gradients: (loss, sisnr, grads in the
         order of :meth:`params`, None for a parameter nothing reads)."""
         params = list(self.params().values())
-        with collectives.data_parallel(self.mesh):
+        with collectives.data_parallel(self.mesh), \
+                collectives.model_parallel(self.mesh):
             loss, (sisnr, _) = self._loss(noisy, clean, True)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         loss, sisnr, *grads = collectives.average_over_ranks(
             [loss.detach(), sisnr.detach(), *grads], self.mesh)
-        return loss, sisnr, list(grads)
+        return loss, sisnr, collectives.average_replicated(
+            grads, split_flags(self.model), self.mesh)
 
     def train_step(self, noisy: torch.Tensor, clean: torch.Tensor):
         """One step: loss, gradients, the NaN guard (a non-finite loss or
@@ -206,8 +234,9 @@ class DCSETrainer(DCSEPipeline):
                                "train() first")
         loss, sisnr, grads = self.loss_and_grads(noisy, clean)
         params = self.params()
-        grads, is_bad = guard_nan_update(grads, loss, params.values())
-        self.tx.update(params, grads, self.opt_state)
+        grads, is_bad, norm = guarded(grads, loss, params, self.model,
+                                      self.mesh)
+        self.tx.update(params, grads, self.opt_state, norm=norm)
         self.nan_count += is_bad.to(torch.int32)
         self.step += 1
         return loss, sisnr
@@ -223,7 +252,8 @@ class DCSETrainer(DCSEPipeline):
 
     @torch.no_grad()
     def _eval(self, noisy, clean, lengths, mesh):
-        with collectives.data_parallel(mesh):
+        with collectives.data_parallel(mesh), \
+                collectives.model_parallel(self.mesh):
             loss, (sisnr, enh) = self._loss(noisy, clean, False)
         m = (torch.arange(clean.shape[-1], device=clean.device)[None, :]
              < lengths[:, None]).to(clean.dtype)
@@ -271,8 +301,9 @@ class DCSETrainer(DCSEPipeline):
         steps_per_epoch = max(1, len(train_ds) // batch_size)
         start_epoch = 0
         resume_path = None
-        primary = data_rank(self.mesh) == 0
-        verbose = verbose and primary
+        primary = data_rank(self.mesh) == 0      # its model group saves
+        writer = primary and model_rank(self.mesh) == 0
+        verbose = verbose and writer
         if resume:
             collectives.barrier(self.mesh)       # rank 0's writes are done
             resume_path = newest_checkpoint(self.model_dir, self._CKPT_NAMES)
@@ -336,6 +367,7 @@ class DCSETrainer(DCSEPipeline):
                 best_val = va_loss
                 if primary:
                     self.save_model("best_conformer")
+                if writer:
                     merge_train_meta(self.model_dir, "best_conformer",
                                      {"best_val": va_loss, "epoch": epoch,
                                       "step": int(self.step),
@@ -345,7 +377,7 @@ class DCSETrainer(DCSEPipeline):
                      "nan_count": int(self.nan_count),
                      "epoch_seconds": time.time() - t0}
             history.append(entry)
-            if self.logger is not None and primary:
+            if self.logger is not None and writer:
                 self.logger.log({"pipeline": "dcse", **entry})
             if verbose:
                 print(f"  Epoch {epoch + 1:3d}/{epochs} | "

@@ -110,17 +110,23 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Sequence[torch.Tensor], state: dict) -> None:
+               grads: Sequence[torch.Tensor], state: dict,
+               norm: Optional[torch.Tensor] = None) -> None:
         """One step, in place on ``params`` (name → tensor) and ``state``;
-        ``grads`` in the order of ``params``."""
+        ``grads`` in the order of ``params``. ``norm``: the gradients'
+        global norm when this rank holds slices of some of them (tensor
+        parallelism: ``parallel.collectives.global_norm``); by default the
+        norm of ``grads``."""
         names = list(params)
         ps = [params[k] for k in names]
         gs = list(grads)
-        # one reduction over every element: PyTorch's CPU norm kernels lose
-        # accuracy on long leaves (6e-6 relative off float64 at 655k
-        # elements), where the sum stays at optax's accuracy
-        flat = torch.cat([g.reshape(-1) for g in gs])
-        g_norm = torch.sqrt(torch.sum(flat * flat))
+        if norm is None:
+            # one reduction over every element: PyTorch's CPU norm kernels
+            # lose accuracy on long leaves (6e-6 relative off float64 at
+            # 655k elements), where the sum stays at optax's accuracy
+            flat = torch.cat([g.reshape(-1) for g in gs])
+            norm = torch.sqrt(torch.sum(flat * flat))
+        g_norm = norm
         # optax: (g / ‖g‖) · clip when ‖g‖ ≥ clip
         keep = g_norm < self.grad_clip
         denom = torch.where(keep, torch.ones_like(g_norm), g_norm)
@@ -209,7 +215,8 @@ def set_injected_lr(opt_state: dict, lr: float) -> dict:
 
 def guard_nan_update(grads: Sequence[Optional[torch.Tensor]],
                      loss: torch.Tensor,
-                     params: Sequence[torch.Tensor]
+                     params: Sequence[torch.Tensor],
+                     norm: Optional[torch.Tensor] = None
                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Zero every gradient when the loss or any gradient is not finite;
     a missing gradient (a parameter nothing reads) is a zero. Returns
@@ -219,14 +226,77 @@ def guard_nan_update(grads: Sequence[Optional[torch.Tensor]],
     counter. In a data-parallel step the flag is already global: the
     trainers pass the loss and gradients after ``average_over_ranks``,
     whose all-reduce carries a non-finite value on any rank to every rank,
-    so every rank zeroes its step together."""
+    so every rank zeroes its step together. Under tensor parallelism a rank
+    holds slices of some gradients: ``norm``, their global norm
+    (``parallel.collectives.global_norm``), carries a non-finite element
+    of any rank's slice to every rank, and the flag reads it."""
     gs = [torch.zeros_like(p) if g is None else g
           for g, p in zip(grads, params)]
-    finite = torch.isfinite(loss) & torch.isfinite(torch.stack(
-        torch._foreach_norm(gs, ord=float("inf")))).all()
+    if norm is not None:
+        finite = torch.isfinite(loss) & torch.isfinite(norm)
+    else:
+        finite = torch.isfinite(loss) & torch.isfinite(torch.stack(
+            torch._foreach_norm(gs, ord=float("inf")))).all()
     is_bad = ~finite
     zero = torch.zeros((), dtype=gs[0].dtype, device=gs[0].device)
     return [torch.where(~is_bad, g, zero) for g in gs], is_bad
+
+
+def guarded(grads: Sequence[Optional[torch.Tensor]], loss: torch.Tensor,
+            params: Mapping[str, torch.Tensor], model, mesh) -> tuple:
+    """:func:`guard_nan_update` of a trainer's step and the gradients'
+    global norm for its optimizer: None without a model axis (the
+    optimizer takes the norm of its gradients), else the norm over every
+    model rank's slices (``parallel.collectives.global_norm``), read by the
+    guard and zero after a guarded step. Returns (grads, is_bad, norm)."""
+    from sincformer_tpu_torch.parallel import collectives
+    from sincformer_tpu_torch.parallel.sharding import (has_model_axis,
+                                                        split_flags)
+    norm = None
+    if has_model_axis(mesh):
+        norm = collectives.global_norm(
+            [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params.values())],
+            split_flags(model), mesh)
+    grads, is_bad = guard_nan_update(grads, loss, params.values(), norm)
+    if norm is not None:
+        norm = torch.where(is_bad, torch.zeros_like(norm), norm)
+    return grads, is_bad, norm
+
+
+def broadcast_state(model, opt_state: dict, mesh, extra=()) -> None:
+    """Global rank 0's parameters, buffers and AdamW moments (and the
+    ``extra`` tensors) on every rank of ``mesh``: over the data axis, then
+    over the model axis for every tensor this rank holds whole (a split
+    parameter's slice and its moments are the rank's own)."""
+    from sincformer_tpu_torch.parallel import collectives
+    tensors = [*model.parameters(), *model.buffers(),
+               *opt_state["mu"].values(), *opt_state["nu"].values(), *extra]
+    collectives.broadcast_(tensors, mesh)
+    split = {name for name, p in model.named_parameters()
+             if getattr(p, "tp_split", None) is not None}
+    whole = [p for name, p in model.named_parameters() if name not in split]
+    whole += [*model.buffers(), *extra]
+    for moments in (opt_state["mu"], opt_state["nu"]):
+        whole += [m for name, m in moments.items() if name not in split]
+    if collectives.model_group_of(mesh) is not None:
+        collectives.broadcast_(whole, mesh, axis="model")
+
+
+def gathered_state(state: dict, model, mesh) -> dict:
+    """A checkpoint state (``{"params", "model_state"[, "opt_state"]}``)
+    with every split parameter and its AdamW moments gathered whole from
+    the model ranks (a collective); unchanged without a model axis."""
+    from sincformer_tpu_torch.parallel.sharding import (gathered,
+                                                        has_model_axis)
+    if not has_model_axis(mesh):
+        return state
+    state = dict(state, params=gathered(state["params"], model, mesh))
+    opt = state.get("opt_state")
+    if opt is not None:
+        state["opt_state"] = dict(opt, mu=gathered(opt["mu"], model, mesh),
+                                  nu=gathered(opt["nu"], model, mesh))
+    return state
 
 
 def latest_step_dir(base: str) -> Optional[str]:

@@ -1,12 +1,16 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_parallel.py,
-tests/test_torch_data_parallel.py), started by :func:`spawn` with the
-``spawn`` start method: it joins a gloo group on 127.0.0.1, builds a
-one-axis mesh, runs its job on its block of the batch
-(``parallel.shard_batch``) and saves what the test compares to
-``<out_dir>/out_<rank>.pt``. A failure writes the traceback to
-``<out_dir>/err_<rank>.txt``. Imports torch and the port only, never JAX.
+"""The ranks of the port's multi-process tests (tests/test_torch_parallel.py,
+tests/test_torch_data_parallel.py, tests/test_torch_tp.py,
+tests/test_torch_cp.py): :func:`pool` starts two processes once per test
+process, with the ``spawn`` start method; they join a gloo group on
+127.0.0.1 and then run job after job, in the order submitted, on the same
+group, so the tests of several files pay for one start. A job (a dict
+saved with ``torch.save``, key ``"kind"``) builds its mesh (one data axis
+over both ranks unless it names ``"mesh"``: axis names and shape), runs,
+and saves what the test compares to ``<out_dir>/out_<rank>.pt``; a failure
+reports the traceback to the test, which raises it. Imports torch and the
+port only, never JAX.
 
-Jobs (a dict saved with ``torch.save``, key ``"kind"``):
+Jobs:
 
   * ``"flagship"``: one adversarial training step of the narrow flagship
     (dropout 0, softmax routing) from the given flax variables, the same
@@ -17,16 +21,21 @@ Jobs (a dict saved with ``torch.save``, key ``"kind"``):
     same step with a per-rank BatchNorm; a step with a NaN in the last
     rank's rows; an epoch of ``train``;
   * ``"evaluate"``: ``cli.main(["evaluate", "--distributed", ...])`` with
-    an identity enhancer and no speech files.
+    an identity enhancer and no speech files;
+  * ``"tp"`` and ``"cp"``: tensor and context parallelism
+    (tests/_torch_tp_jobs.py).
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import datetime
+import itertools
 import multiprocessing
 import os
+import queue
 import socket
-import sys
 import traceback
 from types import SimpleNamespace
 from unittest import mock
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 LR_EPOCHS, LR_STEPS = 3, 2       # the schedule of the parity tests
+GROUP_TIMEOUT = 120              # seconds a collective waits for a rank
 
 
 def free_port() -> int:
@@ -43,60 +53,148 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(job: dict, world: int, out_dir: str, timeout: float = 240.0):
-    """Run ``job`` on ``world`` ranks; returns each rank's saved output.
-    Every process gets ``timeout`` seconds; one that fails, or is still
-    running then, fails the caller with its traceback."""
-    os.makedirs(out_dir, exist_ok=True)
-    job_path = os.path.join(out_dir, "job.pt")
-    torch.save(job, job_path)
-    ctx = multiprocessing.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=run, args=(r, world, port, job_path, out_dir))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    failed = []
-    for r, p in enumerate(procs):
-        p.join(timeout)
-        if p.is_alive():
-            for q in procs:
-                q.kill()
-            failed.append(f"rank {r} timed out after {timeout} s")
-        elif p.exitcode != 0:
-            err = os.path.join(out_dir, f"err_{r}.txt")
-            tail = open(err).read() if os.path.exists(err) else ""
-            failed.append(f"rank {r} exited {p.exitcode}:\n{tail}")
-    if failed:
-        raise AssertionError("\n".join(failed))
-    return [torch.load(os.path.join(out_dir, f"out_{r}.pt"),
-                       weights_only=False) for r in range(world)]
+class Pool:
+    """``world`` ranks that run the jobs given to :meth:`submit`, each job
+    on every rank, in order."""
+
+    def __init__(self, world: int):
+        ctx = multiprocessing.get_context("spawn")
+        self.world = world
+        self.inboxes = [ctx.Queue() for _ in range(world)]
+        self.outbox = ctx.Queue()
+        self.reports = {}
+        self.tickets = itertools.count()
+        port = free_port()
+        self.procs = [ctx.Process(target=serve,
+                                  args=(r, world, port, self.inboxes[r],
+                                        self.outbox), daemon=True)
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def submit(self, job: dict, out_dir: str) -> "Ticket":
+        """Queue ``job`` on every rank; its outputs go to ``out_dir``."""
+        os.makedirs(out_dir, exist_ok=True)
+        job_path = os.path.join(out_dir, "job.pt")
+        torch.save(job, job_path)
+        ticket = next(self.tickets)
+        for inbox in self.inboxes:
+            inbox.put((ticket, job_path, out_dir))
+        return Ticket(self, ticket, out_dir)
+
+    def wait(self, ticket: int, out_dir: str, timeout: float) -> list:
+        deadline = timeout
+        while len(self.reports.get(ticket, {})) < self.world:
+            try:
+                t, rank, err = self.outbox.get(timeout=5.0)
+            except queue.Empty:
+                deadline -= 5.0
+                dead = [r for r, p in enumerate(self.procs)
+                        if not p.is_alive()]
+                if dead or deadline <= 0:
+                    self.close()
+                    raise AssertionError(
+                        f"ranks {dead} died" if dead else
+                        f"job {ticket} still running after {timeout} s")
+                continue
+            self.reports.setdefault(t, {})[rank] = err
+        errs = self.reports.pop(ticket)
+        failed = [f"rank {r}:\n{e}" for r, e in sorted(errs.items()) if e]
+        if failed:
+            self.close()        # a rank that failed may hold a collective
+            raise AssertionError("\n".join(failed))
+        return [torch.load(os.path.join(out_dir, f"out_{r}.pt"),
+                           weights_only=False) for r in range(self.world)]
+
+    def alive(self) -> bool:
+        return all(p.is_alive() for p in self.procs)
+
+    def close(self) -> None:
+        for inbox in self.inboxes:
+            with contextlib.suppress(Exception):
+                inbox.put(None)
+        for p in self.procs:
+            p.join(2.0)
+            if p.is_alive():
+                p.kill()
+                p.join()
 
 
-def run(rank: int, world: int, port: int, job_path: str, out_dir: str):
+class Ticket:
+    """A submitted job: :meth:`result` waits for every rank's output."""
+
+    def __init__(self, pool_: Pool, ticket: int, out_dir: str):
+        self.pool, self.ticket, self.out_dir = pool_, ticket, out_dir
+        self._outs = None
+
+    def result(self, timeout: float = 300.0) -> list:
+        if self._outs is None:
+            self._outs = self.pool.wait(self.ticket, self.out_dir, timeout)
+        return self._outs
+
+
+_POOLS = {}
+
+
+def pool(world: int = 2) -> Pool:
+    """The test process's pool of ``world`` ranks, started at first use
+    (again after a failure closed it)."""
+    p = _POOLS.get(world)
+    if p is None or not p.alive():
+        p = _POOLS[world] = Pool(world)
+    return p
+
+
+@atexit.register
+def _close_pools() -> None:
+    for p in _POOLS.values():
+        p.close()
+
+
+def _mesh(job: dict):
+    from sincformer_tpu_torch.parallel import make_mesh
+    names, shape = job.get("mesh", (("data",), None))
+    return make_mesh(axis_names=names, shape=shape)
+
+
+def serve(rank: int, world: int, port: int, inbox, outbox) -> None:
+    torch.set_num_threads(2)
+    import torch.distributed as dist
     try:
-        torch.set_num_threads(2)
-        from sincformer_tpu_torch.parallel import (init_distributed,
-                                                   make_mesh)
-        job = torch.load(job_path, weights_only=False)
-        if job["kind"] == "evaluate":
-            # the verb joins the group itself, from torchrun's variables
-            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                              LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                              MASTER_PORT=str(port))
-            mesh = None
-        else:
-            assert init_distributed(f"tcp://127.0.0.1:{port}", world, rank,
-                                    device="cpu")
-            mesh = make_mesh()
-        out = JOBS[job["kind"]](job, mesh, out_dir)
-        torch.save(out, os.path.join(out_dir, f"out_{rank}.pt"))
-        import torch.distributed as dist
-        dist.destroy_process_group()
-    except BaseException:
-        with open(os.path.join(out_dir, f"err_{rank}.txt"), "w") as f:
-            f.write(traceback.format_exc())
-        sys.exit(1)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=GROUP_TIMEOUT))
+    except Exception:
+        outbox.put((-1, rank, traceback.format_exc()))
+        return
+    parent = multiprocessing.parent_process()
+    while True:
+        try:
+            item = inbox.get(timeout=5.0)
+        except queue.Empty:
+            if parent is not None and not parent.is_alive():
+                break           # the test process is gone: so are we
+            continue
+        if item is None:
+            break
+        ticket, job_path, out_dir = item
+        try:
+            job = torch.load(job_path, weights_only=False)
+            if job["kind"] == "evaluate":
+                # the verb joins the group itself, from torchrun's
+                # variables: here it finds the pool's group
+                os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                                  LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                                  MASTER_PORT=str(port))
+                mesh = None
+            else:
+                mesh = _mesh(job)
+            out = JOBS[job["kind"]](job, mesh, out_dir)
+            torch.save(out, os.path.join(out_dir, f"out_{rank}.pt"))
+            outbox.put((ticket, rank, None))
+        except Exception:       # reported to the test, which raises it
+            outbox.put((ticket, rank, traceback.format_exc()))
+    dist.destroy_process_group()
 
 
 # ── per-rank statistics: what averaging the gradients alone computes ─────
@@ -124,10 +222,10 @@ def _recorder(tx):
     seen = {}
     update = tx.update
 
-    def record(params, grads, state):
+    def record(params, grads, state, **norm):
         seen["grads"] = {k: g.detach().clone()
                          for k, g in zip(params, grads)}
-        return update(params, grads, state)
+        return update(params, grads, state, **norm)
     tx.update = record
     return seen
 
@@ -170,14 +268,22 @@ def _flagship_step(job, mesh):
                               torch.from_numpy(batch["clean"]),
                               1.0, 1.0, None, 1.0, 1.0)
     clone = lambda named: {k: t.detach().clone() for k, t in named}  # noqa
-    return {"loss": float(loss), "grads": seen["grads"],
+    return {"loss": float(loss), "grads": _whole(seen["grads"], pipe, mesh),
             "buffers": clone(pipe.model.named_buffers()),
-            "params": clone(pipe.model.named_parameters()),
+            "params": _whole(clone(pipe.model.named_parameters()), pipe,
+                             mesh),
             "disc_loss": float(pipe.disc_loss), "disc_grads": dseen["grads"],
             "disc_params": clone(pipe.disc.named_parameters()),
             "disc_mu": dict(pipe.disc_opt_state["mu"]),
             "disc_nu": dict(pipe.disc_opt_state["nu"]),
             "nan_count": int(pipe.nan_count)}
+
+
+def _whole(tensors, pipe, mesh):
+    """Parameter-shaped ``tensors`` made whole over a model axis (split
+    leaves gathered); unchanged without one."""
+    from sincformer_tpu_torch.parallel.sharding import gathered
+    return gathered(tensors, pipe.model, mesh)
 
 
 def _trained(pipe, history, model_dir):
@@ -218,11 +324,12 @@ def flagship(job, mesh, out_dir):
     return out
 
 
-def _dcse_step(job, norm, mesh):
+def _dcse_trainer(job, norm, mesh):
+    """The DCSE trainer of a job: from its flax variables for ``norm`` or,
+    when it has none, with weights drawn from seed 0 at its sizes."""
     from sincformer_tpu_torch.compat.from_jax import \
         load_dcse_train_state_from_jax
     from sincformer_tpu_torch.models.dcse import SpeechEnhancer
-    from sincformer_tpu_torch.parallel import shard_batch
     import sincformer_tpu_torch.train.dcse_trainer as port_dcse
     from sincformer_tpu_torch.config import DCSEConfig
     if job.get("variables") is None:       # weights drawn from seed 0
@@ -240,13 +347,26 @@ def _dcse_step(job, norm, mesh):
                                      model_dir=job["model_dir"], mesh=mesh)
         pipe.load_state(named, buffers)
         pipe.init_state(LR_EPOCHS, LR_STEPS, init_params=False)
+    return pipe
+
+
+def _dcse_step(job, norm, mesh, pipe=None):
+    """The whole loss, its gradients' global norm, and one step without
+    the MR-STFT term, of the job's trainer for ``norm`` (or ``pipe``) on
+    this rank's block of the job's batch."""
+    from sincformer_tpu_torch.parallel import shard_batch
+    import sincformer_tpu_torch.train.dcse_trainer as port_dcse
+    if pipe is None:
+        pipe = _dcse_trainer(job, norm, mesh)
     batch = shard_batch(mesh, {"noisy": job["noisy"], "clean": job["clean"]})
     noisy = torch.from_numpy(batch["noisy"])
     clean = torch.from_numpy(batch["clean"])
     saved = {k: b.clone() for k, b in pipe.model.named_buffers()}
     whole, _, grads = pipe.loss_and_grads(noisy, clean)
+    grads = _whole({k: g for k, g in zip(pipe.params(), grads)
+                    if g is not None}, pipe, mesh)
     whole_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2)
-                                      for g in grads if g is not None)))
+                                      for g in grads.values())))
     for k, b in pipe.model.named_buffers():
         b.copy_(saved[k])
     seen = _recorder(pipe.tx)
@@ -254,11 +374,11 @@ def _dcse_step(job, norm, mesh):
                            lambda pred, target: pred.sum() * 0.0):
         loss, _ = pipe.train_step(noisy, clean)
     return {"whole": float(whole), "whole_norm": whole_norm,
-            "loss": float(loss), "grads": seen["grads"],
+            "loss": float(loss), "grads": _whole(seen["grads"], pipe, mesh),
             "buffers": {k: b.clone() for k, b in
                         pipe.model.named_buffers()},
-            "params": {k: p.detach().clone() for k, p in
-                       pipe.model.named_parameters()}}
+            "params": _whole({k: p.detach().clone() for k, p in
+                              pipe.model.named_parameters()}, pipe, mesh)}
 
 
 def _train_dcse(job, mesh, out_dir):
@@ -340,4 +460,11 @@ def evaluate(job, mesh, out_dir):
             "primary": is_primary()}
 
 
-JOBS = {"flagship": flagship, "dcse": dcse, "evaluate": evaluate}
+def _tp_jobs():
+    from tests import _torch_tp_jobs
+    return _torch_tp_jobs
+
+
+JOBS = {"flagship": flagship, "dcse": dcse, "evaluate": evaluate,
+        "tp": lambda job, mesh, out_dir: _tp_jobs().tp(job, mesh, out_dir),
+        "cp": lambda job, mesh, out_dir: _tp_jobs().cp(job, mesh, out_dir)}

@@ -35,7 +35,11 @@ JAX's first moment, which carries the gradient's sign, below SIGN_TOL =
 1e-5 of its leaf's largest (0.09 % of the elements here): the
 discriminator's gradients agree to about 3e-6 of their leaf's largest
 (measured), and below the gradient bar of 1e-4 lie 0.9 % of the elements
-here and 1.2 % with flax's initialisation, too close to the 1 % limit."""
+here and 1.2 % with flax's initialisation, too close to the 1 % limit.
+
+The step's first call (its compile) runs on a background thread from the
+start of the file (``tests/_torch_parity.Ahead``), beside the
+discriminator's tests."""
 
 import functools
 
@@ -45,7 +49,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_parity import NARROW, narrow_model, wave
+from tests._torch_parity import NARROW, Ahead, narrow_model, wave
 
 FEAT_TOL = 1e-5
 LOSS_REL = 1e-6
@@ -113,7 +117,7 @@ def _mags(seed, t):
 
 
 @pytest.mark.parametrize("t", [40, 41])
-def test_discriminator_and_losses_match_jax(t):
+def test_discriminator_and_losses_match_jax(t, ahead):
     """Logits and features at the three scales, the three losses, and the
     discriminator loss's gradients."""
     from sincformer_tpu.train import adversarial as jadv
@@ -203,6 +207,39 @@ def _jax_adv_step():
     return dtx, unravel, step
 
 
+def _jax_start():
+    """The narrow model's parameters and model_state, and the
+    discriminator's raveled parameters, as JAX arrays."""
+    from jax.flatten_util import ravel_pytree
+    _, v, _ = narrow_model()
+    params = jax.tree.map(jnp.asarray, v["params"])
+    model_state = {k: jax.tree.map(jnp.asarray, v[k])
+                   for k in ("maa_stats", "memory_bank", "memory_stats")}
+    return params, model_state, ravel_pytree(_jax_disc()[1])[0]
+
+
+def _jax_step1():
+    """The JAX step with ``use_adv`` 1 from the shared start (the step's
+    compile)."""
+    dtx, _, step = _jax_adv_step()
+    params, model_state, dflat = _jax_start()
+    return step(params, model_state, dflat, dtx.init(dflat),
+                jnp.asarray(wave(5)),
+                jnp.asarray((wave(6) * 0.5).astype(np.float32)), 1.0)
+
+
+@pytest.fixture(scope="module")
+def ahead():
+    # what the thread reads is made here first: the lru caches are not
+    # shared safely by two first callers
+    import sincformer_tpu.train.agent_trainer  # noqa: F401
+    narrow_model()
+    _jax_disc()
+    a = Ahead()
+    with a.start([(_jax_step1,)], threads=1):
+        yield a
+
+
 def _port_trainer(params, model_state, opt_state=None):
     from sincformer_tpu_torch import SincformerMetacog
     from sincformer_tpu_torch.compat.from_jax import \
@@ -249,29 +286,19 @@ def _disc_state_close(pipe, before, dparams, dopt, unravel):
     assert loose <= 0.01 * total, (loose, total)
 
 
-def test_adversarial_step_matches_jax():
+def test_adversarial_step_matches_jax(ahead):
     """Step 1 from JAX's state with use_adv = 1: the generator's loss and
     gradients, the discriminator's loss, parameters and Adam moments. Step
     2 with use_adv = 0 on another batch, the discriminator carried over in
     each package: the port's Adam count advances and its parameters and
     moments still equal JAX's."""
-    from jax.flatten_util import ravel_pytree
-
     from sincformer_tpu_torch.compat.from_jax import (
         _disc_named, _named_params, load_discriminator_from_jax)
     from sincformer_tpu_torch.train.state import guard_nan_update
-    dtx, unravel, step = _jax_adv_step()
     _, v, _ = narrow_model()
     _, dvars = _jax_disc()
-    params = jax.tree.map(jnp.asarray, v["params"])
-    model_state = {k: jax.tree.map(jnp.asarray, v[k])
-                   for k in ("maa_stats", "memory_bank", "memory_stats")}
-    dflat = ravel_pytree(dvars)[0]
+    params, model_state, _ = _jax_start()
     noisy, clean = wave(5), (wave(6) * 0.5).astype(np.float32)
-    loss, grads, dl, dp1, do1 = step(params, model_state, dflat,
-                                     dtx.init(dflat), jnp.asarray(noisy),
-                                     jnp.asarray(clean), 1.0)
-
     pipe, _ = _port_trainer(v["params"], {k: v[k] for k in model_state})
     d0, _ = load_discriminator_from_jax(dvars)
     pipe.load_disc_state(d0)
@@ -280,6 +307,8 @@ def test_adversarial_step_matches_jax():
     got_loss, _, got_grads = pipe.loss_and_grads(
         torch.from_numpy(noisy), torch.from_numpy(clean), 1.0, 1.0, None,
         1.0, 1.0)
+    loss, grads, dl, dp1, do1 = ahead(_jax_step1)
+    _, unravel, step = _jax_adv_step()     # built by the thread
     assert abs(float(got_loss) - float(loss)) <= STEP_LOSS_TOL * abs(
         float(loss))
     want = _named_params(jax.tree.map(np.asarray, grads), 2)

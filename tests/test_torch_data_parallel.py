@@ -150,26 +150,23 @@ def _jax_flagship():
     return jax.tree.map(np.asarray, run(*_flagship_batch()))
 
 
-def _jax_dcse():
-    """JAX's DCSE step on the whole batch, per norm, one norm after the
-    other: each traces its loss under a patch of the module's MR-STFT
-    loss, which two threads must not hold at once."""
+def _jax_dcse(norm: str):
+    """JAX's DCSE step on the whole batch for ``norm`` (its trace takes
+    ``tests/test_torch_dcse_train.py``'s trace lock: it patches the JAX
+    module's MR-STFT loss)."""
     from tests.test_torch_dcse_train import _jax_fns, _variables
-    out = {}
-    for norm in ("batch", "layer"):
-        value_and_grad, _, init, update = _jax_fns(norm)
-        v = _variables(norm)
-        params = jax.tree.map(jnp.asarray, v["params"])
-        ms = ({"batch_stats": jax.tree.map(jnp.asarray, v["batch_stats"])}
-              if norm == "batch" else None)
-        noisy, clean = _dcse_batch()
-        ((loss, (_, new_ms, _)), grads), (whole, whole_norm) = \
-            value_and_grad(params, ms, jnp.asarray(noisy), jnp.asarray(clean))
-        new_params, _, _ = update(params, grads, loss, init(params))
-        out[norm] = jax.tree.map(np.asarray, (
-            float(loss), float(whole), float(whole_norm), grads, new_ms,
-            new_params))
-    return out
+    value_and_grad, _, init, update = _jax_fns(norm)
+    v = _variables(norm)
+    params = jax.tree.map(jnp.asarray, v["params"])
+    ms = ({"batch_stats": jax.tree.map(jnp.asarray, v["batch_stats"])}
+          if norm == "batch" else None)
+    noisy, clean = _dcse_batch()
+    ((loss, (_, new_ms, _)), grads), (whole, whole_norm) = \
+        value_and_grad(params, ms, jnp.asarray(noisy), jnp.asarray(clean))
+    new_params, _, _ = update(params, grads, loss, init(params))
+    return jax.tree.map(np.asarray, (
+        float(loss), float(whole), float(whole_norm), grads, new_ms,
+        new_params))
 
 
 def _exact_norm(norm):
@@ -186,17 +183,57 @@ def _exact_norm(norm):
                                                  clean.double())[2])
 
 
+def _dcse_job(model_dir: str) -> dict:
+    from tests.test_torch_dcse_train import _variables
+    noisy, clean = _dcse_batch()
+    return {"kind": "dcse", "noisy": noisy, "clean": clean,
+            "variables": {n: _variables(n) for n in ("batch", "layer")},
+            "num_heads": NARROW_DCSE["num_heads"], "model_dir": model_dir,
+            "train_data": _train_data(),
+            "config": {"d_model": NARROW_DCSE["d_model"],
+                       "num_blocks": NARROW_DCSE["num_blocks"],
+                       "num_heads": NARROW_DCSE["num_heads"],
+                       "ff_dim": NARROW_DCSE["d_ff"],
+                       "kernel_size": NARROW_DCSE["kernel_size"]}}
+
+
+def _flagship_job() -> dict:
+    _, v, _ = narrow_model()
+    noisy, clean = _flagship_batch()
+    return {"kind": "flagship", "variables": v, "dvars": _jax_disc_vars(),
+            "noisy": noisy, "clean": clean,
+            "num_heads": NARROW["num_heads"],
+            "sinc_kernel_size": NARROW["sinc_kernel_size"],
+            "config": NARROW, "train_data": _train_data()}
+
+
 @pytest.fixture(scope="module")
-def ahead():
-    # the JAX modules are imported here, once, before the two threads
-    # would import them at the same time (a module half initialised by one
+def ahead(tmp_path_factory):
+    """The three jobs queued on the ranks first, in the tests' order, so
+    they run while JAX compiles its references on two threads and the
+    tests compute the port's one-process side."""
+    # the JAX modules are imported here, once, before the threads would
+    # import them at the same time (a module half initialised by one
     # thread is seen by the other)
     import sincformer_tpu.train.agent_trainer  # noqa: F401
     import sincformer_tpu.train.dcse_trainer  # noqa: F401
     import tests.test_torch_adversarial  # noqa: F401
     import tests.test_torch_dcse_train  # noqa: F401
+    ranks = worker.pool()
+    out = {kind: str(tmp_path_factory.mktemp(kind))
+           for kind in ("dcse", "evaluate", "flagship")}
     a = Ahead()
-    with a.start([(_jax_flagship,), (_jax_dcse,)]):
+    a.ranks = {
+        "dcse": ranks.submit(_dcse_job(os.path.join(out["dcse"], "models")),
+                             out["dcse"]),
+        "evaluate": ranks.submit(
+            {"kind": "evaluate", "max_eval": 2,
+             "model_dir": os.path.join(out["evaluate"], "models")},
+            out["evaluate"])}
+    a.out = out
+    with a.start([(_jax_flagship,), (_jax_dcse, "batch"),
+                  (_jax_dcse, "layer")], threads=3):
+        a.ranks["flagship"] = ranks.submit(_flagship_job(), out["flagship"])
         yield a
 
 
@@ -359,7 +396,7 @@ def _dcse_ratios(got, want, norm, exact):
     return ratios
 
 
-def test_dcse_step_over_two_ranks(ahead, tmp_path):
+def test_dcse_step_over_two_ranks(ahead):
     """Two ranks give JAX's DCSE step on the whole padded batch, for
     "batch" and "layer", at the DCSE training bars, the whole loss's
     gradient norm and clip factor and the BatchNorm statistics included
@@ -367,60 +404,47 @@ def test_dcse_step_over_two_ranks(ahead, tmp_path):
     both; a per-rank BatchNorm
     misses the bars. An epoch of ``train`` on the two ranks keeps them
     bit-equal, and rank 0 alone writes."""
-    from tests.test_torch_dcse_train import _variables
-    noisy, clean = _dcse_batch()
-    outs = worker.spawn(
-        {"kind": "dcse", "noisy": noisy, "clean": clean,
-         "variables": {n: _variables(n) for n in ("batch", "layer")},
-         "num_heads": NARROW_DCSE["num_heads"],
-         "model_dir": str(tmp_path / "models"), "train_data": _train_data(),
-         "config": {"d_model": NARROW_DCSE["d_model"],
-                    "num_blocks": NARROW_DCSE["num_blocks"],
-                    "num_heads": NARROW_DCSE["num_heads"],
-                    "ff_dim": NARROW_DCSE["d_ff"],
-                    "kernel_size": NARROW_DCSE["kernel_size"]}},
-        2, str(tmp_path))
+    exact = {norm: _exact_norm(norm) for norm in ("batch", "layer")}
+    outs = ahead.ranks["dcse"].result()
     _check_training_loop(outs, "best_conformer")
     # one NaN in rank 1's rows: the averaged loss and gradients carry it to
     # rank 0, so both ranks' guards zero the step
     assert [o["nan"]["nan_count"] for o in outs] == [1, 1]
     _ranks_equal([o["nan"] for o in outs], ("params",))
-    exact = {norm: _exact_norm(norm) for norm in ("batch", "layer")}
     for norm in ("batch", "layer"):
         _ranks_equal([o[norm] for o in outs], ("params", "buffers"))
         assert outs[0][norm]["whole_norm"] == outs[1][norm]["whole_norm"]
-        ratios = _dcse_ratios(outs[0][norm], ahead(_jax_dcse)[norm], norm,
+        ratios = _dcse_ratios(outs[0][norm], ahead(_jax_dcse, norm), norm,
                               exact[norm])
         print(f"{norm}: {ratios}")
         assert max(ratios.values()) <= 1.0, (norm, ratios)
-    fault = _dcse_ratios(outs[0]["fault"], ahead(_jax_dcse)["batch"],
+    fault = _dcse_ratios(outs[0]["fault"], ahead(_jax_dcse, "batch"),
                          "batch", exact["batch"])
     print(f"per-rank BatchNorm: {fault}")
     assert fault["batch_stats"] > 1.0, fault
 
 
-def test_evaluate_distributed_over_two_processes(tmp_path):
+def test_evaluate_distributed_over_two_processes(ahead):
     """``evaluate --distributed`` through the CLI in two processes that
     join their group from torchrun's variables: each prints the merged
     tables, rank 0 alone writes ``--json-out``, and the merged grid equals
     the single-process ``evaluate_grid`` cell by cell, value for value."""
     from sincformer_tpu_torch.evaluation.grid import evaluate_grid
     from tests.test_torch_parallel import _grid_inputs
-    outs = worker.spawn({"kind": "evaluate", "max_eval": 2,
-                         "model_dir": str(tmp_path / "models")}, 2,
-                        str(tmp_path))
+    cleans, noises = _grid_inputs(2)
+    want = evaluate_grid(cleans, noises, {"identity": worker.Identity()},
+                         device="cpu", verbose=False)
+    outs = ahead.ranks["evaluate"].result()
+    tmp_path = ahead.out["evaluate"]
     assert [o["code"] for o in outs] == [0, 0]
     assert [o["primary"] for o in outs] == [True, False]
     for r, o in enumerate(outs):
         assert f"process {r} of 2" in o["stdout"]
         assert "GRAND SUMMARY" in o["stdout"]
-    assert os.path.exists(tmp_path / "grid_0.json")
-    assert not os.path.exists(tmp_path / "grid_1.json")
-    with open(tmp_path / "grid_0.json") as f:
+    assert os.path.exists(os.path.join(tmp_path, "grid_0.json"))
+    assert not os.path.exists(os.path.join(tmp_path, "grid_1.json"))
+    with open(os.path.join(tmp_path, "grid_0.json")) as f:
         got = json.load(f)["results"]
-    cleans, noises = _grid_inputs(2)
-    want = evaluate_grid(cleans, noises, {"identity": worker.Identity()},
-                         device="cpu", verbose=False)
     for noise, methods in want.items():
         for method, cells in methods.items():
             assert set(got[noise][method]) == {str(s) for s in cells}
@@ -428,20 +452,13 @@ def test_evaluate_distributed_over_two_processes(tmp_path):
                 assert got[noise][method][str(snr)] == vals, (method, snr)
 
 
-def test_flagship_step_over_two_ranks(ahead, tmp_path):
+def test_flagship_step_over_two_ranks(ahead):
     """Two ranks with two rows each give JAX's adversarial step on the
     four at the training and adversarial bars, with bit-equal parameters,
     buffers and discriminators on both ranks; the per-rank statistics miss
     the bars. An epoch of ``train`` on the two ranks keeps them bit-equal,
     and rank 0 alone writes."""
-    _, v, _ = narrow_model()
-    outs = worker.spawn(
-        {"kind": "flagship", "variables": v, "dvars": _jax_disc_vars(),
-         "noisy": _flagship_batch()[0], "clean": _flagship_batch()[1],
-         "num_heads": NARROW["num_heads"],
-         "sinc_kernel_size": NARROW["sinc_kernel_size"],
-         "config": NARROW, "train_data": _train_data()},
-        2, str(tmp_path))
+    outs = ahead.ranks["flagship"].result()
     _check_training_loop(outs, "best_sincformer")
     dp = [o["dp"] for o in outs]
     _ranks_equal(dp, ("params", "buffers", "disc_params"))

@@ -122,14 +122,18 @@ def test_speech_enhancer_matches_jax(fused):
 
 
 def test_unported_dcse_variants_raise():
-    """What the port leaves out raises: ``remat``; a tree that does not
-    fill the model (a ``batch_stats`` collection without BatchNorm
-    parameters, a missing head); a reference checkpoint that is not
-    there."""
+    """What does not fit raises: a tree that does not fill the model (a
+    ``batch_stats`` collection without BatchNorm parameters, a missing
+    head); a reference checkpoint that is not there. ``remat`` is ported
+    (``tests/test_torch_tp.py``) and builds a model with the same
+    parameters."""
     from sincformer_tpu_torch import (DCSEConfig, DCSEPipeline,
                                       load_dcse_from_jax)
-    with pytest.raises(NotImplementedError, match="remat"):
-        DCSEConfig(remat=True)
+    from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+    with torch.device("meta"):
+        assert [n for n, _ in SpeechEnhancer(DCSEConfig(
+            remat=True)).named_parameters()] == [
+            n for n, _ in SpeechEnhancer(DCSEConfig()).named_parameters()]
     with pytest.raises(FileNotFoundError):
         DCSEPipeline.from_torch_checkpoint("conformer_final.pt",
                                            device="cpu")

@@ -34,6 +34,7 @@ step's batch holds a row padded with zeros."""
 
 import functools
 import tempfile
+import threading
 from unittest import mock
 
 import jax
@@ -53,30 +54,39 @@ STATS_TOL = 1e-6
 NORM_TOL = 1e-4
 OUT_TOL = 1e-5
 LR, EPOCHS, STEPS = 5e-4, 3, 2
+# held while a program of _jax_fns traces: the trace patches the JAX
+# module's MR-STFT loss, which a trace on another thread must not see
+_TRACE_LOCK = threading.Lock()
 
 
 def _np(x):
     return x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _jax_model(norm: str):
+def _jax_model(norm: str, sizes: tuple = (), remat: bool = False):
+    """The narrow JAX model; ``sizes`` ((field, value) pairs) override
+    NARROW_DCSE's."""
     from sincformer_tpu.models.dcse import SpeechEnhancer
     return SpeechEnhancer(n_freq=129, dropout=0.0, attn_impl="speech",
-                          conv_norm=norm, **NARROW_DCSE)
+                          conv_norm=norm, remat=remat,
+                          **{**NARROW_DCSE, **dict(sizes)})
 
 
 @functools.lru_cache(maxsize=None)
-def _variables(norm: str):
-    """Seeded numpy variables of the narrow model: every bias and norm
-    offset non-zero, and for "batch" moved running statistics."""
-    if norm == "layer":
+def _variables(norm: str, sizes: tuple = ()):
+    """Seeded numpy variables of the narrow model (at ``sizes``): every
+    bias and norm offset non-zero, and for "batch" moved running
+    statistics."""
+    if norm == "layer" and not sizes:
         return narrow_dcse()
-    shapes = jax.eval_shape(lambda: _jax_model(norm).init(
+    shapes = jax.eval_shape(lambda: _jax_model(norm, sizes).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 11, 129)),
         jnp.zeros((1, 11, 129))))
     rng = np.random.default_rng(11)
     params = jax.tree_util.tree_map_with_path(
         lambda p, s: _fill(p, s, rng).astype(np.float32), shapes["params"])
+    if norm != "batch":
+        return {"params": params}
     stats = jax.tree_util.tree_map_with_path(
         lambda p, s: (rng.uniform(0.5, 1.5, s.shape) if p[-1].key == "var"
                       else 0.1 * rng.standard_normal(s.shape)
@@ -85,16 +95,18 @@ def _variables(norm: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fns(norm: str):
+def _jax_fns(norm: str, sizes: tuple = (), remat: bool = False):
     """(jitted value_and_grad of _loss_fn(train=True) without the MR-STFT
     term, with the whole loss and its global gradient norm; jitted eval
-    step; optax init and update with the NaN guard)."""
+    step; optax init and update with the NaN guard), for the model of
+    :func:`_jax_model`."""
     from jax.flatten_util import ravel_pytree
 
     from sincformer_tpu.train.dcse_trainer import DCSEPipeline
     from sincformer_tpu.train.state import guard_nan_update, make_adamw
     import sincformer_tpu.train.dcse_trainer as jax_dcse
-    pipe = DCSEPipeline(model=_jax_model(norm), model_dir=tempfile.mkdtemp())
+    pipe = DCSEPipeline(model=_jax_model(norm, sizes, remat),
+                        model_dir=tempfile.mkdtemp())
 
     def loss(params, model_state, noisy, clean):
         return pipe._loss_fn(params, model_state, noisy, clean,
@@ -110,7 +122,12 @@ def _jax_fns(norm: str):
         """The loss without the term and its gradients, and the whole loss
         and its global gradient norm: one forward, and one backward for
         both cotangents (the term reads the parameters only through the
-        enhanced waveform)."""
+        enhanced waveform). Runs only while tracing, under
+        _TRACE_LOCK."""
+        with _TRACE_LOCK:
+            return _steps(params, model_state, noisy, clean)
+
+    def _steps(params, model_state, noisy, clean):
         def outputs(p):
             total, (sisnr, new_ms, enh) = loss_without_mrstft(
                 p, model_state, noisy, clean)
@@ -161,8 +178,9 @@ def _unravel_opt(opt_state, params):
             "nu": jax.tree.map(np.asarray, unravel(adam.nu))}
 
 
-def _port(params, batch_stats=None, opt_state=None):
-    """The port's DCSETrainer on the CPU from a JAX train state."""
+def _port(params, batch_stats=None, opt_state=None, **config):
+    """The port's DCSETrainer on the CPU from a JAX train state; ``config``
+    sets the fields the tree does not record (``remat``)."""
     from sincformer_tpu_torch.compat.from_jax import \
         load_dcse_train_state_from_jax
     from sincformer_tpu_torch.models.dcse import SpeechEnhancer
@@ -171,7 +189,8 @@ def _port(params, batch_stats=None, opt_state=None):
         jax.tree.map(np.asarray, params),
         None if batch_stats is None else jax.tree.map(np.asarray,
                                                       batch_stats),
-        opt_state, num_heads=NARROW_DCSE["num_heads"], dropout=0.0)
+        opt_state, num_heads=NARROW_DCSE["num_heads"], dropout=0.0,
+        **config)
     pipe = DCSETrainer(SpeechEnhancer(config), device="cpu",
                        model_dir=tempfile.mkdtemp())
     pipe.load_state(named, buffers)
@@ -212,12 +231,15 @@ def _leaf_close(got, want, tol, floor=0.0) -> bool:
     return float(np.max(np.abs(got - want), initial=0.0)) <= tol * scale
 
 
-def _check_step(norm, pipe, params, model_state, opt_state, noisy, clean):
-    """One step in both packages from the same state; returns JAX's new
-    (params, model_state, opt_state)."""
+def _check_step(norm, pipe, params, model_state, opt_state, noisy, clean,
+                remat: bool = False):
+    """One step in both packages from the same state (``remat``: both
+    models recompute their blocks); returns JAX's new (params,
+    model_state, opt_state)."""
     from sincformer_tpu_torch.compat.from_jax import _dcse_buffers
     from sincformer_tpu_torch.train.state import guard_nan_update
-    value_and_grad, _, _, update = _jax_fns(norm)
+    value_and_grad, _, _, update = (_jax_fns(norm, (), True) if remat
+                                    else _jax_fns(norm))
     ((loss, (_, new_ms, _)), grads), whole = value_and_grad(
         params, model_state, jnp.asarray(noisy), jnp.asarray(clean))
     want_whole, want_norm = (float(x) for x in whole)
@@ -536,10 +558,13 @@ def test_training_init_statistics():
 
 
 def test_unported_training_options_raise():
+    """bf16 ``compute_dtype`` raises (kernels K1 and K3 are float32);
+    ``remat`` is ported and a trainer takes it; a wrong norm raises."""
     from sincformer_tpu_torch.config import DCSEConfig
+    from sincformer_tpu_torch.models.dcse import SpeechEnhancer
     from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
-    with pytest.raises(NotImplementedError, match="remat"):
-        DCSEConfig(remat=True)
+    assert DCSETrainer(SpeechEnhancer(DCSEConfig(remat=True)),
+                       device="cpu").model.config.remat
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         DCSETrainer(device="cpu", compute_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="conv_norm"):

@@ -11,7 +11,8 @@ edge returns. Bars: the [0, 1] metrics (STOI, CSII, NCM) and the PESQ
 proxy 1e-5 absolute, SSNR 1e-4 dB; the numpy copies (``stoi_full``,
 ``stoi_independent``, ``pesq_p862``) equal to the last bit; through a
 model (the grid's enhanced rows) 1e-4 absolute for every metric; the
-calibrated gain 1e-5 relative."""
+calibrated gain 1e-5 relative. The JAX package's grid runs on a background
+thread from the start of the file (``tests/_torch_parity.Ahead``)."""
 
 import functools
 import json
@@ -22,8 +23,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tests._torch_parity import (NARROW, jax_dnn_pipeline, narrow_model,
-                                 speechlike, torch_dnn_pipeline)
+from tests._torch_parity import (NARROW, Ahead, jax_dnn_pipeline,
+                                 narrow_model, speechlike,
+                                 torch_dnn_pipeline)
 
 UNIT_TOL = 1e-5
 SSNR_TOL = 1e-4
@@ -242,21 +244,41 @@ def _grid_inputs():
     return clean, {"white": _noise(8000 * 30, 7)}
 
 
-def test_evaluate_grid_matches_jax(tmp_path):
+GRID_SNRS = [0, 10]
+
+
+def _jax_grid(model_dir: str):
+    """The JAX package's grid of :func:`test_evaluate_grid_matches_jax`."""
+    from sincformer_tpu.evaluation.grid import evaluate_grid as jax_grid
+    clean, noises = _grid_inputs()
+    return jax_grid(clean, noises, {
+        "sincformer": _jax_flagship(),
+        "pcirm": jax_dnn_pipeline(model_dir)}, GRID_SNRS, verbose=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ahead(tmp_path_factory):
+    import sincformer_tpu.evaluation.grid  # noqa: F401
+    import sincformer_tpu.train.agent_trainer  # noqa: F401
+    narrow_model()
+    grid_dir = str(tmp_path_factory.mktemp("jax_grid"))
+    a = Ahead()
+    with a.start([(_jax_grid, grid_dir)], threads=1):
+        a.grid_dir = grid_dir
+        yield a
+
+
+def test_evaluate_grid_matches_jax(ahead):
     """2 utterances × 1 noise × 2 SNRs through the flagship and the mask
     DNN, batched: every cell's values within the metric bars (noisy row)
     or 1e-4 (enhanced rows), the P.862 of the noisy row equal."""
-    from sincformer_tpu.evaluation.grid import evaluate_grid as jax_grid
     from sincformer_tpu_torch.evaluation.grid import evaluate_grid
     clean, noises = _grid_inputs()
-    snrs = [0, 10]
-    want = jax_grid(clean, noises, {
-        "sincformer": _jax_flagship(),
-        "pcirm": jax_dnn_pipeline(str(tmp_path / "jax"))}, snrs,
-        verbose=False)
+    snrs = GRID_SNRS
     got = evaluate_grid(clean, noises, {
         "sincformer": _port_flagship(), "pcirm": torch_dnn_pipeline()},
         snrs, verbose=False, device="cpu")
+    want = ahead(_jax_grid, ahead.grid_dir)
     assert list(got["white"]) == ["noisy", "sincformer", "pcirm"]
     for method, by_snr in want["white"].items():
         for snr, cell in by_snr.items():

@@ -223,7 +223,28 @@ def test_attention_dispatch(impl):
 
 @pytest.mark.parametrize("impl", ["ring", "flash"])
 def test_attention_later_impls_raise(impl):
+    """The impls ported after the first slice, without a ring context:
+    ``"ring"`` raises in a training forward (JAX's message) and warns and
+    falls back to ``"speech"`` in inference, as the JAX dispatch does;
+    ``"flash"`` equals JAX's ``impl="flash"`` on the CPU (full attention
+    off a TPU), with a valid-frame mask."""
+    from sincformer_tpu.ops.attention import dot_product_attention as jax_dpa
     from sincformer_tpu_torch.ops.attention import dot_product_attention
-    x = torch.zeros(1, 4, 1, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dot_product_attention(x, x, x, impl=impl)
+    rng = np.random.default_rng(17)
+    q, k, v = (rng.standard_normal((2, 50, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    mask = np.arange(50)[None, :] < np.array([[50], [37]])
+    if impl == "ring":
+        with pytest.raises(RuntimeError, match="ring_mesh"):
+            dot_product_attention(_t(q), _t(k), _t(v), impl="ring",
+                                  train=True)
+        with pytest.warns(RuntimeWarning, match="ring"):
+            got = dot_product_attention(_t(q), _t(k), _t(v), impl="ring")
+        want = dot_product_attention(_t(q), _t(k), _t(v), impl="speech")
+        assert torch.equal(got, want)
+        return
+    ref = jax_dpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  mask=jnp.asarray(mask), impl="flash")
+    got = dot_product_attention(_t(q), _t(k), _t(v), mask=_t(mask),
+                                impl="flash")
+    assert close(got, ref)

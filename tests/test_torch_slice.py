@@ -1,7 +1,10 @@
 """Port parity of the whole flagship enhancement path: SincformerMetacog and
 the pipeline of sincformer_tpu_torch against sincformer_tpu, on the CPU in
 float32, at narrow width and at full width with the committed int8 serving
-artifact of the round-5 flagship."""
+artifact of the round-5 flagship. The JAX pipeline loads the artifact and
+enhances the full-width tests' two mixtures on a background thread from
+the start of the file (``tests/_torch_parity.Ahead``); both tests compare
+with those references."""
 
 import importlib.util
 import os
@@ -12,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests._torch_parity import max_abs, narrow_model, wave
+from tests._torch_parity import Ahead, max_abs, narrow_model, wave
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACT = os.path.join(REPO, "artifacts", "r5", "sincformer_v4s0_best_serving",
@@ -21,15 +24,43 @@ CONVERTED = os.path.join(REPO, "artifacts", "r5",
                          "sincformer_v4s0_best_serving_torch")
 
 
-@pytest.fixture(scope="module")
-def jax_artifact(tmp_path_factory):
-    """The JAX flagship pipeline with the committed int8 artifact loaded,
-    once per run (the load takes about half a minute cold)."""
+def _jax_artifact(model_dir: str):
+    """The JAX flagship pipeline with the committed int8 artifact loaded
+    (the load takes about half a minute cold), and its outputs for the
+    two mixtures of the full-width tests: each enhanced by
+    ``enhance_signal``, and the MAA decisions of one batched forward."""
+    from sincformer_tpu.dsp.stft import stft as jax_stft
     from sincformer_tpu.train.agent_trainer import \
         SincformerPipeline as JaxPipeline
-    jp = JaxPipeline(model_dir=str(tmp_path_factory.mktemp("jax_flagship")))
+    jp = JaxPipeline(model_dir=model_dir)
     jp.load_model(ARTIFACT)
-    return jp
+    mixes = _mixtures()
+    spec = jax_stft(jnp.asarray(mixes))
+    out = jax.jit(lambda p, s, w, r, i: jp.model.apply(
+        {"params": p, **s}, w, r, i, train=False))(
+        jp.state.params, jp.state.model_state, mixes, spec.real, spec.imag)
+    return jp, {"enhanced": [jp.enhance_signal(m) for m in mixes],
+                "decisions": np.asarray(out["decisions"])}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def ahead(tmp_path_factory):
+    import sincformer_tpu.train.agent_trainer  # noqa: F401
+    model_dir = str(tmp_path_factory.mktemp("jax_flagship"))
+    a = Ahead()
+    with a.start([(_jax_artifact, model_dir)], threads=1):
+        a.model_dir = model_dir
+        yield a
+
+
+@pytest.fixture(scope="module")
+def jax_artifact(ahead):
+    return ahead(_jax_artifact, ahead.model_dir)[0]
+
+
+@pytest.fixture(scope="module")
+def jax_refs(ahead):
+    return ahead(_jax_artifact, ahead.model_dir)[1]
 
 
 def test_metacog_narrow_matches_jax():
@@ -56,6 +87,10 @@ def test_metacog_narrow_matches_jax():
         assert max_abs(got[key], r) <= 1e-5 * max(1.0, np.abs(r).max()), key
 
 
+def _mixtures() -> np.ndarray:
+    return np.stack([_mixture(1), _mixture(2)])
+
+
 def _mixture(seed: int, n: int = 8000) -> np.ndarray:
     from sincformer_tpu.data.synthetic import synthetic_speech_varied
     clean = synthetic_speech_varied(n / 8000, seed=seed)[:n]
@@ -64,13 +99,12 @@ def _mixture(seed: int, n: int = 8000) -> np.ndarray:
     return (0.5 * (clean + noise)).astype(np.float32)
 
 
-def test_artifact_enhance_signal_matches_jax(jax_artifact):
+def test_artifact_enhance_signal_matches_jax(jax_artifact, jax_refs):
     """Full width, trained weights: the int8 serving artifact loaded by the
     JAX pipeline, carried over by load_from_jax, two seeded 1 s mixtures at
     5 dB SNR through enhance_signal. Same MAA decisions on every frame, and
     the enhanced waveforms within 1e-4 of their peak (float32 through a
     15.5M-parameter graph of ~30 layers and a 100-step BiLSTM)."""
-    from sincformer_tpu.dsp.stft import stft as jax_stft
     from sincformer_tpu_torch import (SincformerMetacog, SincformerPipeline,
                                       load_from_jax, resolve_output_gain)
 
@@ -85,36 +119,30 @@ def test_artifact_enhance_signal_matches_jax(jax_artifact):
     tp.load_state(state, buffers)
     assert tp.output_gain == pytest.approx(jp.output_gain, abs=0)
 
-    mixes = np.stack([_mixture(1), _mixture(2)])
-    for mix in mixes:
-        ref = jp.enhance_signal(mix)
+    mixes = _mixtures()
+    for mix, ref in zip(mixes, jax_refs["enhanced"]):
         got = tp.enhance_signal(mix)
         assert np.all(np.isfinite(got))
         assert np.max(np.abs(got - ref)) <= 1e-4 * np.max(np.abs(ref))
 
     # MAA decisions on the same frames, from one batched forward each
-    spec = jax_stft(jnp.asarray(mixes))
-    jout = jax.jit(lambda p, s, w, r, i: jp.model.apply(
-        {"params": p, **s}, w, r, i, train=False))(
-        jp.state.params, jp.state.model_state, mixes, spec.real, spec.imag)
     from sincformer_tpu_torch.dsp.stft import stft
     tx = torch.from_numpy(mixes)
     ts = stft(tx)
     with torch.no_grad():
         tout = tp.model(tx, ts.real, ts.imag)
-    flips = tout["decisions"].numpy() != np.asarray(jout["decisions"])
+    flips = tout["decisions"].numpy() != jax_refs["decisions"]
     top2 = np.sort(tout["route_logits"].numpy(), axis=-1)[..., -2:]
     assert not flips.any(), (f"MAA decisions flip at logit margins "
                              f"{(top2[..., 1] - top2[..., 0])[flips]}")
 
 
-def test_converted_artifact_matches_jax(jax_artifact):
+def test_converted_artifact_matches_jax(jax_artifact, jax_refs):
     """The committed converted artifact, loaded by the port alone (torch and
     numpy), against the JAX pipeline on the JAX artifact: the output gain,
     the enhanced waveforms of two seeded 1 s mixtures within 1e-4 of their
     peak (one of them through the streaming enhancer's short-input route),
     and the MAA decisions of every frame."""
-    from sincformer_tpu.dsp.stft import stft as jax_stft
     from sincformer_tpu_torch import SincformerPipeline, StreamingEnhancer
     from sincformer_tpu_torch.dsp.stft import stft
 
@@ -123,23 +151,19 @@ def test_converted_artifact_matches_jax(jax_artifact):
     assert tp.load_model().endswith("sincformer_final/step_210")
     assert tp.step == 210
     assert tp.output_gain == pytest.approx(jp.output_gain, abs=0)
-    mixes = np.stack([_mixture(1), _mixture(2)])
-    for mix, enhance in zip(mixes, (tp.enhance_signal,
-                                    StreamingEnhancer(tp).enhance)):
-        ref = jp.enhance_signal(mix)
+    mixes = _mixtures()
+    for mix, ref, enhance in zip(mixes, jax_refs["enhanced"],
+                                 (tp.enhance_signal,
+                                  StreamingEnhancer(tp).enhance)):
         got = enhance(mix)
         assert np.max(np.abs(got - ref)) <= 1e-4 * np.max(np.abs(ref))
 
-    spec = jax_stft(jnp.asarray(mixes))
-    jout = jax.jit(lambda p, s, w, r, i: jp.model.apply(
-        {"params": p, **s}, w, r, i, train=False))(
-        jp.state.params, jp.state.model_state, mixes, spec.real, spec.imag)
     tx = torch.from_numpy(mixes)
     ts = stft(tx)
     with torch.no_grad():
         tout = tp.model(tx, ts.real, ts.imag)
     np.testing.assert_array_equal(tout["decisions"].numpy(),
-                                  np.asarray(jout["decisions"]))
+                                  jax_refs["decisions"])
 
 
 def test_converted_artifact_equals_fresh_conversion(jax_artifact):

@@ -40,7 +40,7 @@ import optax
 import pytest
 import torch
 
-from tests._torch_parity import NARROW, narrow_model, wave
+from tests._torch_parity import NARROW, Ahead, narrow_model, wave
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -237,62 +237,42 @@ def _check_step(pipe, params, model_state, opt_state, noisy, clean,
     return new_params, aux["model_state"], new_opt, grads
 
 
-@pytest.fixture(scope="module")
-def start():
+def _start():
     _, v, _ = narrow_model()
     params = jax.tree.map(jnp.asarray, v["params"])
     model_state = {k: jax.tree.map(jnp.asarray, v[k]) for k in COLLECTIONS}
     return params, model_state
 
 
-def test_stage1_loss_and_gradients(start):
-    """The stage-1 setting (perceptual and VQ terms weighted 0, mask MSE
-    on): loss and every gradient leaf, CPEA K and b separately."""
-    params, model_state = start
-    _, init, _ = _jax_step()
-    pipe = _port(*start)
+@pytest.fixture(scope="module")
+def start():
+    return _start()
+
+
+def _jax_warm() -> bool:
+    """The JAX step's programs compiled on the stage-1 test's inputs (the
+    shapes and dtypes of every step the tests take)."""
+    value_and_grad, init, update = _jax_step()
+    params, model_state = _start()
     noisy, clean = _batch(3)
-    _check_step(pipe, params, model_state, init(params), noisy, clean,
-                STAGE1)
+    (loss, _), grads = value_and_grad(params, model_state,
+                                      jnp.asarray(noisy), jnp.asarray(clean),
+                                      *STAGE1)
+    jax.block_until_ready(update(params, grads, loss, init(params)))
+    return True
 
 
-def test_two_adamw_steps_and_the_nan_guard(start):
-    """Every term on. Step 1 from the shared start, step 2 from JAX's
-    carried state (parameters, model_state and AdamW moments bridged), then
-    a batch holding a NaN: the gradients are zeroed, the NaN count grows,
-    and the parameters move as optax moves them (the moments decay and the
-    weight decay acts). The MAA threshold, which no computation reads,
-    decays as optax decays it."""
-    params, model_state = start
-    _, init, _ = _jax_step()
-    pipe = _port(params, model_state)
-    p1, s1, o1, _ = _check_step(pipe, params, model_state, init(params),
-                                *_batch(5), ALL_ON)
-    pipe = _port(jax.tree.map(np.asarray, p1), jax.tree.map(np.asarray, s1),
-                 _unravel_opt(o1, p1))
-    assert pipe.opt_state["count"] == 1
-    pipe.step = 1
-    p2, s2, o2, _ = _check_step(pipe, p1, s1, o1, *_batch(7), ALL_ON)
-    value_and_grad, _, update = _jax_step()
-    noisy, clean = _batch(9, nan=True)
-    (loss, _), grads = value_and_grad(p2, s2, jnp.asarray(noisy),
-                                      jnp.asarray(clean), *ALL_ON)
-    p3, _, bad = update(p2, grads, loss, o2)
-    assert bool(bad) and not np.isfinite(float(loss))
-    pipe = _port(jax.tree.map(np.asarray, p2), jax.tree.map(np.asarray, s2),
-                 _unravel_opt(o2, p2))
-    before = pipe.params()["maa.threshold"].detach().clone()
-    loss_port, _ = _port_step(pipe, noisy, clean, ALL_ON)
-    assert not torch.isfinite(loss_port) and int(pipe.nan_count) == 1
-    want = _named(p3)
-    got = pipe.params()
-    bad = [k for k, w in want.items()
-           if not _leaf_close(got[k], w, PARAM_TOL)]
-    assert not bad, bad
-    threshold = float(got["maa.threshold"].detach()[0])
-    assert threshold != float(before[0])
-    assert abs(threshold - float(np.asarray(p3["maa"]["threshold"])[0])) \
-        <= 1e-7
+@pytest.fixture(scope="module", autouse=True)
+def ahead():
+    """The JAX step compiled on a background thread from the start of the
+    file, while the tests of the step's pieces run
+    (``tests/_torch_parity.Ahead``); the step tests come last."""
+    import sincformer_tpu.train.agent_trainer  # noqa: F401
+    narrow_model()
+    _jax_step()
+    a = Ahead()
+    with a.start([(_jax_warm,)], threads=1):
+        yield a
 
 
 # ── the pieces of a step ───────────────────────────────────────────────────
@@ -514,6 +494,62 @@ def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
+
+# ── one step and two, against JAX ──────────────────────────────────────────
+
+def test_stage1_loss_and_gradients(start, ahead):
+    """The stage-1 setting (perceptual and VQ terms weighted 0, mask MSE
+    on): loss and every gradient leaf, CPEA K and b separately."""
+    params, model_state = start
+    assert ahead(_jax_warm)
+    _, init, _ = _jax_step()
+    pipe = _port(*start)
+    noisy, clean = _batch(3)
+    _check_step(pipe, params, model_state, init(params), noisy, clean,
+                STAGE1)
+
+
+def test_two_adamw_steps_and_the_nan_guard(start, ahead):
+    """Every term on. Step 1 from the shared start, step 2 from JAX's
+    carried state (parameters, model_state and AdamW moments bridged), then
+    a batch holding a NaN: the gradients are zeroed, the NaN count grows,
+    and the parameters move as optax moves them (the moments decay and the
+    weight decay acts). The MAA threshold, which no computation reads,
+    decays as optax decays it."""
+    params, model_state = start
+    assert ahead(_jax_warm)
+    _, init, _ = _jax_step()
+    pipe = _port(params, model_state)
+    p1, s1, o1, _ = _check_step(pipe, params, model_state, init(params),
+                                *_batch(5), ALL_ON)
+    pipe = _port(jax.tree.map(np.asarray, p1), jax.tree.map(np.asarray, s1),
+                 _unravel_opt(o1, p1))
+    assert pipe.opt_state["count"] == 1
+    pipe.step = 1
+    p2, s2, o2, _ = _check_step(pipe, p1, s1, o1, *_batch(7), ALL_ON)
+    value_and_grad, _, update = _jax_step()
+    noisy, clean = _batch(9, nan=True)
+    (loss, _), grads = value_and_grad(p2, s2, jnp.asarray(noisy),
+                                      jnp.asarray(clean), *ALL_ON)
+    p3, _, bad = update(p2, grads, loss, o2)
+    assert bool(bad) and not np.isfinite(float(loss))
+    pipe = _port(jax.tree.map(np.asarray, p2), jax.tree.map(np.asarray, s2),
+                 _unravel_opt(o2, p2))
+    before = pipe.params()["maa.threshold"].detach().clone()
+    loss_port, _ = _port_step(pipe, noisy, clean, ALL_ON)
+    assert not torch.isfinite(loss_port) and int(pipe.nan_count) == 1
+    want = _named(p3)
+    got = pipe.params()
+    bad = [k for k, w in want.items()
+           if not _leaf_close(got[k], w, PARAM_TOL)]
+    assert not bad, bad
+    threshold = float(got["maa.threshold"].detach()[0])
+    assert threshold != float(before[0])
+    assert abs(threshold - float(np.asarray(p3["maa"]["threshold"])[0])) \
+        <= 1e-7
+
+
+# ── K1's and K3's backward on the card ─────────────────────────────────────
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True])

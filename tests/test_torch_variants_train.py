@@ -22,7 +22,10 @@ biases that a GroupNorm of one channel per group removes (the narrow
 cascade's first two blocks) have a true gradient of 0: both packages'
 rounding there is held below 1e-4 of the largest gradient, and AdamW's
 step there, whose sign is rounding's, counts among the elements held within
-twice the step (the model's largest, about the learning rate there)."""
+twice the step (the model's largest, about the learning rate there).
+
+JAX's step runs on a background thread from the start of the file
+(``tests/_torch_parity.Ahead``) while the port takes its own."""
 
 import functools
 import json
@@ -34,9 +37,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
-from tests._torch_parity import NARROW, cancelled_biases, narrow_model, wave
+from tests._torch_parity import (NARROW, Ahead, cancelled_biases,
+                                 narrow_model, wave)
 
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -113,6 +118,15 @@ def _jax_step():
             _named(unravel(new)), _named(params), moments)
 
 
+@pytest.fixture(scope="module")
+def ahead():
+    import sincformer_tpu.train.agent_trainer  # noqa: F401
+    narrow_model(**VARIANT)
+    a = Ahead()
+    with a.start([(_jax_step,)], threads=1):
+        yield a
+
+
 def _port():
     from sincformer_tpu_torch import SincformerMetacog
     from sincformer_tpu_torch.compat.from_jax import \
@@ -151,13 +165,13 @@ def _port_step():
             {k: p.detach().clone() for k, p in params.items()})
 
 
-def test_step_loss_gradients_and_state_match_jax():
+def test_step_loss_gradients_and_state_match_jax(ahead):
     """The training forward through the cascade and the BiLRU (two MSA
     passes, the memory write, the MAA statistics) and its backward: the
     loss, every gradient leaf in the port's names, and every buffer."""
     from sincformer_tpu_torch.compat.from_jax import load_from_jax
-    want_loss, want_grads, want_state, _, _, _ = _jax_step()
     loss, grads, buffers, _ = _port_step()
+    want_loss, want_grads, want_state, _, _, _ = ahead(_jax_step)
     assert abs(loss - want_loss) <= LOSS_TOL * abs(want_loss)
     assert set(grads) == set(want_grads)
     largest = max(float(np.max(np.abs(g))) for g in want_grads.values())
@@ -185,7 +199,7 @@ def test_step_loss_gradients_and_state_match_jax():
             1.0, float(np.max(np.abs(w))))), k
 
 
-def test_adamw_step_matches_optax():
+def test_adamw_step_matches_optax(ahead):
     """The AdamW step after it: the port's optimizer given JAX's gradients
     lands on optax's parameters and moments (1e-5 of each leaf's scale,
     everywhere; optax's moments carried over by
@@ -197,7 +211,8 @@ def test_adamw_step_matches_optax():
     from sincformer_tpu_torch.compat.from_jax import \
         load_train_state_from_jax
     from sincformer_tpu_torch.train.state import guard_nan_update
-    want_loss, want_grads, _, want_params, before, moments = _jax_step()
+    want_loss, want_grads, _, want_params, before, moments = ahead(
+        _jax_step)
     pipe = _port()
     named = {k: torch.from_numpy(np.array(p)) for k, p in before.items()}
     opt = copy.deepcopy(pipe.opt_state)
