@@ -91,7 +91,17 @@ its kernels:
     gradient must fail), the halo conv against ``F.conv1d``; the
     multi-device dry run on four processes; a one-rank NCCL model axis
     bit-equal to no mesh; a probe, in two processes of its own, of
-    whether gloo gathers and sends CUDA tensors on this card.
+    whether gloo gathers and sends CUDA tensors on this card;
+  * bf16 (``[bf16]``): K1's and K3's bf16 forms against their plain bf16
+    versions (at least 99 % of the elements bit-equal, every element within
+    one bf16 ulp at its term scale), timed beside the f32 forms, the bf16
+    library calls and the bf16 bounds, and under autograd; DCSE training
+    with ``compute_dtype=torch.bfloat16`` at full width (8 x 4 s, unfused
+    and fused, 10 timed steps and a validation, counting the bf16 forms'
+    launches); the narrow model's bf16 step against its f32 step on the
+    card beside the same on the CPU; a one-rank NCCL bf16 step bit-equal to
+    no mesh; the bf16 forward at bench.py's DCSE workload (128 x 4 s)
+    beside the f32 one.
 
 K1, K3, K5 and K6 are also held against their plain versions under
 autograd (the backward is the plain formulation's gradient: K1's and K3's
@@ -100,7 +110,8 @@ wrapper that drops the ``grad_fn`` must fail the check). K1, K2, K3 and K5
 are timed from CUDA-graph replays (device time), their eager calls beside
 them; K2 also as the flagship's whole tree (73 leaves in one launch,
 against the CPU's tree bit for bit). ``--kernels-only`` stops
-after the kernels' own checks (a new kernel's first run). Exits non-zero
+after the kernels' own checks (a new kernel's first run, the bf16 forms
+too). Exits non-zero
 on any failure, and at once when no CUDA device is present.
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the kernel table as JSON.
@@ -117,6 +128,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -126,6 +138,7 @@ import torch
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+PEAK_BF16_FLOPS = 989e12   # dense bf16 on the tensor cores
 TF32_PRODUCTS = 3      # K1, K3, K5: split TF32, three tensor-core products
                        # per product for f32-level results
 KERNEL_TOL = 1e-5      # f32 on both sides, sums in another order; K3, K5:
@@ -307,9 +320,10 @@ def profile_once(fn) -> dict:
 
 
 def timed_steps(step, n: int, k1_per_step: int, launches,
-                what: str) -> dict:
+                what: str, others: Optional[dict] = None) -> dict:
     """``n`` training steps on the card (``step()`` returns the loss), each
-    holding K1's launches to ``k1_per_step``, then one profiled step: the
+    holding K1's launches to ``k1_per_step`` (and the counts ``others``
+    names to theirs), then one profiled step: the
     losses, the wall ms of each step and their median over steps 2 to n,
     K1's launches (the profiled step's last), the peak memory, and the
     profiled step (:func:`profile_once`)."""
@@ -321,13 +335,13 @@ def timed_steps(step, n: int, k1_per_step: int, launches,
         t0 = time.perf_counter()
         losses.append(float(step()))
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        k1.append(launches.expect(f"{what} {i}", speech_attention=k1_per_step)[
-            "speech_attention"])
+        k1.append(launches.expect(f"{what} {i}", speech_attention=k1_per_step,
+                                  **(others or {}))["speech_attention"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = profile_once(step)
     k1.append(launches.expect(f"profiled {what}",
-                              speech_attention=k1_per_step)[
-        "speech_attention"])
+                              speech_attention=k1_per_step,
+                              **(others or {}))["speech_attention"])
     return {"losses": losses, "step_ms": step_ms,
             "median_ms": float(np.median(step_ms[1:])), "k1": k1,
             "peak_gb": peak_gb, "profiled": prof}
@@ -364,7 +378,9 @@ def to_pcm(x: np.ndarray) -> np.ndarray:
 
 
 class Launches:
-    """The six wrappers' launch counts: set to 0 before a path is driven,
+    """The six wrappers' launch counts, and those of K1's and K3's bf16
+    forms (``speech_attention_bf16``, ``fused_ffn_bf16``; a bf16 launch
+    counts in its wrapper's count too): set to 0 before a path is driven,
     read after it, summed per kernel over the paths."""
 
     def __init__(self):
@@ -374,18 +390,24 @@ class Launches:
         from sincformer_tpu_torch.ops.meddis import meddis
         from sincformer_tpu_torch.ops.quantize import quantize_int8
         from sincformer_tpu_torch.ops.speech_attention import speech_attention
-        self.wrappers = {"speech_attention": speech_attention,
-                         "quantize_int8": quantize_int8,
-                         "fused_ffn": fused_ffn, "meddis": meddis,
-                         "conv1d_gn": conv1d_gn, "env_act": env_act}
-        self.total = dict.fromkeys(self.wrappers, 0)
+        self.counters = {
+            "speech_attention": (speech_attention, "launches"),
+            "speech_attention_bf16": (speech_attention, "launches_bf16"),
+            "quantize_int8": (quantize_int8, "launches"),
+            "fused_ffn": (fused_ffn, "launches"),
+            "fused_ffn_bf16": (fused_ffn, "launches_bf16"),
+            "meddis": (meddis, "launches"),
+            "conv1d_gn": (conv1d_gn, "launches"),
+            "env_act": (env_act, "launches")}
+        self.total = dict.fromkeys(self.counters, 0)
 
     def reset(self):
-        for w in self.wrappers.values():
-            w.launches = 0
+        for w, attr in self.counters.values():
+            setattr(w, attr, 0)
 
     def read(self) -> dict:
-        return {name: w.launches for name, w in self.wrappers.items()}
+        return {name: getattr(w, attr)
+                for name, (w, attr) in self.counters.items()}
 
     def expect(self, what: str, **want) -> dict:
         """Read the counts of the path just driven, hold them against
@@ -2727,7 +2749,15 @@ def check_variants(seed: int, smi: str, launches) -> dict:
     return result
 
 
-def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
+def zero_k1_k3() -> None:
+    """K1's and K3's launch counts (both forms) set to 0."""
+    from sincformer_tpu_torch.ops.fused_ffn import fused_ffn
+    from sincformer_tpu_torch.ops.speech_attention import speech_attention
+    for w in (speech_attention, fused_ffn):
+        w.launches = w.launches_bf16 = 0
+
+
+def dp_case(kind: str, mesh, batch: dict, seed: int, dtype=None) -> dict:
     """One dropout-0 training step on the card of the full flagship (from
     the committed artifact, softmax routing) or of DCSE at ``DCSEConfig()``
     sizes ("batch" norm, the fused feed-forward, seeded weights), on this
@@ -2742,7 +2772,8 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
     measurements. On a mesh with a model axis (tensor parallelism) the
     gradients and parameters are gathered whole, the all-gathers are
     counted and timed too, and the parameter bytes this rank holds are
-    returned."""
+    returned. ``dtype``: DCSE's ``compute_dtype`` (bf16 mixed precision;
+    the bf16 forms' launches are returned too)."""
     from unittest import mock
 
     import torch.distributed as dist
@@ -2771,7 +2802,8 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
     else:
         cfg = port.DCSEConfig(dropout=0.0, conv_norm="batch", fused_ffn=True)
         p = dcse_trainer.DCSETrainer(port.SpeechEnhancer(cfg), device="cuda",
-                                     seed=seed, mesh=mesh)
+                                     seed=seed, mesh=mesh,
+                                     compute_dtype=dtype)
         p.init_state(epochs=1, steps_per_epoch=1)
         module = dcse_trainer
 
@@ -2789,14 +2821,15 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
     noisy, clean = (torch.from_numpy(part[k]).cuda()
                     for k in ("noisy", "clean"))
     saved = {k: b.clone() for k, b in p.model.named_buffers()}
-    speech_attention.launches = fused_ffn.launches = 0
+    zero_k1_k3()
     loss_whole, _, grads_whole = whole(noisy, clean)
     grads_whole = whole_of({k: g for k, g in zip(p.params(), grads_whole)
                             if g is not None})
     norm = float(torch.sqrt(sum((g.double() ** 2).sum()
                                 for g in grads_whole.values())))
     clip_whole = min(1.0, p.tx.grad_clip / norm)
-    before = (speech_attention.launches, fused_ffn.launches)
+    before = (speech_attention.launches, fused_ffn.launches,
+              speech_attention.launches_bf16, fused_ffn.launches_bf16)
     for k, b in p.model.named_buffers():
         b.copy_(saved[k])
     seen = {}
@@ -2822,7 +2855,7 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
         return run
     p.tx.update = record
     before_step = whole_of(dict(p.model.named_parameters()))
-    speech_attention.launches = fused_ffn.launches = 0
+    zero_k1_k3()
     staged = collectives.COUNTS["host_staged"]
     loss = []
     with mock.patch.object(module, "multi_resolution_stft_loss",
@@ -2846,12 +2879,16 @@ def dp_case(kind: str, mesh, batch: dict, seed: int) -> dict:
            "k3": fused_ffn.launches,
            "k1_total": before[0] + speech_attention.launches,
            "k3_total": before[1] + fused_ffn.launches,
+           "k1_bf16": speech_attention.launches_bf16,
+           "k3_bf16": fused_ffn.launches_bf16,
+           "k1_bf16_total": before[2] + speech_attention.launches_bf16,
+           "k3_bf16_total": before[3] + fused_ffn.launches_bf16,
            "all_reduces": counted["all_reduce"]["n"],
            "all_reduce_ms": counted["all_reduce"]["s"] * 1e3,
            "all_gathers": counted["all_gather"]["n"],
            "all_gather_ms": counted["all_gather"]["s"] * 1e3,
            "host_staged": staged}
-    speech_attention.launches = fused_ffn.launches = 0
+    zero_k1_k3()
     del p
     torch.cuda.empty_cache()
     return out
@@ -3710,6 +3747,432 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
         raise AssertionError("[parallel]: " + "; ".join(faults[:10]))
     return result
 
+# [bf16]: K1's and K3's bf16 forms against their plain bf16 versions on the
+# card, at least BF16_SHARE of the elements bit-equal and every element
+# within BF16_ULPS bf16 ulps at its term scale (the sum of the magnitudes of
+# the terms it sums: a cancelling sum's small result is pinned only to
+# the ulp its terms were rounded at)
+BF16_SHARE = 0.99
+BF16_ULPS = 1.0
+BF16_ATTN_TS = (1, 37, 400, 401, 2100)
+BF16_FFN_ROWS = (1, 401, 1604, 6416, 25664)
+BF16_BENCH = (128, 32000)     # bench.py's DCSE workload: 128 x 4 s
+BF16_NARROW = dict(d_model=32, num_blocks=2, num_heads=2, ff_dim=64,
+                   kernel_size=7, dropout=0.0)
+BF16_CARD_VS_CPU = 2.0        # card's bf16-vs-f32 distance, x the CPU's
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor,
+                   scale: torch.Tensor) -> tuple:
+    """(share of bit-equal elements, worst |got - want| in bf16 ulps at
+    each element's term scale)."""
+    got, want = got.float(), want.float()
+    at = torch.maximum(torch.maximum(got.abs(), want.abs()), scale.float())
+    ulp = torch.exp2(torch.floor(torch.log2(at.clamp_min(1e-38))) - 7)
+    return (float((got == want).float().mean()),
+            float(((got - want).abs() / ulp).max()))
+
+
+def attention_scale(q, k, v, bias) -> torch.Tensor:
+    """sum_j p_j |v_j| of bf16 attention (p the f32 softmax)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s / float(q.shape[-1]) ** 0.5
+    if bias is not None:
+        s = s + bias[:, None, None, :]
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                        v.float().abs())
+
+
+def ffn_scale(x, ln_g, ln_b, w1, b1, w2, b2) -> torch.Tensor:
+    """|x| + (|h| . |W2| + |b2|) / 2 of the bf16 fused feed-forward."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    xn = ((xf - mu) * torch.rsqrt(var + 1e-6) * ln_g.float()
+          + ln_b.float()).bfloat16().float()
+    h = xn @ w1.float() + b1.float()
+    h = (h * torch.sigmoid(h)).bfloat16().float()
+    return xf.abs() + 0.5 * (h.abs() @ w2.float().abs() + b2.float().abs())
+
+
+def with_bf16_bound(timing: dict, flops: float, nbytes: float) -> dict:
+    """The least time of bf16 work on this card: its operations on the
+    tensor cores at the dense bf16 peak, or its bytes."""
+    by_ops, by_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    timing["bound_ms"] = max(by_ops, by_bytes) * 1e3
+    timing["bound_by"] = "operations" if by_ops >= by_bytes else "bytes"
+    return timing
+
+
+def bf16_grads(fn, args, extra, cot):
+    """Gradients of ``fn(*args, *extra)`` for ``args`` under ``cot``;
+    None when the output has no ``grad_fn`` (a wrapper that drops the
+    gradient)."""
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = fn(*leaves, *extra)
+    if out.grad_fn is None:
+        return None
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def check_bf16_kernels(seed: int, smi: str) -> dict:
+    """K1's and K3's bf16 forms against their plain bf16 versions on the
+    card, timed beside the f32 forms, the bf16 library calls and the bf16
+    bounds, and under autograd."""
+    import torch.nn.functional as F
+
+    from sincformer_tpu_torch.ops.fused_ffn import (LN_EPS, _fused_ffn_plain,
+                                                    fused_ffn)
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain, speech_attention)
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    out = {"k1": {"share": 1.0, "ulps": 0.0, "max_abs_err": 0.0},
+           "k3": {"share": 1.0, "ulps": 0.0, "max_abs_err": 0.0}}
+
+    def hold(name, got, want, scale, what):
+        share, ulps = bf16_agreement(got, want, scale)
+        err = float((got.float() - want.float()).abs().max())
+        say(f"[bf16] {name} {what}: {share:.5f} of the elements bit-equal "
+            f"to the plain bf16 version, worst {ulps:.3f} bf16 ulp at the "
+            f"term scale, max |kernel-plain| {err:.3e} (limits "
+            f"{BF16_SHARE:g}, {BF16_ULPS:g} ulp)")
+        r = out[name]
+        r.update(share=min(r["share"], share), ulps=max(r["ulps"], ulps),
+                 max_abs_err=max(r["max_abs_err"], err))
+        if got.dtype != torch.bfloat16 or not (share >= BF16_SHARE
+                                               and ulps <= BF16_ULPS):
+            raise AssertionError(f"{name}'s bf16 form disagrees with its "
+                                 f"plain version at {what}")
+
+    for dh in (16, 32, 64, 128):
+        for t in BF16_ATTN_TS:
+            q, k, v = (torch.randn(4, t, 4, dh, device="cuda", generator=g)
+                       .bfloat16() for _ in range(3))
+            lengths = torch.tensor([t, t - 7, t // 2, 1],
+                                   device="cuda").clamp_min(1)
+            bias = torch.where(torch.arange(t, device="cuda")[None]
+                               < lengths[:, None], 0.0, -1e9).float()
+            for bb in (None, bias):
+                got = speech_attention(q, k, v, bb)
+                torch.cuda.synchronize()
+                hold("k1", got, _speech_attention_plain(q, k, v, bb),
+                     attention_scale(q, k, v, bb),
+                     f"B=4 T={t} H=4 dh={dh} bias={bb is not None}")
+    sdpa = F.scaled_dot_product_attention
+    for b, t in ((4, 400), (16, 401)):
+        q, k, v = (torch.randn(b, t, 4, 64, device="cuda", generator=g)
+                   .bfloat16() for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        q32, k32, v32 = (x.float() for x in (q, k, v))
+        timing = time_in_turns(
+            lambda: _speech_attention_plain(q, k, v),
+            lambda: speech_attention(q, k, v), lambda: sdpa(qt, kt, vt),
+            graph=True)
+        timing["f32_ms"] = graph_ms(lambda: speech_attention(q32, k32, v32))
+        flops, nbytes = 4.0 * b * t * t * 256, 2.0 * 4 * b * t * 256
+        with_bf16_bound(timing, flops, nbytes)
+        out["k1"][f"B{b}_T{t}"] = timing
+        say(f"[bf16] K1 bf16 timing B={b} T={t} H=4 dh=64, CUDA graph "
+            f"replays: kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms "
+            f"(eager calls {timing['ms_eager']:.4f} ms), f32 K1 "
+            f"{timing['f32_ms']:.4f} ms, plain bf16 {timing['plain_ms']:.4f}"
+            f" / {timing['plain_ms_2']:.4f} ms, scaled_dot_product_attention "
+            f"bf16 (yardstick, not used by the port) "
+            f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.5f} "
+            f"ms ({timing['bound_by']}: {flops / 1e9:.3f} GFLOP at "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.2f} MB) "
+            f"on {smi}")
+
+    def ffn_args(m, d, f, dtype=torch.bfloat16):
+        def r(*shape, scale=1.0, shift=0.0):
+            return (shift + scale * torch.randn(
+                *shape, device="cuda", generator=g)).to(dtype)
+        return (r(m, d), r(d, scale=0.1, shift=1.0), r(d, scale=0.1),
+                r(d, f, scale=d ** -0.5), r(f, scale=0.1),
+                r(f, d, scale=f ** -0.5), r(d, scale=0.1))
+    for m, d, f in ([(m, 256, 1024) for m in BF16_FFN_ROWS]
+                    + [(130, 32, 64), (70, 64, 96), (200, 128, 512)]):
+        a = ffn_args(m, d, f)
+        got = fused_ffn(*a)
+        torch.cuda.synchronize()
+        hold("k3", got, _fused_ffn_plain(*a), ffn_scale(*a),
+             f"rows={m} d={d} d_ff={f}")
+    for m in (25664, 6416):
+        d, f = 256, 1024
+        x, ln_g, ln_b, w1, b1, w2, b2 = a = ffn_args(m, d, f)
+        a32 = [t.float() for t in a]
+        w1_oi, w2_oi = w1.t().contiguous(), w2.t().contiguous()
+
+        def library():
+            xn = F.layer_norm(x, (d,), ln_g, ln_b, LN_EPS)
+            return x + 0.5 * F.linear(F.silu(F.linear(xn, w1_oi, b1)), w2_oi,
+                                      b2)
+        timing = time_in_turns(lambda: _fused_ffn_plain(*a),
+                               lambda: fused_ffn(*a), library, iters=20,
+                               graph=True)
+        timing["f32_ms"] = graph_ms(lambda: fused_ffn(*a32), iters=20)
+        flops = 4.0 * m * d * f
+        nbytes = 2.0 * (2 * m * d + 2 * d * f + 3 * d + f)
+        with_bf16_bound(timing, flops, nbytes)
+        out["k3"][f"rows{m}"] = timing
+        say(f"[bf16] K3 bf16 timing rows={m} d={d} d_ff={f}, CUDA graph "
+            f"replays: kernel {timing['ms']:.4f} / {timing['ms_2']:.4f} ms "
+            f"(eager calls {timing['ms_eager']:.4f} ms), f32 K3 "
+            f"{timing['f32_ms']:.4f} ms, plain bf16 {timing['plain_ms']:.4f}"
+            f" / {timing['plain_ms_2']:.4f} ms, layer_norm + 2 linear + silu "
+            f"in bf16 (yardstick, not used by the port) "
+            f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} "
+            f"ms ({timing['bound_by']}: {flops / 1e9:.2f} GFLOP at "
+            f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB) "
+            f"on {smi}")
+
+    # under autograd: the gradients are the plain bf16 version's autograd
+    # bit for bit, one launch of the bf16 form; a wrapper that returns a
+    # detached output must be caught
+    q, k, v = (torch.randn(4, 400, 4, 64, device="cuda", generator=g)
+               .bfloat16() for _ in range(3))
+    bias = torch.where(torch.arange(400, device="cuda")[None] < torch.tensor(
+        [[400], [393], [200], [1]], device="cuda"), 0.0, -1e9).float()
+    for name, fn, plain, args, extra in (
+            ("K1", speech_attention, _speech_attention_plain, (q, k, v),
+             (bias,)),
+            ("K3", fused_ffn, _fused_ffn_plain, ffn_args(3200, 256, 1024),
+             ())):
+        cot = torch.randn(args[0].shape, device="cuda",
+                          generator=g).bfloat16()
+        before = fn.launches_bf16
+        got = bf16_grads(fn, args, extra, cot)
+        launched = fn.launches_bf16 - before
+        want = bf16_grads(plain, args, extra, cot)
+        equal = got is not None and all(torch.equal(a, b)
+                                        for a, b in zip(got, want))
+        caught = bf16_grads(lambda *x: fn(*x).detach(), args, extra,
+                            cot) is None
+        say(f"[bf16] {name} bf16 form under autograd: gradients equal to the "
+            f"plain bf16 autograd: {equal}, launches {launched}; a detached "
+            f"output caught: {caught}")
+        if not (equal and launched == 1 and caught):
+            raise AssertionError(f"{name}'s bf16 form under autograd")
+    return out
+
+
+def narrow_dcse_step(state: dict, device: str, dtype, batch) -> tuple:
+    """The narrow DCSE's dropout-0 training forward (``BF16_NARROW``,
+    "layer") from ``state``: (loss, gradients on the host in float64),
+    without the MR-STFT term (ROADMAP.md Queue 3)."""
+    from unittest import mock
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.train import dcse_trainer
+    p = dcse_trainer.DCSETrainer(
+        port.SpeechEnhancer(port.DCSEConfig(**BF16_NARROW)), device=device,
+        compute_dtype=dtype)
+    p.load_state(state)
+    p.init_state(epochs=1, steps_per_epoch=1, init_params=False)
+    noisy, clean = (torch.from_numpy(b).to(device) for b in batch)
+    with mock.patch.object(dcse_trainer, "multi_resolution_stft_loss",
+                           lambda pred, target: pred.sum() * 0.0):
+        loss, _, grads = p.loss_and_grads(noisy, clean)
+    return float(loss), [gr.detach().double().cpu() for gr in grads]
+
+
+def check_bf16(seed: int, smi: str, launches) -> dict:
+    """bf16 on the card: the bf16 forms of K1 and K3
+    (:func:`check_bf16_kernels`); bf16 DCSE training at full width (8 x
+    4 s, unfused and fused, timed steps and a validation with their bf16
+    launches); the card's bf16 step on narrow inputs against its f32 step,
+    beside the CPU's; a one-rank NCCL bf16 step bit-equal to no mesh; and
+    the bf16 forward at bench.py's DCSE workload beside the f32 one."""
+    import copy
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.dsp.stft import istft, stft
+    from sincformer_tpu_torch.parallel import make_mesh
+    from sincformer_tpu_torch.train import dcse_trainer
+    t_phase = time.perf_counter()
+    result = {"kernels": check_bf16_kernels(seed, smi)}
+    launches.reset()
+    blocks = port.DCSEConfig().num_blocks
+    batch = dcse_batch(seed)
+    noisy, clean, lengths = (torch.from_numpy(batch[k]).cuda()
+                             for k in ("noisy", "clean", "lengths"))
+
+    # ── full-width bf16 training: timed steps and a validation ──────────
+    for name, cfg in (("unfused", port.DCSEConfig()),
+                      ("fused", port.DCSEConfig(fused_ffn=True,
+                                                dropout=0.0))):
+        pipe = dcse_trainer.DCSETrainer(port.SpeechEnhancer(cfg),
+                                        device="cuda", seed=seed,
+                                        compute_dtype=torch.bfloat16)
+        pipe.init_state(epochs=1, steps_per_epoch=10)
+        k3 = 2 * blocks if cfg.fused_ffn else 0
+        counts = {"speech_attention_bf16": blocks, "fused_ffn": k3,
+                  "fused_ffn_bf16": k3}
+        run = timed_steps(lambda: pipe.train_step(noisy, clean)[0], 10,
+                          blocks, launches, f"bf16 dcse step ({name})",
+                          counts)
+        launches.reset()
+        val = [float(x) for x in pipe.eval_step(noisy, clean, lengths)]
+        v = launches.expect(f"bf16 dcse validation ({name})",
+                            speech_attention=blocks, **counts)
+        masters = {p.dtype for p in pipe.params().values()}
+        prof = run["profiled"]
+        say(f"[bf16] DCSE training in bf16, {name} (dropout {cfg.dropout}), "
+            f"{TRAIN_BATCH}, 10 steps: loss "
+            f"{run['losses'][0]:.4f} at step 1, {run['losses'][-1]:.4f} at "
+            f"step 10; {run['median_ms']:.2f} ms per step (median of steps "
+            f"2-10; step 1 {run['step_ms'][0]:.1f} ms), device busy "
+            f"{prof['busy_ms']:.3f} ms, {prof['launches']} kernel launches, "
+            f"bf16 K1 {blocks} and K3 {k3} a step, peak memory "
+            f"{run['peak_gb']:.2f} GB; a validation of the batch: loss "
+            f"{val[0]:.4f}, bf16 K1 {v['speech_attention_bf16']} and K3 "
+            f"{v['fused_ffn_bf16']}; master parameters {masters} on {smi}")
+        if masters != {torch.float32} or not all(
+                np.isfinite(run["losses"] + val[:2])):
+            raise AssertionError(f"bf16 DCSE training ({name}) is not as "
+                                 f"expected")
+        result[f"train_{name}"] = {
+            "step_ms_median": run["median_ms"], "step_ms_first":
+            run["step_ms"][0], "device_busy_ms": prof["busy_ms"],
+            "kernel_launches_per_step": prof["launches"],
+            "k1_bf16_per_step": blocks, "k3_bf16_per_step": k3,
+            "k1_bf16_per_validation": v["speech_attention_bf16"],
+            "k3_bf16_per_validation": v["fused_ffn_bf16"],
+            "peak_memory_gb": run["peak_gb"], "losses": run["losses"]}
+        del pipe
+        torch.cuda.empty_cache()
+
+    # ── the narrow step: card bf16 vs f32 beside the CPU's bf16 vs f32 ──
+    state = port.SpeechEnhancer(port.DCSEConfig(**BF16_NARROW)).init_params(
+        torch.Generator().manual_seed(seed)).state_dict()
+    rng = np.random.default_rng(seed + 5)
+    n_clean = (rng.standard_normal((2, 4000)) * 0.2).astype(np.float32)
+    n_noisy = (n_clean + rng.standard_normal((2, 4000)) * 0.1).astype(
+        np.float32)
+    steps = {(dev, str(dt)): narrow_dcse_step(state, dev, dt,
+                                              (n_noisy, n_clean))
+             for dev in ("cuda", "cpu") for dt in (torch.bfloat16, None)}
+    launches.expect("narrow bf16 and f32 steps on card and CPU",
+                    speech_attention=2 * BF16_NARROW["num_blocks"],
+                    speech_attention_bf16=BF16_NARROW["num_blocks"])
+
+    def apart(dev):
+        (l16, g16), (l32, g32) = (steps[(dev, str(torch.bfloat16))],
+                                  steps[(dev, "None")])
+        leaves = [float((a - b).norm()) for a, b in zip(g16, g32)]
+        return abs(l16 - l32), l32, leaves, float(np.sqrt(np.sum(
+            np.square(leaves))))
+    (dl_card, loss32, leaves_card, all_card), (dl_cpu, _, leaves_cpu,
+                                               all_cpu) = (apart("cuda"),
+                                                           apart("cpu"))
+    per_leaf = [a / b for a, b in zip(leaves_card, leaves_cpu)]
+    loss_bar = BF16_CARD_VS_CPU * max(dl_cpu, 2.0 ** -12 * abs(loss32))
+    say(f"[bf16] narrow DCSE step ({BF16_NARROW}), bf16 vs f32: loss "
+        f"{dl_card:.3e} apart on the card, {dl_cpu:.3e} on the CPU (limit "
+        f"{loss_bar:.3e}: {BF16_CARD_VS_CPU:g}x the CPU's, floored at 2^-12 "
+        f"of the loss); gradients {all_card:.4e} apart on the card, "
+        f"{all_cpu:.4e} on the CPU, ratio {all_card / all_cpu:.3f} (limit "
+        f"{BF16_CARD_VS_CPU:g}); per leaf median {np.median(per_leaf):.3f}, "
+        f"max {max(per_leaf):.3f}")
+    result["narrow_card_vs_cpu"] = {
+        "loss_apart_card": dl_card, "loss_apart_cpu": dl_cpu,
+        "grads_apart_card": all_card, "grads_apart_cpu": all_cpu,
+        "per_leaf_median": float(np.median(per_leaf)),
+        "per_leaf_max": max(per_leaf)}
+    if not (dl_card <= loss_bar
+            and all_card <= BF16_CARD_VS_CPU * all_cpu
+            and np.median(per_leaf) <= BF16_CARD_VS_CPU):
+        raise AssertionError("the card's bf16 step is farther from its f32 "
+                             "step than the CPU's bars allow")
+
+    # ── a one-rank NCCL bf16 step against no mesh ───────────────────────
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = dp_case("dcse", None, batch, seed, torch.bfloat16)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            one = dp_case("dcse", make_mesh(), batch, seed, torch.bfloat16)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    diff = bit_equal(one, ref)
+    say(f"[bf16] DCSE bf16 step {TRAIN_BATCH} (\"batch\", fused, dropout 0) "
+        f"on a one-rank NCCL mesh vs no mesh: {len(diff)} entries differ in "
+        f"any bit {diff[:4]}; bf16 K1 {one['k1_bf16']} and K3 "
+        f"{one['k3_bf16']} in the step")
+    for r in (ref, one):
+        for name, key in (("speech_attention", "k1_total"),
+                          ("fused_ffn", "k3_total"),
+                          ("speech_attention_bf16", "k1_bf16_total"),
+                          ("fused_ffn_bf16", "k3_bf16_total")):
+            launches.total[name] += r[key]
+    launches.reset()
+    result["one_rank_nccl"] = {"differ": len(diff), "k1_bf16":
+                               one["k1_bf16"], "k3_bf16": one["k3_bf16"],
+                               "wall_ms": one["wall_ms"],
+                               "busy_ms": one["busy_ms"]}
+    if diff or (one["k1_bf16"], one["k3_bf16"]) != (blocks, 2 * blocks):
+        raise AssertionError(f"[bf16] one-rank NCCL step: {diff[:5]}")
+    del ref, one
+    torch.cuda.empty_cache()
+
+    # ── bench.py's DCSE workload: 128 x 4 s, the bf16 forward vs f32 ────
+    wav = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        BF16_BENCH).astype(np.float32)).cuda()
+    for fused in (False, True):
+        model = port.SpeechEnhancer(port.DCSEConfig(
+            fused_ffn=fused)).init_params(torch.Generator().manual_seed(
+                seed)).cuda().eval()
+        model16 = copy.deepcopy(model).to(torch.bfloat16)
+
+        def enhance(m, dt):
+            with torch.inference_mode():
+                spec = stft(wav)
+                er, ei, _ = m(spec.real.to(dt), spec.imag.to(dt))
+                return istft(torch.complex(er.float(), ei.float()),
+                             length=wav.shape[-1])
+        k3 = 2 * blocks if fused else 0
+        launches.reset()
+        out32, out16 = enhance(model, torch.float32), enhance(
+            model16, torch.bfloat16)
+        launches.expect(f"bench forward f32 and bf16 (fused={fused})",
+                        speech_attention=2 * blocks,
+                        speech_attention_bf16=blocks, fused_ffn=2 * k3,
+                        fused_ffn_bf16=k3)
+        rel = float((out16 - out32).norm() / out32.norm())
+        times = {}
+        for tag, m, dt in (("f32", model, torch.float32),
+                           ("bf16", model16, torch.bfloat16)):
+            wall = wall_s(lambda: enhance(m, dt), reps=5)
+            prof = profile_once(lambda: enhance(m, dt))
+            times[tag] = {"wall_ms": wall * 1e3, "busy_ms": prof["busy_ms"],
+                          "launches": prof["launches"]}
+        launches.reset()
+        tag = "fused" if fused else "unfused"
+        say(f"[bf16] bench.py's DCSE forward ({tag}), {BF16_BENCH} "
+            f"(wav -> STFT -> model -> iSTFT, seeded weights): bf16 output "
+            f"{rel:.3e} from the f32 output (relative L2; a record, not a "
+            f"claim); f32 {times['f32']['wall_ms']:.2f} ms wall, "
+            f"{times['f32']['busy_ms']:.2f} ms busy; bf16 "
+            f"{times['bf16']['wall_ms']:.2f} ms wall, "
+            f"{times['bf16']['busy_ms']:.2f} ms busy on {smi}")
+        if not (np.isfinite(rel) and out16.shape == out32.shape):
+            raise AssertionError("the bf16 bench forward failed")
+        result[f"bench_forward_{tag}"] = {"rel_l2_vs_f32": rel, **{
+            f"{t}_{k}": v for t, d in times.items() for k, v in d.items()}}
+        del model, model16, out16, out32
+        torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    say(f"[bf16] phase wall {result['phase_s']:.1f} s on {smi}")
+    return result
+
 
 def check_istft(seed: int) -> None:
     """The iSTFT on the card must not depend on the batch size: one batch of
@@ -3881,6 +4344,7 @@ def main() -> int:
     k6_err, k6_time = check_k6(args.seed, smi)
     check_autograd(args.seed)
     if args.kernels_only:
+        check_bf16_kernels(args.seed, smi)
         for name in built:
             with open(built[name] + ".log") as f:
                 say(f"[build] {name}.cu: " + " | ".join(
@@ -4345,12 +4809,20 @@ def main() -> int:
     launches.reset()
     phase_done("[parallel]")
 
+    # ── phase 17: bf16: K1's and K3's bf16 forms, bf16 DCSE ─────────────
+    bf16 = check_bf16(args.seed, smi, launches)
+    say("[bf16] " + json.dumps(bf16))
+    launches.reset()
+    phase_done("[bf16]")
+
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def row(name, source, replaces, err, timing, extra=None, **more):
+        # a wrapper's count holds its bf16 form's launches too
         r = {"name": name, "route": "cuda",
              "source": f"sincformer_tpu_torch/csrc/{source}",
-             "replaces": replaces, "launches": launches.total[name],
+             "replaces": replaces, "launches": launches.total[name]
+             - launches.total.get(f"{name}_bf16", 0),
              "max_abs_err": err, **{k: timing[k] for k in keys}}
         if "bound_f32_ms" in timing:
             r["bound_f32_ms"] = timing["bound_f32_ms"]
@@ -4359,6 +4831,19 @@ def main() -> int:
                                           "wall_ms") if k in t}
         r.update(extra or {})
         return r
+    def bf16_entry(name, which, first, second, per_step):
+        """The bf16 form's numbers: the bit-equal share and worst ulps
+        against its plain version, its time at the main path's first shape
+        beside the f32 form's and the bf16 library call's, and at a second
+        shape; its launches on the driven paths."""
+        info = bf16["kernels"][which]
+        timing = info[first]
+        return {"launches": launches.total[f"{name}_bf16"],
+                "max_abs_err": info["max_abs_err"],
+                "bit_equal_share": info["share"], "worst_ulps": info["ulps"],
+                **{k: timing[k] for k in (*keys, "f32_ms", "ms_eager")},
+                f"at_{second}": {k: info[second][k] for k in (
+                    *keys, "f32_ms", "ms_eager")}, **per_step}
     kernels = [
         row("speech_attention", "speech_attention.cu",
             "sincformer_tpu/ops/speech_attention.py:70", k1_err, k1_time,
@@ -4389,7 +4874,13 @@ def main() -> int:
                         "k1_per_rank"]},
                 "in_tensor_parallel_step_per_rank": {
                     kind: parallel["tp"][kind][0]["k1"]
-                    for kind in ("flagship", "dcse")}}),
+                    for kind in ("flagship", "dcse")},
+                "bf16": bf16_entry(
+                    "speech_attention", "k1", "B4_T400", "B16_T401", {
+                        "in_bf16_dcse_step": bf16["train_unfused"][
+                            "k1_bf16_per_step"],
+                        "in_bf16_dcse_validation": bf16["train_unfused"][
+                            "k1_bf16_per_validation"]})}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),
@@ -4402,7 +4893,13 @@ def main() -> int:
                 "in_distributed_dcse_step_per_rank":
                     distributed["two_ranks"]["dcse"][0]["k3"],
                 "in_tensor_parallel_dcse_step_per_rank":
-                    parallel["tp"]["dcse"][0]["k3"]}),
+                    parallel["tp"]["dcse"][0]["k3"],
+                "bf16": bf16_entry(
+                    "fused_ffn", "k3", "rows25664", "rows6416", {
+                        "in_bf16_dcse_step_no_dropout": bf16["train_fused"][
+                            "k3_bf16_per_step"],
+                        "in_bf16_dcse_validation": bf16["train_fused"][
+                            "k3_bf16_per_validation"]})}),
         row("meddis", "meddis.cu",
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",
@@ -4411,7 +4908,8 @@ def main() -> int:
         row("env_act", "envact.cu",
             "sincformer_tpu/ops/envact_pallas.py:37", k6_err, k6_time)]
     for k in kernels:
-        if k["launches"] < 1:
+        if k["launches"] < 1 or k.get("bf16", {"launches": 1})[
+                "launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched on the "
                                  f"driven paths")
     say(f"[card] {smi}")

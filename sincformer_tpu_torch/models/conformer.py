@@ -21,6 +21,18 @@ is this rank's block of frames; ``attn_impl="ring"`` attends over every
 rank's frames, the depthwise conv exchanges halo frames
 (``ops/cp_conv.py``), and the "batch" and "group" norms take their
 statistics over every rank's frames.
+
+bfloat16: every module runs in the dtype of its input and parameters, as
+flax's modules do under the JAX package's bf16 path (``DCSETrainer``'s
+``compute_dtype``, a model cast with ``.to(torch.bfloat16)``). The norms
+take their statistics in float32 and return the input's dtype; BatchNorm's
+running statistics stay float32 buffers stepped from float32 statistics;
+the attention's key bias stays float32. Where PyTorch's bf16 operator
+would round once and the JAX package's rounds twice, the bf16 path rounds
+as JAX's: a Dense or a convolution rounds its product and then its sum
+with the bias, and the sigmoid (of the swish, the GLU and the mask head)
+is XLA's ``1 / (1 + exp(-x))`` with each operation rounded. In float32
+every path is as before.
 """
 
 from __future__ import annotations
@@ -39,15 +51,50 @@ from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel import sharding as tp
 
 
+def in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The Python constant ``c`` rounded to bfloat16 for a bfloat16 operand
+    (JAX rounds a Python scalar to the array's dtype, PyTorch computes with
+    it whole); ``c`` itself for any other dtype."""
+    if dtype != torch.bfloat16:
+        return c
+    return float(torch.tensor(c, dtype=torch.bfloat16))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid``; in bfloat16 ``1 / (1 + exp(-x))`` with every
+    operation rounded to bfloat16, as XLA expands the JAX package's
+    ``jax.nn.sigmoid`` (PyTorch's bf16 sigmoid rounds once)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x · sigmoid(x): ``F.silu`` in float32; in bfloat16 the product of x
+    and :func:`sigmoid`, rounded, as the JAX package's ``swish``."""
+    return F.silu(x) if x.dtype != torch.bfloat16 else x * sigmoid(x)
+
+
+def glu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.glu`` over the last axis: ``F.glu`` in float32; in
+    bfloat16 a · :func:`sigmoid` (b), rounded."""
+    if x.dtype != torch.bfloat16:
+        return F.glu(x, dim=-1)
+    a, b = x.chunk(2, dim=-1)
+    return a * sigmoid(b)
+
+
 def dropout(x: torch.Tensor, p: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - p, drawn
-    from ``generator``, and divide the kept ones by 1 - p. The identity when
-    ``generator`` is None (deterministic) or p is 0."""
+    from ``generator``, and divide the kept ones by 1 - p (in bfloat16 by
+    1 - p rounded to bfloat16, as JAX divides by a Python constant). The
+    identity when ``generator`` is None (deterministic) or p is 0."""
     if generator is None or p == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    return torch.where(keep, x / in_dtype(1.0 - p, x.dtype),
+                       torch.zeros_like(x))
 
 
 def same_pad(x: torch.Tensor, k: int, stride: int = 1) -> torch.Tensor:
@@ -67,12 +114,15 @@ class FeedForwardModule(nn.Module):
 
     ``fused=True`` runs the whole module as one call of ``ops.fused_ffn``
     (kernel K3 on a CUDA tensor) unless dropout is active, where it takes
-    the unfused math, as the JAX package's ``FusedFeedForward`` does. Both
+    the unfused math, as the JAX package's ``FusedFeedForward`` does (in
+    bfloat16 that module's own math: :meth:`_fused_dropout_bf16`). Both
     forms have the same parameters, so a checkpoint loads into either. The
     kernel reads the weights as (in, out), the transposes of
     ``Linear.weight``: under autograd they are transposed views made
     contiguous, so the gradient reaches the weights; without it they are
-    made once and again only when a weight was rewritten or moved. Split
+    made once and again only when a weight was rewritten, moved or cast;
+    tensors that stand in for the weights (``torch.func.functional_call``
+    with bfloat16 copies) are transposed at every call, never cached. Split
     weights (tensor parallelism) are gathered first, every call.
     """
 
@@ -91,15 +141,31 @@ class FeedForwardModule(nn.Module):
         if hasattr(w0, "tp_split") or hasattr(w1, "tp_split"):
             w0, w1 = tp.whole(w0), tp.whole(w1)
             return w0.t().contiguous(), w1.t().contiguous()
-        if torch.is_grad_enabled() and (w0.requires_grad or w1.requires_grad):
+        if (torch.is_grad_enabled() and (w0.requires_grad or w1.requires_grad)
+                or not all(isinstance(w, nn.Parameter) for w in (w0, w1))):
             return w0.t().contiguous(), w1.t().contiguous()
         # (a tensor made under inference_mode has no version counter)
-        key = tuple((w.data_ptr(), 0 if w.is_inference() else w._version)
-                    for w in (w0, w1))
+        key = tuple((w.data_ptr(), w.dtype,
+                     0 if w.is_inference() else w._version) for w in (w0, w1))
         if self._transposed is None or self._transposed[0] != key:
             self._transposed = (key, w0.detach().t().contiguous(),
                                 w1.detach().t().contiguous())
         return self._transposed[1:]
+
+    def _fused_dropout_bf16(self, x, generator):
+        """The JAX package's ``FusedFeedForward`` with dropout active, in
+        bfloat16: its own LayerNorm, whose mean and variance are means
+        taken in f32 and rounded to bf16 and whose every other operation
+        rounds to bf16, then the unfused Dense, swish and dropout."""
+        ln = self.LayerNorm_0
+        mu = x.float().mean(dim=-1, keepdim=True).to(x.dtype)
+        var = ((x - mu) ** 2).float().mean(dim=-1, keepdim=True).to(x.dtype)
+        y = ((x - mu) * torch.rsqrt(var + in_dtype(LN_EPS, x.dtype))
+             * ln.weight + ln.bias)
+        y = dropout(swish(tp.linear(self.Dense_0, y)), self.dropout,
+                    generator)
+        y = dropout(tp.linear(self.Dense_1, y), self.dropout, generator)
+        return x + 0.5 * y
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if self.fused and (generator is None or self.dropout == 0.0):
@@ -107,7 +173,9 @@ class FeedForwardModule(nn.Module):
             ln = self.LayerNorm_0
             return fused_ffn(x.contiguous(), ln.weight, ln.bias, w1,
                              self.Dense_0.bias, w2, self.Dense_1.bias)
-        y = F.silu(tp.linear(self.Dense_0, self.LayerNorm_0(x)))
+        if self.fused and x.dtype == torch.bfloat16:
+            return self._fused_dropout_bf16(x, generator)
+        y = swish(tp.linear(self.Dense_0, self.LayerNorm_0(x)))
         y = dropout(y, self.dropout, generator)
         y = dropout(tp.linear(self.Dense_1, y), self.dropout, generator)
         return x + 0.5 * y
@@ -197,7 +265,8 @@ BN_MOMENTUM = 0.99     # flax BatchNorm: ra <- 0.99 ra + 0.01 x
 def _fast_stats(x: torch.Tensor, dims):
     """flax's statistics (``use_fast_variance``): the mean and
     max(0, E[x²] - E[x]²) over ``dims``, which hold the time axis (over
-    the whole sequence under ``ops.ring_mesh``)."""
+    the whole sequence under ``ops.ring_mesh``); ``x`` is float32 (or
+    float64)."""
     mu = _sequence_mean(x.mean(dim=dims))
     return mu, torch.clamp(_sequence_mean(torch.mean(x * x, dim=dims))
                            - mu * mu, min=0.0)
@@ -217,7 +286,12 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     as max(0, E[x²] - E[x]²); then step the running statistics in place,
     ``ra = momentum · ra + (1 - momentum) · stat`` with the *biased*
     variance. Otherwise normalise by the running statistics. The output is
-    ``(x - mean) · (rsqrt(var + eps) · weight) + bias``, flax's order."""
+    ``(x - mean) · (rsqrt(var + eps) · weight) + bias``, flax's order.
+    A bfloat16 ``x`` is widened to float32 for the statistics and the
+    normalisation and the result rounded back once, as flax does; the
+    running statistics stay float32."""
+    dtype = x.dtype
+    x = x.float() if dtype == torch.bfloat16 else x
     if train:
         mean = _sequence_mean(collectives.mean(x, dim=(0, 1)))
         var = torch.clamp(_sequence_mean(collectives.mean(x * x, dim=(0, 1)))
@@ -228,7 +302,7 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             running_var.mul_(momentum).add_((1.0 - momentum) * var.detach())
     else:
         mean, var = running_mean, running_var
-    return (x - mean) * (torch.rsqrt(var + eps) * weight) + bias
+    return ((x - mean) * (torch.rsqrt(var + eps) * weight) + bias).to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -250,7 +324,8 @@ class BatchNorm(nn.Module):
 
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm`` on (B, T, D): statistics per batch row and
-    group over T and the group's channels, flax's fast variance, eps 1e-6."""
+    group over T and the group's channels, flax's fast variance, eps 1e-6;
+    in float32 for a bfloat16 input, rounded back once, as flax does."""
 
     def __init__(self, features: int, num_groups: int, eps: float = LN_EPS):
         super().__init__()
@@ -262,11 +337,14 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         b, t, d = x.shape
         size = d // self.num_groups
+        dtype = x.dtype
+        x = x.float() if dtype == torch.bfloat16 else x
         mean, var = _fast_stats(x.reshape(b, t, self.num_groups, size),
                                 (1, 3))
         mean = mean.repeat_interleave(size, dim=-1)[:, None, :]
         mul = torch.rsqrt(var + self.eps).repeat_interleave(size, dim=-1)
-        return (x - mean) * (mul[:, None, :] * self.weight) + self.bias
+        return ((x - mean) * (mul[:, None, :] * self.weight)
+                + self.bias).to(dtype)
 
 
 class ConvolutionModule(nn.Module):
@@ -295,7 +373,7 @@ class ConvolutionModule(nn.Module):
         self.pointwise2 = nn.Linear(d_model, d_model)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        y = F.glu(tp.linear(self.pointwise1, self.LayerNorm_0(x)), dim=-1)
+        y = glu(tp.linear(self.pointwise1, self.LayerNorm_0(x)))
         y = self.depthwise(y)
         if self.norm == "batch":
             y = self.bn(y, train=generator is not None)
@@ -303,7 +381,7 @@ class ConvolutionModule(nn.Module):
             y = self.gn(y)
         else:
             y = self.ln(y)
-        return x + dropout(tp.linear(self.pointwise2, F.silu(y)),
+        return x + dropout(tp.linear(self.pointwise2, swish(y)),
                            self.dropout, generator)
 
 

@@ -15,10 +15,17 @@ batch's statistics); without one it is the deterministic serving forward.
 
 ``config.remat`` recomputes each Conformer block in the backward
 (``torch.utils.checkpoint``, JAX's ``nn.remat`` per block) with the same
-dropout masks (the generator's state replayed) and one step of the
-BatchNorm running statistics, so its gradients are the ones without it,
-bit for bit. Every Dense goes through ``parallel/sharding.py`` (tensor
+dropout masks (the generator's state replayed), the same parameter tensors
+(the bfloat16 copies of a ``torch.func.functional_call`` too) and one step
+of the BatchNorm running statistics, so its gradients are the ones without
+it, bit for bit. Every Dense goes through ``parallel/sharding.py`` (tensor
 parallelism).
+
+In bfloat16 (inputs and parameters, as ``bench.py`` runs the JAX model and
+``DCSETrainer``'s ``compute_dtype`` trains it) the whole forward runs in
+bf16 and returns bf16, the norms' statistics in float32
+(``models/conformer.py``); the phase bound is rounded to bf16 before it
+scales the tanh, as JAX rounds a Python constant to the array's dtype.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from sincformer_tpu_torch.config import DCSEConfig
-from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
+from sincformer_tpu_torch.models.conformer import (LN_EPS, ConformerBlock,
+                                                   in_dtype, sigmoid)
 from sincformer_tpu_torch.models.init import variance_scaling_
 from sincformer_tpu_torch.parallel import sharding as tp
 
@@ -44,9 +52,12 @@ def rematerialised(block: nn.Module, x: torch.Tensor,
     masks again (``generator``'s state is set back to where the forward
     found it, then restored), and its BatchNorm step of the running
     statistics is undone, so the running statistics move once, as under
-    JAX's ``nn.remat``."""
+    JAX's ``nn.remat``. The recompute reads the parameter tensors that the
+    forward read, also where ``torch.func.functional_call`` stood copies in
+    for them (it has returned by the time of the backward)."""
     start = None if generator is None else generator.get_state()
     calls = []
+    params = dict(block.named_parameters())
 
     def run(x_):
         if not calls:
@@ -57,7 +68,8 @@ def rematerialised(block: nn.Module, x: torch.Tensor,
         if generator is not None:
             generator.set_state(start)
         try:
-            return block(x_, mask, generator)
+            return torch.func.functional_call(block, params,
+                                              (x_, mask, generator))
         finally:
             if generator is not None:
                 generator.set_state(resume)
@@ -97,9 +109,9 @@ class SpeechEnhancer(nn.Module):
             x = (rematerialised(block, x, mask, generator) if remat
                  else block(x, mask, generator))
         x = self.output_norm(x)
-        mask_mag = torch.sigmoid(tp.linear(self.mag_head, x))
+        mask_mag = sigmoid(tp.linear(self.mag_head, x))
         mask_phase = (torch.tanh(tp.linear(self.phase_head, x))
-                      * self.phase_bound)
+                      * in_dtype(self.phase_bound, x.dtype))
         mask_real = mask_mag * torch.cos(mask_phase)
         mask_imag = mask_mag * torch.sin(mask_phase)
         enh_real = mask_real * noisy_real - mask_imag * noisy_imag

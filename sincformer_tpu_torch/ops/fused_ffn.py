@@ -4,18 +4,25 @@
     y = x + 0.5 * (swish(LN(x) . W1 + b1) . W2 + b2)
 
 LayerNorm has eps 1e-6 and f32 statistics, the variance being the mean of
-squares of ``x - mean``. On a CUDA tensor :func:`fused_ffn` launches the
-hand-written kernel ``csrc/fused_ffn.cu``, which reads each row once, writes
-it once, keeps the normalised rows and the d_ff-wide intermediate in shared
-memory, streams the weights through it with asynchronous copies and takes
-both products on the tensor cores in split TF32 (f32-level results); on a
-CPU tensor it runs :func:`_fused_ffn_plain`. There is no fallback from one
-to the other: a CUDA tensor the kernel does not take raises.
+squares of ``x - mean``. On a CUDA tensor :func:`fused_ffn` launches a
+hand-written kernel of ``csrc/fused_ffn.cu``, which reads each row once,
+writes it once, keeps the normalised rows and the d_ff-wide intermediate in
+shared memory and streams the weights through it with asynchronous copies:
+for float32 inputs its f32 form (both products on the tensor cores in split
+TF32, f32-level results), for bfloat16 its bf16 form. On a CPU tensor it
+runs :func:`_fused_ffn_plain`. There is no fallback from one to the other:
+a CUDA tensor the kernel does not take raises.
+
+bfloat16 rounds where the JAX package's ``_ffn_reference`` rounds: the
+LayerNorm is f32, xn is rounded to W1's dtype, xn.W1 accumulates in f32
+(bf16 products are exact in f32) and adds b1, the swish is f32, h is
+rounded to W2's dtype, h.W2 accumulates in f32 and adds b2, and
+x + 0.5 y is taken in f32 and rounded once to x's dtype.
 
 Under autograd the call is one :class:`_FusedFFN` function, as in the JAX
 package: the forward is the kernel (the plain version on a CPU tensor), the
-backward recomputes the plain formula on the saved inputs and takes its
-gradient (there is no backward kernel).
+backward recomputes the plain formula on the saved inputs, in their dtype,
+and takes its gradient (there is no backward kernel).
 """
 
 from __future__ import annotations
@@ -29,23 +36,32 @@ from sincformer_tpu_torch.ops import build
 
 LN_EPS = 1e-6
 _WIDTHS = (32, 64, 128, 256)
+# the kernel's entry point for each dtype it takes
+_ENTRY = {torch.float32: "fused_ffn_fwd", torch.bfloat16: "fused_ffn_fwd_bf16"}
+
+
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 tensor in float32 (exact); any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _fused_ffn_plain(x, ln_g, ln_b, w1, b1, w2, b2):
-    """Plain PyTorch version of the same formula, any leading shape."""
+    """Plain PyTorch version of the same formula, any leading shape. With
+    bfloat16 weights xn and h are rounded to them before each product,
+    which is taken in float32; in float32 the casts are the identity."""
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     xn = (xf - mu) * torch.rsqrt(var + LN_EPS) * ln_g + ln_b
-    h = xn @ w1 + b1
+    h = _widened(xn.to(w1.dtype)) @ _widened(w1) + b1
     h = h * torch.sigmoid(h)
-    y = h @ w2 + b2
+    y = _widened(h.to(w2.dtype)) @ _widened(w2) + b2
     return (xf + 0.5 * y).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("fused_ffn").fused_ffn_fwd
+def _kernel(dtype: torch.dtype = torch.float32):
+    fn = getattr(build.load("fused_ffn"), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -62,10 +78,13 @@ def _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2):
               "w2": (d_ff, d), "b2": (d,)}
     tensors = {"ln_g": ln_g, "ln_b": ln_b, "w1": w1, "b1": b1, "w2": w2,
                "b2": b2}
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"fused_ffn kernel takes float32 or bfloat16, x is "
+                        f"{x.dtype}")
     for name, t in (("x", x), *tensors.items()):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_ffn kernel takes float32, {name} is "
-                            f"{t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"fused_ffn kernel takes tensors of one dtype; "
+                            f"{name} is {t.dtype}, x {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -79,8 +98,12 @@ def _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2):
     if d_ff % 32:
         raise ValueError(f"fused_ffn kernel needs d_ff to be a multiple of "
                          f"32, got {d_ff}")
-    for name, t, align in (("w1", w1, 16), ("w2", w2, 16), ("b1", b1, 16),
-                           ("x", x, 8), ("b2", b2, 8)):
+    # byte alignment of b1 and of x and b2: the f32 form reads them as
+    # float2 pairs (b1 in 16-byte pieces), the bf16 form as bf16 pairs
+    b1_align, pair_align = (16, 8) if x.dtype == torch.float32 else (4, 4)
+    for name, t, align in (("w1", w1, 16), ("w2", w2, 16),
+                           ("b1", b1, b1_align), ("x", x, pair_align),
+                           ("b2", b2, pair_align)):
         if t.data_ptr() % align:
             raise ValueError(f"fused_ffn kernel needs {name} aligned to "
                              f"{align} bytes")
@@ -98,7 +121,7 @@ def _forward(x, ln_g, ln_b, w1, b1, w2, b2):
     if rows == 0:
         raise ValueError("fused_ffn kernel needs at least one row")
     out = torch.empty_like(x)
-    fn = _kernel()
+    fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
@@ -107,6 +130,8 @@ def _forward(x, ln_g, ln_b, w1, b1, w2, b2):
     if err != 0:
         raise RuntimeError(f"fused_ffn kernel launch failed: CUDA error {err}")
     fused_ffn.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_ffn.launches_bf16 += 1
     return out
 
 
@@ -140,9 +165,10 @@ def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,
             package's (in, out) layout.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``fused_ffn.launches``, forward launches only) or raises.
-    When an input needs a gradient the call is differentiable: the
-    backward is the plain formula's.
+    (counted in ``fused_ffn.launches``, forward launches only, and those of
+    the bf16 form also in ``fused_ffn.launches_bf16``) or raises. When an
+    input needs a gradient the call is differentiable: the backward is the
+    plain formula's, in the inputs' dtype.
     """
     args = (x, ln_g, ln_b, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
@@ -151,3 +177,4 @@ def fused_ffn(x: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor,
 
 
 fused_ffn.launches = 0
+fused_ffn.launches_bf16 = 0

@@ -210,9 +210,13 @@ def whole(p: torch.Tensor) -> torch.Tensor:
 
 def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``layer(x)``; with a split weight, this rank's column block of the
-    product, the blocks gathered, then the (replicated) bias."""
+    product, the blocks gathered, then the (replicated) bias. In bfloat16
+    the product is rounded before the bias is added, as flax's Dense
+    rounds (the split form does so in any dtype)."""
     w = layer.weight
     if getattr(w, "tp_split", None) is None:
+        if x.dtype == torch.bfloat16 and layer.bias is not None:
+            return F.linear(x, w) + layer.bias
         return layer(x)
     group = _group(w)
     y = collectives.gather(F.linear(collectives.copy_to_model(x, group), w),
@@ -249,7 +253,12 @@ def _conv1d_split(x, w, bias, stride=1, padding=0, dilation=1, groups=1,
 def depthwise_conv1d(x: torch.Tensor, weight: torch.Tensor,
                      bias: Optional[torch.Tensor]) -> torch.Tensor:
     """Depthwise ``F.conv1d`` of padded (B, C, T) input by a (C, 1, k)
-    weight, split over the model ranks when the weight is."""
+    weight, split over the model ranks when the weight is. In bfloat16 the
+    convolution is rounded before the bias is added, as in the JAX
+    package's ``DepthwiseConv``."""
     if getattr(weight, "tp_split", None) is None:
+        if x.dtype == torch.bfloat16 and bias is not None:
+            return F.conv1d(x, weight, None,
+                            groups=weight.shape[0]) + bias[:, None]
         return F.conv1d(x, weight, bias, groups=weight.shape[0])
     return _conv1d_split(x, weight, bias, depthwise=True)

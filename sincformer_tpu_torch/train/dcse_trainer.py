@@ -33,6 +33,19 @@ per-rank shapes and stay local. A ``"model"`` axis splits the parameters
 as the flagship trainer's does (tensor parallelism: each rank's slices,
 the global gradient norm for the clip and the guard, checkpoints gathered
 and written whole).
+
+bf16 mixed precision (``compute_dtype=torch.bfloat16``, the JAX package's
+``DCSEPipeline(compute_dtype=jnp.bfloat16)``): the master parameters and
+the AdamW state stay float32; the loss runs the model through
+``torch.func.functional_call`` on a bfloat16 copy of every parameter and
+the bfloat16 real and imaginary parts of the noisy STFT, so the gradients
+reach the float32 masters through the casts (float32 gradients, averaged
+over the ranks in float32); the BatchNorm statistics stay float32 buffers;
+the enhanced STFT is widened to float32 before the iSTFT and the losses.
+The train and eval steps and validation take that path; serving
+(``enhance``, the inherited pipeline) and checkpoints stay float32.
+Context parallelism (``attn_impl="ring"`` inside ``ops.ring_mesh``) is
+not ported in bf16.
 """
 
 from __future__ import annotations
@@ -51,6 +64,7 @@ from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
                                               train_test_split)
 from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.models.dcse import default_speech_enhancer
+from sincformer_tpu_torch.ops.attention import active_ring_mesh
 from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
                                                 model_rank, rank_seed,
@@ -68,6 +82,20 @@ from sincformer_tpu_torch.train.state import (VAL_PROTOCOL, broadcast_state,
                                               restore_training_state)
 
 
+def compute_copies(model: torch.nn.Module, dtype: torch.dtype) -> dict:
+    """{name: the parameter cast to ``dtype``}, differentiable back to the
+    parameter; a split parameter's copy keeps its ``tp_split`` and
+    ``tp_shape`` (``parallel/sharding.py``)."""
+    copies = {}
+    for name, p in model.named_parameters():
+        c = p.to(dtype)
+        for attr in ("tp_split", "tp_shape"):
+            if hasattr(p, attr):
+                setattr(c, attr, getattr(p, attr))
+        copies[name] = c
+    return copies
+
+
 class DCSETrainer(DCSEPipeline):
     """Train and serve the DCSE SpeechEnhancer. The training settings are
     the model's ``DCSEConfig`` (lr, dropout, epochs, batch size, loss
@@ -75,10 +103,12 @@ class DCSETrainer(DCSEPipeline):
     loaded) and the dropout masks; ``logger`` (a
     ``utils.observability.MetricsLogger``) takes one record per epoch.
     Without ``model``, the model is ``default_speech_enhancer()``.
-    ``compute_dtype`` other than None (the JAX package's bf16 path) is not
-    ported: kernels K1 and K3 are float32 kernels. ``mesh`` (a DeviceMesh
-    with a ``"data"`` axis) makes the training data-parallel over its
-    ranks, and a ``"model"`` axis tensor-parallel."""
+    ``compute_dtype`` is None (float32) or ``torch.bfloat16``: the train
+    and eval steps then run the model in bf16 on bf16 copies of the float32
+    masters (module docstring; kernels K1 and K3 launch their bf16 forms on
+    the card), the rest in float32. ``mesh`` (a DeviceMesh with a
+    ``"data"`` axis) makes the training data-parallel over its ranks, and a
+    ``"model"`` axis tensor-parallel."""
 
     _CKPT_NAMES = ("conformer_final", "best_conformer")
 
@@ -86,12 +116,14 @@ class DCSETrainer(DCSEPipeline):
                  audio: AudioConfig = AudioConfig(),
                  model_dir: Optional[str] = None, seed: int = 0,
                  logger=None, compute_dtype=None, mesh=None):
-        if compute_dtype is not None:
+        if compute_dtype not in (None, torch.bfloat16):
             raise NotImplementedError(
-                "compute_dtype (bf16 DCSE training) is not ported: kernels "
-                "K1 and K3 compute in float32 (ROADMAP.md Queue 1)")
+                f"compute_dtype {compute_dtype} is not ported: DCSE training "
+                f"runs in float32 (None) or in bf16 mixed precision "
+                f"(torch.bfloat16)")
         super().__init__(model or default_speech_enhancer(), device,
                          output_gain, audio, model_dir)
+        self.compute_dtype = compute_dtype
         self.seed = seed
         self.mesh = mesh
         self.logger = logger
@@ -196,9 +228,21 @@ class DCSETrainer(DCSEPipeline):
         n_fft, hop, frame = a.fft_size, a.hop_size, a.frame_size
         noisy_spec = stft(noisy, n_fft, hop, frame)
         clean_spec = stft(clean, n_fft, hop, frame)
-        enh_r, enh_i, _ = self.model(
-            noisy_spec.real, noisy_spec.imag,
-            generator=self.dropout_generator if train else None)
+        generator = self.dropout_generator if train else None
+        dt = self.compute_dtype
+        if dt is None:
+            enh_r, enh_i, _ = self.model(noisy_spec.real, noisy_spec.imag,
+                                         generator=generator)
+        else:
+            if active_ring_mesh() is not None:
+                raise NotImplementedError(
+                    "bf16 DCSE training under ops.ring_mesh (context "
+                    "parallelism) is not ported")
+            enh_r, enh_i, _ = torch.func.functional_call(
+                self.model, compute_copies(self.model, dt),
+                (noisy_spec.real.to(dt), noisy_spec.imag.to(dt)),
+                {"generator": generator})
+            enh_r, enh_i = enh_r.float(), enh_i.float()
         enh_wav = istft(torch.complex(enh_r, enh_i), n_fft, hop, frame,
                         length=clean.shape[-1])
         loss_sisnr = si_snr_loss(enh_wav, clean)

@@ -1,0 +1,288 @@
+"""The port's bf16 paths that need no JAX reference (this file imports no
+JAX, so that its card cases can run on a machine without it): the bf16
+forms of kernels K1 and K3 on the card against their plain versions, also
+under autograd; the wrappers on CPU tensors; ``remat`` under bf16; a
+trainer on a one-rank mesh; the fused feed-forward's cached weights under
+bf16 copies; the checkpoints and the serving of a bf16 trainer.
+
+The card's bars are the CPU's (``tests/_torch_bf16.py``): at least 99 % of
+the elements bit-equal to the plain bf16 version on the same card and
+every element within one bf16 ulp at its term scale."""
+
+import tempfile
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import tests._torch_dp_worker as worker
+from tests._torch_bf16 import agreement, attention_scale, ffn_scale
+from tests._torch_parity import NARROW_DCSE
+
+# (B, T, dh, masked) on the card: the shapes chip_smoke.py's [bf16] holds
+K1_CARD = [(4, 400, 64, False), (4, 401, 64, True), (2, 1, 16, False),
+           (2, 37, 32, True), (2, 2100, 128, True), (16, 401, 64, False)]
+# (rows, d, d_ff)
+K3_CARD = [(1, 256, 1024), (401, 256, 1024), (6416, 256, 1024),
+           (130, 32, 64), (200, 128, 512)]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def _narrow_config(**fields):
+    from sincformer_tpu_torch.config import DCSEConfig
+    return DCSEConfig(d_model=NARROW_DCSE["d_model"],
+                      num_blocks=NARROW_DCSE["num_blocks"],
+                      num_heads=NARROW_DCSE["num_heads"],
+                      ff_dim=NARROW_DCSE["d_ff"],
+                      kernel_size=NARROW_DCSE["kernel_size"], **fields)
+
+
+def _trainer(mesh=None, dtype=torch.bfloat16, **fields):
+    """A narrow DCSE trainer on the CPU with weights drawn from seed 0."""
+    from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+    from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
+    pipe = DCSETrainer(SpeechEnhancer(_narrow_config(**fields)),
+                       device="cpu", model_dir=tempfile.mkdtemp(),
+                       mesh=mesh, compute_dtype=dtype)
+    pipe.init_state(worker.LR_EPOCHS, worker.LR_STEPS)
+    return pipe
+
+
+def _batch():
+    rng = np.random.default_rng(5)
+    clean = (rng.standard_normal((2, 4000)) * 0.2).astype(np.float32)
+    noisy = (clean + rng.standard_normal((2, 4000)) * 0.1).astype(np.float32)
+    return noisy, clean
+
+
+def _k1_args(case, device):
+    b, t, dh, masked = case
+    g = torch.Generator(device=device).manual_seed(t + dh)
+    q, k, v = (torch.randn(b, t, 4, dh, device=device, generator=g)
+               .bfloat16() for _ in range(3))
+    bias = None
+    if masked:
+        lengths = torch.tensor(([t, t - 7, t // 2, 1] * 4)[:b],
+                               device=device).clamp_min(1)
+        bias = torch.where(torch.arange(t, device=device)[None]
+                           < lengths[:, None], 0.0, -1e9).float()
+    return q, k, v, bias
+
+
+def _k3_args(case, device):
+    m, d, f = case
+    g = torch.Generator(device=device).manual_seed(m + d)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, device=device,
+                                            generator=g)).bfloat16()
+    return (r(m, d), r(d, scale=0.1, shift=1.0), r(d, scale=0.1),
+            r(d, f, scale=d ** -0.5), r(f, scale=0.1),
+            r(f, d, scale=f ** -0.5), r(d, scale=0.1))
+
+
+def test_bf16_wrappers_on_cpu_tensors_launch_nothing():
+    """On bf16 CPU tensors both wrappers return their plain versions'
+    bf16 result and count no launch of either form."""
+    from sincformer_tpu_torch.ops.fused_ffn import _fused_ffn_plain, fused_ffn
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain, speech_attention)
+    counts = (speech_attention.launches, speech_attention.launches_bf16,
+              fused_ffn.launches, fused_ffn.launches_bf16)
+    args = _k1_args((2, 37, 32, True), "cpu")
+    out = speech_attention(*args)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, _speech_attention_plain(*args))
+    args = _k3_args((33, 32, 64), "cpu")
+    out = fused_ffn(*args)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, _fused_ffn_plain(*args))
+    assert counts == (speech_attention.launches,
+                      speech_attention.launches_bf16, fused_ffn.launches,
+                      fused_ffn.launches_bf16)
+
+
+@pytest.mark.parametrize("norm", ["layer", "batch"])
+def test_remat_in_bf16_is_bit_equal(norm):
+    """A bf16 training forward with ``remat`` (dropout 0.1 and, for
+    "batch", the running statistics stepped once) gives the loss, the
+    float32 gradients and the buffers of the same forward without it, bit
+    for bit: the recompute reads the bf16 copies that
+    ``functional_call`` stood in for the parameters."""
+    got = []
+    for remat in (False, True):
+        pipe = _trainer(conv_norm=norm, dropout=0.1, remat=remat)
+        loss, sisnr, grads = pipe.loss_and_grads(
+            *(torch.from_numpy(a) for a in _batch()))
+        got.append((loss, grads, [b.clone() for b in pipe.model.buffers()]))
+    (l0, g0, b0), (l1, g1, b1) = got
+    assert torch.equal(l0, l1)
+    assert all(g.dtype == torch.float32 for g in g0)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert all(torch.equal(a, b) for a, b in zip(b0, b1))
+
+
+@pytest.fixture
+def group_of_one():
+    """A gloo group of one rank in this process (two CPU threads, as in
+    tests/test_torch_parallel.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{worker.free_port()}",
+        world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("axes", [("data",), ("data", "model")])
+def test_one_rank_mesh_bf16_step_is_bit_equal(group_of_one, axes):
+    """A bf16 trainer ("batch") on a one-rank mesh, a data axis alone and
+    with a model axis, takes the step of a bf16 trainer without a mesh bit
+    for bit: the whole loss, the gradients, the parameters and the
+    BatchNorm statistics after the step."""
+    from sincformer_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(axis_names=axes)
+    noisy, clean = _batch()
+    job = {"noisy": noisy, "clean": clean}
+    got = worker._dcse_step(job, "batch", mesh,
+                            _trainer(mesh, conv_norm="batch", dropout=0.0))
+    want = worker._dcse_step(job, "batch", None,
+                             _trainer(conv_norm="batch", dropout=0.0))
+    for key, value in want.items():
+        if isinstance(value, dict):
+            bad = [k for k in value if not torch.equal(got[key][k],
+                                                       value[k])]
+            assert not bad, (key, bad)
+        else:
+            assert got[key] == value, key
+
+
+def test_bf16_step_under_a_ring_raises():
+    """Context parallelism is not ported in bf16: a bf16 training forward
+    inside ``ops.ring_mesh`` raises before it runs."""
+    from sincformer_tpu_torch.ops import ring_mesh
+    pipe = _trainer(dropout=0.0)
+    with ring_mesh(object(), "data"), pytest.raises(
+            NotImplementedError, match="ring_mesh"):
+        pipe.loss_and_grads(*(torch.from_numpy(a) for a in _batch()))
+
+
+def test_fused_weights_follow_casts_and_stand_ins():
+    """The fused feed-forward's (in, out) weight copies: a module cast to
+    bf16 after a float32 call computes with the bf16 weights, and bf16
+    stand-ins given by ``torch.func.functional_call`` without autograd are
+    used as given at every call, whatever memory they reuse."""
+    from sincformer_tpu_torch.models.conformer import FeedForwardModule
+    torch.manual_seed(0)
+    ff = FeedForwardModule(32, 64, fused=True).eval()
+    x = torch.randn(2, 9, 32)
+    with torch.no_grad():
+        ff(x)                                   # caches the f32 copies
+        ff.to(torch.bfloat16)
+        fresh = FeedForwardModule(32, 64, fused=True).eval().to(
+            torch.bfloat16)
+        fresh.load_state_dict(ff.state_dict())
+        assert torch.equal(ff(x.bfloat16()), fresh(x.bfloat16()))
+        ff.float()
+        for scale in (1.0, -2.0, 3.0):
+            stand_in = {k: (scale * p).bfloat16()
+                        for k, p in ff.named_parameters()}
+            ref = FeedForwardModule(32, 64, fused=True).eval().to(
+                torch.bfloat16)
+            ref.load_state_dict(stand_in)
+            got = torch.func.functional_call(ff, stand_in, (x.bfloat16(),))
+            assert torch.equal(got, ref(x.bfloat16()))
+            del stand_in     # the next stand-ins may take the same memory
+
+
+def test_bf16_trainer_saves_f32_and_serves_f32(tmp_path):
+    """After a bf16 step the trainer's parameters, optimizer state and
+    checkpoint are float32, a serving pipeline loads the checkpoint, and
+    the trainer's own ``enhance_signal`` is the float32 pipeline's, bit
+    for bit (serving does not take ``compute_dtype``, as in JAX)."""
+    import sincformer_tpu_torch.train.dcse_trainer as port_dcse
+    from sincformer_tpu_torch import DCSEPipeline
+    pipe = _trainer(conv_norm="batch", dropout=0.0)
+    pipe.model_dir = str(tmp_path)
+    with mock.patch.object(port_dcse, "multi_resolution_stft_loss",
+                           lambda pred, target: pred.sum() * 0.0):
+        loss, _ = pipe.train_step(*(torch.from_numpy(a) for a in _batch()))
+    assert torch.isfinite(loss)
+    assert all(v.dtype == torch.float32 for v in pipe.params().values())
+    assert all(v.dtype == torch.float32 for k in ("mu", "nu")
+               for v in pipe.opt_state[k].values())
+    pipe.save_model()
+    served = DCSEPipeline(device="cpu", model_dir=str(tmp_path))
+    served.load_model()
+    for k, v in served.model.state_dict().items():
+        assert v.dtype == torch.float32 and torch.equal(
+            v, pipe.model.state_dict()[k]), k
+    wav = _batch()[0][0]
+    assert np.array_equal(pipe.enhance_signal(wav),
+                          served.enhance_signal(wav))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K1_CARD)
+def test_k1_bf16_form_on_the_card(case):
+    """K1's bf16 form against its plain bf16 version on the same card, one
+    launch counted in both counts."""
+    _need_card()
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain, speech_attention)
+    args = _k1_args(case, "cuda")
+    before = speech_attention.launches_bf16
+    out = speech_attention(*args)
+    torch.cuda.synchronize()
+    assert speech_attention.launches_bf16 == before + 1
+    share, ulps = agreement(out, _speech_attention_plain(*args),
+                            attention_scale(*args))
+    assert out.dtype == torch.bfloat16 and share >= 0.99 and ulps <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K3_CARD)
+def test_k3_bf16_form_on_the_card(case):
+    """K3's bf16 form against its plain bf16 version on the same card."""
+    _need_card()
+    from sincformer_tpu_torch.ops.fused_ffn import _fused_ffn_plain, fused_ffn
+    args = _k3_args(case, "cuda")
+    before = fused_ffn.launches_bf16
+    out = fused_ffn(*args)
+    torch.cuda.synchronize()
+    assert fused_ffn.launches_bf16 == before + 1
+    share, ulps = agreement(out, _fused_ffn_plain(*args), ffn_scale(*args))
+    assert out.dtype == torch.bfloat16 and share >= 0.99 and ulps <= 1.0
+
+
+@pytest.mark.gpu
+def test_bf16_forms_under_autograd_on_the_card():
+    """Under autograd each bf16 form's output has a ``grad_fn`` and its
+    gradients are the plain bf16 version's autograd, bit for bit."""
+    _need_card()
+    from sincformer_tpu_torch.ops.fused_ffn import _fused_ffn_plain, fused_ffn
+    from sincformer_tpu_torch.ops.speech_attention import (
+        _speech_attention_plain, speech_attention)
+    q, k, v, bias = _k1_args((4, 400, 64, True), "cuda")
+    for fn, plain, args, extra in (
+            (speech_attention, _speech_attention_plain, (q, k, v), (bias,)),
+            (fused_ffn, _fused_ffn_plain,
+             _k3_args((401, 256, 1024), "cuda"), ())):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves, *extra)
+        assert out.grad_fn is not None
+        cot = torch.randn_like(out)
+        got = torch.autograd.grad(out, leaves, cot)
+        ref = [a.clone().requires_grad_(True) for a in args]
+        want = torch.autograd.grad(plain(*ref, *extra), ref, cot)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -558,14 +558,18 @@ def test_training_init_statistics():
 
 
 def test_unported_training_options_raise():
-    """bf16 ``compute_dtype`` raises (kernels K1 and K3 are float32);
+    """A trainer takes ``compute_dtype=torch.bfloat16`` (bf16 mixed
+    precision, tests/test_torch_bf16.py) and None; another dtype raises;
     ``remat`` is ported and a trainer takes it; a wrong norm raises."""
     from sincformer_tpu_torch.config import DCSEConfig
     from sincformer_tpu_torch.models.dcse import SpeechEnhancer
     from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
     assert DCSETrainer(SpeechEnhancer(DCSEConfig(remat=True)),
                        device="cpu").model.config.remat
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        DCSETrainer(device="cpu", compute_dtype=torch.bfloat16)
+    assert DCSETrainer(device="cpu", compute_dtype=torch.bfloat16
+                       ).compute_dtype == torch.bfloat16
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError, match="compute_dtype"):
+            DCSETrainer(device="cpu", compute_dtype=dtype)
     with pytest.raises(ValueError, match="conv_norm"):
         DCSEConfig(conv_norm="instance")
