@@ -3754,8 +3754,23 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
 # the ulp its terms were rounded at)
 BF16_SHARE = 0.99
 BF16_ULPS = 1.0
-BF16_ATTN_TS = (1, 37, 400, 401, 2100)
-BF16_FFN_ROWS = (1, 401, 1604, 6416, 25664)
+# T: the bf16 form of K1 keeps S in registers up to 448 keys (dh 128: 256)
+# and walks tiles twice beyond
+BF16_ATTN_TS = (1, 37, 255, 256, 257, 400, 401, 447, 448, 449, 2100)
+# rows: K3's bf16 form takes one 64-row unit a block (its two warpgroups
+# splitting d_ff) up to one unit per SM (8,448 rows on 132 SMs), 128-row
+# tiles on persistent blocks beyond
+BF16_FFN_ROWS = (1, 63, 64, 65, 127, 128, 129, 401, 1604, 3208, 6416, 8448,
+                 8449, 25664, 51328)
+# (B, T), H 4, dh 64: the kernel alone, the bf16 DCSE step of 8 x 4 s and
+# bench.py's forward of 128 x 4 s
+BF16_ATTN_TIMED = ((4, 400), (16, 401), (8, 401), (128, 401))
+# (B, T) at which each (batch, head) gets fewer blocks than it has row tiles
+# (132 SMs), so that a block walks several tiles on its one copy of K and V:
+# dh 16, 32 and 64 take 64-row tiles up to 448 keys, dh 128 32-row tiles up
+# to 256
+BF16_ATTN_WALK = ((16, 255), (16, 256), (16, 401), (64, 448), (128, 401))
+BF16_FFN_TIMED = (25664, 6416, 3208, 51328)        # rows, d 256, d_ff 1024
 BF16_BENCH = (128, 32000)     # bench.py's DCSE workload: 128 x 4 s
 BF16_NARROW = dict(d_model=32, num_blocks=2, num_heads=2, ff_dim=64,
                    kernel_size=7, dropout=0.0)
@@ -3858,10 +3873,46 @@ def check_bf16_kernels(seed: int, smi: str) -> dict:
                 hold("k1", got, _speech_attention_plain(q, k, v, bb),
                      attention_scale(q, k, v, bb),
                      f"B=4 T={t} H=4 dh={dh} bias={bb is not None}")
+    def masked(b, t):
+        lengths = torch.tensor(([t, t - 7, t // 2, 1] * b)[:b],
+                               device="cuda").clamp_min(1)
+        return torch.where(torch.arange(t, device="cuda")[None]
+                           < lengths[:, None], 0.0, -1e9).float()
+
+    # the resident forms' walk over several row tiles a block (the second Q
+    # buffer, the turn of buffers, the wait that ends a tile)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    walked = 0
+    for dh in (16, 32, 64, 128):
+        rows, most = (32, 256) if dh == 128 else (64, 448)
+        for b, t in BF16_ATTN_WALK:
+            if t > most:
+                continue
+            n_tiles = -(-t // rows)
+            per_head = 1 if b * 4 >= sms else min(sms // (b * 4), n_tiles)
+            walked += per_head < n_tiles
+            q, k, v = (torch.randn(b, t, 4, dh, device="cuda", generator=g)
+                       .bfloat16() for _ in range(3))
+            bias = masked(b, t)
+            got = speech_attention(q, k, v, bias)
+            torch.cuda.synchronize()
+            hold("k1", got, _speech_attention_plain(q, k, v, bias),
+                 attention_scale(q, k, v, bias),
+                 f"B={b} T={t} H=4 dh={dh} bias=True, {per_head} blocks a "
+                 f"head over {n_tiles} row tiles")
+    if walked < 12:
+        raise AssertionError(f"[bf16] only {walked} K1 cases walk several "
+                             f"row tiles a block on {sms} SMs")
     sdpa = F.scaled_dot_product_attention
-    for b, t in ((4, 400), (16, 401)):
+    for b, t in BF16_ATTN_TIMED:
         q, k, v = (torch.randn(b, t, 4, 64, device="cuda", generator=g)
                    .bfloat16() for _ in range(3))
+        for bb in (None, masked(b, t)):
+            got = speech_attention(q, k, v, bb)
+            torch.cuda.synchronize()
+            hold("k1", got, _speech_attention_plain(q, k, v, bb),
+                 attention_scale(q, k, v, bb),
+                 f"B={b} T={t} H=4 dh=64 bias={bb is not None}")
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         q32, k32, v32 = (x.float() for x in (q, k, v))
         timing = time_in_turns(
@@ -3891,13 +3942,14 @@ def check_bf16_kernels(seed: int, smi: str) -> dict:
                 r(d, f, scale=d ** -0.5), r(f, scale=0.1),
                 r(f, d, scale=f ** -0.5), r(d, scale=0.1))
     for m, d, f in ([(m, 256, 1024) for m in BF16_FFN_ROWS]
-                    + [(130, 32, 64), (70, 64, 96), (200, 128, 512)]):
+                    + [(130, 32, 64), (70, 64, 96), (200, 128, 512),
+                       (200, 128, 96), (33, 32, 96)]):
         a = ffn_args(m, d, f)
         got = fused_ffn(*a)
         torch.cuda.synchronize()
         hold("k3", got, _fused_ffn_plain(*a), ffn_scale(*a),
              f"rows={m} d={d} d_ff={f}")
-    for m in (25664, 6416):
+    for m in BF16_FFN_TIMED:
         d, f = 256, 1024
         x, ln_g, ln_b, w1, b1, w2, b2 = a = ffn_args(m, d, f)
         a32 = [t.float() for t in a]
@@ -4831,19 +4883,21 @@ def main() -> int:
                                           "wall_ms") if k in t}
         r.update(extra or {})
         return r
-    def bf16_entry(name, which, first, second, per_step):
+    def bf16_entry(name, which, first, per_step):
         """The bf16 form's numbers: the bit-equal share and worst ulps
         against its plain version, its time at the main path's first shape
-        beside the f32 form's and the bf16 library call's, and at a second
-        shape; its launches on the driven paths."""
+        beside the f32 form's and the bf16 library call's, and at every
+        other timed shape; its launches on the driven paths."""
         info = bf16["kernels"][which]
-        timing = info[first]
+        timed = ("ms", "ms_2", "plain_ms", "plain_ms_2", "bound_ms",
+                 "bound_by", "library_ms", "f32_ms", "ms_eager")
         return {"launches": launches.total[f"{name}_bf16"],
                 "max_abs_err": info["max_abs_err"],
                 "bit_equal_share": info["share"], "worst_ulps": info["ulps"],
-                **{k: timing[k] for k in (*keys, "f32_ms", "ms_eager")},
-                f"at_{second}": {k: info[second][k] for k in (
-                    *keys, "f32_ms", "ms_eager")}, **per_step}
+                **{k: info[first][k] for k in timed},
+                **{f"at_{shape}": {k: t[k] for k in timed}
+                   for shape, t in info.items()
+                   if isinstance(t, dict) and shape != first}, **per_step}
     kernels = [
         row("speech_attention", "speech_attention.cu",
             "sincformer_tpu/ops/speech_attention.py:70", k1_err, k1_time,
@@ -4876,7 +4930,7 @@ def main() -> int:
                     kind: parallel["tp"][kind][0]["k1"]
                     for kind in ("flagship", "dcse")},
                 "bf16": bf16_entry(
-                    "speech_attention", "k1", "B4_T400", "B16_T401", {
+                    "speech_attention", "k1", "B4_T400", {
                         "in_bf16_dcse_step": bf16["train_unfused"][
                             "k1_bf16_per_step"],
                         "in_bf16_dcse_validation": bf16["train_unfused"][
@@ -4895,7 +4949,7 @@ def main() -> int:
                 "in_tensor_parallel_dcse_step_per_rank":
                     parallel["tp"]["dcse"][0]["k3"],
                 "bf16": bf16_entry(
-                    "fused_ffn", "k3", "rows25664", "rows6416", {
+                    "fused_ffn", "k3", "rows25664", {
                         "in_bf16_dcse_step_no_dropout": bf16["train_fused"][
                             "k3_bf16_per_step"],
                         "in_bf16_dcse_validation": bf16["train_fused"][

@@ -2,7 +2,7 @@
 parts of them in turn, on one CUDA card.
 
     python3 scripts/torch_kernel_ablation.py [--out ablation.json]
-        [--kernels k1,k3,k5] [--k5-baseline path/to/conv_gn.cu]
+        [--kernels k1,k3,k5,k1bf16,k3bf16] [--k5-baseline path/to/conv_gn.cu]
         [--k4-baseline path/to/meddis.cu] [--sass k4.sass]
 
 Builds edited copies of ``sincformer_tpu_torch/csrc/fused_ffn.cu`` (K3),
@@ -45,6 +45,21 @@ at the main path's shapes:
     ``k_inline``, ``probe_shared`` (its ``walk`` alone) and ``cols8`` (8
     columns a block). ``--sass`` writes ``cuobjdump -sass`` of every K4
     library.
+
+  * K1's bf16 form (``--kernels k1bf16``) at (B, T) = (4, 400), (16, 401),
+    (8, 401) and (128, 401), H 4, dh 64: ``div`` (P by an IEEE division
+    for every score instead of one reciprocal a row), ``exp2``
+    (ex2.approx of x log2(e) in place of expf), ``no_softmax`` (exp and the normalisation removed),
+    ``no_staging`` (K and V never copied), ``no_wgmma`` (the products
+    removed), ``tile_a_block`` (one block a row tile: K and V copied for
+    every tile), ``warp_form`` (the mma.sync form of the other head widths
+    at dh 64);
+  * K3's bf16 form (``--kernels k3bf16``) at 25,664, 6,416, 3,208 and 51,328
+    rows (d 256, d_ff 1024): ``no_tma`` (the ring's copies never made),
+    ``no_product_a``, ``no_product_b``, ``no_swish``, ``ieee_rcp`` (the
+    swish's reciprocal as an IEEE division), ``split_all`` (every M as one
+    64-row unit a block, d_ff split between the warpgroups), ``rows_all``
+    (every M in 128-row tiles).
 
 K3 is also timed on the inputs that the fused DCSE model (seeded weights)
 gives its eight calls in a 60 s request, beside random values of the same
@@ -114,6 +129,83 @@ VARIANTS = {
                       None),
 }
 
+
+# The bf16 forms (K1's and K3's ``_bf16`` entry points), timed at the bf16
+# shapes of chip_smoke.py's [bf16] beside the bf16 library calls
+K1B_EXP = "float softmax_exp(float x) { return expf(x); }"
+K1B_P = "  return pack_bf16(e0 * il, e1 * il);"
+K1B_P_DIV = "  return pack_bf16(e0 / (1.f / il), e1 / (1.f / il));"
+K1B_P_NONE = "  return pack_bf16(e0, e1);"
+K1B_STAGE_KV = """      tf32x3::cp_async16(dst + j * P + 8 * c,
+                         src + (ok ? head + (long long)j * D + 8 * c : 0), ok);"""
+K1B_STAGE_WG = """      tf32x3::cp_async16(
+          dst + r * 128 + ((c ^ (r & 7)) << 4),
+          src + (ok ? head + (long long)(row0 + r) * D + 8 * c : 0), ok);"""
+K1B_WG_S = """      wgmma::ss<NK, 0>(s, wgmma::desc(q_at + 32 * kk, 0, 1024),
+                       wgmma::desc(k_at + 32 * kk, 0, 1024), kk > 0);"""
+K1B_WG_PV = """      wgmma::rs<DH>(o, pa[kk], wgmma::desc(v_at + 2048 * kk, 0, 1024),
+                    kk > 0);"""
+K1B_PER_HEAD = """  const int per_head = heads >= sms ? 1
+      : (int)(sms / heads < n_tiles ? sms / heads : n_tiles);"""
+K3B_LOADS = """          bar_expect(full1 + 8 * s, Plan::kW1);
+          tma_load(smem_u32(w1s + s * Plan::kW1), &w1_map, c * kChunk, 0,
+                   full1 + 8 * s);
+          if (use > 0) bar_wait(empty2 + 8 * s, (use - 1) & 1);
+          bar_expect(full2 + 8 * s, Plan::kW2);
+#pragma unroll
+          for (int p = 0; p < kN / 64; ++p) {
+            tma_load(smem_u32(w2s + s * Plan::kW2 + p * 8192), &w2_map,
+                     64 * p, c * kChunk, full2 + 8 * s);
+          }"""
+K3B_NO_LOADS = """          bar_arrive(full1 + 8 * s);
+          if (use > 0) bar_wait(empty2 + 8 * s, (use - 1) & 1);
+          bar_arrive(full2 + 8 * s);"""
+K3B_PRODUCT_A = """        wgmma::ss<64, 1>(acc,
+                         wgmma::desc(xn_a + (kk / 4) * 8192 + (kk % 4) * 32,
+                                     0, 1024),
+                         wgmma::desc(w1a + kk * 2048, 0, 1024), kk > 0);"""
+K3B_PRODUCT_B = """          wgmma::rs<kN>(y, ha[kk],
+                        wgmma::desc(w2a + kk * 2048, 8192, 1024), 1);"""
+K3B_RCP = """  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  r = fmaf(r, fmaf(-d, r, 1.f), r);"""
+K3B_SWISH = "  return __fmul_rn(v, r);"
+BF16_VARIANTS = {
+    "k1bf16": ("speech_attention", [], None),
+    "k1bf16_div": ("speech_attention", [(K1B_P, K1B_P_DIV)], None),
+    "k1bf16_exp2": ("speech_attention", [(
+        K1B_EXP,
+        "float softmax_exp(float x) { return exp2f(x * 1.44269504f); }")],
+        None),
+    "k1bf16_no_softmax": ("speech_attention", [
+        (K1B_EXP, "float softmax_exp(float x) { return x; }"),
+        (K1B_P, K1B_P_NONE)], None),
+    "k1bf16_no_staging": ("speech_attention", [
+        (K1B_STAGE_KV, "      (void)ok;"),
+        (K1B_STAGE_WG, "      (void)ok;")], None),
+    "k1bf16_tile_a_block": ("speech_attention", [
+        (K1B_PER_HEAD + "\n  const dim3 grid",
+         "  const int per_head = n_tiles + 0 * (int)heads;\n  const dim3 grid"),
+        (K1B_PER_HEAD + "\n  attention_bf16_wgmma",
+         "  const int per_head = n_tiles + 0 * (int)heads;\n"
+         "  attention_bf16_wgmma")], None),
+    "k1bf16_no_wgmma": ("speech_attention", [(K1B_WG_S, "      (void)q_at;"),
+                                             (K1B_WG_PV, "      (void)v_at;")],
+                        None),
+    "k1bf16_warp_form": ("speech_attention", [
+        ("  if (DH == 64 && T <= 4 * kWgKeys) {", "  if (false) {")], None),
+    "k3bf16": ("fused_ffn", [], None),
+    "k3bf16_no_tma": ("fused_ffn", [(K3B_LOADS, K3B_NO_LOADS)], None),
+    "k3bf16_no_product_a": ("fused_ffn", [(K3B_PRODUCT_A, "        (void)w1a;")],
+                            None),
+    "k3bf16_no_product_b": ("fused_ffn", [(K3B_PRODUCT_B, "          (void)w2a;")],
+                            None),
+    "k3bf16_no_swish": ("fused_ffn", [(K3B_SWISH, "  return v;")], None),
+    "k3bf16_ieee_rcp": ("fused_ffn", [(K3B_RCP, "  r = 1.f / d;")], None),
+    "k3bf16_split_all": ("fused_ffn", [("  if (units <= sms) {", "  if (true) {")],
+                         None),
+    "k3bf16_rows_all": ("fused_ffn", [("  if (units <= sms) {", "  if (false) {")],
+                        None),
+}
 
 # K4: the earlier meddis.cu (one walking warp, three moving warps, one
 # __syncthreads per 64-sample tile), as --k4-baseline builds it
@@ -231,7 +323,8 @@ def build_variants(out_dir: str, kernels, k5_baseline=None,
                    k4_baseline=None) -> dict:
     from sincformer_tpu_torch.ops import build
     os.makedirs(out_dir, exist_ok=True)
-    variants = {name: v for name, v in {**VARIANTS, **K4_VARIANTS}.items()
+    variants = {name: v for name, v in {**VARIANTS, **K4_VARIANTS,
+                                        **BF16_VARIANTS}.items()
                 if name.split("_")[0] in kernels}
     procs = {}
     for name, (src, edits, header) in variants.items():
@@ -281,7 +374,8 @@ def build_variants(out_dir: str, kernels, k5_baseline=None,
             fns[name] = (fwd, probe, lib)
             continue
         if name.startswith("k1"):
-            fn = fn.speech_attention_fwd
+            fn = (fn.speech_attention_fwd_bf16 if name.startswith("k1bf16")
+                  else fn.speech_attention_fwd)
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_void_p]
         elif name.startswith("k5"):
@@ -289,7 +383,8 @@ def build_variants(out_dir: str, kernels, k5_baseline=None,
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         else:
-            fn = fn.fused_ffn_fwd
+            fn = (fn.fused_ffn_fwd_bf16 if name.startswith("k3bf16")
+                  else fn.fused_ffn_fwd)
             fn.argtypes = [ctypes.c_void_p] * 8 + [
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -419,10 +514,79 @@ def time_k5(fns: dict, g, card: str) -> dict:
     return result
 
 
+def time_bf16(fns: dict, g, card: str) -> dict:
+    """The bf16 forms' variants at chip_smoke.py's timed bf16 shapes, in
+    turns with the bf16 library calls (scaled_dot_product_attention;
+    layer_norm, two linear and silu)."""
+    import torch.nn.functional as F
+
+    from chip_smoke import BF16_ATTN_TIMED, BF16_FFN_TIMED, graph_ms
+
+    def stream():   # the capturing stream inside a CUDA graph's capture
+        return torch.cuda.current_stream().cuda_stream
+    result = {}
+    for b, t in BF16_ATTN_TIMED if any(n.startswith("k1bf16")
+                                       for n in fns) else ():
+        h, dh = 4, 64
+        q, k, v = (torch.randn(b, t, h, dh, device="cuda", generator=g)
+                   .bfloat16() for _ in range(3))
+        qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
+        out = torch.empty_like(q)
+        sdpa = F.scaled_dot_product_attention
+        row = {"library": graph_ms(lambda: sdpa(qt, kt, vt), 50)}
+        for name, fn in fns.items():
+            if name.startswith("k1bf16"):
+                def call(fn=fn):
+                    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                             out.data_ptr(), b, t, h, dh, dh ** -0.5,
+                             stream())
+                    if err != 0:
+                        raise RuntimeError(f"launch failed: CUDA error {err}")
+                row[name] = graph_ms(call, 50)
+        row["library_2"] = graph_ms(lambda: sdpa(qt, kt, vt), 50)
+        result[f"k1bf16 B={b},T={t}"] = row
+        print(f"[k1bf16] B={b} T={t} H={h} dh={dh}: " + ", ".join(
+            f"{k_} {v_:.4f} ms" for k_, v_ in row.items()) + f" on {card}",
+              flush=True)
+    for m in BF16_FFN_TIMED if any(n.startswith("k3bf16")
+                                   for n in fns) else ():
+        d, f = 256, 1024
+
+        def r(*shape, scale=1.0, shift=0.0):
+            return (shift + scale * torch.randn(*shape, device="cuda",
+                                                generator=g)).bfloat16()
+        x, ln_g, ln_b, w1, b1, w2, b2 = a = (
+            r(m, d), r(d, scale=0.1, shift=1.0), r(d, scale=0.1),
+            r(d, f, scale=d ** -0.5), r(f, scale=0.1),
+            r(f, d, scale=f ** -0.5), r(d, scale=0.1))
+        out = torch.empty_like(x)
+        w1_oi, w2_oi = w1.t().contiguous(), w2.t().contiguous()
+
+        def library():
+            xn = F.layer_norm(x, (d,), ln_g, ln_b, 1e-6)
+            return x + 0.5 * F.linear(F.silu(F.linear(xn, w1_oi, b1)), w2_oi,
+                                      b2)
+        row = {"library": graph_ms(library, 20)}
+        for name, fn in fns.items():
+            if name.startswith("k3bf16"):
+                def call(fn=fn):
+                    err = fn(*(t_.data_ptr() for t_ in a), out.data_ptr(), m,
+                             d, f, stream())
+                    if err != 0:
+                        raise RuntimeError(f"launch failed: CUDA error {err}")
+                row[name] = graph_ms(call, 20)
+        row["library_2"] = graph_ms(library, 20)
+        result[f"k3bf16 rows={m}"] = row
+        print(f"[k3bf16] rows={m} d={d} d_ff={f}: " + ", ".join(
+            f"{k_} {v_:.4f} ms" for k_, v_ in row.items()) + f" on {card}",
+              flush=True)
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
-    ap.add_argument("--kernels", default="k1,k3,k5",
+    ap.add_argument("--kernels", default="k1,k3,k5,k1bf16,k3bf16",
                     help="which kernels' variants to build and time")
     ap.add_argument("--k5-baseline", default=None,
                     help="another conv_gn.cu to time beside K5's variants")
@@ -455,6 +619,8 @@ def main() -> int:
     if "k5" in kernels:
         torch.backends.cudnn.allow_tf32 = False
         result["k5"] = time_k5(fns, g, card)
+    if kernels & {"k1bf16", "k3bf16"}:
+        result["bf16"] = time_bf16(fns, g, card)
 
     if "k3" in kernels:
         for m in (25664, 6416, 1):

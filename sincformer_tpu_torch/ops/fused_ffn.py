@@ -6,10 +6,11 @@
 LayerNorm has eps 1e-6 and f32 statistics, the variance being the mean of
 squares of ``x - mean``. On a CUDA tensor :func:`fused_ffn` launches a
 hand-written kernel of ``csrc/fused_ffn.cu``, which reads each row once,
-writes it once, keeps the normalised rows and the d_ff-wide intermediate in
-shared memory and streams the weights through it with asynchronous copies:
+writes it once, keeps the normalised rows and the d_ff-wide intermediate on
+chip and streams the weights through shared memory with asynchronous copies:
 for float32 inputs its f32 form (both products on the tensor cores in split
-TF32, f32-level results), for bfloat16 its bf16 form. On a CPU tensor it
+TF32, f32-level results), for bfloat16 its bf16 form (weights copied by
+TMA, wgmma products, the intermediate in registers). On a CPU tensor it
 runs :func:`_fused_ffn_plain`. There is no fallback from one to the other:
 a CUDA tensor the kernel does not take raises.
 
@@ -98,12 +99,18 @@ def _check_cuda_args(x, ln_g, ln_b, w1, b1, w2, b2):
     if d_ff % 32:
         raise ValueError(f"fused_ffn kernel needs d_ff to be a multiple of "
                          f"32, got {d_ff}")
-    # byte alignment of b1 and of x and b2: the f32 form reads them as
-    # float2 pairs (b1 in 16-byte pieces), the bf16 form as bf16 pairs
-    b1_align, pair_align = (16, 8) if x.dtype == torch.float32 else (4, 4)
-    for name, t, align in (("w1", w1, 16), ("w2", w2, 16),
-                           ("b1", b1, b1_align), ("x", x, pair_align),
-                           ("b2", b2, pair_align)):
+    # byte alignment: the f32 form copies w1, w2 and b1 in 16-byte pieces
+    # and reads x and b2 as float2 pairs; the bf16 form reads x in 16-byte
+    # pieces, b1 and b2 as bf16 pairs, and w1 and w2 by TMA, which needs
+    # 16-byte aligned bases and row strides (the rows, d_ff and d bf16, are
+    # multiples of 16 bytes for every d and d_ff taken above)
+    if x.dtype == torch.float32:
+        aligns = (("w1", w1, 16), ("w2", w2, 16), ("b1", b1, 16),
+                  ("x", x, 8), ("b2", b2, 8))
+    else:
+        aligns = (("w1", w1, 16), ("w2", w2, 16), ("x", x, 16),
+                  ("b1", b1, 4), ("b2", b2, 4))
+    for name, t, align in aligns:
         if t.data_ptr() % align:
             raise ValueError(f"fused_ffn kernel needs {name} aligned to "
                              f"{align} bytes")

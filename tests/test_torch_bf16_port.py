@@ -19,14 +19,30 @@ import torch.distributed as dist
 
 import tests._torch_dp_worker as worker
 from tests._torch_bf16 import agreement, attention_scale, ffn_scale
-from tests._torch_parity import NARROW_DCSE
 
-# (B, T, dh, masked) on the card: the shapes chip_smoke.py's [bf16] holds
+# (B, T, dh, masked) on the card: the shapes chip_smoke.py's [bf16] holds,
+# and the edges of the bf16 form's paths: S in registers up to T = 448
+# (dh 128: 256), the tiled two-pass form beyond (csrc/speech_attention.cu:
+# dh 64 on warpgroup products, the other widths on warp products); at
+# B = 8 and 16 a (batch, head) gets fewer blocks than row tiles on 132 SMs,
+# so a block walks several tiles on one copy of K and V
 K1_CARD = [(4, 400, 64, False), (4, 401, 64, True), (2, 1, 16, False),
-           (2, 37, 32, True), (2, 2100, 128, True), (16, 401, 64, False)]
-# (rows, d, d_ff)
+           (2, 37, 32, True), (2, 2100, 128, True), (16, 401, 64, False),
+           (8, 401, 64, True), (2, 447, 64, True), (2, 448, 64, False),
+           (2, 449, 64, True), (2, 448, 16, True), (2, 449, 32, False),
+           (2, 255, 128, False), (2, 256, 128, True), (2, 257, 128, False),
+           (16, 401, 16, True), (16, 448, 32, True), (16, 255, 128, False),
+           (16, 256, 128, True)]
+# (rows, d, d_ff): 64-row work units, one a block (its two consumer
+# warpgroups splitting d_ff) up to 132 units (an H100's SMs), 128-row tiles
+# on persistent blocks beyond; a d_ff that ends 32 columns into a 64-column
+# chunk
 K3_CARD = [(1, 256, 1024), (401, 256, 1024), (6416, 256, 1024),
-           (130, 32, 64), (200, 128, 512)]
+           (130, 32, 64), (200, 128, 512), (63, 256, 1024),
+           (64, 256, 1024), (65, 256, 1024), (127, 256, 1024),
+           (128, 256, 1024), (129, 256, 1024), (3208, 256, 1024),
+           (8448, 256, 1024), (8449, 256, 1024), (200, 128, 96),
+           (70, 64, 96), (33, 32, 96)]
 
 
 def _need_card():
@@ -36,6 +52,9 @@ def _need_card():
 
 def _narrow_config(**fields):
     from sincformer_tpu_torch.config import DCSEConfig
+    # here, not at the top: tests._torch_parity imports JAX, which the card
+    # tests below need not have
+    from tests._torch_parity import NARROW_DCSE
     return DCSEConfig(d_model=NARROW_DCSE["d_model"],
                       num_blocks=NARROW_DCSE["num_blocks"],
                       num_heads=NARROW_DCSE["num_heads"],
@@ -85,6 +104,30 @@ def _k3_args(case, device):
     return (r(m, d), r(d, scale=0.1, shift=1.0), r(d, scale=0.1),
             r(d, f, scale=d ** -0.5), r(f, scale=0.1),
             r(f, d, scale=f ** -0.5), r(d, scale=0.1))
+
+
+def test_k3_bf16_rules_raise_on_cpu_tensors():
+    """The bf16 form's rules, checked on CPU tensors: x is read in 16-byte
+    pieces and w1, w2 by TMA (16-byte aligned), d_ff a multiple of 32 and d
+    one of the kernel's widths."""
+    from sincformer_tpu_torch.ops.fused_ffn import _check_cuda_args
+    args = _k3_args((8, 64, 96), "cpu")
+    _check_cuda_args(*args)
+
+    def shifted(t):
+        """A contiguous tensor of t's shape whose base lies 4 bytes (two
+        bf16) past an aligned one."""
+        buf = torch.zeros(t.numel() + 8, dtype=t.dtype)
+        return buf[2:2 + t.numel()].view(t.shape)
+    for i, name in ((0, "x"), (3, "w1"), (5, "w2")):
+        bad = list(args)
+        bad[i] = shifted(args[i])
+        with pytest.raises(ValueError, match=f"{name} aligned to 16"):
+            _check_cuda_args(*bad)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        _check_cuda_args(*_k3_args((8, 64, 48), "cpu"))
+    with pytest.raises(ValueError, match="supports d in"):
+        _check_cuda_args(*_k3_args((8, 48, 64), "cpu"))
 
 
 def test_bf16_wrappers_on_cpu_tensors_launch_nothing():
