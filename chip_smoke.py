@@ -88,8 +88,10 @@ its kernels:
     one-process steps of ``[distributed]``; a DCSE-width ConformerBlock on
     12,000 frames with ring attention and the halo-exchange conv over two
     ranks against one process with K1 (a planted hop that keeps the
-    gradient must fail), the halo conv against ``F.conv1d``; the
-    multi-device dry run on four processes; a one-rank NCCL model axis
+    gradient must fail), the halo conv against ``F.conv1d``; the DCSE
+    trainer's step, f32 and bf16, with its frames split over the two
+    ranks' ring against one process; the multi-device dry run on four
+    processes; a one-rank NCCL model axis
     bit-equal to no mesh; a probe, in two processes of its own, of
     whether gloo gathers and sends CUDA tensors on this card;
   * bf16 (``[bf16]``): K1's and K3's bf16 forms against their plain bf16
@@ -101,7 +103,15 @@ its kernels:
     launches); the narrow model's bf16 step against its f32 step on the
     card beside the same on the CPU; a one-rank NCCL bf16 step bit-equal to
     no mesh; the bf16 forward at bench.py's DCSE workload (128 x 4 s)
-    beside the f32 one.
+    beside the f32 one; K5's and K6's bf16 forms against their plain bf16
+    versions, timed, under autograd and on the PerceptionAgent front-end's
+    driven path (a bf16 SincConv's output through ``env_act`` and
+    ``conv1d_gn``); the flagship cast to bf16: the narrow model's forward
+    on the card against the CPU's at the CPU tests' bars, and bench.py's
+    forward of 128 x 4 s at full width (the default, ``ssm``, three MSA
+    blocks and the committed artifact) beside the f32 one, with K1's bf16
+    form in every MSA block; ``[parallel]`` also holds the ring block cast
+    to bf16 on two ranks against one process.
 
 K1, K3, K5 and K6 are also held against their plain versions under
 autograd (the backward is the plain formulation's gradient: K1's and K3's
@@ -378,10 +388,11 @@ def to_pcm(x: np.ndarray) -> np.ndarray:
 
 
 class Launches:
-    """The six wrappers' launch counts, and those of K1's and K3's bf16
-    forms (``speech_attention_bf16``, ``fused_ffn_bf16``; a bf16 launch
-    counts in its wrapper's count too): set to 0 before a path is driven,
-    read after it, summed per kernel over the paths."""
+    """The six wrappers' launch counts, and those of the bf16 forms of K1,
+    K3, K5 and K6 (``speech_attention_bf16``, ``fused_ffn_bf16``,
+    ``conv1d_gn_bf16``, ``env_act_bf16``; a bf16 launch counts in its
+    wrapper's count too): set to 0 before a path is driven, read after it,
+    summed per kernel over the paths."""
 
     def __init__(self):
         from sincformer_tpu_torch.ops.conv_gn import conv1d_gn
@@ -398,7 +409,9 @@ class Launches:
             "fused_ffn_bf16": (fused_ffn, "launches_bf16"),
             "meddis": (meddis, "launches"),
             "conv1d_gn": (conv1d_gn, "launches"),
-            "env_act": (env_act, "launches")}
+            "conv1d_gn_bf16": (conv1d_gn, "launches_bf16"),
+            "env_act": (env_act, "launches"),
+            "env_act_bf16": (env_act, "launches_bf16")}
         self.total = dict.fromkeys(self.counters, 0)
 
     def reset(self):
@@ -3361,6 +3374,11 @@ CP_LOSS_TOL = 1e-5          # the ring block against one process: the loss,
 CP_X_GRAD_TOL = 3e-5        # relative; the input gradient and each
 CP_P_GRAD_TOL = 5e-4        # parameter's, of their scale (JAX's bars)
 CP_CONV_TOL = 1e-5          # the halo conv against F.conv1d, of the scale
+CP_TRAINER_BATCH = (2, 32080)  # [parallel] (e): 402 STFT frames, 201 a rank
+# (e) in bf16: each gradient leaf's noise, |ring bf16 - one f32| / |one bf16
+# - one f32| (the ring rounds K's and V's gradients at every hop, as JAX's
+# does: measured 1.57-2.95, median 2.38, on the CPU's narrow step), at most
+CP_TRAINER_NOISE = (4.0, 6.0)  # this median and this worst
 
 
 def cp_block(seed: int):
@@ -3385,16 +3403,16 @@ def cp_block(seed: int):
 
 
 def cp_step(blk, x, cot, rows=slice(None)) -> dict:
-    """sum(block(x[:, rows]) · cot[:, rows]) and its gradients with respect
-    to the whole input and every parameter (a rank's shares of the
-    sums), timed (ms of the forward and backward) with the peak memory of
-    this process."""
+    """sum(block(x[:, rows]) · cot[:, rows]) (in float32, whatever the
+    block's dtype) and its gradients with respect to the whole input and
+    every parameter (a rank's shares of the sums), timed (ms of the forward
+    and backward) with the peak memory of this process."""
     x = x.detach().requires_grad_(True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    loss = torch.sum(blk(x[:, rows]) * cot[:, rows])
+    loss = torch.sum(blk(x[:, rows]).float() * cot[:, rows].float())
     gx, *gp = torch.autograd.grad(loss, [x, *blk.parameters()])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
@@ -3405,11 +3423,36 @@ def cp_step(blk, x, cot, rows=slice(None)) -> dict:
             / 1e9}
 
 
+def cp_trainer_step(seed: int, dtype, ring=None) -> dict:
+    """``DCSETrainer.loss_and_grads`` at DCSE width (seeded weights,
+    dropout 0) on seeded (2, 4.01 s) noisy and clean waveforms, with
+    ``compute_dtype=dtype``: under ``ring_mesh`` on ``ring`` (this rank's
+    201 of the 402 frames, ``attn_impl="ring"``) or in one process with K1.
+    The loss and the gradients, on the host."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.ops.attention import ring_mesh
+    from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
+    cfg = port.DCSEConfig(dropout=0.0, attn_impl="speech" if ring is None
+                          else "ring")
+    pipe = DCSETrainer(port.SpeechEnhancer(cfg), device="cuda", seed=seed,
+                       compute_dtype=dtype)
+    pipe.init_state(epochs=1, steps_per_epoch=1)
+    g = torch.Generator().manual_seed(seed + 17)
+    clean = 0.2 * torch.randn(CP_TRAINER_BATCH, generator=g)
+    noisy = clean + 0.1 * torch.randn(CP_TRAINER_BATCH, generator=g)
+    with (contextlib.nullcontext() if ring is None
+          else ring_mesh(ring, "data")):
+        loss, _, grads = pipe.loss_and_grads(noisy.cuda(), clean.cuda())
+    return {"loss": float(loss), "grads": {
+        k: g.float().cpu() for k, g in zip(pipe.params(), grads)}}
+
+
 def cp_case(mesh, seed: int) -> dict:
     """``[parallel]`` (b) on this rank: the ring block on its half of the
     frames (``attn_impl="ring"`` and the halo conv under ``ring_mesh``),
     twice (the second timed), then with a hop whose backward keeps the
-    gradient on the rank it reached (planted); the halo conv alone."""
+    gradient on the rank it reached (planted); the halo conv alone; the
+    ring block cast to bf16."""
     from unittest import mock
 
     from sincformer_tpu_torch.ops.attention import ring_mesh
@@ -3430,6 +3473,14 @@ def cp_case(mesh, seed: int) -> dict:
             out["kept_hop"] = cp_step(blk, x, cot, rows)["x_grad"]
     w = blk.ConvolutionModule_0.depthwise
     out["conv"] = cp_depthwise_conv(x, w.weight, w.bias, mesh).detach().cpu()
+    # the same ring block in bf16 (the ring body and the halo conv round as
+    # JAX's do)
+    blk16 = blk.to(torch.bfloat16)
+    with ring_mesh(mesh, "data"):
+        out["ring_bf16"] = cp_step(blk16, x.bfloat16(), cot.bfloat16(), rows)
+    # (e) the DCSE trainer's step, its frames split over the ring
+    out["trainer"] = {name: cp_trainer_step(seed, dt, mesh) for name, dt in
+                      (("f32", None), ("bf16", torch.bfloat16))}
     return out
 
 
@@ -3549,7 +3600,9 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
     conv against the one-process block with K1, and the halo conv against
     ``F.conv1d``, a planted hop that keeps the gradient failing;
     ``impl="flash"`` through K1; (c) the dry run on four processes; (d) a
-    one-rank NCCL model axis bit-equal to no mesh. First, what gloo does
+    one-rank NCCL model axis bit-equal to no mesh; (e) the DCSE trainer's
+    step at DCSE width under ``ring_mesh`` on the two ranks, f32 and bf16,
+    against one process (:func:`cp_trainer_step`). First, what gloo does
     with CUDA tensors here (:func:`gloo_cuda_probe`), printed."""
     import torch.distributed as dist
 
@@ -3584,8 +3637,20 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
         conv_ref = F.conv1d(same_pad(x.transpose(1, 2), w.kernel_size),
                             w.weight, w.bias, groups=w.weight.shape[0]
                             ).transpose(1, 2).cpu()
+    # and in bf16, K1's bf16 form
+    one16 = cp_step(blk.to(torch.bfloat16), x.bfloat16(), cot.bfloat16())
+    launches.expect("[parallel] (b) one-process block in bf16",
+                    speech_attention=1, speech_attention_bf16=1)
     del blk, x, cot
     torch.cuda.empty_cache()
+    # (e)'s one-process trainer steps
+    one_trainer = {"f32": cp_trainer_step(seed, None)}
+    launches.expect("[parallel] (e) one-process DCSE trainer step",
+                    speech_attention=dcse_blocks)
+    one_trainer["bf16"] = cp_trainer_step(seed, torch.bfloat16)
+    launches.expect("[parallel] (e) one-process DCSE trainer step in bf16",
+                    speech_attention=dcse_blocks,
+                    speech_attention_bf16=dcse_blocks)
 
     # what gloo does with CUDA tensors on this card, in two processes of
     # their own (a refused send can break its group)
@@ -3696,6 +3761,76 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
         {"ms": g["ring"]["ms"], "peak_gb": g["ring"]["peak_gb"],
          "hops": g["hops"]} for g in got]}
 
+    # (b) in bf16: the ring keeps P in f32 where one process rounds it, two
+    # bf16 functions held by their distance beside bf16's own (the CPU
+    # test's bars, tests/test_torch_bf16_kernels.py)
+    def cross(a, b16, b32):
+        return float((a.float() - b16.float()).norm()
+                     / (b16.float() - b32.float()).norm())
+    ring16 = [g["ring_bf16"] for g in got]
+    leaf = {k: cross(sum(r["grads"][k].float() for r in ring16), g16,
+                     one["grads"][k]) for k, g16 in one16["grads"].items()}
+    cp16 = {"loss": abs(sum(r["loss"] for r in ring16) - one16["loss"])
+            / abs(one16["loss"] - one["loss"]),
+            "x_grad": cross(sum(r["x_grad"].float() for r in ring16),
+                            one16["x_grad"], one["x_grad"]),
+            "grads_median": float(np.median(list(leaf.values()))),
+            "grads_worst": max(leaf.values()),
+            "ranks_ms": [r["ms"] for r in ring16], "one_ms": one16["ms"]}
+    say(f"[parallel] (b) the ring block in bf16, two ranks vs one process "
+        f"(K1 bf16): cross with one process's bf16-vs-f32 distance: loss "
+        f"{cp16['loss']:.4f} (printed), input gradient {cp16['x_grad']:.4f} "
+        f"(limit {CP_BF16_CROSS:g}), parameter gradients median "
+        f"{cp16['grads_median']:.4f}, worst {cp16['grads_worst']:.4f} "
+        f"(limits {CP_BF16_LEAF}); ranks {cp16['ranks_ms']} ms, one "
+        f"process {cp16['one_ms']:.2f} ms on {smi}")
+    if not (cp16["x_grad"] <= CP_BF16_CROSS
+            and cp16["grads_median"] <= CP_BF16_LEAF[0]
+            and cp16["grads_worst"] <= CP_BF16_LEAF[1]):
+        faults.append(f"the bf16 ring block left one process's: {cp16}")
+    result["cp_bf16"] = cp16
+
+    # (e) the DCSE trainer's step under ring_mesh against one process: the
+    # ranks return the same step; f32 at (b)'s bars (the loss, each
+    # gradient leaf of its scale), bf16 by each leaf's noise
+    tr = [g["trainer"] for g in got]
+    same = all(tr[0][n]["loss"] == tr[1][n]["loss"] and all(
+        torch.equal(tr[0][n]["grads"][k], tr[1][n]["grads"][k])
+        for k in tr[0][n]["grads"]) for n in ("f32", "bf16"))
+    t32, t16 = tr[0]["f32"], tr[0]["bf16"]
+    o32, o16 = one_trainer["f32"], one_trainer["bf16"]
+    noise = {k: float((t16["grads"][k] - g).norm()
+                      / (o16["grads"][k] - g).norm())
+             for k, g in o32["grads"].items()}
+    rel32 = {k: scale(t32["grads"][k] - g) / scale(g)
+             for k, g in o32["grads"].items()}
+    cpt = {"same_on_ranks": same,
+           "f32_loss": abs(t32["loss"] - o32["loss"]) / abs(o32["loss"]),
+           "f32_grads": max(rel32.values()),
+           "f32_worst_leaf": max(rel32, key=rel32.get),
+           "bf16_loss": (t16["loss"], o16["loss"], o32["loss"]),
+           "bf16_noise_median": float(np.median(list(noise.values()))),
+           "bf16_noise_worst": max(noise.values())}
+    say(f"[parallel] (e) DCSE trainer step {CP_TRAINER_BATCH} under "
+        f"ring_mesh, two ranks of {(CP_TRAINER_BATCH[1] // 80 + 1) // 2} "
+        f"frames, "
+        f"vs one process with K1: same on both ranks {same}; f32 loss "
+        f"{cpt['f32_loss']:.3e} relative (limit {CP_LOSS_TOL:g}), gradients "
+        f"{cpt['f32_grads']:.3e} of their scale ({cpt['f32_worst_leaf']}; "
+        f"limit {CP_P_GRAD_TOL:g}); "
+        f"bf16 loss {t16['loss']:.6f} (one process bf16 {o16['loss']:.6f}, "
+        f"f32 {o32['loss']:.6f}), gradients' noise median "
+        f"{cpt['bf16_noise_median']:.4f}, worst {cpt['bf16_noise_worst']:.4f}"
+        f" (limits {CP_TRAINER_NOISE}) on {smi}")
+    if not (same and cpt["f32_loss"] <= CP_LOSS_TOL
+            and cpt["f32_grads"] <= CP_P_GRAD_TOL
+            and np.isfinite(t16["loss"])
+            and cpt["bf16_noise_median"] <= CP_TRAINER_NOISE[0]
+            and cpt["bf16_noise_worst"] <= CP_TRAINER_NOISE[1]):
+        faults.append(f"the DCSE trainer step under a ring left one "
+                      f"process's: {cpt}")
+    result["cp_trainer"] = cpt
+
     # impl="flash": what JAX runs off a TPU, K1 here
     from sincformer_tpu_torch.ops.attention import dot_product_attention
     g = torch.Generator().manual_seed(seed + 13)
@@ -3775,6 +3910,44 @@ BF16_BENCH = (128, 32000)     # bench.py's DCSE workload: 128 x 4 s
 BF16_NARROW = dict(d_model=32, num_blocks=2, num_heads=2, ff_dim=64,
                    kernel_size=7, dropout=0.0)
 BF16_CARD_VS_CPU = 2.0        # card's bf16-vs-f32 distance, x the CPU's
+# K5's bf16 form: (T, Cin, Cout, K, s, act, skip, groups), the f32 form's
+# edges (CONV_GN_CASES) and PERF.md's two timed shapes; K6's: (B, N, C)
+BF16_K5_CASES = tuple(c[:7] + (c[8],) for c in CONV_GN_CASES)
+BF16_K5_TIMED = (("call site", (16, 32000, 64, 128, 7, 2)),
+                 ("flagship block", (16, 400, 256, 256, 7, 1)))
+BF16_K6_CASES = ((4, 32000, 64), (1, 8, 3), (2, 2400, 64), (3, 808, 6),
+                 (2, 800, 12))
+BF16_K6_TIMED = (16, 32000, 64)
+# the flagship's bf16 forward at bench.py's shape: (name, MetacogConfig
+# fields); the committed artifact is the fourth
+BF16_FLAGSHIP = (("default", {}), ("ssm", {"cpea_impl": "ssm"}),
+                 ("msa3", {"msa_blocks": 3}))
+# the narrow flagship of the CPU tests (tests/_torch_parity.NARROW), card
+# vs CPU in bf16 at the CPU tests' whole-forward bars
+BF16_FLAGSHIP_NARROW = dict(
+    encoder_channels=32, cpea_hidden=16, cpea_channels=8, d_model=32,
+    msa_blocks=2, num_heads=2, d_ff=64, kernel_size=7, memory_slots=4,
+    episodic_slots=4, sinc_kernel_size=65)
+BF16_NOISE = (0.5, 2.0)       # |card16 - cpu32| / |cpu16 - cpu32|
+BF16_CROSS = 1.2              # |card16 - cpu16| / |cpu16 - cpu32|
+BF16_TIE_ULPS = 2.0           # a decision within this many ulps is a tie,
+BF16_APART_CAP = 16.0         # or within the runs' disagreement up to this
+BF16_KEPT = 0.99              # share of frames whose decisions must agree
+# the narrow cases, card vs CPU: (name, cpea_impl, fields over the narrow
+# ones); d_model 64 with one head runs K1's dh-64 `wgmma` bf16 form, the
+# form of the full-width forward
+BF16_NARROW_CASES = (("lstm", "lstm", {}), ("ssm", "ssm", {}),
+                     ("lstm dh 64", "lstm", {"d_model": 64, "num_heads": 1}))
+# the full-width bf16 forward against its f32 forward: the waveform's SNR
+# floor in dB (measured 21.1 for the BiLRU, 48.8-49.1 for the BiLSTM
+# presets on an H100 80GB HBM3 at 700 W) and the largest share of MAA
+# decisions that may flip (measured 0 of 51,200)
+BF16_SNR_FLOOR = {"ssm": 15.0}
+BF16_SNR_FLOOR_LSTM = 35.0
+BF16_MAX_FLIPS = 0.001
+CP_BF16_CROSS = 1.0           # [parallel] bf16 ring vs one process: the
+CP_BF16_LEAF = (1.0, 1.5)     # input gradient; the parameter gradients'
+                              # median and worst (tests/test_torch_bf16_kernels)
 
 
 def bf16_agreement(got: torch.Tensor, want: torch.Tensor,
@@ -3810,6 +3983,30 @@ def ffn_scale(x, ln_g, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     return xf.abs() + 0.5 * (h.abs() @ w2.float().abs() + b2.float().abs())
 
 
+def conv_gn_scale(x, w, b, gamma, beta, skip, stride: int,
+                  groups: int) -> torch.Tensor:
+    """K5's term scale: the normalised magnitudes of the convolution's
+    terms and of the mean, (sum |x||w| + |b| + |mu|) * rstd * |gamma|,
+    plus |beta| and |skip| (tests/test_torch_bf16_kernels.py)."""
+    import torch.nn.functional as F
+
+    from sincformer_tpu_torch.ops.conv_gn import _same_pads
+    x, w, b, gamma, beta = (t.float() for t in (x, w, b, gamma, beta))
+    _, pad_l, pad_r = _same_pads(x.shape[1], w.shape[0], stride)
+
+    def conv(x_, w_, b_):
+        return F.conv1d(F.pad(x_.transpose(1, 2), (pad_l, pad_r)),
+                        w_.permute(2, 1, 0), b_, stride=stride).transpose(1, 2)
+    y = conv(x, w, b)
+    bsz, t_out, cout = y.shape
+    yg = y.reshape(bsz, t_out, groups, cout // groups)
+    mu = yg.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(((yg - mu) ** 2).mean(dim=(1, 3), keepdim=True) + 1e-6)
+    terms = conv(x.abs(), w.abs(), b.abs()).reshape(yg.shape) + mu.abs()
+    scale = (terms * rstd).reshape(y.shape) * gamma.abs() + beta.abs()
+    return scale if skip is None else scale + skip.float().abs()
+
+
 def with_bf16_bound(timing: dict, flops: float, nbytes: float) -> dict:
     """The least time of bf16 work on this card: its operations on the
     tensor cores at the dense bf16 peak, or its bytes."""
@@ -3831,9 +4028,9 @@ def bf16_grads(fn, args, extra, cot):
 
 
 def check_bf16_kernels(seed: int, smi: str) -> dict:
-    """K1's and K3's bf16 forms against their plain bf16 versions on the
-    card, timed beside the f32 forms, the bf16 library calls and the bf16
-    bounds, and under autograd."""
+    """The bf16 forms of K1, K3, K5 and K6 against their plain bf16
+    versions on the card, timed beside the f32 forms, the bf16 library
+    calls and the bf16 bounds, and under autograd."""
     import torch.nn.functional as F
 
     from sincformer_tpu_torch.ops.fused_ffn import (LN_EPS, _fused_ffn_plain,
@@ -3978,6 +4175,8 @@ def check_bf16_kernels(seed: int, smi: str) -> dict:
             f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB) "
             f"on {smi}")
 
+    check_bf16_k5_k6(g, smi, out, hold)
+
     # under autograd: the gradients are the plain bf16 version's autograd
     # bit for bit, one launch of the bf16 form; a wrapper that returns a
     # detached output must be caught
@@ -3985,16 +4184,39 @@ def check_bf16_kernels(seed: int, smi: str) -> dict:
                .bfloat16() for _ in range(3))
     bias = torch.where(torch.arange(400, device="cuda")[None] < torch.tensor(
         [[400], [393], [200], [1]], device="cuda"), 0.0, -1e9).float()
+    from sincformer_tpu_torch.ops.conv_gn import conv1d_gn, conv_gn_reference
+    from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
+
+    def k5(*a):
+        return conv1d_gn(*a, None, 1, 16, 1e-6, True)
+
+    def k5_plain(*a):
+        return conv_gn_reference(*a, None, stride=1, groups=16)
+
+    def k6(*a):      # both outputs, joined
+        return torch.cat([o.flatten() for o in env_act(*a)])
+
+    def k6_plain(*a):
+        return torch.cat([o.flatten() for o in env_act_reference(*a)])
+    k5_args = k5_inputs(g, 4, 400, 256, 256, 7, 1)[:5]
+    k6_args = ((torch.randn(4, 8000, 64, device="cuda", generator=g)
+                * 3.0).bfloat16(),
+               (torch.rand(64, device="cuda", generator=g) * 1.5
+                + 0.5).bfloat16())
     for name, fn, plain, args, extra in (
             ("K1", speech_attention, _speech_attention_plain, (q, k, v),
              (bias,)),
             ("K3", fused_ffn, _fused_ffn_plain, ffn_args(3200, 256, 1024),
-             ())):
-        cot = torch.randn(args[0].shape, device="cuda",
-                          generator=g).bfloat16()
-        before = fn.launches_bf16
+             ()),
+            ("K5", k5, k5_plain, k5_args, ()),
+            ("K6", k6, k6_plain, k6_args, ())):
+        wrapper = {"K5": conv1d_gn, "K6": env_act}.get(name, fn)
+        with torch.no_grad():
+            shape = fn(*args, *extra).shape
+        cot = torch.randn(shape, device="cuda", generator=g).bfloat16()
+        before = wrapper.launches_bf16
         got = bf16_grads(fn, args, extra, cot)
-        launched = fn.launches_bf16 - before
+        launched = wrapper.launches_bf16 - before
         want = bf16_grads(plain, args, extra, cot)
         equal = got is not None and all(torch.equal(a, b)
                                         for a, b in zip(got, want))
@@ -4006,6 +4228,109 @@ def check_bf16_kernels(seed: int, smi: str) -> dict:
         if not (equal and launched == 1 and caught):
             raise AssertionError(f"{name}'s bf16 form under autograd")
     return out
+
+
+def k5_inputs(g, bsz, t, cin, cout, k, s, with_skip=False,
+              dtype=torch.bfloat16):
+    """K5's seeded inputs on the card: x, w, b, gamma, beta, skip."""
+    def r(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, device="cuda",
+                                            generator=g)).to(dtype)
+    t_out = -(-t // s)
+    return (r(bsz, t, cin), r(k, cin, cout, scale=(k * cin) ** -0.5),
+            r(cout, scale=0.1), r(cout, scale=0.1, shift=1.0),
+            r(cout, scale=0.1), r(bsz, t_out, cout) if with_skip else None)
+
+
+def check_bf16_k5_k6(g, smi: str, out: dict, hold) -> None:
+    """K5's and K6's bf16 forms against their plain bf16 versions at the f32
+    forms' edge shapes (``hold``: at least 99 % bit-equal, one ulp at the
+    term scale), and timed beside the f32 forms, the bf16 library chains and
+    the bf16 bounds at PERF.md's shapes, from CUDA-graph replays."""
+    import torch.nn.functional as F
+
+    from sincformer_tpu_torch.ops.conv_gn import (_same_pads, conv1d_gn,
+                                                  conv_gn_reference)
+    from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
+    out["k5"] = {"share": 1.0, "ulps": 0.0, "max_abs_err": 0.0}
+    out["k6"] = {"share": 1.0, "ulps": 0.0, "max_abs_err": 0.0}
+    for t, cin, cout, k, s, act, with_skip, groups in BF16_K5_CASES:
+        a = k5_inputs(g, 2, t, cin, cout, k, s, with_skip)
+        got = conv1d_gn(*a, s, groups, 1e-6, act)
+        torch.cuda.synchronize()
+        hold("k5", got, conv_gn_reference(*a, stride=s, groups=groups,
+                                          act=act),
+             conv_gn_scale(*a, s, groups),
+             f"T={t} {cin}->{cout} k={k} s={s} act={act} skip={with_skip}")
+    for shape in BF16_K6_CASES:
+        x = (torch.randn(*shape, device="cuda", generator=g) * 3.0).bfloat16()
+        scale = (torch.rand(shape[-1], device="cuda", generator=g) * 1.5
+                 + 0.5).bfloat16()
+        y, env = env_act(x, scale)
+        torch.cuda.synchronize()
+        y_ref, env_ref = env_act_reference(x, scale)
+        hold("k6", y, y_ref, (x.float() * scale.float()).abs(),
+             f"{shape} activation")
+        hold("k6", env, env_ref, torch.zeros((), device="cuda"),
+             f"{shape} envelope")
+
+    for name, (bsz, t, cin, cout, k, s) in BF16_K5_TIMED:
+        x, w, b, gamma, beta, _ = a = k5_inputs(g, bsz, t, cin, cout, k, s)
+        a32 = [v.float() for v in a[:5]]
+        t_out, pad_l, pad_r = _same_pads(t, k, s)
+        w_oik = w.permute(2, 1, 0).contiguous()
+
+        def library():
+            y = F.conv1d(F.pad(x.transpose(1, 2), (pad_l, pad_r)), w_oik, b,
+                         stride=s)
+            return F.gelu(F.group_norm(y, 16, gamma, beta, 1e-6),
+                          approximate="tanh").transpose(1, 2)
+        timing = time_in_turns(
+            lambda: conv_gn_reference(*a, stride=s, groups=16),
+            lambda: conv1d_gn(*a, stride=s, groups=16), library, iters=10,
+            graph=True)
+        timing["f32_ms"] = graph_ms(lambda: conv1d_gn(*a32, None, s, 16),
+                                    iters=10)
+        flops = 2.0 * bsz * t_out * k * cin * cout
+        nbytes = 2.0 * (x.numel() + w.numel() + 3 * cout + bsz * t_out * cout)
+        with_bf16_bound(timing, flops, nbytes)
+        out["k5"]["call_site" if name == "call site" else "block"] = timing
+        say(f"[bf16] K5 bf16 timing {name} ({bsz}, {t}, {cin}->{cout}, k={k}"
+            f", s={s}, GELU), CUDA graph replays: kernel {timing['ms']:.4f} / "
+            f"{timing['ms_2']:.4f} ms (eager calls {timing['ms_eager']:.4f} "
+            f"ms), f32 K5 {timing['f32_ms']:.4f} ms, plain bf16 "
+            f"{timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} ms, "
+            f"conv1d + group_norm + gelu in bf16 (yardstick, not used by the "
+            f"port) {timing['library_ms']:.4f} ms, bound "
+            f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
+            f"{flops / 1e9:.2f} GFLOP at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s,"
+            f" {nbytes / 1e6:.1f} MB) on {smi}")
+
+    b, n, c = BF16_K6_TIMED
+    x = (torch.randn(b, n, c, device="cuda", generator=g) * 3.0).bfloat16()
+    scale = (torch.rand(c, device="cuda", generator=g) * 1.5 + 0.5).bfloat16()
+    x32, scale32 = x.float(), scale.float()
+
+    def library():
+        y = F.gelu(x * scale, approximate="tanh")
+        env = F.avg_pool1d(x.abs().transpose(1, 2), 8).transpose(1, 2)
+        return y, torch.log1p(env)
+    timing = time_in_turns(lambda: env_act_reference(x, scale),
+                           lambda: env_act(x, scale), library, iters=20,
+                           graph=True)
+    timing["f32_ms"] = graph_ms(lambda: env_act(x32, scale32), iters=20)
+    # elementwise work on the CUDA cores, the f32 form's count of operations
+    nbytes = 2.0 * x.numel() * (2 + 1 / 8) + 2.0 * c
+    with_bound(timing, 30.0 * x.numel(), nbytes)
+    out["k6"]["call_site"] = timing
+    say(f"[bf16] K6 bf16 timing ({b}, {n}, {c}), CUDA graph replays: kernel "
+        f"{timing['ms']:.4f} / {timing['ms_2']:.4f} ms (eager calls "
+        f"{timing['ms_eager']:.4f} ms), f32 K6 {timing['f32_ms']:.4f} ms, "
+        f"plain bf16 {timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} ms,"
+        f" mul + gelu + abs + avg_pool1d + log1p in bf16 (yardstick, not used"
+        f" by the port) {timing['library_ms']:.4f} ms, bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
+        f"{nbytes / 1e6:.1f} MB) on {smi}")
 
 
 def narrow_dcse_step(state: dict, device: str, dtype, batch) -> tuple:
@@ -4028,13 +4353,238 @@ def narrow_dcse_step(state: dict, device: str, dtype, batch) -> tuple:
     return float(loss), [gr.detach().double().cpu() for gr in grads]
 
 
+def check_bf16_pa_blocks(seed: int, smi: str, launches) -> dict:
+    """The PerceptionAgent front-end's building blocks in bf16 through
+    their entry points, as ``[pa-blocks]`` drives them in f32: a bf16
+    SincConv's output of 16 x 4 s of speech-like audio through ``env_act``
+    (K6's bf16 form) and the activation through ``conv1d_gn`` (K5's bf16
+    form), each held against its plain bf16 version."""
+    from sincformer_tpu_torch.agents.sincnet import SincConv1d
+    from sincformer_tpu_torch.ops.conv_gn import conv1d_gn, conv_gn_reference
+    from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
+    rng = np.random.default_rng(seed + 21)
+    speech = np.stack([speechlike(rng, 32000) for _ in range(16)])
+    g = torch.Generator().manual_seed(seed + 3)
+    with torch.inference_mode():
+        sinc = SincConv1d(64, 251, channels_last=True).cuda().to(
+            torch.bfloat16)
+        x = (sinc(torch.from_numpy(speech).cuda().bfloat16()) * 40.0
+             ).contiguous()
+    scale = (torch.rand(64, generator=g) * 1.5 + 0.5).cuda().bfloat16()
+    conv = [t.cuda().bfloat16() for t in (
+        torch.randn(7, 64, 128, generator=g) * (7 * 64) ** -0.5,
+        torch.randn(128, generator=g) * 0.1,
+        1.0 + torch.randn(128, generator=g) * 0.1,
+        torch.randn(128, generator=g) * 0.1)]
+    launches.reset()
+    fine, env = env_act(x, scale)
+    block = conv1d_gn(fine, *conv, None, 2, 16)
+    torch.cuda.synchronize()
+    launches.expect("bf16 PA front-end entry points", env_act=1,
+                    env_act_bf16=1, conv1d_gn=1, conv1d_gn_bf16=1)
+    fine_ref, env_ref = env_act_reference(x, scale)
+    result = {}
+    for name, got, ref, terms in (
+            ("env_act y", fine, fine_ref, (x.float() * scale.float()).abs()),
+            ("env_act env", env, env_ref, torch.zeros((), device="cuda")),
+            ("conv1d_gn", block, conv_gn_reference(fine, *conv, None,
+                                                   stride=2, groups=16),
+             conv_gn_scale(fine, *conv, None, 2, 16))):
+        share, ulps = bf16_agreement(got, ref, terms)
+        result[name] = {"share": share, "ulps": ulps}
+        say(f"[bf16] PA block {name} {tuple(got.shape)} on the bf16 sinc "
+            f"output of 16 x 4 s: {share:.5f} bit-equal to the plain bf16 "
+            f"version, worst {ulps:.3f} ulp at the term scale")
+        if got.dtype != torch.bfloat16 or not (share >= BF16_SHARE
+                                               and ulps <= BF16_ULPS):
+            raise AssertionError(f"bf16 {name} left its plain version on "
+                                 f"the driven path")
+    return result
+
+
+def flagship_outputs(model, wav, spec, dtype) -> tuple:
+    """One inference forward of ``model`` in ``dtype`` on a waveform and
+    its STFT, as bench.py runs it: (enhanced STFT (float32) and the MAA's
+    decisions and logits)."""
+    with torch.inference_mode():
+        out = model(wav.to(dtype), spec.real.to(dtype), spec.imag.to(dtype))
+    return (torch.stack([out["enhanced_real"].float(),
+                         out["enhanced_imag"].float()]),
+            out["decisions"], out["route_logits"].float())
+
+
+def decision_flips(d_a, d_b, logits_a, logits_b) -> tuple:
+    """(flips, flips off near-ties): a flip is a near-tie where the first
+    run's two best logits are within BF16_TIE_ULPS bf16 ulps, or within the
+    two runs' largest disagreement on a logit of that frame, counted up to
+    BF16_APART_CAP ulps."""
+    top = torch.topk(logits_a, 2, dim=-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs().amax(-1).clamp_min(
+        1e-30))) - 7)
+    gap = (top[..., 0] - top[..., 1]) / ulp
+    apart = (logits_a - logits_b).abs().amax(-1) / ulp
+    flip = d_a != d_b
+    tie = gap <= torch.clamp(apart, min=BF16_TIE_ULPS, max=BF16_APART_CAP)
+    return int(flip.sum()), int((flip & ~tie).sum())
+
+
+def check_bf16_flagship(seed: int, smi: str, launches) -> dict:
+    """The flagship's bf16 forward (every float parameter and buffer cast,
+    bf16 waveform and STFT, bench.py's protocol): (a) the narrow model on
+    the card against the same bf16 forward on the CPU, at the CPU tests'
+    whole-forward bars (``tests/test_torch_bf16_flagship.py``); (b) at
+    bench.py's shape, 128 x 4 s at full width, the default, ``ssm`` and
+    three MSA blocks with seeded weights and the committed artifact, each
+    beside its f32 forward: device busy time, wall, launches, peak memory,
+    K1's bf16 launches (one per MSA block), the MAA decisions that flip,
+    the bf16 waveform's SNR against the f32 one, and the bf16 CPEA's
+    recurrence alone (its step loop, or the BiLRU's scan)."""
+    import copy
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.dsp.stft import istft, stft
+    result = {"narrow": {}}
+
+    # (a) narrow: card bf16 vs CPU bf16, beside CPU f32
+    rng = np.random.default_rng(seed + 31)
+    wav = torch.from_numpy(np.stack([speechlike(rng, 4000)
+                                     for _ in range(2)]))
+    spec = stft(wav)
+    for impl, cpea, fields in BF16_NARROW_CASES:
+        cfg = port.MetacogConfig(**{**BF16_FLAGSHIP_NARROW, **fields},
+                                 cpea_impl=cpea)
+        m32 = port.SincformerMetacog(cfg).init_params(
+            torch.Generator().manual_seed(seed + 7)).eval()
+        cpu32 = flagship_outputs(m32, wav, spec, torch.float32)
+        cpu16 = flagship_outputs(copy.deepcopy(m32).to(torch.bfloat16), wav,
+                                 spec, torch.bfloat16)
+        launches.reset()
+        card16 = [t.cpu() for t in flagship_outputs(
+            copy.deepcopy(m32).cuda().to(torch.bfloat16), wav.cuda(),
+            spec.cuda(), torch.bfloat16)]
+        launches.expect(f"narrow bf16 flagship forward ({impl}) on the card",
+                        speech_attention=cfg.msa_blocks,
+                        speech_attention_bf16=cfg.msa_blocks)
+        flips, off_tie = decision_flips(cpu16[1], card16[1], cpu16[2],
+                                        card16[2])
+        keep = (cpu16[1] == card16[1])[None, :, :, None].expand(
+            2, -1, -1, 129)
+        t = cpu16[1].shape[1]
+        g, c16, c32 = (x[0][:, :, :t][keep] for x in (card16, cpu16, cpu32))
+        ref = float((c16 - c32).norm())
+        noise, cross = (float((g - c32).norm()) / ref,
+                        float((g - c16).norm()) / ref)
+        share = float((g == c16).float().mean())
+        result["narrow"][impl] = {"noise": noise, "cross": cross,
+                                  "bit_equal": share, "flips": flips,
+                                  "flips_off_ties": off_tie}
+        say(f"[bf16] narrow flagship ({impl}) bf16 forward, card vs CPU: "
+            f"enhanced STFT noise {noise:.4f} (limits {BF16_NOISE}), cross "
+            f"{cross:.4f} (limit {BF16_CROSS:g}), {share:.5f} bit-equal; "
+            f"MAA flips {flips} of {cpu16[1].numel()}, {off_tie} off "
+            f"near-ties")
+        if not (BF16_NOISE[0] <= noise <= BF16_NOISE[1]
+                and cross <= BF16_CROSS and off_tie == 0
+                and flips <= (1 - BF16_KEPT) * cpu16[1].numel()):
+            raise AssertionError(f"the card's narrow bf16 flagship forward "
+                                 f"({impl}) left the CPU's")
+
+    # (b) bench.py's shape at full width
+    wav = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        BF16_BENCH).astype(np.float32)).cuda()
+    spec = stft(wav)
+
+    def enhance(m, dt):
+        enh, dec, _ = flagship_outputs(m, wav, spec, dt)
+        with torch.inference_mode():
+            return istft(torch.complex(enh[0], enh[1]),
+                         length=wav.shape[-1]), dec
+    configs = [(name, port.MetacogConfig(**fields))
+               for name, fields in BF16_FLAGSHIP] + [("artifact", None)]
+    for name, cfg in configs:
+        if cfg is None:
+            pipe = port.SincformerPipeline(device="cuda", model_dir=ARTIFACT)
+            pipe.load_model()
+            model = pipe.model.eval()
+        else:
+            model = port.SincformerMetacog(cfg).init_params(
+                torch.Generator().manual_seed(seed)).cuda().eval()
+        blocks = model.config.msa_blocks
+        model16 = copy.deepcopy(model).to(torch.bfloat16)
+        launches.reset()
+        w32, d32 = enhance(model, torch.float32)
+        launches.expect(f"flagship f32 forward ({name}), {BF16_BENCH}",
+                        speech_attention=blocks)
+        w16, d16 = enhance(model16, torch.bfloat16)
+        launches.expect(f"flagship bf16 forward ({name}), {BF16_BENCH}",
+                        speech_attention=blocks,
+                        speech_attention_bf16=blocks)
+        snr = float(10.0 * torch.log10((w32 ** 2).sum()
+                                       / ((w16 - w32) ** 2).sum()))
+        flips = int((d16 != d32).sum())
+        times = {}
+        for tag, m, dt in (("f32", model, torch.float32),
+                           ("bf16", model16, torch.bfloat16)):
+            wall = wall_s(lambda: enhance(m, dt), reps=3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            enhance(m, dt)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            prof = profile_once(lambda: enhance(m, dt))
+            times[tag] = {"wall_ms": wall * 1e3, "busy_ms": prof["busy_ms"],
+                          "launches": prof["launches"], "peak_gb": peak}
+        with torch.inference_mode():
+            z = model16.pa(wav.bfloat16())[0][..., :spec.shape[1]]
+
+        def cpea_alone():
+            with torch.inference_mode():
+                return model16.cpea(z)
+        cpea_wall = wall_s(cpea_alone, reps=3)
+        cpea = profile_once(cpea_alone)
+        launches.reset()
+        times["bf16"].update(cpea_wall_ms=cpea_wall * 1e3,
+                             cpea_busy_ms=cpea["busy_ms"],
+                             cpea_launches=cpea["launches"])
+        result[name] = {"snr_db": snr, "maa_flips": flips,
+                        "frames": d32.numel(), "k1_bf16": blocks, **{
+                            f"{t}_{k}": v for t, d in times.items()
+                            for k, v in d.items()}}
+        b = times["bf16"]
+        say(f"[bf16] flagship forward ({name}), {BF16_BENCH} (bench.py's "
+            f"protocol): bf16 waveform {snr:.2f} dB SNR against the f32 "
+            f"one, MAA decisions flipped {flips} of {d32.numel()}; f32 "
+            f"{times['f32']['wall_ms']:.2f} ms wall, "
+            f"{times['f32']['busy_ms']:.3f} ms busy, "
+            f"{times['f32']['launches']} launches, "
+            f"{times['f32']['peak_gb']:.2f} GB; bf16 {b['wall_ms']:.2f} ms "
+            f"wall, {b['busy_ms']:.3f} ms busy, {b['launches']} launches, "
+            f"{b['peak_gb']:.2f} GB, K1 bf16 {blocks}; the bf16 CPEA alone "
+            f"{b['cpea_wall_ms']:.2f} ms wall, {b['cpea_busy_ms']:.3f} ms "
+            f"busy, {b['cpea_launches']} launches on {smi}")
+        floor = BF16_SNR_FLOOR.get(name, BF16_SNR_FLOOR_LSTM)
+        if not (np.isfinite(snr) and w16.shape == w32.shape
+                and snr >= floor and flips <= BF16_MAX_FLIPS * d32.numel()):
+            raise AssertionError(
+                f"the bf16 flagship forward ({name}) left the f32 one: "
+                f"{snr:.2f} dB (floor {floor:g}), {flips} MAA flips (at "
+                f"most {BF16_MAX_FLIPS:g} of {d32.numel()})")
+        del model, model16, w16, w32, z
+        torch.cuda.empty_cache()
+    return result
+
+
 def check_bf16(seed: int, smi: str, launches) -> dict:
-    """bf16 on the card: the bf16 forms of K1 and K3
+    """bf16 on the card: the bf16 forms of K1, K3, K5 and K6
     (:func:`check_bf16_kernels`); bf16 DCSE training at full width (8 x
     4 s, unfused and fused, timed steps and a validation with their bf16
     launches); the card's bf16 step on narrow inputs against its f32 step,
-    beside the CPU's; a one-rank NCCL bf16 step bit-equal to no mesh; and
-    the bf16 forward at bench.py's DCSE workload beside the f32 one."""
+    beside the CPU's; a one-rank NCCL bf16 step bit-equal to no mesh; the
+    bf16 forward at bench.py's DCSE workload beside the f32 one; K5's and
+    K6's bf16 forms on the PA front-end's path
+    (:func:`check_bf16_pa_blocks`); the flagship's bf16 forward
+    (:func:`check_bf16_flagship`)."""
     import copy
     from unittest import mock
 
@@ -4221,8 +4771,15 @@ def check_bf16(seed: int, smi: str, launches) -> dict:
             f"{t}_{k}": v for t, d in times.items() for k, v in d.items()}}
         del model, model16, out16, out32
         torch.cuda.empty_cache()
+    # ── K5's and K6's bf16 forms on the PA front-end's driven path ──────
+    t0 = time.perf_counter()
+    result["pa_blocks"] = check_bf16_pa_blocks(seed, smi, launches)
+    # ── the flagship's bf16 forward: narrow card vs CPU, bench.py's shape
+    result["flagship"] = check_bf16_flagship(seed, smi, launches)
+    result["flagship_s"] = time.perf_counter() - t0
     result["phase_s"] = time.perf_counter() - t_phase
-    say(f"[bf16] phase wall {result['phase_s']:.1f} s on {smi}")
+    say(f"[bf16] phase wall {result['phase_s']:.1f} s (the PA blocks and the "
+        f"flagship {result['flagship_s']:.1f} s of it) on {smi}")
     return result
 
 
@@ -4861,7 +5418,8 @@ def main() -> int:
     launches.reset()
     phase_done("[parallel]")
 
-    # ── phase 17: bf16: K1's and K3's bf16 forms, bf16 DCSE ─────────────
+    # ── phase 17: bf16: the bf16 forms of K1, K3, K5 and K6, bf16 DCSE,
+    # the flagship's bf16 forward ─────────────────────────────────────────
     bf16 = check_bf16(args.seed, smi, launches)
     say("[bf16] " + json.dumps(bf16))
     launches.reset()
@@ -4934,7 +5492,11 @@ def main() -> int:
                         "in_bf16_dcse_step": bf16["train_unfused"][
                             "k1_bf16_per_step"],
                         "in_bf16_dcse_validation": bf16["train_unfused"][
-                            "k1_bf16_per_validation"]})}),
+                            "k1_bf16_per_validation"],
+                        "in_bf16_flagship_forward": {
+                            name: bf16["flagship"][name]["k1_bf16"]
+                            for name in ("default", "ssm", "msa3",
+                                         "artifact")}})}),
         row("quantize_int8", "quantize_int8.cu",
             "sincformer_tpu/ops/quantize.py:34", k2_err, k2_time,
             at_flagship_tree=k2_time_tree),
@@ -4958,9 +5520,13 @@ def main() -> int:
             "sincformer_tpu/ops/meddis_pallas.py:38", k4_err, k4_time),
         row("conv1d_gn", "conv_gn.cu",
             "sincformer_tpu/ops/conv_gn_pallas.py:64", k5_err, k5_time,
-            at_flagship_block=k5_time_block),
+            at_flagship_block=k5_time_block, extra={"bf16": bf16_entry(
+                "conv1d_gn", "k5", "call_site", {
+                    "in_bf16_pa_blocks": 1})}),
         row("env_act", "envact.cu",
-            "sincformer_tpu/ops/envact_pallas.py:37", k6_err, k6_time)]
+            "sincformer_tpu/ops/envact_pallas.py:37", k6_err, k6_time,
+            extra={"bf16": bf16_entry("env_act", "k6", "call_site", {
+                "in_bf16_pa_blocks": 1})})]
     for k in kernels:
         if k["launches"] < 1 or k.get("bf16", {"launches": 1})[
                 "launches"] < 1:

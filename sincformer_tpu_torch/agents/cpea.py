@@ -17,6 +17,15 @@ Tensor parallelism (``parallel/sharding.py``): each gate's kernels split on
 their H outputs, so a rank holds its part of each of the four row blocks
 of a folded matrix; the LSTM gathers them and runs whole (cuDNN takes the
 whole matrix), and the heads compute their column blocks.
+
+bfloat16 (a model cast with ``.to(torch.bfloat16)``): the JAX scan carries
+h and c in bf16 and rounds every gate operation, and its recurrent matrix
+K + 1·bᵀ is itself rounded to bf16; cuDNN's LSTM keeps the cell and the
+gates in f32 and cannot run that recurrence. :meth:`FlaxBiLSTM._bf16_layer`
+runs it as a loop of PyTorch operations, one step for both directions of a
+layer at once (stacked, ``bmm``), about 13 launches a step; the float32
+path stays on ``torch.lstm``. The heads' sigmoid and the phases' π round
+as JAX's do (``ops.flax_math``).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 from torch import nn
 
 from sincformer_tpu_torch.agents.ssm import BiLRU
+from sincformer_tpu_torch.ops.flax_math import in_dtype, sigmoid
 from sincformer_tpu_torch.parallel import sharding as tp
 
 
@@ -77,7 +87,40 @@ class FlaxBiLSTM(nn.Module):
         return (tp.whole(getattr(self, f"kernel_hh{sfx}"))
                 + getattr(self, f"bias_hh{sfx}")[:, None])
 
+    def _bf16_layer(self, x: torch.Tensor, layer: int) -> torch.Tensor:
+        """One bidirectional layer over (B, T, D) bfloat16 → (B, T, 2H),
+        rounding as the JAX scan does: xp = round(x·Wx) + b, then per step
+        g = xp_t + round(h·(K + b)), gates by the expanded sigmoid and
+        tanh, c = f·c + i·tanh(g), h = o·tanh(c), every operation rounded
+        to bf16. Both directions run in one loop: the backward direction
+        on the time-reversed sequence, its outputs reversed back."""
+        hidden = self.hidden_size
+        sfx = self._suffixes(layer)
+        wx = torch.stack([tp.whole(getattr(self, f"weight_ih{s}")).t()
+                          for s in sfx])                        # (2, D, 4H)
+        wh = torch.stack([self.recurrent_matrix(s).t() for s in sfx])
+        b = torch.stack([getattr(self, f"bias_hh{s}") for s in sfx])
+        seq = torch.stack([x, torch.flip(x, dims=[1])])          # (2, B, T, D)
+        xp = torch.matmul(seq, wx[:, None]) + b[:, None, None]   # (2, B, T, 4H)
+        h = x.new_zeros(2, x.shape[0], hidden)
+        c = h
+        outs = []
+        for t in range(x.shape[1]):
+            g = xp[:, :, t] + torch.bmm(h, wh)
+            gates = sigmoid(g)
+            c = (gates[..., hidden:2 * hidden] * c
+                 + gates[..., :hidden] * torch.tanh(g[..., 2 * hidden:
+                                                      3 * hidden]))
+            h = gates[..., 3 * hidden:] * torch.tanh(c)
+            outs.append(h)
+        y = torch.stack(outs, dim=2)                              # (2, B, T, H)
+        return torch.cat([y[0], torch.flip(y[1], dims=[1])], dim=-1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            for layer in range(self.num_layers):
+                x = self._bf16_layer(x, layer)
+            return x
         weights = []
         for sfx in self._all_suffixes():
             weights += [tp.whole(getattr(self, f"weight_ih{sfx}")),
@@ -143,7 +186,8 @@ class CorrelationPhaseEstimationAgent(nn.Module):
     def forward(self, z: torch.Tensor) -> Dict[str, torch.Tensor]:
         mixer = self.bilru if self.impl == "ssm" else self.lstm
         x = mixer(z.transpose(1, 2))                      # (B, T, 2H)
-        return {"rho_s": torch.sigmoid(tp.linear(self.rho_s_head, x)),
-                "rho_n": torch.sigmoid(tp.linear(self.rho_n_head, x)),
-                "phi1": torch.tanh(tp.linear(self.phi1_head, x)) * math.pi,
-                "phi2": torch.tanh(tp.linear(self.phi2_head, x)) * math.pi}
+        pi = in_dtype(math.pi, x.dtype)
+        return {"rho_s": sigmoid(tp.linear(self.rho_s_head, x)),
+                "rho_n": sigmoid(tp.linear(self.rho_n_head, x)),
+                "phi1": torch.tanh(tp.linear(self.phi1_head, x)) * pi,
+                "phi2": torch.tanh(tp.linear(self.phi2_head, x)) * pi}

@@ -14,7 +14,12 @@ probabilities themselves (``routing="softmax"``). In a data-parallel step
 the batch's statistics are the global batch's (``parallel/collectives.py``),
 as in JAX's sharded step. Its Dense layers go through
 ``parallel/sharding.py`` (tensor parallelism: ``fc1`` and ``fc2`` split at
-64 features).
+64 features). In bfloat16 the softmax, the sigmoid and the constants round
+as the JAX package's do (``ops.flax_math``); the running statistics are
+those of the cast model, as JAX's cast ``maa_stats``. A decision tied
+between classes (common in bf16) takes the first, as ``jnp.argmax`` does.
+A one-hot route is float32 whatever the model's dtype (``jax.nn.one_hot``'s
+default), so the routed magnitude of a bf16 model is float32, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sincformer_tpu_torch.ops.flax_math import in_dtype, sigmoid, softmax
 from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel import sharding as tp
 
@@ -73,26 +79,27 @@ class MetacognitiveArbitrationAgent(nn.Module):
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)
                 self.num_updates.add_(1)
-        normalized = (sigma - mean) / (torch.sqrt(var) + 1e-8)
+        normalized = (sigma - mean) / (torch.sqrt(var)
+                                       + in_dtype(1e-8, sigma.dtype))
         x = F.relu(tp.linear(self.fc1, normalized[..., None]))
         x = F.relu(tp.linear(self.fc2, x))
         logits = tp.linear(self.fc3, x)                   # (B, T, 4)
-        probs = F.softmax(logits, dim=-1)
+        probs = softmax(logits, dim=-1)
         if train and self.routing == "gumbel":
             if uniform is None:
                 uniform = gumbel_uniform(logits.shape, generator,
                                          logits.device)
             g = -torch.log(-torch.log(uniform + 1e-10))
-            y_soft = F.softmax((logits + g) / (1.0 if tau is None else tau),
-                               dim=-1)
+            y_soft = softmax((logits + g) / (1.0 if tau is None else tau),
+                             dim=-1)
             y_hard = F.one_hot(torch.argmax(y_soft, dim=-1),
-                               self.num_classes).to(y_soft.dtype)
+                               self.num_classes).float()
             route = y_soft + (y_hard - y_soft).detach()
         elif train:
             route = probs
         else:
             route = F.one_hot(torch.argmax(logits, dim=-1),
-                              self.num_classes).to(logits.dtype)
+                              self.num_classes).float()
         decisions = torch.argmax(probs if train else logits, dim=-1)
         return {"decisions": decisions, "probs": probs, "logits": logits,
-                "route": route, "confidence": torch.sigmoid(-normalized)}
+                "route": route, "confidence": sigmoid(-normalized)}

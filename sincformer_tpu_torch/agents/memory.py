@@ -12,7 +12,10 @@ In a data-parallel step the means and the counts are the global batch's
 (``parallel/collectives.py``), so every rank writes the same bank. Under
 tensor parallelism the projections compute their column blocks and the
 key bank, split on its features, is gathered before the similarity
-(``parallel/sharding.py``).
+(``parallel/sharding.py``). In bfloat16 the norms, the softmax, the GELU,
+the sigmoid and the constants round as the JAX package's do
+(``ops.flax_math``); the argmax takes the first of tied slots, as
+``jnp.argmax`` does.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sincformer_tpu_torch.agents.perception import gelu
-from sincformer_tpu_torch.models.conformer import LN_EPS
+from sincformer_tpu_torch.ops.flax_math import (LN_EPS, LayerNorm, gelu,
+                                                in_dtype, sigmoid, softmax)
 from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel import sharding as tp
 
@@ -34,7 +37,13 @@ WRITE_MOMENTUM = 0.5      # EMA of a write into a known environment's slot
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
-    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
+    """x over its L2 norm along the last axis (+ 1e-8); in bfloat16 the
+    norm is ``jnp.linalg.norm``'s sqrt(sum(x · x)) with the squares
+    rounded, their sum taken in float32 and rounded once."""
+    if x.dtype != torch.bfloat16:
+        return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-8)
+    norm = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    return x / (norm + in_dtype(1e-8, x.dtype))
 
 
 class EpisodicMemory(nn.Module):
@@ -46,7 +55,7 @@ class EpisodicMemory(nn.Module):
         self.keys = nn.Parameter(torch.empty(num_slots, key_dim))
         self.values = nn.Parameter(torch.empty(num_slots, value_dim))
         self.key_proj1 = nn.Linear(key_dim, key_dim)
-        self.key_ln = nn.LayerNorm(key_dim, eps=LN_EPS)
+        self.key_ln = LayerNorm(key_dim, eps=LN_EPS)
         self.key_proj2 = nn.Linear(key_dim, key_dim)
         self.value_proj = nn.Linear(value_dim, value_dim)
         self.gate = nn.Linear(key_dim + value_dim, 1)
@@ -91,9 +100,9 @@ class EpisodicMemory(nn.Module):
             keys = torch.cat([keys, self.bank_keys], dim=0)
             values = torch.cat([values, self.bank_values], dim=0)
         similarity = _unit(query) @ _unit(keys).T     # temperature 1
-        retrieved = F.softmax(similarity, dim=-1) @ values
+        retrieved = softmax(similarity, dim=-1) @ values
         bias = torch.tanh(tp.linear(self.value_proj, retrieved))
-        gate = torch.sigmoid(tp.linear(self.gate, torch.cat(
+        gate = sigmoid(tp.linear(self.gate, torch.cat(
             [query, retrieved], dim=-1)))
         top = torch.argmax(similarity, dim=-1)
         if train:

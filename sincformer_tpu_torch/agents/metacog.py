@@ -17,6 +17,13 @@ MSA with dropout, writes the episodic memory, steps the MAA statistics,
 routes by Gumbel straight-through (or softmax) and runs the MSA a second
 time with fresh dropout masks for the resample strategy, as the JAX model
 does, also when the dropout rate is 0.
+
+bfloat16: a model cast with ``.to(torch.bfloat16)`` and given a bf16
+waveform and STFT runs the forward that the JAX package's ``bench.py``
+runs with every variable cast to bf16, rounding where JAX's rounds (each
+agent's module says how). The inference route is a float32 one-hot, as
+``jax.nn.one_hot`` makes it, so the routed magnitude and the enhanced STFT
+come out float32 there, as JAX's do.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from sincformer_tpu_torch.agents.perception import (PerceptionAgent,
 from sincformer_tpu_torch.agents.ssm import LRULayer
 from sincformer_tpu_torch.config import MetacogConfig
 from sincformer_tpu_torch.models.vq import VectorQuantizer
+from sincformer_tpu_torch.ops.flax_math import in_dtype
 
 
 def variant_of(names) -> Dict[str, str]:
@@ -65,7 +73,8 @@ def variant_of(names) -> Dict[str, str]:
 
 
 def _polar_mag(mask_r: torch.Tensor, mask_i: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(mask_r ** 2 + mask_i ** 2 + 1e-12)
+    return torch.sqrt(mask_r ** 2 + mask_i ** 2
+                      + in_dtype(1e-12, mask_r.dtype))
 
 
 class SincformerMetacog(nn.Module):

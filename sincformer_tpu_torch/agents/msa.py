@@ -2,7 +2,8 @@
 fusion MLP → Conformer blocks → bounded polar mask (phase within ±π/8).
 A forward given a ``generator`` runs its blocks' dropout from it (the JAX
 module's ``deterministic=False``). Every Dense goes through
-``parallel/sharding.py`` (tensor parallelism)."""
+``parallel/sharding.py`` (tensor parallelism). In bfloat16 the GELU, the
+sigmoid and the constants round as JAX's do (``ops.flax_math``)."""
 
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from sincformer_tpu_torch.agents.perception import gelu
 from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
+from sincformer_tpu_torch.ops.flax_math import (LayerNorm, gelu, in_dtype,
+                                                sigmoid)
 from sincformer_tpu_torch.parallel import sharding as tp
 
 
@@ -30,9 +32,9 @@ class MaskSynthesisAgent(nn.Module):
         self.num_blocks = num_blocks
         self.fusion1 = nn.Linear(2 * latent_dim + 4 * cpea_dim + 2 * n_freq,
                                  d_model)
-        self.fusion_ln1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.fusion_ln1 = LayerNorm(d_model, eps=LN_EPS)
         self.fusion2 = nn.Linear(d_model, d_model)
-        self.fusion_ln2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.fusion_ln2 = LayerNorm(d_model, eps=LN_EPS)
         for i in range(num_blocks):
             self.add_module(f"block_{i}", ConformerBlock(
                 d_model, num_heads, d_ff, kernel_size, attn_impl,
@@ -41,23 +43,34 @@ class MaskSynthesisAgent(nn.Module):
         self.mag_head = nn.Linear(d_model, n_freq)
         self.phase_head = nn.Linear(d_model, n_freq)
 
-    def forward(self, z_real, z_imag, cpea: Dict[str, torch.Tensor],
-                noisy_stft_real, noisy_stft_imag,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        # log1p-magnitude normalisation of the noisy STFT
-        mag = torch.sqrt(noisy_stft_real ** 2 + noisy_stft_imag ** 2 + 1e-8)
+    def fuse(self, z_real, z_imag, cpea: Dict[str, torch.Tensor],
+             noisy_stft_real, noisy_stft_imag) -> torch.Tensor:
+        """The fusion MLP: (B, T, d_model) features from the latents, the
+        CPEA outputs and the log1p-normalised noisy STFT."""
+        dt = noisy_stft_real.dtype
+        mag = torch.sqrt(noisy_stft_real ** 2 + noisy_stft_imag ** 2
+                         + in_dtype(1e-8, dt))
         norm = torch.log1p(mag) / mag
         fused = torch.cat(
             [z_real.transpose(1, 2), z_imag.transpose(1, 2), cpea["rho_s"],
              cpea["rho_n"], cpea["phi1"], cpea["phi2"],
              noisy_stft_real * norm, noisy_stft_imag * norm], dim=-1)
         x = gelu(self.fusion_ln1(tp.linear(self.fusion1, fused)))
-        x = self.fusion_ln2(tp.linear(self.fusion2, x))
+        return self.fusion_ln2(tp.linear(self.fusion2, x))
+
+    def heads(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The mask heads on the blocks' output: (mask_re, mask_im)."""
+        h = gelu(tp.linear(self.head_hidden, x))
+        mask_mag = sigmoid(tp.linear(self.mag_head, h))
+        mask_phase = torch.tanh(tp.linear(self.phase_head, h)) \
+            * in_dtype(self.phase_bound, h.dtype)
+        return mask_mag * torch.cos(mask_phase), mask_mag * torch.sin(mask_phase)
+
+    def forward(self, z_real, z_imag, cpea: Dict[str, torch.Tensor],
+                noisy_stft_real, noisy_stft_imag,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.fuse(z_real, z_imag, cpea, noisy_stft_real, noisy_stft_imag)
         for i in range(self.num_blocks):
             x = getattr(self, f"block_{i}")(x, generator=generator)
-        h = gelu(tp.linear(self.head_hidden, x))
-        mask_mag = torch.sigmoid(tp.linear(self.mag_head, h))
-        mask_phase = torch.tanh(tp.linear(self.phase_head, h)) \
-            * self.phase_bound
-        return mask_mag * torch.cos(mask_phase), mask_mag * torch.sin(mask_phase)
+        return self.heads(x)

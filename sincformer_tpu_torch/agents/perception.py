@@ -14,6 +14,12 @@ does (``models.conformer.same_pad``), asymmetric for even kernels and for
 stride 2 on even lengths. Every conv and Dense goes through
 ``parallel/sharding.py`` (tensor parallelism: a split weight computes its
 block of output channels and the blocks are gathered).
+
+bfloat16 (a model cast with ``.to(torch.bfloat16)``) rounds where the JAX
+package's bf16 forward rounds: GELU, softplus and constants as
+``ops.flax_math`` expands them, a conv's product before its bias, the
+GroupNorms' statistics and normalisation in float32 with one rounding, as
+flax's ``nn.GroupNorm`` does.
 """
 
 from __future__ import annotations
@@ -26,12 +32,26 @@ from torch import nn
 
 from sincformer_tpu_torch.agents.sincnet import SincConv1d
 from sincformer_tpu_torch.models.conformer import LN_EPS, same_pad
+from sincformer_tpu_torch.ops.flax_math import (LayerNorm, flax_norm, gelu,
+                                                in_dtype, layer_norm,
+                                                softplus)
 from sincformer_tpu_torch.parallel import sharding as tp
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.gelu``: the tanh approximation."""
-    return F.gelu(x, approximate="tanh")
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` over (B, C, T); in bfloat16 flax's arithmetic
+    (``ops.flax_math.flax_norm`` over each group in float32), rounded
+    once."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        b, c, t = x.shape
+        g = self.num_groups
+        y = flax_norm(x.float().reshape(b, g, c // g, t), (2, 3),
+                      self.weight.view(g, -1, 1), self.bias.view(g, -1, 1),
+                      self.eps)
+        return y.reshape(b, c, t).to(x.dtype)
 
 
 class _Conv1d(nn.Conv1d):
@@ -57,12 +77,12 @@ class _ConvBlock(nn.Module):
         super().__init__()
         g = min(16, out_ch)
         self.conv1 = _SameConv1d(in_ch, out_ch, 7, stride=stride)
-        self.gn1 = nn.GroupNorm(g, out_ch, eps=LN_EPS)
+        self.gn1 = GroupNorm(g, out_ch, eps=LN_EPS)
         self.conv2 = _SameConv1d(out_ch, out_ch, 3)
-        self.gn2 = nn.GroupNorm(g, out_ch, eps=LN_EPS)
+        self.gn2 = GroupNorm(g, out_ch, eps=LN_EPS)
         # k = 1: flax's SAME pads nothing at any stride
         self.skip = _Conv1d(in_ch, out_ch, 1, stride=stride)
-        self.gn_skip = nn.GroupNorm(g, out_ch, eps=LN_EPS)
+        self.gn_skip = GroupNorm(g, out_ch, eps=LN_EPS)
 
     def forward(self, x):
         main = self.gn2(self.conv2(gelu(self.gn1(self.conv1(x)))))
@@ -93,19 +113,20 @@ class PerceptionAgentMXU(nn.Module):
         self.embed_env = _SameConv1d(align_hop // env_pool * c, d, 2)
         if fine_feats == "dual":
             self.embed_norm = _SameConv1d(align_hop * c, d, 4)
-        self.embed_ln = nn.LayerNorm(d, eps=LN_EPS)
+        self.embed_ln = LayerNorm(d, eps=LN_EPS)
         for i in range(num_blocks):
             self.add_module(f"block_{i}", _ConvBlock(d, d))
         self.num_blocks = num_blocks
         self.real_proj = nn.Linear(d, d)
-        self.gn_real = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.gn_real = GroupNorm(16, d, eps=LN_EPS)
         self.imag_proj = nn.Linear(d, d)
-        self.gn_imag = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.gn_imag = GroupNorm(16, d, eps=LN_EPS)
         self.unc1 = _SameConv1d(d, d // 4, 3)
         self.unc2 = nn.Linear(d // 4, 1)
 
-    def forward(self, waveform: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def front(self, waveform: torch.Tensor) -> torch.Tensor:
+        """SincConv, the two streams, their embeddings, LayerNorm and GELU:
+        (B, N) waveform → (B, D, T) at frame rate."""
         hop, pool = self.hop, self.env_pool
         x = self.sinc(waveform)                          # (B, N, C)
         b, n, c = x.shape
@@ -119,7 +140,7 @@ class PerceptionAgentMXU(nn.Module):
         # fine stream: per-channel companding (μ-law) or GELU
         z = x * self.act_scale
         if self.fine_act == "mulaw":
-            mu = F.softplus(self.act_mu) + 1e-4
+            mu = softplus(self.act_mu) + in_dtype(1e-4, z.dtype)
             x = torch.sign(z) * torch.log1p(mu * torch.abs(z))
         else:
             x = gelu(z)
@@ -130,12 +151,13 @@ class PerceptionAgentMXU(nn.Module):
         if self.fine_feats == "dual":
             # a level-decoupled view of the same chunks: LayerNorm without
             # scale or bias over each frame's hop·C values
-            normed = F.layer_norm(chunks, chunks.shape[-1:], eps=LN_EPS)
+            normed = layer_norm(chunks)
             h = h + self.embed_norm(normed.transpose(1, 2))
-        h = gelu(self.embed_ln(h.transpose(1, 2))).transpose(1, 2)
-        for i in range(self.num_blocks):
-            h = getattr(self, f"block_{i}")(h)
+        return gelu(self.embed_ln(h.transpose(1, 2))).transpose(1, 2)
 
+    def heads(self, h: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The latent and σ heads on the blocks' (B, D, T) output."""
         h_t = h.transpose(1, 2)                           # (B, T, D)
         z_real = self.gn_real(tp.linear(self.real_proj, h_t).transpose(1, 2))
         z_imag = self.gn_imag(tp.linear(self.imag_proj, h_t).transpose(1, 2))
@@ -143,6 +165,13 @@ class PerceptionAgentMXU(nn.Module):
         log_var = tp.linear(self.unc2, u).transpose(1, 2)  # (B, 1, T)
         sigma = torch.exp(0.5 * torch.clamp(log_var, -10.0, 10.0))
         return z_real, z_imag, sigma
+
+    def forward(self, waveform: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        h = self.front(waveform)
+        for i in range(self.num_blocks):
+            h = getattr(self, f"block_{i}")(h)
+        return self.heads(h)
 
 
 class PerceptionAgent(nn.Module):
@@ -156,18 +185,18 @@ class PerceptionAgent(nn.Module):
         super().__init__()
         d = encoder_channels
         self.sinc = SincConv1d(d // 4, sinc_kernel_size, sample_rate)
-        self.sinc_norm = nn.GroupNorm(8, d // 4, eps=LN_EPS)
+        self.sinc_norm = GroupNorm(8, d // 4, eps=LN_EPS)
         widths = (d // 4, d // 2, d // 2, d)
         for i in range(3):
             self.add_module(f"block_{i}", _ConvBlock(widths[i], widths[i + 1],
                                                      stride=2))
         self.downsample = _SameConv1d(d, d, 5, stride=2)
-        self.down_norm = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.down_norm = GroupNorm(16, d, eps=LN_EPS)
         self.pool = align_hop // 16
         self.real_proj = _Conv1d(d, d, 1)
-        self.gn_real = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.gn_real = GroupNorm(16, d, eps=LN_EPS)
         self.imag_proj = _Conv1d(d, d, 1)
-        self.gn_imag = nn.GroupNorm(16, d, eps=LN_EPS)
+        self.gn_imag = GroupNorm(16, d, eps=LN_EPS)
         self.unc1 = _SameConv1d(d, d // 4, 3)
         self.unc2 = _Conv1d(d // 4, 1, 1)
 

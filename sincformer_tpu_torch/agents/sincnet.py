@@ -3,6 +3,13 @@
 Only the (low, band) cutoffs are learned; the Hamming-windowed sinc kernels
 are synthesised in the forward pass in f32, step for step as the JAX module
 does, and applied as one conv1d with padding k//2.
+
+In a model cast to bfloat16 the cutoffs are bfloat16 while the tap
+positions ``n_left`` and the window stay float32 constants, as in JAX
+(they are not variables there): the cutoff arithmetic rounds to bfloat16,
+the synthesis from the first product with ``n_left`` on is float32 by
+promotion, and only the finished kernel is rounded to the waveform's
+dtype for the convolution.
 """
 
 from __future__ import annotations
@@ -13,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from sincformer_tpu_torch.ops.flax_math import in_dtype
 
 
 def erb_init_points(out_channels: int, sample_rate: int,
@@ -43,24 +52,38 @@ class SincConv1d(nn.Module):
         self.band_hz = nn.Parameter(torch.tensor(np.diff(hz),
                                                  dtype=torch.float32))
         half = (k - 1) // 2
-        n_left = 2 * math.pi * np.arange(-half, 0) / sample_rate
-        window = 0.54 - 0.46 * np.cos(2 * math.pi * np.arange(k) / k)
-        self.register_buffer("n_left", torch.tensor(
-            n_left[None, :], dtype=torch.float32), persistent=False)
-        self.register_buffer("window", torch.tensor(
-            window, dtype=torch.float32), persistent=False)
+        self._constants = {
+            "n_left": (2 * math.pi * np.arange(-half, 0) / sample_rate)[None],
+            "window": 0.54 - 0.46 * np.cos(2 * math.pi * np.arange(k) / k)}
+        for name, value in self._constants.items():
+            self.register_buffer(name, torch.tensor(value, dtype=torch.float32),
+                                 persistent=False)
+
+    def _apply(self, fn, recurse=True):
+        """Moves and casts as ``nn.Module`` does, but ``n_left`` and
+        ``window`` stay float32 values of their constants on the new
+        device (a cast to bfloat16 would round them)."""
+        super()._apply(fn, recurse)
+        for name, value in self._constants.items():
+            buf = self._buffers[name]
+            if buf.dtype != torch.float32:
+                self._buffers[name] = torch.tensor(value, dtype=torch.float32,
+                                                   device=buf.device)
+        return self
 
     def filters(self) -> torch.Tensor:
-        """(C, k) band-pass kernels, L1-normalised per channel."""
-        low = self.min_low_hz + torch.abs(self.low_hz)
-        high = torch.clamp(low + self.min_band_hz + torch.abs(self.band_hz),
-                           max=self.sample_rate / 2.0)
-        f_low = (low / self.sample_rate)[:, None]
-        f_high = (high / self.sample_rate)[:, None]
+        """(C, k) band-pass kernels, L1-normalised per channel, float32."""
+        dt = self.low_hz.dtype
+        low = in_dtype(self.min_low_hz, dt) + torch.abs(self.low_hz)
+        high = torch.clamp(low + in_dtype(self.min_band_hz, dt)
+                           + torch.abs(self.band_hz),
+                           max=in_dtype(self.sample_rate / 2.0, dt))
+        f_low = (low / in_dtype(self.sample_rate, dt))[:, None]
+        f_high = (high / in_dtype(self.sample_rate, dt))[:, None]
         n_left = self.n_left
         band_left = ((torch.sin(f_high * n_left) - torch.sin(f_low * n_left))
                      / (n_left / 2.0 + 1e-8))
-        band_center = 2.0 * (f_high - f_low)
+        band_center = (2.0 * (f_high - f_low)).float()
         kernel = torch.cat([band_left, band_center,
                             torch.flip(band_left, dims=[1])], dim=1)
         kernel = kernel * self.window

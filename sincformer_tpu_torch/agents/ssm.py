@@ -21,10 +21,9 @@ import math
 from typing import Callable, List, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from sincformer_tpu_torch.models.conformer import LN_EPS
+from sincformer_tpu_torch.ops.flax_math import LN_EPS, LayerNorm, gelu, glu
 from sincformer_tpu_torch.parallel import sharding as tp
 
 D_STATE = 128           # the JAX CPEA builds its BiLRU with this state size
@@ -135,7 +134,7 @@ class BiLRU(nn.Module):
         self.num_layers = num_layers
         self.in_proj = nn.Linear(input_dim, d)
         for i in range(num_layers):
-            self.add_module(f"ln_{i}", nn.LayerNorm(d, eps=LN_EPS))
+            self.add_module(f"ln_{i}", LayerNorm(d, eps=LN_EPS))
             self.add_module(f"lru_fwd_{i}", LRULayer(d, d_state, False))
             self.add_module(f"lru_bwd_{i}", LRULayer(d, d_state, True))
             self.add_module(f"glu_{i}", nn.Linear(d, 2 * d))
@@ -147,7 +146,6 @@ class BiLRU(nn.Module):
             x = getattr(self, f"ln_{i}")(x)
             x = getattr(self, f"lru_fwd_{i}")(x) + getattr(
                 self, f"lru_bwd_{i}")(x)
-            x = tp.linear(getattr(self, f"glu_{i}"),
-                          F.gelu(x, approximate="tanh"))
-            x = residual + F.glu(x, dim=-1)
+            x = tp.linear(getattr(self, f"glu_{i}"), gelu(x))
+            x = residual + glu(x)
         return x

@@ -54,6 +54,17 @@
 //      al.) in double precision: mean and 1 / sqrt(var + eps) to `stats`.
 //   3. norm_kernel: elementwise over `out`, in place, a block per 32 rows
 //      of one batch row: (v - mean) * rstd * gamma + beta [+ skip] [gelu].
+// bf16 form (conv_gn_fwd_bf16): x, w, bias, gamma, beta and skip in bf16,
+// the same three kernels. A bf16 value is exact in TF32 and the product of
+// two is exact in f32, so the convolution takes ONE TF32 product per
+// product (no split, no lo arrays: half the shared memory and a third of
+// the tensor-core work) with f32 accumulation. The convolution's f32 result
+// goes to an f32 scratch buffer; the statistics and the epilogue stay f32,
+// and norm_kernel rounds once to bf16 at the end, as the JAX package's
+// conv_gn_reference does (conv_gn_pallas.py:255-276; its Pallas kernel
+// rounds the convolution to bf16 between its two passes, a second bf16
+// function, ROADMAP.md Queue 3). Bound: 2 * B * Tout * K * Cin * Cout
+// operations at the dense bf16 rate, or the bf16 bytes.
 // Centred partial sums, not sum and sum of squares (what the TPU kernel
 // accumulates): E[v^2] - mean^2 in f32 loses the variance when the mean is
 // far from zero. All reductions run in a fixed order, without atomics, so a
@@ -61,6 +72,7 @@
 // groups | Cout are taken: the TPU kernel's two geometry guards came from its
 // DMA window.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -71,8 +83,32 @@ namespace {
 
 using tf32x3::cp_async16;
 using tf32x3::ldmatrix_x4;
+using tf32x3::mma;
 using tf32x3::mma3;
 using tf32x3::split;
+
+using bf16_t = uint16_t;        // the bits of a bfloat16 value
+
+// bf16 -> f32 is exact: the bf16 bits are the high half of the f32's
+__device__ __forceinline__ uint32_t bf16_bits_to_f32(uint32_t b) {
+  return b << 16;
+}
+__device__ __forceinline__ float load_f32(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float load_f32(const bf16_t* p, long long i) {
+  return __uint_as_float(bf16_bits_to_f32(p[i]));
+}
+// f32 -> bf16, to nearest even (one cvt.rn.bf16.f32)
+__device__ __forceinline__ bf16_t to_bf16(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void store(float* p, long long i, float v) {
+  p[i] = v;
+}
+__device__ __forceinline__ void store(bf16_t* p, long long i, float v) {
+  p[i] = to_bf16(v);
+}
 
 constexpr int kTM = 128;         // output rows per tile
 constexpr int kTN = 64;          // output channels per tile
@@ -92,25 +128,32 @@ __host__ __device__ constexpr int phases(int taps, int s) {
 __host__ __device__ constexpr int phase_rows(int taps, int s) {
   return kTM - 1 + (taps + s - 1) / s;
 }
-inline int smem_bytes(int taps, int s) {
-  return 2 * 4 * (phases(taps, s) * phase_rows(taps, s) * kXP +
-                  taps * kKC * kWP);
+// f32 inputs keep hi and lo of each staged value, bf16 inputs only hi
+inline int smem_bytes(int taps, int s, int copies) {
+  return copies * 4 * (phases(taps, s) * phase_rows(taps, s) * kXP +
+                       taps * kKC * kWP);
 }
 
+// Elem = float: split TF32, three products per product; Elem = bf16_t: the
+// staged values are exact in TF32, one product per product
+template <typename Elem>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-            const float* __restrict__ bias, float* __restrict__ out,
+conv_kernel(const Elem* __restrict__ x, const Elem* __restrict__ w,
+            const Elem* __restrict__ bias, float* __restrict__ out,
             float* __restrict__ partial, int T, int Cin, int Cout, int K,
             int s, int pad_left, int Tout, int n_tiles, int n_chunks,
             int taps, int vec_x, int vec_w) {
+  constexpr bool kSplit = sizeof(Elem) == 4;
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ float red[4][kTN];
   __shared__ float tile_mean[kTN];
   const int rp = phase_rows(taps, s);
+  const int x_words = phases(taps, s) * rp * kXP;
+  const int w_words = taps * kKC * kWP;
   uint32_t* xh = smem;                                  // [phases * rp][kXP]
-  uint32_t* xl = xh + phases(taps, s) * rp * kXP;
-  uint32_t* wh = xl + phases(taps, s) * rp * kXP;       // [taps][kKC][kWP]
-  uint32_t* wl = wh + taps * kKC * kWP;
+  uint32_t* xl = xh + x_words;                          // f32 only
+  uint32_t* wh = kSplit ? xl + x_words : xh + x_words;  // [taps][kKC][kWP]
+  uint32_t* wl = wh + w_words;                          // f32 only
 
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -124,7 +167,7 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int n0 = (blockIdx.x - tile * n_chunks) * kTN;
   const int row0 = tile * kTM;
   const int b = blockIdx.y;
-  const float* xb = x + (long long)b * T * Cin;
+  const Elem* xb = x + (long long)b * T * Cin;
 
   float sum[2][4][4];
 #pragma unroll
@@ -151,14 +194,24 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
             const long long t_in = t_first + (long long)pos * s + phase;
             uint32_t* dst = xh + (phase * rp + pos) * kXP + 4 * piece;
             const bool in_t = t_in >= 0 && t_in < T;
-            if (vec_x) {
+            if (kSplit && vec_x) {
               const bool ok = in_t && c < Cin;
-              cp_async16(dst, ok ? xb + t_in * Cin + c : x, ok);
+              cp_async16(dst, ok ? (const void*)(xb + t_in * Cin + c)
+                                 : (const void*)x, ok);
+            } else if (!kSplit && vec_x) {       // four bf16 in 8 bytes
+              uint2 u = make_uint2(0u, 0u);
+              if (in_t && c < Cin)
+                u = *reinterpret_cast<const uint2*>(xb + t_in * Cin + c);
+              dst[0] = u.x << 16;
+              dst[1] = u.x & 0xFFFF0000u;
+              dst[2] = u.y << 16;
+              dst[3] = u.y & 0xFFFF0000u;
             } else {
 #pragma unroll
               for (int j = 0; j < 4; ++j)
                 dst[j] = __float_as_uint(in_t && c + j < Cin
-                                             ? xb[t_in * Cin + c + j] : 0.f);
+                                             ? load_f32(xb, t_in * Cin + c + j)
+                                             : 0.f);
             }
           }
         }
@@ -170,33 +223,43 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int tap = row / kKC, ci = c0 + row - tap * kKC;
         const long long src = ((long long)(k0 + tap) * Cin + ci) * Cout + n0 + c4;
         uint32_t* dst = wh + row * kWP + c4;
-        if (vec_w) {
+        if (kSplit && vec_w) {
           const bool ok = ci < Cin && n0 + c4 < Cout;
-          cp_async16(dst, ok ? w + src : w, ok);
+          cp_async16(dst, ok ? (const void*)(w + src) : (const void*)w, ok);
+        } else if (!kSplit && vec_w) {
+          uint2 u = make_uint2(0u, 0u);
+          if (ci < Cin && n0 + c4 < Cout)
+            u = *reinterpret_cast<const uint2*>(w + src);
+          dst[0] = u.x << 16;
+          dst[1] = u.x & 0xFFFF0000u;
+          dst[2] = u.y << 16;
+          dst[3] = u.y & 0xFFFF0000u;
         } else {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
             dst[j] = __float_as_uint(ci < Cin && n0 + c4 + j < Cout
-                                         ? w[src + j] : 0.f);
+                                         ? load_f32(w, src + j) : 0.f);
         }
       }
-      tf32x3::cp_async_commit();
-      tf32x3::cp_async_wait<0>();
-      __syncthreads();
-      // split once, in place: hi over the staged value, lo beside it
-      for (int i = tid; i < n_rows * kKC; i += kThreads) {
-        const int o = (i >> 3) * kXP + (i & 7);
-        uint32_t hi, lo;
-        split(__uint_as_float(xh[o]), hi, lo);
-        xh[o] = hi;
-        xl[o] = lo;
-      }
-      for (int i = tid; i < kt * kKC * kTN; i += kThreads) {
-        const int o = (i / kTN) * kWP + (i & (kTN - 1));
-        uint32_t hi, lo;
-        split(__uint_as_float(wh[o]), hi, lo);
-        wh[o] = hi;
-        wl[o] = lo;
+      if (kSplit) {
+        tf32x3::cp_async_commit();
+        tf32x3::cp_async_wait<0>();
+        __syncthreads();
+        // split once, in place: hi over the staged value, lo beside it
+        for (int i = tid; i < n_rows * kKC; i += kThreads) {
+          const int o = (i >> 3) * kXP + (i & 7);
+          uint32_t hi, lo;
+          split(__uint_as_float(xh[o]), hi, lo);
+          xh[o] = hi;
+          xl[o] = lo;
+        }
+        for (int i = tid; i < kt * kKC * kTN; i += kThreads) {
+          const int o = (i / kTN) * kWP + (i & (kTN - 1));
+          uint32_t hi, lo;
+          split(__uint_as_float(wh[o]), hi, lo);
+          wh[o] = hi;
+          wl[o] = lo;
+        }
       }
       __syncthreads();
 
@@ -215,16 +278,22 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           ldmatrix_x4(ah[mt], xh + ao + 16 * mt * kXP);
-          ldmatrix_x4(al[mt], xl + ao + 16 * mt * kXP);
+          if (kSplit) ldmatrix_x4(al[mt], xl + ao + 16 * mt * kXP);
         }
         const int wo = (tap * kKC + t) * kWP + 32 * wn + g;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const uint32_t bh[2] = {wh[wo + 8 * nt], wh[wo + 4 * kWP + 8 * nt]};
-          const uint32_t bl[2] = {wl[wo + 8 * nt], wl[wo + 4 * kWP + 8 * nt]};
+          if (kSplit) {
+            const uint32_t bl[2] = {wl[wo + 8 * nt],
+                                    wl[wo + 4 * kWP + 8 * nt]};
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
+            for (int mt = 0; mt < 2; ++mt)
+              mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);
+          } else {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma(acc[mt][nt], ah[mt], bh);
+          }
         }
         if (++phase == s) {
           phase = 0;
@@ -248,8 +317,8 @@ conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int col = 32 * wn + 8 * nt + 2 * t;
-    const float b0 = n0 + col < Cout ? bias[n0 + col] : 0.f;
-    const float b1 = n0 + col + 1 < Cout ? bias[n0 + col + 1] : 0.f;
+    const float b0 = n0 + col < Cout ? load_f32(bias, n0 + col) : 0.f;
+    const float b1 = n0 + col + 1 < Cout ? load_f32(bias, n0 + col + 1) : 0.f;
     colsum[nt][0] = colsum[nt][1] = 0.f;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -374,53 +443,126 @@ __device__ __forceinline__ float gelu_tanh(float v) {
 }
 
 // A block per (kNormRows rows, batch row): the batch row's statistics,
-// (v - mean) * rstd * gamma + beta [+ skip] [gelu], in place, four channels
-// a thread where Cout % 4 == 0; 32-bit index arithmetic within the block.
+// (v - mean) * rstd * gamma + beta [+ skip] [gelu] from the f32
+// convolution `src` into `dst` (in place for f32: src == dst), four channels
+// a thread where Cout % 4 == 0 and the pointers allow it; 32-bit index
+// arithmetic within the block. gamma, beta, skip and dst are of type T.
 constexpr int kNormRows = 32;
 
+template <typename T>
 __device__ __forceinline__ float normalise(float v, const float* st, int c,
-                                           int cg, const float* gamma,
-                                           const float* beta) {
+                                           int cg, const T* gamma,
+                                           const T* beta) {
   const float* sg = st + (c / cg) * 2;
-  return (v - sg[0]) * sg[1] * gamma[c] + beta[c];
+  return (v - sg[0]) * sg[1] * load_f32(gamma, c) + load_f32(beta, c);
 }
 
+__device__ __forceinline__ void load4(const float* p, float (&r)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+}
+__device__ __forceinline__ void load4(const bf16_t* p, float (&r)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  r[0] = __uint_as_float(u.x << 16);
+  r[1] = __uint_as_float(u.x & 0xFFFF0000u);
+  r[2] = __uint_as_float(u.y << 16);
+  r[3] = __uint_as_float(u.y & 0xFFFF0000u);
+}
+__device__ __forceinline__ void store4(float* p, const float (&r)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+}
+__device__ __forceinline__ void store4(bf16_t* p, const float (&r)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(
+      (uint32_t)to_bf16(r[0]) | ((uint32_t)to_bf16(r[1]) << 16),
+      (uint32_t)to_bf16(r[2]) | ((uint32_t)to_bf16(r[3]) << 16));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(256)
-norm_kernel(float* __restrict__ out, const float* __restrict__ stats,
-            const float* __restrict__ gamma, const float* __restrict__ beta,
-            const float* __restrict__ skip, int Tout, int Cout, int cg,
+norm_kernel(const float* src, T* dst, const float* __restrict__ stats,
+            const T* __restrict__ gamma, const T* __restrict__ beta,
+            const T* __restrict__ skip, int Tout, int Cout, int cg,
             int groups, int act, int vec) {
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * kNormRows;
   const int rows = Tout - r0 < kNormRows ? Tout - r0 : kNormRows;
   const long long base = ((long long)b * Tout + r0) * Cout;
-  float* o = out + base;
-  const float* sk = skip != nullptr ? skip + base : nullptr;
+  const float* in = src + base;
+  T* o = dst + base;
+  const T* sk = skip != nullptr ? skip + base : nullptr;
   const float* st = stats + (long long)b * groups * 2;
   const int n = rows * Cout;
   if (vec) {
     for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) {
       const int c = i % Cout;
-      float4 v = *reinterpret_cast<const float4*>(o + i);
-      float r[4] = {v.x, v.y, v.z, v.w};
-      float4 sv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (sk != nullptr) sv = *reinterpret_cast<const float4*>(sk + i);
-      const float add[4] = {sv.x, sv.y, sv.z, sv.w};
+      float r[4], add[4] = {0.f, 0.f, 0.f, 0.f};
+      load4(in + i, r);
+      if (sk != nullptr) load4(sk + i, add);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         r[j] = normalise(r[j], st, c + j, cg, gamma, beta) + add[j];
         if (act) r[j] = gelu_tanh(r[j]);
       }
-      *reinterpret_cast<float4*>(o + i) = make_float4(r[0], r[1], r[2], r[3]);
+      store4(o + i, r);
     }
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      float v = normalise(o[i], st, i % Cout, cg, gamma, beta);
-      if (sk != nullptr) v += sk[i];
+      float v = normalise(in[i], st, i % Cout, cg, gamma, beta);
+      if (sk != nullptr) v += load_f32(sk, i);
       if (act) v = gelu_tanh(v);
-      o[i] = v;
+      store(o, i, v);
     }
   }
+}
+
+template <typename T>
+int launch(const void* x, const void* w, const void* bias, const void* gamma,
+           const void* beta, const void* skip, void* out, float* conv,
+           void* partial, void* stats, int B, int T_len, int Cin, int Cout,
+           int K, int s, int pad_left, int Tout, int groups, float eps,
+           int act, void* stream) {
+  if (B <= 0 || T_len <= 0 || Cin <= 0 || Cout <= 0 || K <= 0 || s <= 0 ||
+      Tout <= 0 || groups <= 0 || Cout % groups != 0 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  constexpr int kCopies = sizeof(T) == 4 ? 2 : 1;   // hi and lo, or hi
+  constexpr unsigned kVecAlign = sizeof(T) == 4 ? 15u : 7u;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (Tout + kTM - 1) / kTM;
+  const int n_chunks = (Cout + kTN - 1) / kTN;
+  if ((long long)n_tiles * n_chunks > 0x7FFFFFFFll ||
+      (long long)kNormRows * Cout > 0x7FFFFFFFll)
+    return (int)cudaErrorInvalidValue;
+  // the most taps a block takes at once within its shared-memory budget
+  int taps = K;
+  while (taps > 1 && smem_bytes(taps, s, kCopies) > kSmemBudget) --taps;
+  const int smem = smem_bytes(taps, s, kCopies);
+  static int ready[64];
+  cudaError_t err = tf32x3::allow_smem(conv_kernel<T>, kSmemBudget, ready);
+  if (err != cudaSuccess) return (int)err;
+  const int vec_x = (Cin % 4 == 0 && ((uintptr_t)x & kVecAlign) == 0) ? 1 : 0;
+  const int vec_w = (Cout % 4 == 0 && ((uintptr_t)w & kVecAlign) == 0) ? 1 : 0;
+  const int cg = Cout / groups;
+  conv_kernel<T><<<dim3((unsigned)(n_tiles * n_chunks), B), kThreads, smem,
+                   st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(bias), conv, static_cast<float*>(partial), T_len,
+      Cin, Cout, K, s, pad_left, Tout, n_tiles, n_chunks, taps, vec_x,
+      vec_w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_kernel<<<dim3(groups, B), 128, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(stats), Cout,
+      cg, Tout, n_tiles, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int vec = (Cout % 4 == 0 &&
+                   (((uintptr_t)out | (uintptr_t)skip) & kVecAlign) == 0 &&
+                   ((uintptr_t)conv & 15u) == 0) ? 1 : 0;
+  norm_kernel<T><<<dim3((Tout + kNormRows - 1) / kNormRows, B), 256, 0, st>>>(
+      conv, static_cast<T*>(out), static_cast<const float*>(stats),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<const T*>(skip), Tout, Cout, cg, groups, act, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -436,42 +578,22 @@ extern "C" int conv_gn_fwd(const void* x, const void* w, const void* bias,
                            void* stats, int B, int T, int Cin, int Cout,
                            int K, int s, int pad_left, int Tout, int groups,
                            float eps, int act, void* stream) {
-  if (B <= 0 || T <= 0 || Cin <= 0 || Cout <= 0 || K <= 0 || s <= 0 ||
-      Tout <= 0 || groups <= 0 || Cout % groups != 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_tiles = (Tout + kTM - 1) / kTM;
-  const int n_chunks = (Cout + kTN - 1) / kTN;
-  if ((long long)n_tiles * n_chunks > 0x7FFFFFFFll ||
-      (long long)kNormRows * Cout > 0x7FFFFFFFll)
-    return (int)cudaErrorInvalidValue;
-  // the most taps a block takes at once within its shared-memory budget
-  int taps = K;
-  while (taps > 1 && smem_bytes(taps, s) > kSmemBudget) --taps;
-  const int smem = smem_bytes(taps, s);
-  static int ready[64];
-  cudaError_t err = tf32x3::allow_smem(conv_kernel, kSmemBudget, ready);
-  if (err != cudaSuccess) return (int)err;
-  const int vec_x = (Cin % 4 == 0 && ((uintptr_t)x & 15u) == 0) ? 1 : 0;
-  const int vec_w = (Cout % 4 == 0 && ((uintptr_t)w & 15u) == 0) ? 1 : 0;
-  const int cg = Cout / groups;
-  conv_kernel<<<dim3((unsigned)(n_tiles * n_chunks), B), kThreads, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out),
-      static_cast<float*>(partial), T, Cin, Cout, K, s, pad_left, Tout,
-      n_tiles, n_chunks, taps, vec_x, vec_w);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_kernel<<<dim3(groups, B), 128, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(stats), Cout,
-      cg, Tout, n_tiles, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int vec = (Cout % 4 == 0 &&
-                   (((uintptr_t)out | (uintptr_t)skip) & 15u) == 0) ? 1 : 0;
-  norm_kernel<<<dim3((Tout + kNormRows - 1) / kNormRows, B), 256, 0, st>>>(
-      static_cast<float*>(out), static_cast<const float*>(stats),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<const float*>(skip), Tout, Cout, cg, groups, act, vec);
-  return (int)cudaGetLastError();
+  return launch<float>(x, w, bias, gamma, beta, skip, out,
+                       static_cast<float*>(out), partial, stats, B, T, Cin,
+                       Cout, K, s, pad_left, Tout, groups, eps, act, stream);
+}
+
+// The bf16 form: x, w, bias, gamma, beta, skip and out bf16, conv an f32
+// (B, Tout, Cout) scratch for the convolution before the GroupNorm; partial
+// and stats f32 as above.
+extern "C" int conv_gn_fwd_bf16(const void* x, const void* w,
+                                const void* bias, const void* gamma,
+                                const void* beta, const void* skip, void* out,
+                                void* conv, void* partial, void* stats, int B,
+                                int T, int Cin, int Cout, int K, int s,
+                                int pad_left, int Tout, int groups, float eps,
+                                int act, void* stream) {
+  return launch<bf16_t>(x, w, bias, gamma, beta, skip, out,
+                        static_cast<float*>(conv), partial, stats, B, T, Cin,
+                        Cout, K, s, pad_left, Tout, groups, eps, act, stream);
 }

@@ -25,7 +25,8 @@ statistics over every rank's frames.
 bfloat16: every module runs in the dtype of its input and parameters, as
 flax's modules do under the JAX package's bf16 path (``DCSETrainer``'s
 ``compute_dtype``, a model cast with ``.to(torch.bfloat16)``). The norms
-take their statistics in float32 and return the input's dtype; BatchNorm's
+take their statistics in float32 and return the input's dtype, the
+LayerNorm and the GroupNorm with flax's variance E[x²] - E[x]²; BatchNorm's
 running statistics stay float32 buffers stepped from float32 statistics;
 the attention's key bias stays float32. Where PyTorch's bf16 operator
 would round once and the JAX package's rounds twice, the bf16 path rounds
@@ -46,42 +47,11 @@ from torch import nn
 from sincformer_tpu_torch.ops.attention import (active_ring_mesh,
                                                 dot_product_attention)
 from sincformer_tpu_torch.ops.cp_conv import cp_depthwise_conv_in_mesh
+from sincformer_tpu_torch.ops.flax_math import (LayerNorm, flax_norm, glu,
+                                                in_dtype, swish)
 from sincformer_tpu_torch.ops.fused_ffn import LN_EPS, fused_ffn
 from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel import sharding as tp
-
-
-def in_dtype(c: float, dtype: torch.dtype) -> float:
-    """The Python constant ``c`` rounded to bfloat16 for a bfloat16 operand
-    (JAX rounds a Python scalar to the array's dtype, PyTorch computes with
-    it whole); ``c`` itself for any other dtype."""
-    if dtype != torch.bfloat16:
-        return c
-    return float(torch.tensor(c, dtype=torch.bfloat16))
-
-
-def sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``torch.sigmoid``; in bfloat16 ``1 / (1 + exp(-x))`` with every
-    operation rounded to bfloat16, as XLA expands the JAX package's
-    ``jax.nn.sigmoid`` (PyTorch's bf16 sigmoid rounds once)."""
-    if x.dtype != torch.bfloat16:
-        return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x))
-
-
-def swish(x: torch.Tensor) -> torch.Tensor:
-    """x · sigmoid(x): ``F.silu`` in float32; in bfloat16 the product of x
-    and :func:`sigmoid`, rounded, as the JAX package's ``swish``."""
-    return F.silu(x) if x.dtype != torch.bfloat16 else x * sigmoid(x)
-
-
-def glu(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.glu`` over the last axis: ``F.glu`` in float32; in
-    bfloat16 a · :func:`sigmoid` (b), rounded."""
-    if x.dtype != torch.bfloat16:
-        return F.glu(x, dim=-1)
-    a, b = x.chunk(2, dim=-1)
-    return a * sigmoid(b)
 
 
 def dropout(x: torch.Tensor, p: float,
@@ -131,7 +101,7 @@ class FeedForwardModule(nn.Module):
         super().__init__()
         self.fused = fused
         self.dropout = dropout
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
         self.Dense_0 = nn.Linear(d_model, d_ff)
         self.Dense_1 = nn.Linear(d_ff, d_model)
         self._transposed = None         # (key, w1 (d, d_ff), w2 (d_ff, d))
@@ -192,7 +162,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.dropout = dropout
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model)
 
@@ -262,16 +232,6 @@ BN_EPS = 1e-5          # flax BatchNorm's epsilon
 BN_MOMENTUM = 0.99     # flax BatchNorm: ra <- 0.99 ra + 0.01 x
 
 
-def _fast_stats(x: torch.Tensor, dims):
-    """flax's statistics (``use_fast_variance``): the mean and
-    max(0, E[x²] - E[x]²) over ``dims``, which hold the time axis (over
-    the whole sequence under ``ops.ring_mesh``); ``x`` is float32 (or
-    float64)."""
-    mu = _sequence_mean(x.mean(dim=dims))
-    return mu, torch.clamp(_sequence_mean(torch.mean(x * x, dim=dims))
-                           - mu * mu, min=0.0)
-
-
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor,
                train: bool, momentum: float = BN_MOMENTUM,
@@ -336,15 +296,12 @@ class GroupNorm(nn.Module):
 
     def forward(self, x):
         b, t, d = x.shape
-        size = d // self.num_groups
-        dtype = x.dtype
-        x = x.float() if dtype == torch.bfloat16 else x
-        mean, var = _fast_stats(x.reshape(b, t, self.num_groups, size),
-                                (1, 3))
-        mean = mean.repeat_interleave(size, dim=-1)[:, None, :]
-        mul = torch.rsqrt(var + self.eps).repeat_interleave(size, dim=-1)
-        return ((x - mean) * (mul[:, None, :] * self.weight)
-                + self.bias).to(dtype)
+        g = self.num_groups
+        xf = x.float() if x.dtype == torch.bfloat16 else x
+        y = flax_norm(xf.reshape(b, t, g, d // g), (1, 3),
+                      self.weight.view(g, -1), self.bias.view(g, -1),
+                      self.eps, _sequence_mean)
+        return y.reshape(b, t, d).to(x.dtype)
 
 
 class ConvolutionModule(nn.Module):
@@ -358,7 +315,7 @@ class ConvolutionModule(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.norm = norm
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
         self.pointwise1 = nn.Linear(d_model, 2 * d_model)
         self.depthwise = DepthwiseConv(d_model, kernel_size)
         if norm == "batch":
@@ -366,7 +323,7 @@ class ConvolutionModule(nn.Module):
         elif norm == "group":
             self.gn = GroupNorm(d_model, min(32, d_model))
         elif norm == "layer":
-            self.ln = nn.LayerNorm(d_model, eps=LN_EPS)
+            self.ln = LayerNorm(d_model, eps=LN_EPS)
         else:
             raise ValueError(f"norm must be 'layer', 'batch' or 'group', got "
                              f"{norm!r}")
@@ -401,7 +358,7 @@ class ConformerBlock(nn.Module):
                                                      dropout, conv_norm)
         self.FeedForwardModule_1 = FeedForwardModule(d_model, d_ff, fused_ffn,
                                                      dropout)
-        self.LayerNorm_0 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.LayerNorm_0 = LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):

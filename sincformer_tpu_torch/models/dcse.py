@@ -38,9 +38,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from sincformer_tpu_torch.config import DCSEConfig
-from sincformer_tpu_torch.models.conformer import (LN_EPS, ConformerBlock,
-                                                   in_dtype, sigmoid)
+from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
 from sincformer_tpu_torch.models.init import variance_scaling_
+from sincformer_tpu_torch.ops.flax_math import LayerNorm, in_dtype, sigmoid
 from sincformer_tpu_torch.parallel import sharding as tp
 
 
@@ -87,13 +87,13 @@ class SpeechEnhancer(nn.Module):
         c = config
         self.config = c
         self.phase_bound = math.pi / c.phase_bound_div
-        self.input_norm = nn.LayerNorm(2 * c.n_freq, eps=LN_EPS)
+        self.input_norm = LayerNorm(2 * c.n_freq, eps=LN_EPS)
         self.input_proj = nn.Linear(2 * c.n_freq, c.d_model)
         for i in range(c.num_blocks):
             self.add_module(f"block_{i}", ConformerBlock(
                 c.d_model, c.num_heads, c.ff_dim, c.kernel_size, c.attn_impl,
                 c.fused_ffn, c.dropout, c.conv_norm))
-        self.output_norm = nn.LayerNorm(c.d_model, eps=LN_EPS)
+        self.output_norm = LayerNorm(c.d_model, eps=LN_EPS)
         self.mag_head = nn.Linear(c.d_model, c.n_freq)
         self.phase_head = nn.Linear(c.d_model, c.n_freq)
 

@@ -1,5 +1,7 @@
 """Hand-written kernels for Hopper (``csrc/``, each beside its plain
-version) and the attention dispatch with its context-parallel ops."""
+version), the attention dispatch with its context-parallel ops, and
+flax's elementwise functions and norms with the JAX package's bf16
+rounding (``flax_math``)."""
 
 from sincformer_tpu_torch.ops.attention import (  # noqa: F401
     dot_product_attention, ring_mesh)

@@ -7,7 +7,9 @@
     library flash kernel is not available: full attention, here K1 on a
     CUDA tensor and the plain attention on the CPU (the same as
     ``"speech"``).
-  * ``impl="xla"``: the plain PyTorch attention, on any device.
+  * ``impl="xla"``: the plain PyTorch attention, on any device; in
+    bfloat16 with the key bias in q's dtype, as the JAX package's
+    ``jax.nn.dot_product_attention`` branch builds it.
   * ``impl="ring"``: context-parallel ring attention
     (ops/ring_attention.py) over the axis that a :func:`ring_mesh` block
     names; inside the block every tensor is this rank's block of frames.
@@ -117,5 +119,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl in ("speech", "flash"):
         return speech_attention(q, k, v, bias)
     if impl == "xla":
-        return _speech_attention_plain(q, k, v, bias)
+        # jax.nn.dot_product_attention's branch: the key bias in q's dtype
+        return _speech_attention_plain(
+            q, k, v, None if bias is None else bias.to(q.dtype))
     raise ValueError(f"unknown attention impl {impl!r}")

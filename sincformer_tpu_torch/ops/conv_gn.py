@@ -16,6 +16,12 @@ forward is the kernel and the backward the gradient of
 :func:`conv_gn_reference`, recomputed (JAX's ``custom_vjp`` backward is
 the plain formulation's too); the optional ``skip`` gets a gradient when
 it is given.
+
+bfloat16 (every input bf16): the kernel's bf16 form (``conv_gn_fwd_bf16``:
+one TF32 product per product, exact for bf16 operands, f32 sums) and the
+plain version compute in float32 and round once at the end, as the JAX
+package's ``conv_gn_reference`` does. A bf16 launch counts in
+``conv1d_gn.launches`` and in ``conv1d_gn.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import torch.nn.functional as F
 from sincformer_tpu_torch.ops import build
 
 _TILE_ROWS = 128         # csrc/conv_gn.cu: kTM
+# the kernel's entry point for each dtype it takes
+_ENTRY = {torch.float32: "conv_gn_fwd", torch.bfloat16: "conv_gn_fwd_bf16"}
 
 
 def _same_pads(t: int, k: int, s: int) -> Tuple[int, int, int]:
@@ -62,7 +70,8 @@ def _check_shapes(x, w, b, gamma, beta, skip, stride: int, groups: int):
 def conv_gn_reference(x, w, b, gamma, beta, skip=None, *, stride: int,
                       groups: int, eps: float = 1e-6, act: bool = True):
     """Plain PyTorch version: Conv(SAME) → GroupNorm [→ + skip] [→ GELU] in
-    float32, the variance as the mean of squares about the mean."""
+    float32, the variance as the mean of squares about the mean, rounded
+    once to x's dtype."""
     _check_shapes(x, w, b, gamma, beta, skip, stride, groups)
     k = w.shape[0]
     _, pad_l, pad_r = _same_pads(x.shape[1], k, stride)
@@ -83,9 +92,11 @@ def conv_gn_reference(x, w, b, gamma, beta, skip=None, *, stride: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("conv_gn").conv_gn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+def _kernel(dtype: torch.dtype = torch.float32):
+    fn = getattr(build.load("conv_gn"), _ENTRY[dtype])
+    # the bf16 form takes one more pointer: its f32 convolution scratch
+    n_ptr = 9 if dtype == torch.float32 else 10
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -98,10 +109,13 @@ def _forward(x, w, b, gamma, beta, skip, stride: int, groups: int,
     tensors = [("x", x), ("w", w), ("b", b), ("gamma", gamma), ("beta", beta)]
     if skip is not None:
         tensors.append(("skip", skip))
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"conv1d_gn kernel takes float32 or bfloat16, x is "
+                        f"{x.dtype}")
     for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"conv1d_gn kernel takes float32, {name} is "
-                            f"{t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"conv1d_gn kernel takes inputs of one dtype; "
+                            f"{name} is {t.dtype}, x {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -121,18 +135,25 @@ def _forward(x, w, b, gamma, beta, skip, stride: int, groups: int,
                           device=x.device)
     stats = torch.empty((bsz, groups, 2), dtype=torch.float32,
                         device=x.device)
-    fn = _kernel()
+    scratch = []          # bf16: the f32 convolution before the norm
+    if x.dtype == torch.bfloat16:
+        scratch = [torch.empty((bsz, t_out, cout), dtype=torch.float32,
+                               device=x.device)]
+    fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
                  beta.data_ptr(), skip.data_ptr() if skip is not None else None,
-                 out.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, t,
-                 cin, cout, k, stride, pad_l, t_out, groups, float(eps),
-                 int(bool(act)), stream)
+                 out.data_ptr(), *(c.data_ptr() for c in scratch),
+                 partial.data_ptr(),
+                 stats.data_ptr(), bsz, t, cin, cout, k, stride, pad_l, t_out,
+                 groups, float(eps), int(bool(act)), stream)
     if err != 0:
         raise RuntimeError(f"conv1d_gn kernel launch failed: CUDA error "
                            f"{err}")
     conv1d_gn.launches += 1
+    if x.dtype == torch.bfloat16:
+        conv1d_gn.launches_bf16 += 1
     return out
 
 
@@ -175,7 +196,8 @@ def conv1d_gn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     Returns (B, Tout, Cout), Tout = ceil(T / stride). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernels (counted once per call
-    in ``conv1d_gn.launches``, forward launches only) or raises. When an
+    in ``conv1d_gn.launches``, forward launches only, and those of the bf16
+    form also in ``conv1d_gn.launches_bf16``) or raises. When an
     input needs a gradient the call is differentiable: the backward is the
     plain version's.
     """
@@ -192,3 +214,4 @@ def conv1d_gn(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 conv1d_gn.launches = 0
+conv1d_gn.launches_bf16 = 0

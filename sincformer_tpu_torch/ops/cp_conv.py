@@ -7,7 +7,10 @@ Each rank sends its last (k − 1)/2 frames to the next rank and its first
 (k − 1)/2 to the previous (``parallel.collectives.hop``, whose backward
 sends the gradient back), zeroes the halo at the sequence's two ends (the
 SAME padding of one process), and runs a VALID depthwise ``F.conv1d`` on
-its block with the halo around it.
+its block with the halo around it. The bias is added after the
+convolution in the activation's dtype, as JAX's body adds it (in bfloat16
+the convolution rounds before the bias, as the one-process
+``models.conformer.DepthwiseConv`` rounds).
 
 :func:`cp_depthwise_conv_in_mesh` takes this rank's block (the model
 layer's call, ``models/conformer.DepthwiseConv`` under ``ops.ring_mesh``);
@@ -44,8 +47,10 @@ def cp_depthwise_conv_in_mesh(x: torch.Tensor, weight: torch.Tensor,
         x = torch.cat([left, x, right], dim=1)
     else:
         x = F.pad(x, (0, 0, halo, halo))
-    y = F.conv1d(x.transpose(1, 2), weight.to(x.dtype), bias,
+    y = F.conv1d(x.transpose(1, 2), weight.to(x.dtype), None,
                  groups=weight.shape[0])
+    if bias is not None:    # after the rounded convolution, in its dtype
+        y = y + bias.to(y.dtype)[:, None]
     return y.transpose(1, 2)
 
 

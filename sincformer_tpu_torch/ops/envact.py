@@ -14,6 +14,13 @@ calls this: it is reached through :func:`env_act` and :func:`env_act_auto`.
 Differentiable on either device, as JAX's: on the card the forward is the
 kernel and the backward the gradient of :func:`env_act_reference`,
 recomputed.
+
+bfloat16 (x and scale both bf16): the kernel's bf16 form
+(``envact_fwd_bf16``) and the plain version round where the JAX package's
+``env_act_reference`` rounds in bf16: x · scale and every operation of the
+GELU's expansion (``ops.flax_math.gelu``) to bf16; the envelope's mean
+and log1p in float32 from the widened input, rounded once. A bf16 launch
+counts in ``env_act.launches`` and in ``env_act.launches_bf16``.
 """
 
 from __future__ import annotations
@@ -23,11 +30,13 @@ import functools
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from sincformer_tpu_torch.ops import build
+from sincformer_tpu_torch.ops.flax_math import gelu
 
 POOL = 8
+# the kernel's entry point for each dtype it takes
+_ENTRY = {torch.float32: "envact_fwd", torch.bfloat16: "envact_fwd_bf16"}
 
 
 def _check_shapes(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -45,17 +54,17 @@ def _check_shapes(x: torch.Tensor, scale: torch.Tensor) -> None:
 def env_act_reference(x: torch.Tensor, scale: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: (B, N, C), (C,) → (y (B, N, C),
-    env (B, N/8, C))."""
+    env (B, N/8, C)), in x's dtype (bf16 rounding as the module says)."""
     _check_shapes(x, scale)
     b, n, c = x.shape
-    y = F.gelu(x * scale, approximate="tanh")
+    y = gelu(x * scale)
     env = x.abs().reshape(b, n // POOL, POOL, c).to(torch.float32).mean(dim=2)
     return y, torch.log1p(env).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.load("envact").envact_fwd
+def _kernel(dtype: torch.dtype = torch.float32):
+    fn = getattr(build.load("envact"), _ENTRY[dtype])
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -66,10 +75,13 @@ def _forward(x: torch.Tensor, scale: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on CUDA tensors, counted in ``env_act.launches``."""
     _check_shapes(x, scale)
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"env_act kernel takes float32 or bfloat16, x is "
+                        f"{x.dtype}")
     for name, t in (("x", x), ("scale", scale)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"env_act kernel takes float32, {name} is "
-                            f"{t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"env_act kernel takes x and scale of one dtype; "
+                            f"{name} is {t.dtype}, x {x.dtype}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -80,7 +92,7 @@ def _forward(x: torch.Tensor, scale: torch.Tensor
         raise ValueError("env_act kernel needs a non-empty input")
     y = torch.empty_like(x)
     env = torch.empty((b, n // POOL, c), dtype=x.dtype, device=x.device)
-    fn = _kernel()
+    fn = _kernel(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
@@ -88,6 +100,8 @@ def _forward(x: torch.Tensor, scale: torch.Tensor
     if err != 0:
         raise RuntimeError(f"env_act kernel launch failed: CUDA error {err}")
     env_act.launches += 1
+    if x.dtype == torch.bfloat16:
+        env_act.launches_bf16 += 1
     return y, env
 
 
@@ -115,7 +129,8 @@ def env_act(x: torch.Tensor, scale: torch.Tensor
     log1p(pool8(|x|))).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``env_act.launches``, forward launches only) or raises.
+    (counted in ``env_act.launches``, forward launches only, and those of
+    the bf16 form also in ``env_act.launches_bf16``) or raises.
     When an input needs a gradient the call is differentiable: the backward
     is the plain version's.
     """
@@ -129,6 +144,7 @@ def env_act(x: torch.Tensor, scale: torch.Tensor
 
 
 env_act.launches = 0
+env_act.launches_bf16 = 0
 
 
 def env_act_auto(x: torch.Tensor, scale: torch.Tensor

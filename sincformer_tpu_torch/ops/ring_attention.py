@@ -8,6 +8,9 @@ visiting block with the online-softmax recurrence in float32, as the JAX
 body does: a -1e30 start, n - 1 accumulate-and-hop steps, then the last
 block with no hop, and ``acc / max(l, 1e-30)``. The block products are
 ``torch.matmul``, as JAX computes them with ``einsum`` outside any kernel.
+bfloat16 q, k and v are widened to float32 for the whole body (P stays
+float32 for P.V, unlike the one-process attention, which rounds P to V's
+dtype) and the output is rounded once to q's dtype, as JAX's body does.
 The hop's backward sends the gradient back the way the block came (JAX's
 autodiff of ``ppermute``), so every rank must run the backward together.
 

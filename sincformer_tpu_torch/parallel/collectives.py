@@ -168,21 +168,17 @@ def sum(x: torch.Tensor) -> torch.Tensor:        # noqa: A001
     return _all_reduce(x, differentiable=False)
 
 
-def average_over_ranks(tensors: Sequence[Optional[torch.Tensor]],
-                       mesh) -> List[Optional[torch.Tensor]]:
-    """The mean over ``mesh``'s data ranks of each tensor (one all-reduce of
-    them all, flattened, without a gradient). For gradients: each rank's
-    loss is the mean over its rows, so the mean of the ranks' gradients is
-    the gradient of the global mean. A None (a parameter nothing reads, the
-    same on every rank) stays None. The identity without a mesh or with
-    one rank."""
-    group = group_of(mesh)
+def sum_over(tensors: Sequence[Optional[torch.Tensor]],
+             group) -> List[Optional[torch.Tensor]]:
+    """The sum over ``group``'s ranks of each tensor (one all-reduce of
+    them all, flattened, without a gradient). A None (a parameter nothing
+    reads, the same on every rank) stays None. The identity without a
+    group or with one rank."""
     if not _active(group):
         return list(tensors)
     flat = torch.cat([g.detach().reshape(-1) for g in tensors
                       if g is not None])
     dist.all_reduce(flat, group=group)
-    flat = flat / dist.get_world_size(group)
     out, offset = [], 0
     for g in tensors:
         if g is None:
@@ -191,6 +187,19 @@ def average_over_ranks(tensors: Sequence[Optional[torch.Tensor]],
         out.append(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
     return out
+
+
+def average_over_ranks(tensors: Sequence[Optional[torch.Tensor]],
+                       mesh) -> List[Optional[torch.Tensor]]:
+    """The mean over ``mesh``'s data ranks of each tensor (:func:`sum_over`
+    divided by their number). For gradients: each rank's loss is the mean
+    over its rows, so the mean of the ranks' gradients is the gradient of
+    the global mean. The identity without a mesh or with one rank."""
+    group = group_of(mesh)
+    if not _active(group):
+        return list(tensors)
+    n = dist.get_world_size(group)
+    return [None if g is None else g / n for g in sum_over(tensors, group)]
 
 
 def mean_and_sum_over_ranks(means: Sequence[torch.Tensor],

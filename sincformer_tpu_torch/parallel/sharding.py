@@ -227,9 +227,14 @@ def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 def conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """``conv`` on (B, C, T) input already padded; with a split weight,
     this rank's block of output channels (of a depthwise conv, from this
-    rank's block of input channels), the blocks gathered, then the bias."""
+    rank's block of input channels), the blocks gathered, then the bias.
+    In bfloat16 the convolution is rounded before the bias is added, as
+    flax's Conv rounds."""
     w = conv.weight
     if getattr(w, "tp_split", None) is None:
+        if x.dtype == torch.bfloat16 and conv.bias is not None:
+            return F.conv1d(x, w, None, conv.stride, conv.padding,
+                            conv.dilation, conv.groups) + conv.bias[:, None]
         return F.conv1d(x, w, conv.bias, conv.stride, conv.padding,
                         conv.dilation, conv.groups)
     return _conv1d_split(x, w, conv.bias, conv.stride, conv.padding,

@@ -44,8 +44,17 @@ over the ranks in float32); the BatchNorm statistics stay float32 buffers;
 the enhanced STFT is widened to float32 before the iSTFT and the losses.
 The train and eval steps and validation take that path; serving
 (``enhance``, the inherited pipeline) and checkpoints stay float32.
-Context parallelism (``attn_impl="ring"`` inside ``ops.ring_mesh``) is
-not ported in bf16.
+Context parallelism (a model with ``attn_impl="ring"``, the steps called
+inside ``ops.ring_mesh``): every rank holds the whole batch, takes the
+STFT, and runs the model on its block of the frames (the frame count must
+divide the ring, as JAX asserts); the blocks of the enhanced STFT are
+gathered back (the gather's backward takes this rank's block of the
+gradient), so every rank computes the same losses, and the parameters'
+gradients, each rank's share, are summed over the ring. In bf16 the ring's
+body and the halo conv round as JAX's do (``ops/ring_attention.py``,
+``ops/cp_conv.py``). A data-parallel mesh on the trainer and a ring
+together are refused; with dropout each rank draws its block's masks from
+its own generator.
 """
 
 from __future__ import annotations
@@ -229,20 +238,22 @@ class DCSETrainer(DCSEPipeline):
         noisy_spec = stft(noisy, n_fft, hop, frame)
         clean_spec = stft(clean, n_fft, hop, frame)
         generator = self.dropout_generator if train else None
+        ring = active_ring_mesh()
+        re, im = noisy_spec.real, noisy_spec.imag
+        if ring is not None:
+            re, im = (self._ring_block(t, *ring) for t in (re, im))
         dt = self.compute_dtype
         if dt is None:
-            enh_r, enh_i, _ = self.model(noisy_spec.real, noisy_spec.imag,
-                                         generator=generator)
+            enh_r, enh_i, _ = self.model(re, im, generator=generator)
         else:
-            if active_ring_mesh() is not None:
-                raise NotImplementedError(
-                    "bf16 DCSE training under ops.ring_mesh (context "
-                    "parallelism) is not ported")
             enh_r, enh_i, _ = torch.func.functional_call(
                 self.model, compute_copies(self.model, dt),
-                (noisy_spec.real.to(dt), noisy_spec.imag.to(dt)),
-                {"generator": generator})
+                (re.to(dt), im.to(dt)), {"generator": generator})
             enh_r, enh_i = enh_r.float(), enh_i.float()
+        if ring is not None:        # every rank's block: the whole again
+            group = ring[0].get_group(ring[1])
+            enh_r, enh_i = (collectives.gather(t, 1, group=group)
+                            for t in (enh_r, enh_i))
         enh_wav = istft(torch.complex(enh_r, enh_i), n_fft, hop, frame,
                         length=clean.shape[-1])
         loss_sisnr = si_snr_loss(enh_wav, clean)
@@ -255,6 +266,22 @@ class DCSETrainer(DCSEPipeline):
                  + loss_stft)
         return total, (-loss_sisnr, enh_wav)
 
+    def _ring_block(self, x: torch.Tensor, mesh, seq_axis: str
+                    ) -> torch.Tensor:
+        """This rank's block of the frames (axis 1) of ``x`` on the ring
+        ``mesh[seq_axis]``."""
+        if self.mesh is not None:
+            raise ValueError("context parallelism in the trainer takes the "
+                             "whole batch on every rank: give the trainer "
+                             "no data-parallel mesh inside ops.ring_mesh")
+        n = mesh.size(mesh.mesh_dim_names.index(seq_axis))
+        t = x.shape[1]
+        if t % n:
+            raise ValueError(f"{t} STFT frames must divide the "
+                             f"'{seq_axis}' axis size {n}")
+        r = mesh.get_local_rank(seq_axis)
+        return x[:, r * (t // n):(r + 1) * (t // n)]
+
     def loss_and_grads(self, noisy: torch.Tensor, clean: torch.Tensor):
         """A training forward and its gradients: (loss, sisnr, grads in the
         order of :meth:`params`, None for a parameter nothing reads)."""
@@ -263,6 +290,9 @@ class DCSETrainer(DCSEPipeline):
                 collectives.model_parallel(self.mesh):
             loss, (sisnr, _) = self._loss(noisy, clean, True)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
+        ring = active_ring_mesh()
+        if ring is not None:    # each rank's share, through its block
+            grads = collectives.sum_over(grads, ring[0].get_group(ring[1]))
         loss, sisnr, *grads = collectives.average_over_ranks(
             [loss.detach(), sisnr.detach(), *grads], self.mesh)
         return loss, sisnr, collectives.average_replicated(

@@ -71,6 +71,35 @@ def ffn_scale(x, ln_g, ln_b, w1, b1, w2, b2) -> torch.Tensor:
     return xf.abs() + 0.5 * (h.abs() @ w2.float().abs() + b2.float().abs())
 
 
+def conv_gn_scale(x, w, b, gamma, beta, skip, stride: int,
+                  groups: int) -> torch.Tensor:
+    """The term scale of kernel K5's (B, Tout, Cout) output: the
+    normalised magnitudes of the convolution's terms and of the mean,
+    (sum |x||w| + |b| + |mu|) * rstd * |gamma|, plus |beta| and |skip| (the
+    tanh-GELU's slope is at most 1.13), in float32 on the host."""
+    import torch.nn.functional as F
+    x, w, b, gamma, beta = (torch.as_tensor(t).float().cpu()
+                            for t in (x, w, b, gamma, beta))
+    k = w.shape[0]
+    t_out = -(-x.shape[1] // stride)
+    total = max((t_out - 1) * stride + k - x.shape[1], 0)
+
+    def conv(x_, w_, b_):
+        return F.conv1d(F.pad(x_.transpose(1, 2),
+                              (total // 2, total - total // 2)),
+                        w_.permute(2, 1, 0), b_, stride=stride).transpose(1, 2)
+    y = conv(x, w, b)
+    bsz, _, cout = y.shape
+    yg = y.reshape(bsz, t_out, groups, cout // groups)
+    mu = yg.mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(((yg - mu) ** 2).mean(dim=(1, 3), keepdim=True) + 1e-6)
+    terms = conv(x.abs(), w.abs(), b.abs()).reshape(yg.shape) + mu.abs()
+    scale = (terms * rstd).reshape(y.shape) * gamma.abs() + beta.abs()
+    if skip is not None:
+        scale = scale + torch.as_tensor(skip).float().cpu().abs()
+    return scale
+
+
 def attention_p_in_f32(q, k, v, bias=None) -> torch.Tensor:
     """A planted fault: bf16 attention that keeps P in f32 for P.V."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())

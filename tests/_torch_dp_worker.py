@@ -22,7 +22,7 @@ Jobs:
     rank's rows; an epoch of ``train``;
   * ``"evaluate"``: ``cli.main(["evaluate", "--distributed", ...])`` with
     an identity enhancer and no speech files;
-  * ``"tp"`` and ``"cp"``: tensor and context parallelism
+  * ``"tp"``, ``"cp"`` and ``"cp_bf16"``: tensor and context parallelism
     (tests/_torch_tp_jobs.py).
 """
 
@@ -467,4 +467,6 @@ def _tp_jobs():
 
 JOBS = {"flagship": flagship, "dcse": dcse, "evaluate": evaluate,
         "tp": lambda job, mesh, out_dir: _tp_jobs().tp(job, mesh, out_dir),
-        "cp": lambda job, mesh, out_dir: _tp_jobs().cp(job, mesh, out_dir)}
+        "cp": lambda job, mesh, out_dir: _tp_jobs().cp(job, mesh, out_dir),
+        "cp_bf16": lambda job, mesh, out_dir: _tp_jobs().cp_bf16(job, mesh,
+                                                                 out_dir)}

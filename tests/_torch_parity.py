@@ -70,8 +70,9 @@ _BUILD_LOCK = threading.Lock()
 def narrow_model(**variant):
     """(flax module, numpy variables, torch SincformerMetacog loaded from
     them) at the NARROW widths, μ-law fine stream; ``variant`` sets the
-    flax model's ``pa_impl``, ``cpea_impl`` and ``pa_fine_feats``. Built
-    once per variant, whichever thread asks first."""
+    flax model's ``pa_impl``, ``cpea_impl``, ``pa_fine_feats`` or
+    ``pa_fine_act``, or a NARROW width (``msa_blocks``). Built once per
+    variant, whichever thread asks first."""
     with _BUILD_LOCK:
         return _narrow_model(**variant)
 
@@ -82,8 +83,8 @@ def _narrow_model(**variant):
     from sincformer_tpu_torch.agents.metacog import SincformerMetacog
     from sincformer_tpu_torch.compat.from_jax import load_from_jax
 
-    model = JaxModel(**NARROW, **{"dropout": 0.0, "attn_impl": "speech",
-                                  "pa_fine_act": "mulaw", **variant})
+    model = JaxModel(**{**NARROW, "dropout": 0.0, "attn_impl": "speech",
+                        "pa_fine_act": "mulaw", **variant})
     wav = jnp.zeros((1, 800))
     spec = jnp.zeros((1, 11, 129))
     shapes = jax.eval_shape(lambda: model.init(

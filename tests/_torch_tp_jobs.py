@@ -14,9 +14,16 @@ port only, never JAX.
     input and parameter gradients, one SGD step), the same block with a
     hop whose backward keeps the gradient where it arrived (planted), and
     ``cp_depthwise_conv`` on a (2, 1) and a (1, 2) mesh with its
-    gradients; the depthwise conv where the halo cannot run (an even
-    kernel, a block shorter than the halo) and the conv module with
-    "batch" and "group" norm under ``ring_mesh``.
+    gradients; the ring and the halo conv on bf16 inputs; the narrow
+    ``DCSETrainer``'s step under ``ring_mesh`` in float32 and bf16
+    (:func:`cp_trainer`); the depthwise conv where the halo cannot run
+    (an even kernel, a block shorter than the halo) and the conv module
+    with "batch" and "group" norm under ``ring_mesh``.
+  * :func:`cp_bf16` on a 2-rank sequence axis: the narrow DCSE model in
+    bf16 (the trainer's bf16 copies of float32 masters) with
+    ``attn_impl="ring"`` under ``ring_mesh`` on this rank's half of the
+    frames (:func:`dcse_bf16_step`), against which the test runs the same
+    model in one process.
 """
 
 from __future__ import annotations
@@ -174,10 +181,17 @@ def cp(job, mesh, out_dir):
         conv[shape] = {"y": y.detach(), "x_grad": gx, "w_grad": gw,
                        "b_grad": gb, "n": n, "r": r}
     out["conv"] = conv
+    # the ring and the halo conv on bf16 inputs, forward only
+    conv16 = [torch.from_numpy(job[n]).bfloat16()
+              for n in ("conv_x", "conv_w", "conv_b")]
+    out["bf16"] = {"ring": ring_attention(q.bfloat16(), k.bfloat16(),
+                                          v.bfloat16(), mesh),
+                   "conv": cp_depthwise_conv(*conv16, mesh)}
     out["raises"] = _raises(mesh)
     out["masked"] = _masked_fallback(job, mesh)
     out["modules"] = {name: _module_under_ring(case, mesh)
                       for name, case in job["modules"].items()}
+    out["trainer"] = cp_trainer(job, mesh)
     return out
 
 
@@ -268,3 +282,77 @@ def _raises(mesh) -> dict:
         except ValueError as e:
             out[name] = str(e)
     return out
+
+
+def dcse_model(config: dict, attn_impl: str):
+    """The DCSE SpeechEnhancer of ``config`` with ``attn_impl``, float32
+    weights drawn from seed 0 (the same weights for every impl)."""
+    from sincformer_tpu_torch.config import DCSEConfig
+    from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+    return SpeechEnhancer(DCSEConfig(**config, attn_impl=attn_impl)
+                          ).init_params(torch.Generator().manual_seed(0))
+
+
+def dcse_bf16_step(model, job, rows=slice(None), dtype=torch.bfloat16):
+    """A training forward (dropout 0, BatchNorm on the batch's statistics)
+    of ``model`` in ``dtype`` on bf16 (``dtype``) copies of its float32
+    masters, as ``DCSETrainer(compute_dtype=...)`` runs it, over ``rows``
+    of the frames of the job's noisy STFT: the loss sum(weight ·
+    |enhanced|²) over those frames, the masters' gradients and the
+    enhanced STFT (float32)."""
+    from sincformer_tpu_torch.train.dcse_trainer import compute_copies
+    re, im, wt = (torch.from_numpy(job[k])[:, rows]
+                  for k in ("re", "im", "weight"))
+    params = dict(model.named_parameters())
+    er, ei, _ = torch.func.functional_call(
+        model, compute_copies(model, dtype), (re.to(dtype), im.to(dtype)),
+        {"generator": torch.Generator().manual_seed(0)})
+    loss = torch.sum(wt * (er.float() ** 2 + ei.float() ** 2))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return {"loss": float(loss.detach()),
+            "out": torch.stack([er, ei]).detach().float(),
+            "grads": dict(zip(params, grads))}
+
+
+def cp_trainer(job, mesh=None):
+    """The narrow ``DCSETrainer`` with JAX's weights (``job["dcse"]``):
+    ``loss_and_grads`` without the multi-resolution STFT term, in float32
+    and bf16, with ``attn_impl="ring"`` under ``ring_mesh`` on ``mesh``, or
+    in one process with ``attn_impl="speech"`` when ``mesh`` is None: the
+    loss and the gradients by parameter name."""
+    import contextlib
+    import tempfile
+
+    import sincformer_tpu_torch.train.dcse_trainer as port_dcse
+    from sincformer_tpu_torch.compat.from_jax import \
+        load_dcse_train_state_from_jax
+    from sincformer_tpu_torch.models.dcse import SpeechEnhancer
+    from sincformer_tpu_torch.ops.attention import ring_mesh
+    out = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        named, buffers, _, config = load_dcse_train_state_from_jax(
+            job["dcse"], None, None, num_heads=job["block"]["num_heads"],
+            dropout=0.0, attn_impl="speech" if mesh is None else "ring")
+        pipe = port_dcse.DCSETrainer(SpeechEnhancer(config), device="cpu",
+                                     model_dir=tempfile.mkdtemp(),
+                                     compute_dtype=dtype)
+        pipe.load_state(named, buffers)
+        pipe.init_state(worker.LR_EPOCHS, worker.LR_STEPS, init_params=False)
+        with mock.patch.object(port_dcse, "multi_resolution_stft_loss",
+                               lambda pred, target: pred.sum() * 0.0), \
+                (contextlib.nullcontext() if mesh is None
+                 else ring_mesh(mesh, "data")):
+            loss, _, grads = pipe.loss_and_grads(
+                *(torch.from_numpy(job[k]) for k in ("noisy", "clean")))
+        out[name] = {"loss": float(loss),
+                     "grads": dict(zip(pipe.params(), grads))}
+    return out
+
+
+def cp_bf16(job, mesh, out_dir):
+    from sincformer_tpu_torch.ops.attention import ring_mesh
+    n, r = mesh.size(0), mesh.get_local_rank("data")
+    tl = job["re"].shape[1] // n
+    model = dcse_model(job["config"], "ring")
+    with ring_mesh(mesh, "data"):
+        return dcse_bf16_step(model, job, slice(r * tl, (r + 1) * tl))

@@ -18,7 +18,8 @@ import torch
 import torch.distributed as dist
 
 import tests._torch_dp_worker as worker
-from tests._torch_bf16 import agreement, attention_scale, ffn_scale
+from tests._torch_bf16 import (agreement, attention_scale,
+                               conv_gn_scale, ffn_scale)
 
 # (B, T, dh, masked) on the card: the shapes chip_smoke.py's [bf16] holds,
 # and the edges of the bf16 form's paths: S in registers up to T = 448
@@ -151,6 +152,70 @@ def test_bf16_wrappers_on_cpu_tensors_launch_nothing():
                       fused_ffn.launches_bf16)
 
 
+def _k5_args(case, device, dtype=torch.bfloat16):
+    t, cin, cout, k, s, act, with_skip, groups = case
+    g = torch.Generator(device=device).manual_seed(t + cin)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, device=device,
+                                            generator=g)).to(dtype)
+    t_out = -(-t // s)
+    return (r(2, t, cin), r(k, cin, cout, scale=(k * cin) ** -0.5),
+            r(cout, scale=0.1), r(cout, scale=0.1, shift=1.0),
+            r(cout, scale=0.1), r(2, t_out, cout) if with_skip else None)
+
+
+def _k6_args(shape, device, dtype=torch.bfloat16):
+    g = torch.Generator(device=device).manual_seed(shape[1])
+    return ((3.0 * torch.randn(*shape, device=device, generator=g)).to(dtype),
+            (0.5 + 1.5 * torch.rand(shape[-1], device=device, generator=g)
+             ).to(dtype))
+
+
+# (T, Cin, Cout, K, stride, act, skip, groups) of K5's bf16 form on the
+# card: chip_smoke.py's shapes, the edges of its staging (Cin % 4, Cout %
+# 64 and % 4, taps in groups, Tout under a tile) and odd lengths
+K5_CARD = [(1000, 64, 128, 7, 2, True, False, 16),
+           (400, 256, 256, 7, 1, True, True, 16),
+           (500, 128, 128, 3, 1, False, True, 16),
+           (257, 24, 80, 21, 2, True, False, 16),
+           (100, 24, 48, 1, 4, True, False, 16),
+           (333, 12, 80, 5, 4, True, True, 16),
+           (50, 3, 18, 3, 1, False, False, 3),
+           (1200, 64, 128, 31, 1, True, False, 16)]
+# (B, N, C) of K6's bf16 form: eight channels a thread where C % 8 == 0,
+# one otherwise
+K6_CARD = [(2, 8000, 64), (1, 16, 3), (2, 800, 12), (3, 2400, 64)]
+
+
+def test_k5_k6_bf16_on_cpu_tensors_launch_nothing():
+    """On bf16 CPU tensors ``conv1d_gn`` and ``env_act`` return their plain
+    versions' bf16 results and count no launch; mixed dtypes are refused
+    by the kernels' argument checks."""
+    from sincformer_tpu_torch.ops import conv_gn, envact
+    counts = (conv_gn.conv1d_gn.launches, conv_gn.conv1d_gn.launches_bf16,
+              envact.env_act.launches, envact.env_act.launches_bf16)
+    case = K5_CARD[2]
+    args = _k5_args(case, "cpu")
+    out = conv_gn.conv1d_gn(*args, case[4], case[7], 1e-6, case[5])
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, conv_gn.conv_gn_reference(
+        *args, stride=case[4], groups=case[7], act=case[5]))
+    x, scale = _k6_args(K6_CARD[1], "cpu")
+    y, env = envact.env_act(x, scale)
+    assert y.dtype == env.dtype == torch.bfloat16
+    ref = envact.env_act_reference(x, scale)
+    assert torch.equal(y, ref[0]) and torch.equal(env, ref[1])
+    assert counts == (conv_gn.conv1d_gn.launches,
+                      conv_gn.conv1d_gn.launches_bf16,
+                      envact.env_act.launches, envact.env_act.launches_bf16)
+    with pytest.raises(TypeError, match="one dtype"):
+        envact._forward(x, scale.float())
+    with pytest.raises(TypeError, match="one dtype"):
+        conv_gn._forward(*args[:2], args[2].float(), *args[3:],
+                         case[4], case[7], 1e-6, case[5])
+
+
 @pytest.mark.parametrize("norm", ["layer", "batch"])
 def test_remat_in_bf16_is_bit_equal(norm):
     """A bf16 training forward with ``remat`` (dropout 0.1 and, for
@@ -210,13 +275,29 @@ def test_one_rank_mesh_bf16_step_is_bit_equal(group_of_one, axes):
             assert got[key] == value, key
 
 
+class _TwoRankRing:
+    """A stand-in for a DeviceMesh of one 2-rank "data" axis, this rank
+    the first: enough for the trainer to cut its block of frames."""
+    mesh_dim_names = ("data",)
+
+    def size(self, dim=0):
+        return 2
+
+    def get_local_rank(self, axis):
+        return 0
+
+
 def test_bf16_step_under_a_ring_raises():
-    """Context parallelism is not ported in bf16: a bf16 training forward
-    inside ``ops.ring_mesh`` raises before it runs."""
+    """A bf16 training step inside ``ops.ring_mesh`` runs the model on
+    this rank's block of the STFT frames (two real ranks are held in
+    ``tests/test_torch_bf16_kernels.py``), and refuses, before any
+    collective, a frame count that the ring does not divide (4,000
+    samples: 51 frames on 2 ranks), as JAX asserts; it raised
+    ``NotImplementedError`` before the ring was ported in bf16."""
     from sincformer_tpu_torch.ops import ring_mesh
-    pipe = _trainer(dropout=0.0)
-    with ring_mesh(object(), "data"), pytest.raises(
-            NotImplementedError, match="ring_mesh"):
+    pipe = _trainer(dropout=0.0, attn_impl="ring")
+    with ring_mesh(_TwoRankRing(), "data"), pytest.raises(
+            ValueError, match="51 STFT frames must divide"):
         pipe.loss_and_grads(*(torch.from_numpy(a) for a in _batch()))
 
 
@@ -329,3 +410,91 @@ def test_bf16_forms_under_autograd_on_the_card():
         ref = [a.clone().requires_grad_(True) for a in args]
         want = torch.autograd.grad(plain(*ref, *extra), ref, cot)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", K5_CARD)
+def test_k5_bf16_form_on_the_card(case):
+    """K5's bf16 form against its plain bf16 version on the same card, one
+    launch counted in both counts."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    from sincformer_tpu_torch.ops.conv_gn import conv1d_gn, conv_gn_reference
+    args = _k5_args(case, "cuda")
+    _, _, _, _, s, act, _, groups = case
+    before = conv1d_gn.launches_bf16
+    out = conv1d_gn(*args, s, groups, 1e-6, act)
+    torch.cuda.synchronize()
+    assert conv1d_gn.launches_bf16 == before + 1
+    share, ulps = agreement(out.cpu(), conv_gn_reference(
+        *args, stride=s, groups=groups, act=act).cpu(),
+        conv_gn_scale(*args, s, groups))
+    assert out.dtype == torch.bfloat16 and share >= 0.99 and ulps <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", K6_CARD)
+def test_k6_bf16_form_on_the_card(shape):
+    """K6's bf16 form against its plain bf16 version on the same card."""
+    _need_card()
+    from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
+    x, scale = _k6_args(shape, "cuda")
+    before = env_act.launches_bf16
+    y, env = env_act(x, scale)
+    torch.cuda.synchronize()
+    assert env_act.launches_bf16 == before + 1
+    y_ref, env_ref = env_act_reference(x, scale)
+    for got, want, terms in ((y, y_ref, (x.float() * scale.float()).abs()),
+                             (env, env_ref, torch.zeros(()))):
+        share, ulps = agreement(got.cpu(), want.cpu(), terms.cpu())
+        assert got.dtype == torch.bfloat16 and share >= 0.99 and ulps <= 1.0
+
+
+@pytest.mark.gpu
+def test_k5_k6_bf16_forms_under_autograd_on_the_card():
+    """Under autograd the bf16 forms of K5 and K6 keep a ``grad_fn`` and
+    their gradients are the plain bf16 versions' autograd, bit for bit."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    from sincformer_tpu_torch.ops.conv_gn import conv1d_gn, conv_gn_reference
+    from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
+    case = K5_CARD[1]
+    k5 = _k5_args(case, "cuda")
+    for fn, plain, args in (
+            (lambda *a: conv1d_gn(*a, 1, 16, 1e-6, True),
+             lambda *a: conv_gn_reference(*a, stride=1, groups=16), k5),
+            (lambda *a: env_act(*a)[0], lambda *a: env_act_reference(*a)[0],
+             _k6_args(K6_CARD[0], "cuda"))):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        cot = torch.randn_like(out)
+        got = torch.autograd.grad(out, leaves, cot)
+        ref = [a.clone().requires_grad_(True) for a in args]
+        want = torch.autograd.grad(plain(*ref), ref, cot)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_argmax_ties_take_the_first_index_on_the_card():
+    """Exact bf16 ties on the card: the MAA's decision, the VQ's index and
+    the memory's top slot take the first tied candidate, as on the CPU
+    and in JAX."""
+    _need_card()
+    from sincformer_tpu_torch.agents.memory import _unit
+    from sincformer_tpu_torch.models.vq import VectorQuantizer
+    logits = torch.tensor([[0.0, 2.0, 2.0, 1.0]] * 1000, device="cuda",
+                          dtype=torch.bfloat16)
+    assert (torch.argmax(logits, dim=-1) == 1).all()
+    vq = VectorQuantizer(3).cuda()
+    with torch.no_grad():
+        vq.centroids.copy_(torch.tensor([0.25, 0.75, 0.75]))
+        vq = vq.to(torch.bfloat16)
+        mask = torch.tensor([0.5, 0.75, 0.9, 0.1, 0.5] * 200, device="cuda",
+                            dtype=torch.bfloat16)
+        idx = vq(mask)[1].cpu().tolist()
+    assert idx == [0, 1, 1, 0, 0] * 200
+    keys = torch.randn(4, 32, device="cuda").bfloat16()
+    keys[2] = keys[1]
+    sim = _unit(keys[1:3]) @ _unit(keys).T
+    assert torch.argmax(sim, dim=-1).cpu().tolist() == [1, 1]

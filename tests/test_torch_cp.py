@@ -20,6 +20,15 @@ depthwise conv with an even kernel or a block shorter than the halo
 with "batch" (training) and "group" norm equal the one-process module,
 output and gradients within 1e-5 (float64).
 
+bf16 on the same two ranks: ``ring_attention`` (q, k, v above) and
+``cp_depthwise_conv`` (the conv above, 20 frames a rank) on bf16 inputs
+against JAX's ``ring_attention_in_mesh`` and ``cp_depthwise_conv`` in bf16
+on a 2-device mesh, compiled with XLA's excess precision off
+(``tests/test_torch_bf16.py`` says why): at least 99 % of the elements
+bit-equal and every element within one bf16 ulp at its term scale
+(``tests/_torch_bf16.py``: sum_j p_j |v_j| for attention, the
+convolution's sum |x||w| + |b| for the conv).
+
 One process: a ConformerBlock with ``attn_impl="ring"`` and no ring
 context raises in a training forward and warns and falls back in
 inference (the dispatch itself: ``tests/test_torch_modules.py``). The dry
@@ -29,6 +38,9 @@ import functools
 import os
 import subprocess
 import sys
+import tempfile
+import threading
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -37,13 +49,27 @@ import pytest
 import torch
 
 from tests import _torch_dp_worker as worker
-from tests._torch_parity import Ahead, _fill
+from tests._torch_bf16 import distance, ratios
+from tests._torch_parity import NARROW_DCSE, Ahead, _fill, narrow_dcse
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCK = dict(d_model=32, num_heads=2, d_ff=64, kernel_size=7)
 RING_TOL = 5e-5
 LOSS_RTOL, X_GRAD_TOL, P_GRAD_TOL = 1e-5, 3e-5, 5e-4
 CONV_TOL = 1e-5
+NOEX = {"xla_allow_excess_precision": False}
+SHARE_16, ULPS_16 = 0.99, 1.0       # the bf16 bars of the port's modules
+# the bf16 training step's bars (tests/test_torch_bf16.py): the loss
+# relative to JAX's bf16 loss; each gradient leaf's noise and cross, and
+# their medians over the leaves
+STEP_LOSS_REL = 2.0 ** -10
+STEP_NOISE, STEP_NOISE_MEDIAN = (0.3, 2.5), (0.7, 1.4)
+STEP_CROSS, STEP_CROSS_MEDIAN = 1.5, 1.0
+# the bf16 ring step against the port's one-process step: each leaf's noise
+# |ring bf16 - one f32| / |one bf16 - one f32| at most this median and this
+# worst (the ring rounds K's and V's gradients at every hop, as JAX's does)
+RING_NOISE_MEDIAN, RING_NOISE_WORST = 4.0, 6.0
+_PATCH_LOCK = threading.Lock()      # one trace patches JAX's loss at a time
 
 
 def _inputs():
@@ -56,6 +82,15 @@ def _inputs():
             "conv_k": f32(7, 1, 8, scale=0.2), "conv_b": f32(8, scale=0.1),
             "conv_cot": f32(2, 40, 8),
             "mask": np.arange(64)[None, :] < np.array([[64], [45]])}
+
+
+def _trainer_batch():
+    """(2, 4,080) noisy and clean: 52 STFT frames at hop 80, two blocks
+    of 26."""
+    rng = np.random.default_rng(43)
+    clean = (rng.standard_normal((2, 4080)) * 0.2).astype(np.float32)
+    noisy = (clean + rng.standard_normal((2, 4080)) * 0.1).astype(np.float32)
+    return noisy, clean
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,6 +138,56 @@ def _jax_conv():
     return jax.tree.map(np.asarray, (y, pull(jnp.asarray(i["conv_cot"]))))
 
 
+def _jax_cp_bf16():
+    """JAX's ring attention and halo conv on the bf16 inputs, on a
+    2-device mesh, compiled with XLA's excess precision off."""
+    from sincformer_tpu.ops.cp_conv import cp_depthwise_conv
+    from sincformer_tpu.ops.ring_attention import ring_attention_in_mesh
+    from sincformer_tpu.parallel.mesh import make_mesh
+    i = _inputs()
+    mesh = make_mesh(2, ("data",))
+    bf16 = {n: jnp.asarray(i[n], jnp.bfloat16)
+            for n in ("q", "k", "v", "conv_x", "conv_k", "conv_b")}
+    ring = jax.jit(lambda q, k, v: ring_attention_in_mesh(q, k, v, mesh),
+                   compiler_options=NOEX)(*(bf16[n] for n in "qkv"))
+    conv = jax.jit(lambda x, k, b: cp_depthwise_conv(x, k, b, mesh),
+                   compiler_options=NOEX)(
+        *(bf16[n] for n in ("conv_x", "conv_k", "conv_b")))
+    return tuple(np.asarray(o.astype(jnp.float32)) for o in (ring, conv))
+
+
+def _jax_ring_step(bf16: bool):
+    """JAX's narrow DCSE training forward (``DCSEPipeline._loss_fn``) with
+    ``attn_impl="ring"`` traced under ``ring_mesh`` on a 2-device mesh,
+    without the multi-resolution STFT term (``tests/test_torch_bf16.py``
+    says why), with ``compute_dtype=jnp.bfloat16`` and XLA's excess
+    precision off (``bf16``) or in float32: (loss, {port name:
+    gradient})."""
+    import sincformer_tpu.train.dcse_trainer as jax_dcse
+    from sincformer_tpu.models.dcse import SpeechEnhancer
+    from sincformer_tpu.ops.attention import ring_mesh
+    from sincformer_tpu.parallel.mesh import make_mesh
+    from sincformer_tpu_torch.compat.from_jax import _dcse_named
+    pipe = jax_dcse.DCSEPipeline(
+        model=SpeechEnhancer(n_freq=129, dropout=0.0, attn_impl="ring",
+                             **NARROW_DCSE), model_dir=tempfile.mkdtemp(),
+        compute_dtype=jnp.bfloat16 if bf16 else None)
+    params = narrow_dcse()["params"]
+    noisy, clean = _trainer_batch()
+
+    def f(p):
+        return jax.value_and_grad(lambda p_: pipe._loss_fn(
+            p_, None, noisy, clean, jax.random.PRNGKey(0), True)[0])(p)
+    with _PATCH_LOCK, mock.patch.object(
+            jax_dcse, "multi_resolution_stft_loss",
+            lambda pred, target: jnp.sum(pred) * 0.0), \
+            ring_mesh(make_mesh(2, ("data",)), "data"):
+        lowered = jax.jit(f, compiler_options=NOEX if bf16 else None
+                          ).lower(params)
+    loss, grads = lowered.compile()(params)
+    return float(loss), _dcse_named(jax.tree.map(np.asarray, grads))
+
+
 # the modules under ring_mesh: (kind, features, kernel, norm) and frames
 MODULES = {"even_k": (("depthwise", 8, 6, None), 40),
            "short_block": (("depthwise", 8, 7, None), 4),
@@ -137,9 +222,11 @@ def ahead(tmp_path_factory):
     from sincformer_tpu_torch.compat.from_jax import _dcse_named
     params = _jax_block()[0]
     i = _inputs()
+    noisy, clean = _trainer_batch()
     job = {"kind": "cp", **{n: i[n] for n in ("q", "k", "v", "x", "y",
                                               "conv_x", "conv_b",
                                               "conv_cot", "mask")},
+           "noisy": noisy, "clean": clean, "dcse": narrow_dcse()["params"],
            "conv_w": np.ascontiguousarray(i["conv_k"].transpose(2, 1, 0)),
            "block": {"d_model": 32, "num_heads": 2, "d_ff": 64,
                      "kernel_size": 7},
@@ -148,8 +235,9 @@ def ahead(tmp_path_factory):
            "modules": _module_cases()}
     ticket = worker.pool().submit(job, str(tmp_path_factory.mktemp("cp")))
     a = Ahead()
-    with a.start([(_jax_ring_and_full,), (_jax_conv,)]):
-        a.ranks = ticket
+    with a.start([(_jax_ring_and_full,), (_jax_conv,), (_jax_cp_bf16,),
+                  (_jax_ring_step, False), (_jax_ring_step, True)]):
+        a.ranks, a.job = ticket, job
         yield a
 
 
@@ -225,6 +313,97 @@ def test_halo_conv_matches_jax_local_conv(ahead, shape):
         assert np.abs(got["w_grad"] - gk.transpose(2, 1, 0)).max() \
             <= CONV_TOL
         assert np.abs(got["b_grad"] - gb).max() <= CONV_TOL
+
+
+def test_ring_and_halo_conv_in_bf16_match_jax(ahead):
+    """The two ranks' blocks of the bf16 ring attention and halo conv,
+    joined, against JAX's on a 2-device mesh in bf16: the ring widens q,
+    k and v to f32, keeps P in f32 and rounds the output once; the conv
+    rounds the convolution, then its sum with the bias."""
+    import torch.nn.functional as F
+
+    from tests._torch_bf16 import agreement, attention_scale
+    outs = ahead.ranks.result()
+    ring_want, conv_want = ahead(_jax_cp_bf16)
+    i = _inputs()
+    bf = {n: torch.from_numpy(i[n]).bfloat16().float()
+          for n in ("q", "k", "v", "conv_x", "conv_b")}
+    w = torch.from_numpy(i["conv_k"].transpose(2, 1, 0).copy())
+    conv_terms = F.conv1d(F.pad(bf["conv_x"].abs().transpose(1, 2), (3, 3)),
+                          w.bfloat16().float().abs(),
+                          bf["conv_b"].abs(), groups=w.shape[0])
+    for name, want, terms in (
+            ("ring", ring_want, attention_scale(*(bf[n] for n in "qkv"))),
+            ("conv", conv_want, conv_terms.transpose(1, 2))):
+        got = torch.cat([o["bf16"][name] for o in outs], dim=1)
+        share, ulps = agreement(got, want, terms)
+        print(f"bf16 {name} on 2 ranks vs JAX on 2 devices: {share:.5f} "
+              f"bit-equal, worst {ulps:.3f} ulp")
+        assert got.dtype == torch.bfloat16
+        assert share >= SHARE_16 and ulps <= ULPS_16, name
+
+
+def test_trainer_step_under_a_ring_matches_jax(ahead):
+    """``DCSETrainer.loss_and_grads`` of the narrow model with JAX's
+    weights and ``attn_impl="ring"`` under ``ring_mesh`` on two ranks
+    (each runs its 26 of the 52 frames, the enhanced STFT is gathered, the
+    gradients summed over the ring) against JAX's training forward traced
+    under ``ring_mesh`` on two devices. In float32 at JAX's ring bars
+    above (the loss 1e-5 relative, each parameter's gradient 5e-4); in
+    bf16 at the bf16 step's bars of ``tests/test_torch_bf16.py`` against
+    JAX's bf16 and f32 ring steps (module constants). Both ranks return
+    the same step. Against the port's step without a mesh (one process,
+    ``attn_impl="speech"``): float32 at the same bars; bf16 by each
+    gradient leaf's noise, the ring's bf16 error beside one process's (a
+    different bf16 function: the ring keeps P in f32 and rounds K's and
+    V's gradients at each hop)."""
+    from tests._torch_tp_jobs import cp_trainer
+    outs = [o["trainer"] for o in ahead.ranks.result()]
+    for dtype in ("f32", "bf16"):
+        a, b = outs[0][dtype], outs[1][dtype]
+        assert a["loss"] == b["loss"], dtype
+        assert all(torch.equal(a["grads"][k], b["grads"][k])
+                   for k in a["grads"]), dtype
+    (l32, g32), (l16, g16) = (ahead(_jax_ring_step, bf16)
+                              for bf16 in (False, True))
+    got32, got16 = outs[0]["f32"], outs[0]["bf16"]
+    assert set(got32["grads"]) == set(g32)
+    worst32 = max(float(np.abs(_np(got32["grads"][k]) - g).max())
+                  for k, g in g32.items())
+    loss_rel16 = abs(got16["loss"] - l16) / abs(l16)
+    rows = [ratios(got16["grads"][k], g16[k], g32[k]) for k in g16]
+    noise, cross = [r[0] for r in rows], [r[1] for r in rows]
+    print(f"trainer step on a 2-rank ring vs JAX's on 2 devices: f32 loss "
+          f"{abs(got32['loss'] - l32) / abs(l32):.3g} relative, gradients "
+          f"{worst32:.3g}; bf16 loss {loss_rel16:.3g} relative (JAX's bf16 "
+          f"{abs(l16 - l32) / abs(l32):.3g} from its f32), gradients' noise "
+          f"{min(noise):.3f}-{max(noise):.3f} (median "
+          f"{np.median(noise):.3f}), cross {min(cross):.3f}-"
+          f"{max(cross):.3f} (median {np.median(cross):.3f})")
+    assert abs(got32["loss"] - l32) <= LOSS_RTOL * abs(l32)
+    assert worst32 <= P_GRAD_TOL
+
+    one = cp_trainer(ahead.job)
+    one32, one16 = one["f32"], one["bf16"]
+    worst_one = max(float((got32["grads"][k] - g).abs().max())
+                    for k, g in one32["grads"].items())
+    ring_noise = [distance(got16["grads"][k], g) / distance(
+        one16["grads"][k], g) for k, g in one32["grads"].items()]
+    print(f"the same ring step vs the port's without a mesh: f32 loss "
+          f"{abs(got32['loss'] - one32['loss']) / abs(one32['loss']):.3g} "
+          f"relative, gradients {worst_one:.3g}; bf16 gradients' noise "
+          f"median {np.median(ring_noise):.3f}, worst {max(ring_noise):.3f}")
+    assert abs(got32["loss"] - one32["loss"]) <= LOSS_RTOL * abs(
+        one32["loss"])
+    assert worst_one <= P_GRAD_TOL
+    assert np.isfinite(got16["loss"])
+    assert np.median(ring_noise) <= RING_NOISE_MEDIAN
+    assert max(ring_noise) <= RING_NOISE_WORST
+    assert loss_rel16 <= STEP_LOSS_REL
+    assert STEP_NOISE[0] <= min(noise) and max(noise) <= STEP_NOISE[1]
+    assert STEP_NOISE_MEDIAN[0] <= np.median(noise) <= STEP_NOISE_MEDIAN[1]
+    assert max(cross) <= STEP_CROSS
+    assert np.median(cross) <= STEP_CROSS_MEDIAN
 
 
 def test_cp_ops_refuse_what_jax_asserts(ahead):
