@@ -104,7 +104,9 @@ its kernels:
     card beside the same on the CPU; a one-rank NCCL bf16 step bit-equal to
     no mesh; the bf16 forward at bench.py's DCSE workload (128 x 4 s)
     beside the f32 one; K5's and K6's bf16 forms against their plain bf16
-    versions, timed, under autograd and on the PerceptionAgent front-end's
+    versions (K5 on its fused and its two-pass paths), timed (K5 with the
+    path each timed shape takes and its kernels' times), under autograd
+    and on the PerceptionAgent front-end's
     driven path (a bf16 SincConv's output through ``env_act`` and
     ``conv1d_gn``); the flagship cast to bf16: the narrow model's forward
     on the card against the CPU's at the CPU tests' bars, and bench.py's
@@ -134,6 +136,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -307,10 +310,32 @@ def with_bound(timing: dict, flops: float, nbytes: float,
     return timing
 
 
+def port_kernel_names() -> tuple:
+    """The port's CUDA kernels: the ``__global__`` functions of
+    sincformer_tpu_torch/csrc/."""
+    csrc = os.path.join(REPO, "sincformer_tpu_torch", "csrc")
+    names = set()
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                    r"(\w+)\s*\(", fh.read()))
+    return tuple(sorted(names))
+
+
+def is_port_kernel(key: str, names: tuple) -> bool:
+    """Whether a profiler's kernel name is one of the port's (``names``,
+    all defined in anonymous namespaces of csrc/), not a library's."""
+    return re.match(r"(void )?\(anonymous namespace\)::(\w+::)*(%s)(<|\(|$)"
+                    % "|".join(names), key) is not None
+
+
 def profile_once(fn) -> dict:
     """One call of ``fn`` under torch.profiler: its wall ms, device busy
-    ms (of which ``copy_ms`` in memory copies and sets), kernel launches,
-    and its kernels as (name, ms, calls), longest first."""
+    ms (of which ``copy_ms`` in memory copies and sets, ``port_ms`` in the
+    port's own kernels, ``port_launches`` launches), kernel launches, and
+    its kernels as (name, ms, calls), longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -323,10 +348,14 @@ def profile_once(fn) -> dict:
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda k: -k[1])
+    names = port_kernel_names()
+    port = [k for k in kernels if is_port_kernel(k[0], names)]
     return {"wall_ms": wall_ms, "busy_ms": sum(k[1] for k in kernels),
             "copy_ms": sum(k[1] for k in kernels
                            if k[0].startswith(("Memcpy", "Memset"))),
-            "launches": sum(k[2] for k in kernels), "kernels": kernels}
+            "launches": sum(k[2] for k in kernels), "kernels": kernels,
+            "port_ms": sum(k[1] for k in port),
+            "port_launches": sum(k[2] for k in port)}
 
 
 def timed_steps(step, n: int, k1_per_step: int, launches,
@@ -3911,8 +3940,31 @@ BF16_NARROW = dict(d_model=32, num_blocks=2, num_heads=2, ff_dim=64,
                    kernel_size=7, dropout=0.0)
 BF16_CARD_VS_CPU = 2.0        # card's bf16-vs-f32 distance, x the CPU's
 # K5's bf16 form: (T, Cin, Cout, K, s, act, skip, groups), the f32 form's
-# edges (CONV_GN_CASES) and PERF.md's two timed shapes; K6's: (B, N, C)
-BF16_K5_CASES = tuple(c[:7] + (c[8],) for c in CONV_GN_CASES)
+# edges (CONV_GN_CASES, which all take the fused path at B = 2), the edges
+# of its other paths (ops/conv_gn.py::bf16_plan): two passes with w
+# streamed in groups of taps (K 31), with Cin % 8 != 0 (plain loads) and
+# Cout under the tile's 128 channels, with Cout % 8 != 0 (no 16-byte
+# copies of w), over two slabs of channels with w streamed and with w
+# resident, and the fused path with w streamed; and PERF.md's two timed
+# shapes. K6's: (B, N, C)
+BF16_K5_CASES = tuple(c[:7] + (c[8],) for c in CONV_GN_CASES) + (
+    (20000, 64, 128, 31, 1, True, False, 16),
+    (30001, 12, 80, 5, 4, True, True, 16),
+    (9000, 3, 18, 3, 1, False, False, 3),
+    (16000, 256, 256, 7, 2, True, False, 16),
+    (20000, 64, 256, 3, 2, True, True, 16),
+    (300, 256, 64, 31, 1, True, False, 16))
+# (B, T, Cin, Cout, K, s, act, skip, groups): the instantiations of the
+# kernel (ops/conv_gn.py::bf16_instances) that batch 2 does not reach, one
+# each: fused at width 16 with 8 sub-tiles, at width 32 with 1, 2 and 4
+# (the flagship block's, here with a skip), at width 128 (groups of 64
+# channels); two passes at width 16
+BF16_K5_BATCHED = ((2, 900, 64, 64, 3, 1, True, True, 16),
+                   (16, 100, 256, 256, 7, 1, True, False, 16),
+                   (16, 256, 256, 256, 7, 1, True, True, 16),
+                   (16, 400, 256, 256, 7, 1, True, True, 16),
+                   (2, 100, 64, 128, 3, 1, True, False, 2),
+                   (2, 9000, 8, 16, 3, 1, False, False, 4))
 BF16_K5_TIMED = (("call site", (16, 32000, 64, 128, 7, 2)),
                  ("flagship block", (16, 400, 256, 256, 7, 1)))
 BF16_K6_CASES = ((4, 32000, 64), (1, 8, 3), (2, 2400, 64), (3, 808, 6),
@@ -4242,26 +4294,58 @@ def k5_inputs(g, bsz, t, cin, cout, k, s, with_skip=False,
             r(cout, scale=0.1), r(bsz, t_out, cout) if with_skip else None)
 
 
+_K5_BF16_PARTS: dict = {}
+
+
+def k5_bf16_parts() -> dict:
+    """The kernels one bf16 ``conv1d_gn`` call launches at each of
+    ``BF16_K5_TIMED``'s shapes, as [(name, device ms, launches)], from
+    torch.profiler; taken once. ``main`` takes it with the kernel checks,
+    before any other profile: in one run, a profile of these calls taken
+    late in ``[bf16]`` listed no device time at all, which
+    scripts/torch_profiler_check.py does not reproduce (PERF.md section 7);
+    ``[bf16]``'s later profiles print the port's kernels' share of their
+    busy time."""
+    if not _K5_BF16_PARTS:
+        from sincformer_tpu_torch.ops.conv_gn import conv1d_gn
+        g = torch.Generator(device="cuda").manual_seed(0)
+        for name, shape in BF16_K5_TIMED:
+            a = k5_inputs(g, *shape)
+
+            def call():
+                return conv1d_gn(*a, stride=shape[5], groups=16)
+            call()                      # warm: caches, shared-memory limits
+            torch.cuda.synchronize()
+            _K5_BF16_PARTS[name] = profile_once(call)["kernels"]
+    return _K5_BF16_PARTS
+
+
 def check_bf16_k5_k6(g, smi: str, out: dict, hold) -> None:
     """K5's and K6's bf16 forms against their plain bf16 versions at the f32
-    forms' edge shapes (``hold``: at least 99 % bit-equal, one ulp at the
-    term scale), and timed beside the f32 forms, the bf16 library chains and
+    forms' edge shapes, K5's also at ``BF16_K5_BATCHED`` and its timed
+    shapes (``hold``: at least 99 % bit-equal, one ulp at the term scale),
+    and timed beside the f32 forms, the bf16 library chains and
     the bf16 bounds at PERF.md's shapes, from CUDA-graph replays."""
     import torch.nn.functional as F
 
-    from sincformer_tpu_torch.ops.conv_gn import (_same_pads, conv1d_gn,
+    from sincformer_tpu_torch.ops.conv_gn import (_same_pads, bf16_plan,
+                                                  conv1d_gn,
                                                   conv_gn_reference)
     from sincformer_tpu_torch.ops.envact import env_act, env_act_reference
     out["k5"] = {"share": 1.0, "ulps": 0.0, "max_abs_err": 0.0}
     out["k6"] = {"share": 1.0, "ulps": 0.0, "max_abs_err": 0.0}
-    for t, cin, cout, k, s, act, with_skip, groups in BF16_K5_CASES:
-        a = k5_inputs(g, 2, t, cin, cout, k, s, with_skip)
+    for bsz, t, cin, cout, k, s, act, with_skip, groups in (
+            [(2,) + c for c in BF16_K5_CASES] + list(BF16_K5_BATCHED)):
+        a = k5_inputs(g, bsz, t, cin, cout, k, s, with_skip)
         got = conv1d_gn(*a, s, groups, 1e-6, act)
         torch.cuda.synchronize()
+        plan = bf16_plan(bsz, t, cin, cout, k, s, groups)
         hold("k5", got, conv_gn_reference(*a, stride=s, groups=groups,
                                           act=act),
              conv_gn_scale(*a, s, groups),
-             f"T={t} {cin}->{cout} k={k} s={s} act={act} skip={with_skip}")
+             f"B={bsz} T={t} {cin}->{cout} k={k} s={s} act={act} "
+             f"skip={with_skip} ({'fused' if plan.fused else 'two passes'},"
+             f" width {plan.nt}, {plan.mt} sub-tiles)")
     for shape in BF16_K6_CASES:
         x = (torch.randn(*shape, device="cuda", generator=g) * 3.0).bfloat16()
         scale = (torch.rand(shape[-1], device="cuda", generator=g) * 1.5
@@ -4274,9 +4358,14 @@ def check_bf16_k5_k6(g, smi: str, out: dict, hold) -> None:
         hold("k6", env, env_ref, torch.zeros((), device="cuda"),
              f"{shape} envelope")
 
+    parts_of = k5_bf16_parts()
     for name, (bsz, t, cin, cout, k, s) in BF16_K5_TIMED:
         x, w, b, gamma, beta, _ = a = k5_inputs(g, bsz, t, cin, cout, k, s)
         a32 = [v.float() for v in a[:5]]
+        got = conv1d_gn(*a, stride=s, groups=16)
+        torch.cuda.synchronize()
+        hold("k5", got, conv_gn_reference(*a, stride=s, groups=16),
+             conv_gn_scale(*a, s, 16), f"the {name}'s timed shape")
         t_out, pad_l, pad_r = _same_pads(t, k, s)
         w_oik = w.permute(2, 1, 0).contiguous()
 
@@ -4295,6 +4384,20 @@ def check_bf16_k5_k6(g, smi: str, out: dict, hold) -> None:
         nbytes = 2.0 * (x.numel() + w.numel() + 3 * cout + bsz * t_out * cout)
         with_bf16_bound(timing, flops, nbytes)
         out["k5"]["call_site" if name == "call site" else "block"] = timing
+        plan = bf16_plan(bsz, t, cin, cout, k, s, 16)
+        parts = parts_of[name]
+        timing["path"] = (
+            f"{'fused, one launch' if plan.fused else 'two passes'}: wgmma "
+            f"width {plan.nt}, {plan.blocks} blocks, w "
+            f"{'resident' if plan.resident else 'streamed'}, "
+            f"{plan.stages} stages of {plan.ck} input channels")
+        timing["parts_ms"] = parts
+        say(f"[bf16] K5 bf16 {name} path: {timing['path']}; its kernels "
+            "(torch.profiler, one call) "
+            + (", ".join(f"{re.findall(r'(\w+)[<(]', n)[0]} {ms:.4f} ms "
+                         f"({calls} launch{'es' if calls > 1 else ''})"
+                         for n, ms, calls in parts)
+               if parts else "not measured (no device time profiled)"))
         say(f"[bf16] K5 bf16 timing {name} ({bsz}, {t}, {cin}->{cout}, k={k}"
             f", s={s}, GELU), CUDA graph replays: kernel {timing['ms']:.4f} / "
             f"{timing['ms_2']:.4f} ms (eager calls {timing['ms_eager']:.4f} "
@@ -4534,7 +4637,9 @@ def check_bf16_flagship(seed: int, smi: str, launches) -> dict:
             peak = (torch.cuda.max_memory_allocated() - base) / 1e9
             prof = profile_once(lambda: enhance(m, dt))
             times[tag] = {"wall_ms": wall * 1e3, "busy_ms": prof["busy_ms"],
-                          "launches": prof["launches"], "peak_gb": peak}
+                          "launches": prof["launches"], "peak_gb": peak,
+                          "port_ms": prof["port_ms"],
+                          "port_launches": prof["port_launches"]}
         with torch.inference_mode():
             z = model16.pa(wav.bfloat16())[0][..., :spec.shape[1]]
 
@@ -4559,7 +4664,9 @@ def check_bf16_flagship(seed: int, smi: str, launches) -> dict:
             f"{times['f32']['busy_ms']:.3f} ms busy, "
             f"{times['f32']['launches']} launches, "
             f"{times['f32']['peak_gb']:.2f} GB; bf16 {b['wall_ms']:.2f} ms "
-            f"wall, {b['busy_ms']:.3f} ms busy, {b['launches']} launches, "
+            f"wall, {b['busy_ms']:.3f} ms busy (the port's kernels "
+            f"{b['port_ms']:.3f} ms of it, {b['port_launches']} launches), "
+            f"{b['launches']} launches, "
             f"{b['peak_gb']:.2f} GB, K1 bf16 {blocks}; the bf16 CPEA alone "
             f"{b['cpea_wall_ms']:.2f} ms wall, {b['cpea_busy_ms']:.3f} ms "
             f"busy, {b['cpea_launches']} launches on {smi}")
@@ -4627,7 +4734,9 @@ def check_bf16(seed: int, smi: str, launches) -> dict:
             f"{run['losses'][0]:.4f} at step 1, {run['losses'][-1]:.4f} at "
             f"step 10; {run['median_ms']:.2f} ms per step (median of steps "
             f"2-10; step 1 {run['step_ms'][0]:.1f} ms), device busy "
-            f"{prof['busy_ms']:.3f} ms, {prof['launches']} kernel launches, "
+            f"{prof['busy_ms']:.3f} ms (the port's kernels "
+            f"{prof['port_ms']:.3f} ms of it, {prof['port_launches']} "
+            f"launches), {prof['launches']} kernel launches, "
             f"bf16 K1 {blocks} and K3 {k3} a step, peak memory "
             f"{run['peak_gb']:.2f} GB; a validation of the batch: loss "
             f"{val[0]:.4f}, bf16 K1 {v['speech_attention_bf16']} and K3 "
@@ -4640,6 +4749,8 @@ def check_bf16(seed: int, smi: str, launches) -> dict:
             "step_ms_median": run["median_ms"], "step_ms_first":
             run["step_ms"][0], "device_busy_ms": prof["busy_ms"],
             "kernel_launches_per_step": prof["launches"],
+            "port_kernels_ms": prof["port_ms"],
+            "port_kernel_launches": prof["port_launches"],
             "k1_bf16_per_step": blocks, "k3_bf16_per_step": k3,
             "k1_bf16_per_validation": v["speech_attention_bf16"],
             "k3_bf16_per_validation": v["fused_ffn_bf16"],
@@ -4951,6 +5062,7 @@ def main() -> int:
     k4_err, k4_time = check_k4(args.seed, smi)
     k5_err, k5_time, k5_time_block = check_k5(args.seed, smi)
     k6_err, k6_time = check_k6(args.seed, smi)
+    k5_bf16_parts()     # the process's first profile (its docstring)
     check_autograd(args.seed)
     if args.kernels_only:
         check_bf16_kernels(args.seed, smi)

@@ -1,9 +1,10 @@
-"""What holds the kernels K1, K3, K4 and K5 back, measured by removing
+"""What holds the kernels K1, K3, K4, K5 and K6 back, measured by removing
 parts of them in turn, on one CUDA card.
 
     python3 scripts/torch_kernel_ablation.py [--out ablation.json]
         [--kernels k1,k3,k5,k1bf16,k3bf16] [--k5-baseline path/to/conv_gn.cu]
         [--k4-baseline path/to/meddis.cu] [--sass k4.sass]
+        [--bf16-baseline path/to/csrc]
 
 Builds edited copies of ``sincformer_tpu_torch/csrc/fused_ffn.cu`` (K3),
 ``speech_attention.cu`` (K1), ``conv_gn.cu`` (K5) and ``meddis.cu`` (K4)
@@ -61,6 +62,28 @@ at the main path's shapes:
     64-row unit a block, d_ff split between the warpgroups), ``rows_all``
     (every M in 128-row tiles).
 
+  * K5's bf16 form (``--kernels k5bf16``, not in the default set) at the
+    call site and the flagship block's shape: ``no_mma`` (the wgmma
+    products removed), ``no_staging`` (nothing copied into the ring or the
+    resident w), ``conv_only`` (the two passes' merge and normalising pass
+    not launched; fused, no statistics and no epilogue), ``no_epilogue``
+    (no tile's epilogue at all), ``gelu_tanh`` (the GELU by the accurate
+    tanhf of the f32 form in place of ex2.approx and a fast division); the
+    committed kernel and ``gelu_tanh`` also with their shares bit-equal to
+    the plain bf16 version, and the committed kernel also on the fused
+    path at each width its plan did not take (``fused nt16 mt4``, ...);
+  * K6's bf16 form (``--kernels k6bf16``) at (16, 32,000, 64):
+    ``copy_only`` (loads, the envelope's sums and stores alone), ``no_tanh``,
+    ``f32_math`` (the f32 form's GELU on the widened pair, rounded once),
+    and the count of packed bf16 products, sums and fused multiply-adds in
+    the SASS of its eight-channel kernel (``cuobjdump -sass``);
+  * ``--kernels k5bf16old,k6bf16old --bf16-baseline path/to/csrc``: the
+    bf16 forms of an earlier ``conv_gn.cu`` and ``envact.cu`` (those with
+    an f32 scratch and scalar roundings, unpacked with ``git archive``),
+    as they are and with ``no_mma``, ``no_staging``, ``conv_only``,
+    ``no_scratch`` (the f32 store and its read removed), ``copy_only``,
+    ``no_round`` (each rounding an identity), ``no_tanh``, ``f32_math``.
+
 K3 is also timed on the inputs that the fused DCSE model (seeded weights)
 gives its eight calls in a 60 s request, beside random values of the same
 shape.
@@ -96,8 +119,8 @@ W2_COPIES = "i < kFC * (D / 4); i += kThreads"
 K5_MMA = "mma3(acc[mt][nt], ah[mt], al[mt], bh, bl);"
 K5_MMA1 = "tf32x3::mma(acc[mt][nt], ah[mt], bh);"
 K5_STATS = ("  err = cudaGetLastError();\n  if (err != cudaSuccess) return (int)err;"
-            "\n  stats_kernel<<<")
-K5_STOP = "  return (int)cudaGetLastError();\n  stats_kernel<<<"
+            "\n  stats_kernel<kTM><<<")
+K5_STOP = "  return (int)cudaGetLastError();\n  stats_kernel<kTM><<<"
 K5_SPLIT_X = "i < n_rows * kKC; i += kThreads"
 K5_SPLIT_W = "i < kt * kKC * kTN; i += kThreads"
 K5_STAGE_X = "phase < nph; ++phase"
@@ -206,6 +229,129 @@ BF16_VARIANTS = {
     "k3bf16_rows_all": ("fused_ffn", [("  if (units <= sms) {", "  if (false) {")],
                         None),
 }
+
+# K5's and K6's bf16 forms as an earlier commit wrote them (PR 15: K5 bf16
+# the f32 tiling with one TF32 product per product, an f32 scratch between
+# its conv and norm kernels; K6 bf16 one scalar rounding per operation),
+# built from the csrc/ directory that --bf16-baseline names
+K5B_OLD_MMA = "for (int mt = 0; mt < 2; ++mt) mma(acc[mt][nt], ah[mt], bh);"
+K5B_OLD_STATS = ("  err = cudaGetLastError();\n  if (err != cudaSuccess) "
+                 "return (int)err;\n  stats_kernel<<<")
+K5B_OLD_STOP = "  return (int)cudaGetLastError();\n  stats_kernel<<<"
+K5B_OLD_STORE = """          if (n0 + col + 1 < Cout && (Cout & 1) == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          } else {
+            if (n0 + col < Cout) o[0] = v[0];
+            if (n0 + col + 1 < Cout) o[1] = v[1];
+          }"""
+K5B_OLD_READ = "      load4(in + i, r);"
+K6B_OLD_GELU = """        out[q] = to_bf16(gelu_bf16(rb(v0 * s[2 * q]))) |
+                 (to_bf16(gelu_bf16(rb(v1 * s[2 * q + 1]))) << 16);"""
+K6B_OLD_ENV = """      e4[q] = to_bf16(log1pf(sum[2 * q] * (1.0f / kPool))) |
+              (to_bf16(log1pf(sum[2 * q + 1] * (1.0f / kPool))) << 16);"""
+BF16_OLD_VARIANTS = {
+    "k5bf16old": ("conv_gn", []),
+    "k5bf16old_no_mma": ("conv_gn", [(K5B_OLD_MMA, ";")]),
+    "k5bf16old_no_staging": ("conv_gn", [(K5_STAGE_X, "phase < 0; ++phase"),
+                                         (K5_STAGE_W, "i < 0; i += kThreads")]),
+    "k5bf16old_conv_only": ("conv_gn", [(K5B_OLD_STATS, K5B_OLD_STOP)]),
+    "k5bf16old_no_scratch": ("conv_gn", [
+        (K5B_OLD_STORE, "          (void)o;"),
+        (K5B_OLD_READ, "      r[0] = r[1] = r[2] = r[3] = 0.f;")]),
+    "k6bf16old": ("envact", []),
+    "k6bf16old_copy_only": ("envact", [
+        (K6B_OLD_GELU, "        out[q] = xw[q];"),
+        (K6B_OLD_ENV, "      e4[q] = to_bf16(sum[2 * q]) | "
+                      "(to_bf16(sum[2 * q + 1]) << 16);")]),
+    "k6bf16old_no_round": ("envact", [(
+        "  return __bfloat162float(__float2bfloat16_rn(v));", "  return v;")]),
+    "k6bf16old_no_tanh": ("envact", [("rb(tanhf(inner))", "inner")]),
+    "k6bf16old_f32_math": ("envact", [(
+        K6B_OLD_GELU,
+        "        out[q] = to_bf16(gelu_tanh(v0 * s[2 * q])) |\n"
+        "                 (to_bf16(gelu_tanh(v1 * s[2 * q + 1])) << 16);")]),
+}
+
+# K5's and K6's bf16 forms as they are now (wgmma ring and fused epilogue;
+# packed bf16x2 GELU)
+K5B_WGMMA = """              wgmma::ss<NT, 1>(
+                  acc[m],
+                  wgmma::desc_plain(a + 2048 * m + 32 * kk * g.rp,
+                                    16 * g.rp, 128),
+                  bd, 1);"""
+K5B_MERGE = """  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_kernel<kRowsPP><<<dim3(g.groups, g.B), 128, 0, st>>>("""
+K5B_FUSED = "      // kFused: the batch row is in registers; each group's mean, then its"
+K5B_EPILOGUE = "    // ── the tile's epilogue ──"
+K6B_GELU = "        o[q] = gelu2(mul2(v[q], s[q]));"
+K6B_ENV = """      eo[q] = __floats2bfloat162_rn(log1pf(sum[q].x * (1.0f / kPool)),
+                                    log1pf(sum[q].y * (1.0f / kPool)));"""
+K6B_TANH = ("  const bf162 th = __floats2bfloat162_rn(tanhf(inner.x), "
+            "tanhf(inner.y));")
+BF16_VARIANTS.update({
+    "k5bf16": ("conv_gn", [], None),
+    "k5bf16_no_mma": ("conv_gn", [(K5B_WGMMA, "              (void)bd;")],
+                      None),
+    "k5bf16_no_staging": ("conv_gn", [
+        ("    for (int i = threadIdx.x; i < n; i += kThreads) {",
+         "    for (int i = threadIdx.x; i < 0 * n; i += kThreads) {"),
+        ("for (int i = p; i < nx; i += kProducers, r += dr) {",
+         "for (int i = p; i < 0 * nx; i += kProducers, r += dr) {"),
+        ("for (int i = p; i < nw; i += kProducers, ci += dci) {",
+         "for (int i = p; i < 0 * nw; i += kProducers, ci += dci) {")],
+        None),
+    "k5bf16_conv_only": ("conv_gn", [
+        (K5B_MERGE, "  return (int)cudaGetLastError();\n" + K5B_MERGE),
+        (K5B_FUSED, "      continue;\n" + K5B_FUSED)], None),
+    "k5bf16_no_epilogue": ("conv_gn", [
+        (K5B_EPILOGUE, "    if (g.mode >= 0) continue;\n" + K5B_EPILOGUE)],
+        None),
+    "k5bf16_gelu_tanh": ("conv_gn", [(
+        "v = gelu_bf16_out(v);", "v = gelu_tanh(v);")], None),
+    "k6bf16": ("envact", [], None),
+    "k6bf16_copy_only": ("envact", [
+        (K6B_GELU, "        o[q] = v[q];"),
+        (K6B_ENV, "      eo[q] = __floats2bfloat162_rn(sum[q].x, sum[q].y);")],
+        None),
+    "k6bf16_no_tanh": ("envact", [(
+        K6B_TANH,
+        "  const bf162 th = __floats2bfloat162_rn(inner.x, inner.y);")],
+        None),
+    "k6bf16_f32_math": ("envact", [(
+        K6B_GELU,
+        "        { const float2 xf = __bfloat1622float2(v[q]);\n"
+        "          const float2 sf = __bfloat1622float2(s[q]);\n"
+        "          o[q] = __floats2bfloat162_rn(gelu_tanh(xf.x * sf.x),\n"
+        "                                       gelu_tanh(xf.y * sf.y)); }")],
+        None),
+})
+
+
+def packed_sass(lib: str, kernel: str) -> dict:
+    """The packed bf16 instructions of ``kernel`` in ``lib``'s SASS
+    (``cuobjdump -sass``), by kind: products (HMUL2, or HFMA2 with a -0
+    addend), sums (HADD2, or HFMA2 with the multiplier 1) and fused
+    multiply-adds (any other HFMA2 on bf16 pairs), which would round a
+    product and a sum once."""
+    import re
+
+    from sincformer_tpu_torch.ops import build
+    text = subprocess.run(
+        [os.path.join(os.path.dirname(build._nvcc()), "cuobjdump"), "-sass",
+         lib], capture_output=True, text=True, check=True).stdout
+    counts = {"products": 0, "sums": 0, "fused": 0}
+    body = text.split(kernel, 1)[1].split("Function :", 1)[0]
+    for op in re.findall(r"(H(?:FMA|MUL|ADD)2[.A-Z0-9_]*BF16_V2[^;]*);", body):
+        args = [a.strip() for a in op.split(None, 1)[1].split(",")]
+        if op.startswith("HMUL2") or (op.startswith("HFMA2")
+                                      and args[-1] == "-RZ"):
+            counts["products"] += 1
+        elif op.startswith("HADD2") or args[2:4] == ["1", "1"]:
+            counts["sums"] += 1
+        else:
+            counts["fused"] += 1
+    return counts
 
 # K4: the earlier meddis.cu (one walking warp, three moving warps, one
 # __syncthreads per 64-sample tile), as --k4-baseline builds it
@@ -319,18 +465,40 @@ def edited(text: str, edits) -> str:
     return text
 
 
+def sources_in(csrc: str, name: str) -> dict:
+    """``<csrc>/<name>.cu`` and the headers it includes with quotes, read
+    from another csrc/ directory (an earlier commit's)."""
+    import re
+    found, todo = {}, [f"{name}.cu"]
+    while todo:
+        fname = todo.pop()
+        if fname not in found:
+            with open(os.path.join(csrc, fname), "rb") as f:
+                found[fname] = f.read()
+            todo += [i.decode() for i in re.findall(
+                rb'^\s*#\s*include\s+"([^"]+)"', found[fname], re.M)]
+    return found
+
+
 def build_variants(out_dir: str, kernels, k5_baseline=None,
-                   k4_baseline=None) -> dict:
+                   k4_baseline=None, bf16_baseline=None) -> dict:
     from sincformer_tpu_torch.ops import build
     os.makedirs(out_dir, exist_ok=True)
     variants = {name: v for name, v in {**VARIANTS, **K4_VARIANTS,
                                         **BF16_VARIANTS}.items()
                 if name.split("_")[0] in kernels}
+    old = {name: v for name, v in BF16_OLD_VARIANTS.items()
+           if name.split("_")[0] in kernels}
+    if old and not bf16_baseline:
+        raise SystemExit("k5bf16old and k6bf16old need --bf16-baseline")
+    variants.update({name: (src, edits, None, bf16_baseline)
+                     for name, (src, edits) in old.items()})
     procs = {}
-    for name, (src, edits, header) in variants.items():
+    for name, (src, edits, header, *csrc) in variants.items():
         vdir = os.path.join(out_dir, name)
         os.makedirs(vdir, exist_ok=True)
-        for fname, text in build._sources(src).items():
+        for fname, text in (sources_in(csrc[0], src) if csrc
+                            else build._sources(src)).items():
             text = text.decode()
             if fname == f"{src}.cu":
                 text = edited(text, edits)
@@ -372,6 +540,25 @@ def build_variants(out_dir: str, kernels, k5_baseline=None,
                 ctypes.c_float] * 5 + [ctypes.c_void_p]
             fwd.restype = probe.restype = ctypes.c_int
             fns[name] = (fwd, probe, lib)
+            continue
+        if name.startswith("k5bf16"):
+            fn = fn.conv_gn_fwd_bf16
+            # the earlier form takes an f32 scratch and no plan
+            fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                if name.startswith("k5bf16old") else
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+                    ctypes.c_float] + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+            continue
+        if name.startswith("k6bf16"):
+            fn = fn.envact_fwd_bf16
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                                   ctypes.c_int,
+                                                   ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
             continue
         if name.startswith("k1"):
             fn = (fn.speech_attention_fwd_bf16 if name.startswith("k1bf16")
@@ -514,6 +701,117 @@ def time_k5(fns: dict, g, card: str) -> dict:
     return result
 
 
+def time_k56bf16(fns: dict, g, card: str) -> dict:
+    """K5's and K6's bf16 forms at chip_smoke.py's timed bf16 shapes, in
+    turns with the bf16 library chains (conv1d, group_norm and gelu;
+    mul, gelu, abs, avg_pool1d and log1p), from CUDA-graph replays."""
+    import torch.nn.functional as F
+
+    from chip_smoke import (BF16_K5_TIMED, BF16_K6_TIMED, bf16_agreement,
+                            conv_gn_scale, graph_ms)
+    from sincformer_tpu_torch.ops.conv_gn import _same_pads, conv_gn_reference
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"launch failed: CUDA error {err}")
+    result = {}
+    for name, (bsz, t, cin, cout, k, s) in (
+            BF16_K5_TIMED if any(n.startswith("k5bf16") for n in fns)
+            else ()):
+        def r(*shape, scale=1.0, shift=0.0):
+            return (shift + scale * torch.randn(*shape, device="cuda",
+                                                generator=g)).bfloat16()
+        x, w = r(bsz, t, cin), r(k, cin, cout, scale=(k * cin) ** -0.5)
+        b, beta = r(cout, scale=0.1), r(cout, scale=0.1)
+        gamma = r(cout, scale=0.1, shift=1.0)
+        t_out, pad_l, pad_r = _same_pads(t, k, s)
+        out = torch.empty(bsz, t_out, cout, device="cuda",
+                          dtype=torch.bfloat16)
+        conv = torch.empty(bsz, t_out, cout, device="cuda")
+        partial = torch.empty(bsz, -(-t_out // 128), cout, 2, device="cuda")
+        stats = torch.empty(bsz, 16, 2, device="cuda")
+        if any(n.startswith("k5bf16") and not n.startswith("k5bf16old")
+               for n in fns):
+            from sincformer_tpu_torch.ops.conv_gn import (_BF16_WIDTHS,
+                                                          bf16_plan,
+                                                          fused_plan)
+            plan = bf16_plan(bsz, t, cin, cout, k, s, 16)
+            # the fused path at the widths the plan did not take
+            others = {f"nt{nt}": p for nt in _BF16_WIDTHS
+                      for p in [fused_plan(bsz, t, cin, cout, k, s, 16, nt)]
+                      if p is not None and p != plan}
+        w_oik = w.permute(2, 1, 0).contiguous()
+        ptrs = [v.data_ptr() for v in (x, w, b, gamma, beta)] + [None]
+        want = conv_gn_reference(x, w, b, gamma, beta, stride=s, groups=16)
+        scale = conv_gn_scale(x, w, b, gamma, beta, None, s, 16)
+
+        def library():
+            y = F.conv1d(F.pad(x.transpose(1, 2), (pad_l, pad_r)), w_oik, b,
+                         stride=s)
+            return F.gelu(F.group_norm(y, 16, gamma, beta, 1e-6),
+                          approximate="tanh").transpose(1, 2)
+        row = {"library": graph_ms(library, 10)}
+        for vname, fn in fns.items():
+            if not vname.startswith("k5bf16"):
+                continue
+            if vname.startswith("k5bf16old"):
+                def call(fn=fn):
+                    check(fn(*ptrs, out.data_ptr(), conv.data_ptr(),
+                             partial.data_ptr(), stats.data_ptr(), bsz, t,
+                             cin, cout, k, s, pad_l, t_out, 16, 1e-6, 1,
+                             stream()))
+            else:
+                def call(fn=fn, plan=plan):
+                    check(fn(*ptrs, out.data_ptr(), partial.data_ptr(),
+                             stats.data_ptr(), bsz, t, cin, cout, k, s,
+                             pad_l, t_out, 16, 1e-6, 1, *plan.args(),
+                             stream()))
+            row[vname] = graph_ms(call, 10)
+            if vname in ("k5bf16", "k5bf16_gelu_tanh"):
+                call()
+                torch.cuda.synchronize()
+                share, ulps = bf16_agreement(out, want, scale)
+                row[f"{vname} share"], row[f"{vname} ulps"] = share, ulps
+            if vname == "k5bf16":
+                for alt, p in others.items():
+                    row[f"k5bf16 fused {alt} mt{p.mt} {p.blocks} blocks"] = (
+                        graph_ms(lambda p=p: call(plan=p), 10))
+        row["library_2"] = graph_ms(library, 10)
+        result[f"k5bf16 {name}"] = row
+        print(f"[k5bf16] {name} ({bsz}, {t}, {cin}->{cout}, k={k}, s={s}): "
+              + ", ".join(f"{k_} {v:.5f}" if k_.endswith(("share", "ulps"))
+                          else f"{k_} {v:.4f} ms" for k_, v in row.items())
+              + f" on {card}", flush=True)
+    if any(n.startswith("k6bf16") for n in fns):
+        b, n, c = BF16_K6_TIMED
+        x = (torch.randn(b, n, c, device="cuda", generator=g) * 3.0).bfloat16()
+        scale = (torch.rand(c, device="cuda", generator=g) * 1.5
+                 + 0.5).bfloat16()
+        y, env = torch.empty_like(x), torch.empty(b, n // 8, c, device="cuda",
+                                                  dtype=torch.bfloat16)
+
+        def library():
+            yy = F.gelu(x * scale, approximate="tanh")
+            e = F.avg_pool1d(x.abs().transpose(1, 2), 8).transpose(1, 2)
+            return yy, torch.log1p(e)
+        row = {"library": graph_ms(library, 20)}
+        for vname, fn in fns.items():
+            if vname.startswith("k6bf16"):
+                def call(fn=fn):
+                    check(fn(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                             env.data_ptr(), b * n, c, stream()))
+                row[vname] = graph_ms(call, 20)
+        row["library_2"] = graph_ms(library, 20)
+        result[f"k6bf16 ({b}, {n}, {c})"] = row
+        print(f"[k6bf16] ({b}, {n}, {c}): " + ", ".join(
+            f"{k_} {v:.4f} ms" for k_, v in row.items()) + f" on {card}",
+              flush=True)
+    return result
+
+
 def time_bf16(fns: dict, g, card: str) -> dict:
     """The bf16 forms' variants at chip_smoke.py's timed bf16 shapes, in
     turns with the bf16 library calls (scaled_dot_product_attention;
@@ -593,6 +891,10 @@ def main() -> int:
     ap.add_argument("--k4-baseline", default=None,
                     help="the earlier meddis.cu, built as it is and with parts "
                          "removed, beside K4's variants")
+    ap.add_argument("--bf16-baseline", default=None,
+                    help="an earlier csrc/ directory whose conv_gn.cu and "
+                         "envact.cu the k5bf16old and k6bf16old variants "
+                         "build")
     ap.add_argument("--sass", default=None,
                     help="write the SASS of the K4 libraries to this file")
     args = ap.parse_args()
@@ -611,7 +913,8 @@ def main() -> int:
     print(f"[card] {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     fns = build_variants(os.path.join(build.BUILD_DIR, "ablation"), kernels,
-                         args.k5_baseline, args.k4_baseline)
+                         args.k5_baseline, args.k4_baseline,
+                         args.bf16_baseline)
     g = torch.Generator(device="cuda").manual_seed(0)
     result = {"card": card, "k3": {}, "k1": {}}
     if "k4" in kernels:
@@ -621,6 +924,17 @@ def main() -> int:
         result["k5"] = time_k5(fns, g, card)
     if kernels & {"k1bf16", "k3bf16"}:
         result["bf16"] = time_bf16(fns, g, card)
+    if kernels & {"k5bf16", "k6bf16", "k5bf16old", "k6bf16old"}:
+        result["k56bf16"] = time_k56bf16(fns, g, card)
+    if "k6bf16" in kernels:
+        counts = packed_sass(os.path.join(build.BUILD_DIR, "ablation",
+                                          "libk6bf16.so"),
+                             "envact_kernel_bf16_vec8")
+        result["k6bf16_sass"] = counts
+        print(f"[k6bf16] SASS of envact_kernel_bf16_vec8, packed bf16 "
+              f"instructions: {counts['products']} products, "
+              f"{counts['sums']} sums, {counts['fused']} fused "
+              f"multiply-adds", flush=True)
 
     if "k3" in kernels:
         for m in (25664, 6416, 1):

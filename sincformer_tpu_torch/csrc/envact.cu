@@ -25,10 +25,24 @@
 // the JAX package's bf16 env_act_reference rounds (envact_pallas.py:89-94):
 // x * scale and every operation of jax.nn.gelu's expansion (its two
 // constants too) round to bf16; the envelope is the mean of |x| over 8 rows
-// in f32 from the widened inputs, log1p in f32, rounded once. A thread owns
-// eight neighbouring channels of a group of 8 rows where C % 8 == 0 (16-byte
-// loads and stores), one channel otherwise. Bound: bytes, (2 + 1/8) * 2
-// bytes per element, half the f32 form's.
+// in f32 from the widened inputs, log1p in f32, rounded once. Bound: bytes,
+// (2 + 1/8) * 2 bytes per element, half the f32 form's: 139 MB, 0.042 ms at
+// (16, 32,000, 64). Its first form rounded each f32 operation by a scalar
+// cvt.rn.bf16.f32 (eleven an element) and was bound by those instructions,
+// not by bytes (0.109 ms). Here the GELU runs on pairs of neighbouring
+// channels in packed bf16: mul.rn.bf16x2 and add.rn.bf16x2 (mul2, add2, as
+// __hmul2_rn and __hadd2_rn) round the exact result once, which for bf16
+// operands is what the plain version's f32 operation and rounding give (the
+// product of two bf16 values is exact in f32; their sum is exact in f32 or
+// rounds to the same bf16 value), and the _rn forms are never contracted
+// into a fused multiply-add, which would skip the rounding between product
+// and sum (their SASS has none: scripts/torch_kernel_ablation.py counts). tanh
+// stays the accurate tanhf of the widened pair (the plain version rounds
+// torch.tanh's f32 result), rounded two at a time by cvt.rn.bf16x2.f32, as
+// are the envelope's log1pf. A thread owns eight neighbouring channels of a
+// group of 8 rows where C % 8 == 0 (16-byte loads and stores, the 8 rows in
+// flight together); other C take one channel a thread through the same
+// packed GELU.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,36 +118,47 @@ envact_kernel_vec4(const float4* __restrict__ x,
   }
 }
 
-using bf16_t = uint16_t;        // the bits of a bfloat16 value
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
 
-__device__ __forceinline__ float from_bf16(uint32_t bits) {
-  return __uint_as_float(bits << 16);
+// packed products and sums that round the exact result once and are never
+// contracted (what __hmul2_rn and __hadd2_rn give, spelled in PTX so that
+// no header version decides it)
+__device__ __forceinline__ bf162 mul2(bf162 a, bf162 b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;"
+      : "=r"(r)
+      : "r"(*reinterpret_cast<const uint32_t*>(&a)),
+        "r"(*reinterpret_cast<const uint32_t*>(&b)));
+  return *reinterpret_cast<const bf162*>(&r);
 }
-// f32 -> bf16 bits, to nearest even: one cvt.rn.bf16.f32 on sm_90 (an
-// integer emulation of the rounding took K6 to twice the f32 form's time)
-__device__ __forceinline__ uint32_t to_bf16(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-// v rounded to bf16, as f32
-__device__ __forceinline__ float rb(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+__device__ __forceinline__ bf162 add2(bf162 a, bf162 b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;"
+      : "=r"(r)
+      : "r"(*reinterpret_cast<const uint32_t*>(&a)),
+        "r"(*reinterpret_cast<const uint32_t*>(&b)));
+  return *reinterpret_cast<const bf162*>(&r);
 }
 
-// jax.nn.gelu(approximate=True) on a bf16 value, every operation rounded
+// jax.nn.gelu(approximate=True) on two bf16 values, every operation rounded
 // to bf16: x * (0.5 * (1 + tanh(c * (x + k * (x * (x * x)))))), with
-// c = bf16(sqrt(2 / pi)) and k = bf16(0.044715)
-__device__ __forceinline__ float gelu_bf16(float v) {
-  const float c = 0.796875f;        // bf16(0.7978845608)
-  const float k = 0.044677734375f;  // bf16(0.044715)
-  const float cube = rb(v * rb(v * v));
-  const float inner = rb(c * rb(v + rb(k * cube)));
-  return rb(v * rb(0.5f * rb(1.0f + rb(tanhf(inner)))));
+// c = bf16(sqrt(2 / pi)) = 0.796875 and k = bf16(0.044715) = 0.044677734375
+__device__ __forceinline__ bf162 gelu2(bf162 v) {
+  const bf162 c = __float2bfloat162_rn(0.796875f);
+  const bf162 k = __float2bfloat162_rn(0.044677734375f);
+  const bf162 half = __float2bfloat162_rn(0.5f);
+  const bf162 one = __float2bfloat162_rn(1.0f);
+  const bf162 cube = mul2(v, mul2(v, v));
+  const float2 inner = __bfloat1622float2(mul2(c, add2(v, mul2(k, cube))));
+  const bf162 th = __floats2bfloat162_rn(tanhf(inner.x), tanhf(inner.y));
+  return mul2(v, mul2(half, add2(one, th)));
 }
 
 __global__ void __launch_bounds__(kThreads)
-envact_kernel_bf16(const bf16_t* __restrict__ x,
-                   const bf16_t* __restrict__ scale, bf16_t* __restrict__ y,
-                   bf16_t* __restrict__ env, long long groups, int C) {
+envact_kernel_bf16(const bf16* __restrict__ x, const bf16* __restrict__ scale,
+                   bf16* __restrict__ y, bf16* __restrict__ env,
+                   long long groups, int C) {
   const long long total = groups * C;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -141,21 +166,22 @@ envact_kernel_bf16(const bf16_t* __restrict__ x,
     const long long g = i / C;
     const int c = (int)(i - g * C);
     const long long base = g * kPool * C + c;
-    float v[kPool];
+    bf16 v[kPool];
 #pragma unroll
-    for (int j = 0; j < kPool; ++j) v[j] = from_bf16(x[base + (long long)j * C]);
-    const float s = from_bf16(scale[c]);
+    for (int j = 0; j < kPool; ++j) v[j] = x[base + (long long)j * C];
+    const bf162 s = __bfloat162bfloat162(scale[c]);
     float sum = 0.0f;
 #pragma unroll
     for (int j = 0; j < kPool; ++j) {
-      sum += fabsf(v[j]);
-      y[base + (long long)j * C] = (bf16_t)to_bf16(gelu_bf16(rb(v[j] * s)));
+      sum += fabsf(__bfloat162float(v[j]));
+      y[base + (long long)j * C] =
+          __low2bfloat16(gelu2(mul2(__bfloat162bfloat162(v[j]), s)));
     }
-    env[i] = (bf16_t)to_bf16(log1pf(sum * (1.0f / kPool)));
+    env[i] = __float2bfloat16_rn(log1pf(sum * (1.0f / kPool)));
   }
 }
 
-// eight channels a thread: x, y, scale and env as uint4 (8 bf16 each)
+// eight channels a thread: x, y, scale and env as uint4 (4 pairs of bf16)
 __global__ void __launch_bounds__(kThreads)
 envact_kernel_bf16_vec8(const uint4* __restrict__ x,
                         const uint4* __restrict__ scale,
@@ -168,36 +194,35 @@ envact_kernel_bf16_vec8(const uint4* __restrict__ x,
     const long long g = i / C8;
     const int c = (int)(i - g * C8);
     const long long base = g * kPool * C8 + c;
-    const uint4 sv = scale[c];
-    const uint32_t sw[4] = {sv.x, sv.y, sv.z, sv.w};
-    float s[8], sum[8];
+    uint4 sv = scale[c];
+    const bf162* s = reinterpret_cast<const bf162*>(&sv);
+    uint4 xv[kPool];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s[e] = from_bf16((sw[e / 2] >> (16 * (e & 1))) & 0xFFFFu);
-      sum[e] = 0.0f;
-    }
+    for (int j = 0; j < kPool; ++j) xv[j] = x[base + (long long)j * C8];
+    float2 sum[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sum[q] = make_float2(0.0f, 0.0f);
 #pragma unroll
     for (int j = 0; j < kPool; ++j) {
-      const uint4 xv = x[base + (long long)j * C8];
-      const uint32_t xw[4] = {xv.x, xv.y, xv.z, xv.w};
-      uint32_t out[4];
+      const bf162* v = reinterpret_cast<const bf162*>(&xv[j]);
+      uint4 out;
+      bf162* o = reinterpret_cast<bf162*>(&out);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float v0 = from_bf16(xw[q] & 0xFFFFu);
-        const float v1 = from_bf16(xw[q] >> 16);
-        sum[2 * q] += fabsf(v0);
-        sum[2 * q + 1] += fabsf(v1);
-        out[q] = to_bf16(gelu_bf16(rb(v0 * s[2 * q]))) |
-                 (to_bf16(gelu_bf16(rb(v1 * s[2 * q + 1]))) << 16);
+        const float2 f = __bfloat1622float2(v[q]);
+        sum[q].x += fabsf(f.x);
+        sum[q].y += fabsf(f.y);
+        o[q] = gelu2(mul2(v[q], s[q]));
       }
-      y[base + (long long)j * C8] = make_uint4(out[0], out[1], out[2], out[3]);
+      y[base + (long long)j * C8] = out;
     }
-    uint32_t e4[4];
+    uint4 e;
+    bf162* eo = reinterpret_cast<bf162*>(&e);
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      e4[q] = to_bf16(log1pf(sum[2 * q] * (1.0f / kPool))) |
-              (to_bf16(log1pf(sum[2 * q + 1] * (1.0f / kPool))) << 16);
-    env[i] = make_uint4(e4[0], e4[1], e4[2], e4[3]);
+      eo[q] = __floats2bfloat162_rn(log1pf(sum[q].x * (1.0f / kPool)),
+                                    log1pf(sum[q].y * (1.0f / kPool)));
+    env[i] = e;
   }
 }
 
@@ -251,8 +276,8 @@ extern "C" int envact_fwd_bf16(const void* x, const void* scale, void* y,
         static_cast<uint4*>(y), static_cast<uint4*>(env), groups, C / 8);
   } else {
     envact_kernel_bf16<<<(unsigned)blocks, kThreads, 0, st>>>(
-        static_cast<const bf16_t*>(x), static_cast<const bf16_t*>(scale),
-        static_cast<bf16_t*>(y), static_cast<bf16_t*>(env), groups, C);
+        static_cast<const bf16*>(x), static_cast<const bf16*>(scale),
+        static_cast<bf16*>(y), static_cast<bf16*>(env), groups, C);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Hopper warpgroup products (wgmma) for the bf16 forms of K1
-// (speech_attention.cu) and K3 (fused_ffn.cu): operand descriptors of
-// 128-byte-swizzled tiles in shared memory, starting and awaiting
-// wgmma.mma_async, and its forms with bf16 operands and f32 accumulators
-// that the kernels use.
+// (speech_attention.cu), K3 (fused_ffn.cu) and K5 (conv_gn.cu): operand
+// descriptors of 128-byte-swizzled and of unswizzled tiles in shared
+// memory, starting and awaiting wgmma.mma_async, and its forms with bf16
+// operands and f32 accumulators that the kernels use.
 //
 // A 128-byte-swizzled tile keeps rows of 128 bytes (64 bf16) in atoms of 8
 // rows (1024 bytes, 1024-byte aligned): the 16-byte piece j of row r sits at
@@ -14,6 +14,14 @@
 //     values a row; the stride byte offset is 1024 (8 K rows), the leading
 //     byte offset the distance between panels of 64 N columns, a 16-deep
 //     step starts 16 rows (2048 bytes) further.
+// An unswizzled tile (K5) is made of core matrices of 8 rows x 16 bytes,
+// each 128 contiguous bytes, which may start at any 16-byte boundary:
+//   * K-major A: a core matrix is 8 rows (M) of 8 K values; the leading byte
+//     offset is the distance to the next 8 K values, the stride byte offset
+//     to the next 8 rows;
+//   * N-major B (trans-b = 1): a core matrix is 8 K rows of 8 N values; the
+//     leading byte offset is the distance to the next 8 K rows, the stride
+//     byte offset to the next 8 N values.
 // Accumulator layout of m64nN (f32), for thread 32 w + 4 g + t of the
 // warpgroup: d[4i], d[4i + 1] are row 16 w + g, columns 8i + 2t, 8i + 2t + 1;
 // d[4i + 2], d[4i + 3] row 16 w + g + 8. A from registers (m64 x k16) takes
@@ -42,6 +50,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
 }
 
+// descriptor of an unswizzled operand (layout type 0)
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+}
+
 // before the first product of a batch: shared memory and registers written
 // by the threads are seen by the products
 __device__ __forceinline__ void fence() {
@@ -54,6 +70,11 @@ __device__ __forceinline__ void commit() {
 
 __device__ __forceinline__ void wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// all but the last committed batch are done
+__device__ __forceinline__ void wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // registers that an asynchronous product writes: no access moves across this
@@ -94,6 +115,69 @@ __device__ __forceinline__ void ss<64, 1>(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void ss<16, 1>(float (&d)[8], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void ss<32, 1>(float (&d)[16], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void ss<128, 1>(float (&d)[64], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

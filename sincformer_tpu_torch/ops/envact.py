@@ -18,8 +18,10 @@ recomputed.
 bfloat16 (x and scale both bf16): the kernel's bf16 form
 (``envact_fwd_bf16``) and the plain version round where the JAX package's
 ``env_act_reference`` rounds in bf16: x · scale and every operation of the
-GELU's expansion (``ops.flax_math.gelu``) to bf16; the envelope's mean
-and log1p in float32 from the widened input, rounded once. A bf16 launch
+GELU's expansion (``ops.flax_math.gelu``) to bf16 (the kernel on pairs of
+channels, packed bf16x2 products and sums, each rounded once as the plain
+version's f32 operation and rounding are); the envelope's mean and log1p in
+float32 from the widened input, rounded once. A bf16 launch
 counts in ``env_act.launches`` and in ``env_act.launches_bf16``.
 """
 

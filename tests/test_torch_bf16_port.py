@@ -152,7 +152,7 @@ def test_bf16_wrappers_on_cpu_tensors_launch_nothing():
                       fused_ffn.launches_bf16)
 
 
-def _k5_args(case, device, dtype=torch.bfloat16):
+def _k5_args(case, device, dtype=torch.bfloat16, bsz=2):
     t, cin, cout, k, s, act, with_skip, groups = case
     g = torch.Generator(device=device).manual_seed(t + cin)
 
@@ -160,9 +160,9 @@ def _k5_args(case, device, dtype=torch.bfloat16):
         return (shift + scale * torch.randn(*shape, device=device,
                                             generator=g)).to(dtype)
     t_out = -(-t // s)
-    return (r(2, t, cin), r(k, cin, cout, scale=(k * cin) ** -0.5),
+    return (r(bsz, t, cin), r(k, cin, cout, scale=(k * cin) ** -0.5),
             r(cout, scale=0.1), r(cout, scale=0.1, shift=1.0),
-            r(cout, scale=0.1), r(2, t_out, cout) if with_skip else None)
+            r(cout, scale=0.1), r(bsz, t_out, cout) if with_skip else None)
 
 
 def _k6_args(shape, device, dtype=torch.bfloat16):
@@ -173,8 +173,10 @@ def _k6_args(shape, device, dtype=torch.bfloat16):
 
 
 # (T, Cin, Cout, K, stride, act, skip, groups) of K5's bf16 form on the
-# card: chip_smoke.py's shapes, the edges of its staging (Cin % 4, Cout %
-# 64 and % 4, taps in groups, Tout under a tile) and odd lengths
+# card: chip_smoke.py's shapes, the edges of its staging (Cin % 8, Cout %
+# 8, w streamed in tap groups, Tout under a tile) and odd lengths, on its
+# fused path and, from T 9000 at batch 2, its two passes (ops/conv_gn.py::
+# bf16_plan: one slab of channels and two, w resident and streamed)
 K5_CARD = [(1000, 64, 128, 7, 2, True, False, 16),
            (400, 256, 256, 7, 1, True, True, 16),
            (500, 128, 128, 3, 1, False, True, 16),
@@ -182,7 +184,21 @@ K5_CARD = [(1000, 64, 128, 7, 2, True, False, 16),
            (100, 24, 48, 1, 4, True, False, 16),
            (333, 12, 80, 5, 4, True, True, 16),
            (50, 3, 18, 3, 1, False, False, 3),
-           (1200, 64, 128, 31, 1, True, False, 16)]
+           (1200, 64, 128, 31, 1, True, False, 16),
+           (300, 256, 64, 31, 1, True, False, 16),
+           (30001, 12, 80, 5, 4, True, True, 16),
+           (9000, 3, 18, 3, 1, False, False, 3),
+           (16000, 256, 256, 7, 2, True, False, 16),
+           (20000, 64, 256, 3, 2, True, True, 16)]
+# (B, T, Cin, Cout, K, stride, act, skip, groups): chip_smoke.py's
+# BF16_K5_BATCHED, one shape for each instantiation of the kernel that batch
+# 2 does not reach (tests/test_torch_conv_gn.py's BATCHED_INSTANCES)
+K5_BATCHED = [(2, 900, 64, 64, 3, 1, True, True, 16),
+              (16, 100, 256, 256, 7, 1, True, False, 16),
+              (16, 256, 256, 256, 7, 1, True, True, 16),
+              (16, 400, 256, 256, 7, 1, True, True, 16),
+              (2, 100, 64, 128, 3, 1, True, False, 2),
+              (2, 9000, 8, 16, 3, 1, False, False, 4)]
 # (B, N, C) of K6's bf16 form: eight channels a thread where C % 8 == 0,
 # one otherwise
 K6_CARD = [(2, 8000, 64), (1, 16, 3), (2, 800, 12), (3, 2400, 64)]
@@ -413,14 +429,15 @@ def test_bf16_forms_under_autograd_on_the_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", K5_CARD)
+@pytest.mark.parametrize("case", [(2,) + c for c in K5_CARD] + K5_BATCHED)
 def test_k5_bf16_form_on_the_card(case):
     """K5's bf16 form against its plain bf16 version on the same card, one
     launch counted in both counts."""
     _need_card()
     torch.backends.cudnn.allow_tf32 = False
     from sincformer_tpu_torch.ops.conv_gn import conv1d_gn, conv_gn_reference
-    args = _k5_args(case, "cuda")
+    bsz, case = case[0], case[1:]
+    args = _k5_args(case, "cuda", bsz=bsz)
     _, _, _, _, s, act, _, groups = case
     before = conv1d_gn.launches_bf16
     out = conv1d_gn(*args, s, groups, 1e-6, act)

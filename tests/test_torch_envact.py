@@ -14,6 +14,7 @@ import torch
 from sincformer_tpu.ops import envact_pallas as jax_envact
 from sincformer_tpu_torch.ops.envact import (env_act, env_act_auto,
                                              env_act_reference)
+from tests._torch_bf16 import agreement
 
 TOL = 3e-6
 # (shape, Pallas block): the JAX tests' shapes, a length for which the TPU
@@ -79,19 +80,29 @@ def test_cpu_tensor_takes_plain_version_without_launch():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 3200, 64), (1, 8, 3), (2, 2400, 64),
-                                   (3, 808, 6)])
-def test_cuda_kernel_matches_plain(shape):
-    """Needs a CUDA card and nvcc (builds csrc/envact.cu)."""
+                                   (3, 808, 6), (4, 32000, 64), (2, 800, 12)])
+def test_cuda_kernel_matches_plain(shape, dtype):
+    """Needs a CUDA card and nvcc (builds csrc/envact.cu). float32: within
+    3e-6; bfloat16 (chip_smoke.py's BF16_K6_CASES shapes among these): at
+    least 99 % of the elements bit-equal to the plain bf16 version and none
+    beyond one bf16 ulp at its term scale (tests/_torch_bf16.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    x, scale = (torch.from_numpy(a).cuda() for a in _inputs(shape))
+    x, scale = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(shape))
     before = env_act.launches
     y, env = env_act(x, scale)
     torch.cuda.synchronize()
     assert env_act.launches == before + 1
     y_ref, env_ref = env_act_reference(x, scale)
-    assert float((y - y_ref).abs().max()) <= TOL
-    assert float((env - env_ref).abs().max()) <= TOL
+    if dtype == torch.float32:
+        assert float((y - y_ref).abs().max()) <= TOL
+        assert float((env - env_ref).abs().max()) <= TOL
+    else:
+        for got, want, terms in ((y, y_ref, (x.float() * scale.float()).abs()),
+                                 (env, env_ref, torch.zeros(()))):
+            share, ulps = agreement(got.cpu(), want.cpu(), terms.cpu())
+            assert got.dtype == dtype and share >= 0.99 and ulps <= 1.0
     with pytest.raises(ValueError, match="contiguous"):
         env_act(torch.cat([x, x], dim=-1)[..., :shape[-1]], scale)

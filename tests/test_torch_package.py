@@ -147,3 +147,32 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     monkeypatch.undo()
     for name in ("speech_attention", "fused_ffn"):
         assert "tf32x3.cuh" in build._sources(name)
+
+
+def test_chip_smoke_tells_the_ports_kernels_in_a_profile():
+    """chip_smoke.py's profiles count as the port's exactly the kernels of
+    sincformer_tpu_torch/csrc/, by their names as torch.profiler gives
+    them, and no library kernel of another namespace."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    names = chip_smoke.port_kernel_names()
+    assert {"speech_attention_kernel", "attention_bf16_wgmma",
+            "quantize_tree_kernel", "fused_ffn_kernel",
+            "fused_ffn_bf16_kernel", "meddis_kernel", "conv_kernel",
+            "conv_bf16_kernel", "stats_kernel", "norm_kernel",
+            "envact_kernel_vec4", "envact_kernel_bf16_vec8"} <= set(names)
+    port = ["void (anonymous namespace)::bf16form::conv_bf16_kernel<32, 4>("
+            "__nv_bfloat16 const*, (anonymous namespace)::bf16form::Geo)",
+            "(anonymous namespace)::envact_kernel_vec4(float4 const*, "
+            "float4 const*, float4*, float4*, long long, int)",
+            "void (anonymous namespace)::stats_kernel<64>(float const*)"]
+    other = ["void at::native::vectorized_elementwise_kernel<4, "
+             "at::native::(anonymous namespace)::norm_kernel>(int)",
+             "void at::native::(anonymous namespace)::conv_kernel(float*)",
+             "void (anonymous namespace)::softmax_warp_forward<float>(float*)",
+             "Memcpy HtoD (Pageable -> Device)"]
+    assert all(chip_smoke.is_port_kernel(k, names) for k in port)
+    assert not any(chip_smoke.is_port_kernel(k, names) for k in other)
