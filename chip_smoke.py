@@ -90,8 +90,11 @@ its kernels:
     ranks against one process with K1 (a planted hop that keeps the
     gradient must fail), the halo conv against ``F.conv1d``; the DCSE
     trainer's step, f32 and bf16, with its frames split over the two
-    ranks' ring against one process; the multi-device dry run on four
-    processes; a one-rank NCCL model axis
+    ranks' ring against one process, and on a (2, 2) ("data", "seq")
+    mesh of four gloo ranks; the flagship's training step and an enhance
+    request from the artifact with ``attn_impl="ring"``, the whole batch
+    on each of two ranks, against one process; the multi-device dry run
+    on four processes; a one-rank NCCL model axis
     bit-equal to no mesh; a probe, in two processes of its own, of
     whether gloo gathers and sends CUDA tensors on this card;
   * bf16 (``[bf16]``): K1's and K3's bf16 forms against their plain bf16
@@ -2799,7 +2802,8 @@ def zero_k1_k3() -> None:
         w.launches = w.launches_bf16 = 0
 
 
-def dp_case(kind: str, mesh, batch: dict, seed: int, dtype=None) -> dict:
+def dp_case(kind: str, mesh, batch: dict, seed: int, dtype=None,
+            ring=None) -> dict:
     """One dropout-0 training step on the card of the full flagship (from
     the committed artifact, softmax routing) or of DCSE at ``DCSEConfig()``
     sizes ("batch" norm, the fused feed-forward, seeded weights), on this
@@ -2815,12 +2819,15 @@ def dp_case(kind: str, mesh, batch: dict, seed: int, dtype=None) -> dict:
     gradients and parameters are gathered whole, the all-gathers are
     counted and timed too, and the parameter bytes this rank holds are
     returned. ``dtype``: DCSE's ``compute_dtype`` (bf16 mixed precision;
-    the bf16 forms' launches are returned too)."""
+    the bf16 forms' launches are returned too). ``ring``: the flagship
+    with ``attn_impl="ring"``, each step under ``ring_mesh`` on ``ring``'s
+    "data" axis with the whole batch on every rank."""
     from unittest import mock
 
     import torch.distributed as dist
 
     import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.ops.attention import ring_mesh
     from sincformer_tpu_torch.ops.fused_ffn import fused_ffn
     from sincformer_tpu_torch.ops.speech_attention import speech_attention
     from sincformer_tpu_torch.parallel import collectives, shard_batch
@@ -2832,15 +2839,21 @@ def dp_case(kind: str, mesh, batch: dict, seed: int, dtype=None) -> dict:
             port.SincformerMetacog(cfg), device="cuda", model_dir=ARTIFACT,
             mesh=mesh)
         p.load_model()
+        if ring is not None:
+            p.model = ring_flagship(p.model)
         p.init_state(epochs=1, steps_per_epoch=1)
         module = agent_trainer
         terms = (1.0, 1.0, None, 1.0)    # every term on, Gumbel unused
+        within = (contextlib.nullcontext if ring is None
+                  else lambda: ring_mesh(ring, "data"))
 
         def whole(n, c):
-            return p.loss_and_grads(n, c, *terms)
+            with within():
+                return p.loss_and_grads(n, c, *terms)
 
         def step(n, c):
-            return p.train_step(n, c, *terms)[0]
+            with within():
+                return p.train_step(n, c, *terms)[0]
     else:
         cfg = port.DCSEConfig(dropout=0.0, conv_norm="batch", fused_ffn=True)
         p = dcse_trainer.DCSETrainer(port.SpeechEnhancer(cfg), device="cuda",
@@ -3408,6 +3421,24 @@ CP_TRAINER_BATCH = (2, 32080)  # [parallel] (e): 402 STFT frames, 201 a rank
 # - one f32| (the ring rounds K's and V's gradients at every hop, as JAX's
 # does: measured 1.57-2.95, median 2.38, on the CPU's narrow step), at most
 CP_TRAINER_NOISE = (4.0, 6.0)  # this median and this worst
+# [parallel] (f): the DCSE trainer's step on a (2, 2) ("data", "seq") mesh of
+# four gloo ranks, the ring on "seq": (e)'s frames, a batch of four
+CP_MESH_ROWS = 4
+# its steps: (name, compute dtype, loss terms: cp_trainer_step); the first
+# is the four processes' warm-up too. "sc_ring" plants the spectral
+# convergence's norms over the ring in place of the data ranks (must fail);
+# "sc_world" over data x ring, where every row counts once per ring rank
+# and the ratio and its all-reduced backward stay as they are
+CP_MESH_STEPS = (("f32_whole", None, "whole"), ("f32", None, "no_stft"),
+                 ("sc", None, "sc"), ("sc_ring", None, "sc_ring"),
+                 ("sc_world", None, "sc_world"),
+                 ("bf16", torch.bfloat16, "whole"))
+# the MR-STFT loss's resolutions: (FFT size, hop, window)
+STFT_RESOLUTIONS = ((256, 64, 256), (512, 128, 512), (1024, 256, 1024))
+# a flagship gradient leaf's error is taken of its scale floored at this
+# share of the step's largest gradient (the SincConv cutoffs' true gradient
+# is ~0: ROADMAP.md Queue 3; tests/test_torch_train_step.py GRAD_FLOOR)
+CP_GRAD_FLOOR = 1e-4
 
 
 def cp_block(seed: int):
@@ -3452,36 +3483,174 @@ def cp_step(blk, x, cot, rows=slice(None)) -> dict:
             / 1e9}
 
 
-def cp_trainer_step(seed: int, dtype, ring=None) -> dict:
+def spectral_convergence_loss(pred, target):
+    """The MR-STFT loss without its log-magnitude term: the mean of
+    ``losses.spectral_convergence`` (both norms over the data ranks) at
+    the loss's resolutions. Well conditioned: |stft|'s gradient is
+    bounded, where the log-magnitude's grows as 1 / |stft|."""
+    from sincformer_tpu_torch.dsp.stft import stft
+    from sincformer_tpu_torch.train import losses
+    terms = [losses.spectral_convergence(torch.abs(stft(pred, f, h, w)),
+                                         torch.abs(stft(target, f, h, w)))
+             for f, h, w in STFT_RESOLUTIONS]
+    return sum(terms) / len(terms)
+
+
+def loss_terms(terms: str, ring):
+    """The patches of the DCSE trainer's loss for :func:`cp_trainer_step`'s
+    ``terms``: "whole" none; "no_stft" the MR-STFT term 0; "sc" the
+    spectral convergence alone (SI-SNR 0, the magnitude L1's weight 0 in
+    the step's config); "sc_ring" and "sc_world" that with its norms over
+    ``ring``'s "seq" axis or over every rank."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from sincformer_tpu_torch.parallel import collectives, make_mesh
+    from sincformer_tpu_torch.train import dcse_trainer, losses
+    stack = contextlib.ExitStack()
+    if terms == "no_stft":
+        stack.enter_context(mock.patch.object(
+            dcse_trainer, "multi_resolution_stft_loss",
+            lambda pred, target: pred.sum() * 0.0))
+    if terms.startswith("sc"):
+        stack.enter_context(mock.patch.object(
+            dcse_trainer, "si_snr_loss", lambda est, ref: est.sum() * 0.0))
+        stack.enter_context(mock.patch.object(
+            dcse_trainer, "multi_resolution_stft_loss",
+            spectral_convergence_loss))
+    if terms in ("sc_ring", "sc_world"):
+        over = (ring, "seq") if terms == "sc_ring" else (make_mesh(), "data")
+
+        def norm(x):
+            with collectives.data_parallel(*over):
+                return collectives.norm(x)
+        stack.enter_context(mock.patch.object(
+            losses, "collectives", SimpleNamespace(norm=norm)))
+    return stack
+
+
+def cp_trainer_step(seed: int, dtype, ring=None, seq_axis: str = "data",
+                    rows: int = CP_TRAINER_BATCH[0],
+                    terms: str = "whole") -> dict:
     """``DCSETrainer.loss_and_grads`` at DCSE width (seeded weights,
-    dropout 0) on seeded (2, 4.01 s) noisy and clean waveforms, with
-    ``compute_dtype=dtype``: under ``ring_mesh`` on ``ring`` (this rank's
-    201 of the 402 frames, ``attn_impl="ring"``) or in one process with K1.
-    The loss and the gradients, on the host."""
+    dropout 0) on seeded (``rows``, 4.01 s) noisy and clean waveforms,
+    with ``compute_dtype=dtype``: under ``ring_mesh`` on ``ring``'s
+    ``seq_axis`` (``attn_impl="ring"``: each rank of the ring runs 201 of
+    the 402 frames; a mesh with a "data" axis besides is the trainer's
+    too, each data rank its rows) or in one process with K1. The whole
+    batch goes to every rank. ``terms``: the loss's terms
+    (:func:`loss_terms`; without the MR-STFT term, whose float32 gradient
+    is ill-conditioned, ROADMAP.md Queue 3, or its spectral convergence
+    alone). The loss, the gradients on the host and the step's wall time
+    (ms)."""
     import sincformer_tpu_torch as port
     from sincformer_tpu_torch.ops.attention import ring_mesh
+    from sincformer_tpu_torch.parallel import shard_batch
     from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
+    sc = {"mag_loss_weight": 0.0} if terms.startswith("sc") else {}
     cfg = port.DCSEConfig(dropout=0.0, attn_impl="speech" if ring is None
-                          else "ring")
+                          else "ring", **sc)
+    mesh = ring if seq_axis != "data" else None
     pipe = DCSETrainer(port.SpeechEnhancer(cfg), device="cuda", seed=seed,
-                       compute_dtype=dtype)
+                       compute_dtype=dtype, mesh=mesh)
     pipe.init_state(epochs=1, steps_per_epoch=1)
-    g = torch.Generator().manual_seed(seed + 17)
-    clean = 0.2 * torch.randn(CP_TRAINER_BATCH, generator=g)
-    noisy = clean + 0.1 * torch.randn(CP_TRAINER_BATCH, generator=g)
+    noisy, clean = cp_trainer_batch(seed, rows)
+    part = shard_batch(mesh, {"noisy": noisy, "clean": clean})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with (contextlib.nullcontext() if ring is None
-          else ring_mesh(ring, "data")):
-        loss, _, grads = pipe.loss_and_grads(noisy.cuda(), clean.cuda())
-    return {"loss": float(loss), "grads": {
+          else ring_mesh(ring, seq_axis)), loss_terms(terms, ring):
+        loss, _, grads = pipe.loss_and_grads(part["noisy"].cuda(),
+                                             part["clean"].cuda())
+    loss = float(loss)
+    return {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3, "grads": {
         k: g.float().cpu() for k, g in zip(pipe.params(), grads)}}
 
 
-def cp_case(mesh, seed: int) -> dict:
+def cp_trainer_batch(seed: int, rows: int) -> tuple:
+    """Seeded (``rows``, 4.01 s) noisy and clean waveforms on the host."""
+    g = torch.Generator().manual_seed(seed + 17)
+    shape = (rows, CP_TRAINER_BATCH[1])
+    clean = 0.2 * torch.randn(shape, generator=g)
+    return clean + 0.1 * torch.randn(shape, generator=g), clean
+
+
+def cp_trainer_float64(seed: int, rows: int) -> dict:
+    """:func:`cp_trainer_step`'s one-process step on the whole loss in
+    float64 on the CPU, the same weights and batch: the gradients (as
+    float32), the reference that tells the float32 step's rounding from a
+    fault."""
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.train.dcse_trainer import DCSETrainer
+    pipe = DCSETrainer(port.SpeechEnhancer(port.DCSEConfig(dropout=0.0)),
+                       device="cpu", seed=seed)
+    pipe.init_state(epochs=1, steps_per_epoch=1)
+    pipe.model.to(torch.float64)
+    noisy, clean = cp_trainer_batch(seed, rows)
+    grads = pipe.loss_and_grads(noisy.double(), clean.double())[2]
+    return {k: g.float() for k, g in zip(pipe.params(), grads)}
+
+
+def cp_mesh_child(rank: int, world: int, port_: int, out_path: str,
+                  seed: int) -> None:
+    """One rank of ``[parallel]`` (f): join a gloo group of four on the one
+    card and run the DCSE trainer's step on a (2, 2) ("data", "seq") mesh
+    with the ring on "seq" (:func:`cp_trainer_step`, ``CP_MESH_STEPS``):
+    in float32 on the whole loss, without the MR-STFT term and on its
+    spectral convergence alone (also with its norms planted over the ring
+    and over every rank), in bf16 on the whole loss. Saves the results."""
+    import torch.distributed as dist
+
+    from sincformer_tpu_torch.parallel import init_distributed, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if not init_distributed(f"tcp://127.0.0.1:{port_}", world, rank,
+                            backend="gloo", device="cuda"):
+        raise AssertionError("no process group")
+    mesh = make_mesh(axis_names=("data", "seq"), shape=(2, world // 2))
+    out = {name: cp_trainer_step(seed, dt, mesh, "seq", CP_MESH_ROWS, term)
+           for name, dt, term in CP_MESH_STEPS}
+    torch.save(out, out_path)
+    dist.destroy_process_group()
+
+
+def ring_flagship(model):
+    """``model`` (a SincformerMetacog) rebuilt with ``attn_impl="ring"``,
+    its weights and buffers kept."""
+    import dataclasses
+
+    import sincformer_tpu_torch as port
+    ring = port.SincformerMetacog(dataclasses.replace(
+        model.config, attn_impl="ring")).to(next(model.parameters()).device)
+    ring.load_state_dict(model.state_dict())
+    return ring.eval()
+
+
+def enhance_request(seed: int, ring=None) -> np.ndarray:
+    """One request of the committed artifact's ``enhance_batch``: two
+    seeded 4 s waveforms, under ``ring_mesh`` on ``ring`` (the model with
+    ``attn_impl="ring"``) or in one process."""
+    from sincformer_tpu_torch.ops.attention import ring_mesh
+    from sincformer_tpu_torch.pipeline import SincformerPipeline
+    pipe = SincformerPipeline(device="cuda", model_dir=ARTIFACT)
+    pipe.load_model()
+    wav = (0.3 * np.random.default_rng(seed + 23).standard_normal(
+        (2, 32000))).astype(np.float32)
+    if ring is None:
+        return pipe.enhance_batch(wav)
+    pipe.model = ring_flagship(pipe.model)
+    with ring_mesh(ring, "data"):
+        return pipe.enhance_batch(wav)
+
+
+def cp_case(mesh, seed: int, batch: dict) -> dict:
     """``[parallel]`` (b) on this rank: the ring block on its half of the
     frames (``attn_impl="ring"`` and the halo conv under ``ring_mesh``),
     twice (the second timed), then with a hop whose backward keeps the
     gradient on the rank it reached (planted); the halo conv alone; the
-    ring block cast to bf16."""
+    ring block cast to bf16; (e) the DCSE trainer's step under the ring;
+    (g) the flagship's step on ``batch`` (:func:`dp_case`) and an enhance
+    request, the model given the whole sequence under the ring."""
     from unittest import mock
 
     from sincformer_tpu_torch.ops.attention import ring_mesh
@@ -3510,6 +3679,14 @@ def cp_case(mesh, seed: int) -> dict:
     # (e) the DCSE trainer's step, its frames split over the ring
     out["trainer"] = {name: cp_trainer_step(seed, dt, mesh) for name, dt in
                       (("f32", None), ("bf16", torch.bfloat16))}
+    # (g) the flagship's training step and an enhance request, the model
+    # given the whole batch under the ring
+    t0 = time.perf_counter()
+    out["flagship"] = dp_case("flagship", None, batch, seed, ring=mesh)
+    out["flagship_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["enhance"] = enhance_request(seed, mesh)
+    out["enhance_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3537,7 +3714,7 @@ def tp_cp_child(rank: int, world: int, port_: int, batch_path: str,
         out[kind] = dp_case(kind, mesh, batch, seed)
         out[kind]["counts"] = dict(collectives.COUNTS)
     collectives.COUNTS.clear()
-    out["cp"] = cp_case(make_mesh(axis_names=("data",)), seed)
+    out["cp"] = cp_case(make_mesh(axis_names=("data",)), seed, batch)
     out["cp"]["counts"] = dict(collectives.COUNTS)
     torch.save(out, out_path)
     dist.destroy_process_group()
@@ -3631,8 +3808,12 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
     ``impl="flash"`` through K1; (c) the dry run on four processes; (d) a
     one-rank NCCL model axis bit-equal to no mesh; (e) the DCSE trainer's
     step at DCSE width under ``ring_mesh`` on the two ranks, f32 and bf16,
-    against one process (:func:`cp_trainer_step`). First, what gloo does
-    with CUDA tensors here (:func:`gloo_cuda_probe`), printed."""
+    against one process (:func:`cp_trainer_step`); (f) the same step on a
+    (2, 2) ("data", "seq") mesh of four ranks; (g) the flagship's training
+    step and an enhance request under the ring on the two ranks, against
+    ``[distributed]``'s one-process step and one process's request. First,
+    what gloo does with CUDA tensors here (:func:`gloo_cuda_probe`),
+    printed."""
     import torch.distributed as dist
 
     import sincformer_tpu_torch as port
@@ -3859,6 +4040,149 @@ def check_parallel(seed: int, smi: str, launches) -> dict:
         faults.append(f"the DCSE trainer step under a ring left one "
                       f"process's: {cpt}")
     result["cp_trainer"] = cpt
+
+    # (f) the DCSE trainer's step on a (2, 2) ("data", "seq") mesh of four
+    # ranks against one process with the whole batch, at (e)'s bars; the
+    # planted steps have no one-process counterpart
+    one_mesh = {name: cp_trainer_step(seed, dt, rows=CP_MESH_ROWS,
+                                      terms=terms)
+                for name, dt, terms in CP_MESH_STEPS
+                if terms in ("whole", "no_stft", "sc")}
+    launches.expect("[parallel] (f) one-process DCSE trainer steps, f32 "
+                    "and bf16", speech_attention=4 * dcse_blocks,
+                    speech_attention_bf16=dcse_blocks)
+    with tempfile.TemporaryDirectory() as tmp:
+        port_ = free_port()
+        t0 = time.perf_counter()
+        run_ranks(
+            [["import sys, chip_smoke\n"
+              "chip_smoke.cp_mesh_child(int(sys.argv[1]), int(sys.argv[2]),"
+              " int(sys.argv[3]), sys.argv[4], int(sys.argv[5]))\n",
+              str(r), "4", str(port_), os.path.join(tmp, f"rank{r}.pt"),
+              str(seed)] for r in range(4)], "[parallel] (f)")
+        mesh_s = time.perf_counter() - t0
+        four = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           weights_only=False) for r in range(4)]
+    names = [n for n, _, _ in CP_MESH_STEPS]
+    same = all(f[n]["loss"] == four[0][n]["loss"] and all(
+        torch.equal(f[n]["grads"][k], four[0][n]["grads"][k])
+        for k in f[n]["grads"]) for f in four for n in names)
+
+    def worst_leaf(got, want) -> tuple:
+        """(the worst gradient leaf's error of its scale, that leaf)."""
+        rel = {k: scale(got[k] - g) / scale(g) for k, g in want.items()}
+        leaf = max(rel, key=rel.get)
+        return rel[leaf], leaf
+
+    def apart(got, want) -> tuple:
+        """(loss relative, :func:`worst_leaf`)."""
+        return (abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+                *worst_leaf(got["grads"], want["grads"]))
+    rank0 = {n: four[0][n] for n in names}
+    f32, whole = apart(rank0["f32"], one_mesh["f32"]), \
+        apart(rank0["f32_whole"], one_mesh["f32_whole"])
+    sc = {n: apart(rank0[n], one_mesh["sc"])
+          for n in ("sc", "sc_ring", "sc_world")}
+    # the witness for the whole loss's f32 gradients: the same one-process
+    # step in float64 on the CPU
+    t64 = time.perf_counter()
+    g64 = cp_trainer_float64(seed, CP_MESH_ROWS)
+    t64 = time.perf_counter() - t64
+    vs64 = {"one_process": worst_leaf(one_mesh["f32_whole"]["grads"], g64),
+            "four_ranks": worst_leaf(rank0["f32_whole"]["grads"], g64)}
+    noise = {k: float((rank0["bf16"]["grads"][k] - g).norm()
+                      / (one_mesh["bf16"]["grads"][k] - g).norm())
+             for k, g in one_mesh["f32_whole"]["grads"].items()}
+    cpm = {"same_on_ranks": same, "wall_s": mesh_s,
+           "f32_loss": max(f32[0], whole[0]),
+           "f32_grads": f32[1], "f32_worst_leaf": f32[2],
+           "f32_whole_grads": whole[1], "f32_whole_worst_leaf": whole[2],
+           "f32_whole_vs_float64": vs64, "float64_s": t64,
+           "spectral_convergence": sc,
+           "bf16_noise_median": float(np.median(list(noise.values()))),
+           "bf16_noise_worst": max(noise.values()),
+           "ranks_ms": {n: [f[n]["ms"] for f in four] for n in names},
+           "one_ms": {n: s["ms"] for n, s in one_mesh.items()}}
+    say(f"[parallel] (f) DCSE trainer step ({CP_MESH_ROWS}, "
+        f"{CP_TRAINER_BATCH[1]}) on a (2, 2) (data, seq) mesh of four gloo "
+        f"ranks, the ring on seq ({CP_MESH_ROWS // 2} rows and "
+        f"{(CP_TRAINER_BATCH[1] // 80 + 1) // 2} frames a rank), vs one "
+        f"process with K1: same on every rank {same}; f32 losses "
+        f"{cpm['f32_loss']:.3e} relative (limit {CP_LOSS_TOL:g}), gradients "
+        f"without the MR-STFT term {f32[1]:.3e} of their scale ({f32[2]}; "
+        f"limit {CP_P_GRAD_TOL:g}), with it {whole[1]:.3e} ({whole[2]}; "
+        f"unbarred: the term's float32 gradient is ill-conditioned: the "
+        f"one-process f32 step is {vs64['one_process'][0]:.3e} "
+        f"({vs64['one_process'][1]}) from the same step in float64 on the "
+        f"CPU, the four ranks' {vs64['four_ranks'][0]:.3e} "
+        f"({vs64['four_ranks'][1]}); {t64:.1f} s); bf16 gradients' noise "
+        f"median {cpm['bf16_noise_median']:.4f}, worst "
+        f"{cpm['bf16_noise_worst']:.4f} (limits {CP_TRAINER_NOISE}); step "
+        f"wall ms per rank {cpm['ranks_ms']} (f32_whole the first, with the "
+        f"warm-up), one process {cpm['one_ms']}; "
+        f"{mesh_s:.1f} s for the four processes on {smi}")
+    say(f"[parallel] (f) the MR-STFT loss's spectral convergence alone, "
+        f"the (2, 2) mesh vs one process: loss {sc['sc'][0]:.3e} relative "
+        f"(limit {CP_LOSS_TOL:g}), gradients {sc['sc'][1]:.3e} of their "
+        f"scale ({sc['sc'][2]}; limit {CP_P_GRAD_TOL:g}); its norms planted "
+        f"over the ring in place of the data ranks: {sc['sc_ring'][0]:.3e} "
+        f"and {sc['sc_ring'][1]:.3e} (must fail); over data x ring (every "
+        f"row once per ring rank, the ratio unchanged): "
+        f"{sc['sc_world'][0]:.3e} and {sc['sc_world'][1]:.3e}")
+
+    def held(e) -> bool:
+        return e[0] <= CP_LOSS_TOL and e[1] <= CP_P_GRAD_TOL
+    if not (same and held(f32) and whole[0] <= CP_LOSS_TOL
+            and held(sc["sc"]) and held(sc["sc_world"])
+            and np.isfinite(rank0["bf16"]["loss"])
+            and cpm["bf16_noise_median"] <= CP_TRAINER_NOISE[0]
+            and cpm["bf16_noise_worst"] <= CP_TRAINER_NOISE[1]):
+        faults.append(f"the DCSE trainer step on a mesh inside a ring left "
+                      f"one process's: {cpm}")
+    if held(sc["sc_ring"]):
+        faults.append("the spectral convergence's norms planted over the "
+                      "ring passed")
+    result["cp_mesh"] = cpm
+
+    # (g) the flagship's step under the ring against [distributed]'s
+    # one-process step, and an enhance request against one process's
+    fl = [g["flagship"] for g in got]
+    diff = bit_equal(fl[0], fl[1])
+    ref_g, got_g = ref["flagship"]["grads"], fl[0]["grads"]
+    floor = CP_GRAD_FLOOR * max(scale(g) for g in ref_g.values())
+    relg = {k: scale(got_g[k] - g) / max(scale(g), floor)
+            for k, g in ref_g.items()}
+    cpf = {"ranks_differ": len(diff),
+           "loss": abs(fl[0]["loss"] - ref["flagship"]["loss"])
+           / abs(ref["flagship"]["loss"]),
+           "grads": max(relg.values()), "worst_leaf": max(relg, key=relg.get),
+           "step_s": [g["flagship_s"] for g in got],
+           "wall_ms": [f["wall_ms"] for f in fl],
+           "one_wall_ms": ref["flagship"]["wall_ms"]}
+    faults += [f"ring flagship ranks differ: {d}" for d in diff[:5]]
+    faults += [f"ring flagship: {f}" for f in dp_faults(
+        fl[0], ref["flagship"], "flagship under a 2-rank ring (attn_impl "
+        "'ring', the whole batch on each rank)", None, "[parallel] (g)")]
+    one_enh = enhance_request(seed)
+    peak = float(np.abs(one_enh).max())
+    cpf["enhance"] = max(float(np.abs(g["enhance"] - one_enh).max()) / peak
+                         for g in got)
+    cpf["enhance_s"] = [g["enhance_s"] for g in got]
+    say(f"[parallel] (g) the flagship's training step {TRAIN_BATCH} under "
+        f"ring_mesh on two ranks (MSA T' 400, 200 a rank) vs one process: "
+        f"ranks differ in {len(diff)} entries; loss without the MR-STFT "
+        f"term {cpf['loss']:.3e} relative (limit {CP_LOSS_TOL:g}), "
+        f"gradients {cpf['grads']:.3e} of their scale floored at "
+        f"{CP_GRAD_FLOOR:g} of the largest ({cpf['worst_leaf']}; limit "
+        f"{CP_P_GRAD_TOL:g}); step wall {cpf['wall_ms']} ms (one process "
+        f"{cpf['one_wall_ms']:.2f}), {cpf['step_s']} s with the whole loss; "
+        f"an enhance request (2, 32000) under the ring {cpf['enhance']:.3e} "
+        f"of the peak from one process's (limit {CP_LOSS_TOL:g}), "
+        f"{cpf['enhance_s']} s, on {smi}")
+    if (cpf["loss"] > CP_LOSS_TOL or cpf["grads"] > CP_P_GRAD_TOL
+            or cpf["enhance"] > CP_LOSS_TOL):
+        faults.append(f"the flagship under a ring left one process's: {cpf}")
+    result["cp_flagship"] = cpf
 
     # impl="flash": what JAX runs off a TPU, K1 here
     from sincformer_tpu_torch.ops.attention import dot_product_attention

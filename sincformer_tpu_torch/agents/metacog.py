@@ -28,7 +28,7 @@ come out float32 there, as JAX's do.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -79,7 +79,14 @@ def _polar_mag(mask_r: torch.Tensor, mask_i: torch.Tensor) -> torch.Tensor:
 
 class SincformerMetacog(nn.Module):
     """(B, N) waveform + (B, T, F) noisy STFT parts → enhanced STFT parts
-    and routing outputs. The caller owns the STFT and iSTFT."""
+    and routing outputs. The caller owns the STFT and iSTFT.
+
+    Inside ``ops.ring_mesh`` with ``attn_impl="ring"`` every rank gives the
+    whole waveform and STFT and gets the whole output, JAX's function: the
+    PerceptionAgent and the CPEA run whole on every rank, the MSA's blocks
+    and heads on this rank's block of frames (the ring region,
+    :meth:`ring_region`), and the MAA, the memory and the VQ on the whole
+    joined mask (``agents/msa.py``, ``parallel/context.py``)."""
 
     def __init__(self, config: MetacogConfig = MetacogConfig()):
         super().__init__()
@@ -104,6 +111,11 @@ class SincformerMetacog(nn.Module):
                                      c.memory_slots, c.episodic_slots)
         self.vq = VectorQuantizer(c.vq_centroids, c.vq_commitment)
         self.maa = MetacognitiveArbitrationAgent(routing=c.routing)
+
+    def ring_region(self) -> Tuple[nn.Module, ...]:
+        """The layers that run on this rank's block of frames under a ring:
+        the MSA's."""
+        return self.msa.ring_region()
 
     def forward(self, waveform: torch.Tensor, stft_real: torch.Tensor,
                 stft_imag: torch.Tensor, train: bool = False,

@@ -17,10 +17,17 @@ from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
 from sincformer_tpu_torch.ops.flax_math import (LayerNorm, gelu, in_dtype,
                                                 sigmoid)
 from sincformer_tpu_torch.parallel import sharding as tp
+from sincformer_tpu_torch.parallel.context import split_sequence
 
 
 class MaskSynthesisAgent(nn.Module):
-    """(z_real, z_imag, cpea, stft_re, stft_im) → (mask_re, mask_im)."""
+    """(z_real, z_imag, cpea, stft_re, stft_im) → (mask_re, mask_im).
+
+    Inside ``ops.ring_mesh`` with ``attn_impl="ring"`` the inputs are the
+    whole sequence on every rank: the fusion runs whole, the blocks and the
+    heads (the ring region, :meth:`ring_region`) run on this rank's block
+    of frames, and the masks are joined whole again
+    (``parallel/context.py``)."""
 
     def __init__(self, latent_dim: int = 256, cpea_dim: int = 64,
                  d_model: int = 256, n_freq: int = 129, num_blocks: int = 4,
@@ -30,6 +37,7 @@ class MaskSynthesisAgent(nn.Module):
         super().__init__()
         self.phase_bound = math.pi / phase_bound_div
         self.num_blocks = num_blocks
+        self.attn_impl = attn_impl
         self.fusion1 = nn.Linear(2 * latent_dim + 4 * cpea_dim + 2 * n_freq,
                                  d_model)
         self.fusion_ln1 = LayerNorm(d_model, eps=LN_EPS)
@@ -42,6 +50,14 @@ class MaskSynthesisAgent(nn.Module):
         self.head_hidden = nn.Linear(d_model, d_model)
         self.mag_head = nn.Linear(d_model, n_freq)
         self.phase_head = nn.Linear(d_model, n_freq)
+
+    def ring_region(self) -> Tuple[nn.Module, ...]:
+        """The layers that run on this rank's block of frames under a ring,
+        in order: the blocks, then the heads' three Dense. :meth:`forward`
+        and :meth:`heads` take them from here."""
+        return (*(getattr(self, f"block_{i}")
+                  for i in range(self.num_blocks)),
+                self.head_hidden, self.mag_head, self.phase_head)
 
     def fuse(self, z_real, z_imag, cpea: Dict[str, torch.Tensor],
              noisy_stft_real, noisy_stft_imag) -> torch.Tensor:
@@ -60,9 +76,10 @@ class MaskSynthesisAgent(nn.Module):
 
     def heads(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The mask heads on the blocks' output: (mask_re, mask_im)."""
-        h = gelu(tp.linear(self.head_hidden, x))
-        mask_mag = sigmoid(tp.linear(self.mag_head, h))
-        mask_phase = torch.tanh(tp.linear(self.phase_head, h)) \
+        hidden, mag, phase = self.ring_region()[-3:]
+        h = gelu(tp.linear(hidden, x))
+        mask_mag = sigmoid(tp.linear(mag, h))
+        mask_phase = torch.tanh(tp.linear(phase, h)) \
             * in_dtype(self.phase_bound, h.dtype)
         return mask_mag * torch.cos(mask_phase), mask_mag * torch.sin(mask_phase)
 
@@ -71,6 +88,13 @@ class MaskSynthesisAgent(nn.Module):
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.fuse(z_real, z_imag, cpea, noisy_stft_real, noisy_stft_imag)
-        for i in range(self.num_blocks):
-            x = getattr(self, f"block_{i}")(x, generator=generator)
-        return self.heads(x)
+        with split_sequence(x.shape[1], generator is not None,
+                            self.attn_impl) as ring:
+            if ring is not None:
+                x = ring.cut(x)
+            for block in self.ring_region()[:-3]:
+                x = block(x, generator=generator)
+            masks = self.heads(x)
+            if ring is not None:
+                masks = tuple(ring.join(torch.stack(masks), dim=2).unbind(0))
+        return masks

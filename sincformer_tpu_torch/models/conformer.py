@@ -17,8 +17,9 @@ Tensor parallelism: every Dense and the depthwise conv go through
 ``parallel/sharding.py`` (a split weight computes its column block and
 gathers); the fused feed-forward gathers its two weights and runs kernel
 K3 whole. Context parallelism: under ``ops.ring_mesh`` the block's input
-is this rank's block of frames; ``attn_impl="ring"`` attends over every
-rank's frames, the depthwise conv exchanges halo frames
+is this rank's block of frames (a model given the whole sequence cuts it
+for its blocks, ``parallel/context.py``); ``attn_impl="ring"`` attends
+over every rank's frames, the depthwise conv exchanges halo frames
 (``ops/cp_conv.py``), and the "batch" and "group" norms take their
 statistics over every rank's frames.
 

@@ -42,6 +42,7 @@ from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
 from sincformer_tpu_torch.models.init import variance_scaling_
 from sincformer_tpu_torch.ops.flax_math import LayerNorm, in_dtype, sigmoid
 from sincformer_tpu_torch.parallel import sharding as tp
+from sincformer_tpu_torch.parallel.context import split_sequence
 
 
 def rematerialised(block: nn.Module, x: torch.Tensor,
@@ -80,7 +81,13 @@ def rematerialised(block: nn.Module, x: torch.Tensor,
 
 
 class SpeechEnhancer(nn.Module):
-    """(noisy_real, noisy_imag): (B, T, F) → (enh_real, enh_imag, mask_mag)."""
+    """(noisy_real, noisy_imag): (B, T, F) → (enh_real, enh_imag, mask_mag).
+
+    Inside ``ops.ring_mesh`` with ``attn_impl="ring"`` every rank gives the
+    whole sequence and gets the whole output: the model runs on this
+    rank's block of frames (every layer works frame by frame or is
+    ring-aware, so all of it is the ring region, :meth:`ring_region`) and
+    joins its three outputs (``parallel/context.py``)."""
 
     def __init__(self, config: DCSEConfig = DCSEConfig()):
         super().__init__()
@@ -97,10 +104,27 @@ class SpeechEnhancer(nn.Module):
         self.mag_head = nn.Linear(c.d_model, c.n_freq)
         self.phase_head = nn.Linear(c.d_model, c.n_freq)
 
+    def ring_region(self) -> Tuple[nn.Module, ...]:
+        """The layers that run on this rank's block of frames under a ring:
+        all of them (:meth:`forward` runs the whole model between the cut
+        and the join)."""
+        return (self,)
+
     def forward(self, noisy_real: torch.Tensor, noisy_imag: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        with split_sequence(noisy_real.shape[1], generator is not None,
+                            self.config.attn_impl,
+                            mask is not None) as ring:
+            if ring is None:
+                return self._forward(noisy_real, noisy_imag, mask,
+                                     generator)
+            out = self._forward(ring.cut(noisy_real), ring.cut(noisy_imag),
+                                None, generator)
+            return tuple(ring.join(torch.stack(out), dim=2).unbind(0))
+
+    def _forward(self, noisy_real, noisy_imag, mask, generator):
         x = tp.linear(self.input_proj, self.input_norm(
             torch.cat([noisy_real, noisy_imag], dim=-1)))
         remat = self.config.remat and torch.is_grad_enabled()

@@ -12,14 +12,18 @@
     ``jax.nn.dot_product_attention`` branch builds it.
   * ``impl="ring"``: context-parallel ring attention
     (ops/ring_attention.py) over the axis that a :func:`ring_mesh` block
-    names; inside the block every tensor is this rank's block of frames.
-    With no active block, or with a valid-frame mask, a training forward
-    (one given a dropout generator) raises, and an inference forward warns
-    with a ``RuntimeWarning`` and falls back to ``"speech"`` attention, as
-    in JAX. The JAX package's third condition, a T that does not divide
-    the axis, cannot arise here: each rank holds T / n frames of the
-    sequence, so ``ops/ring_attention.ring_attention`` checks it where a
-    whole sequence is split.
+    names. A model (``SpeechEnhancer``, ``SincformerMetacog``) is given
+    the whole sequence on every rank and cuts it for the layers that run
+    on blocks (``parallel/context.py``); this dispatch, called by those
+    layers, takes this rank's block of frames. With no active block, or
+    with a valid-frame mask, a training forward (one given a dropout
+    generator) raises, and an inference forward warns with a
+    ``RuntimeWarning`` and falls back to ``"speech"`` attention, as in
+    JAX. JAX's third condition, a T that does not divide the axis, is
+    checked where the model cuts the whole sequence. Inside
+    ``ring_mesh(None)`` (a model running whole after such a fallback) the
+    ring is suspended: no block is active, so ``"ring"`` falls back as
+    without one.
 """
 
 from __future__ import annotations
@@ -52,7 +56,8 @@ def _ring_stack() -> list:
 def ring_mesh(mesh, seq_axis: str = "data"):
     """Run context-parallel attention over ``mesh[seq_axis]`` for every
     ``impl="ring"`` attention (and the halo-exchange depthwise conv) called
-    inside this block on this thread."""
+    inside this block on this thread; ``mesh`` None suspends an outer
+    block."""
     stack = _ring_stack()
     stack.append((mesh, seq_axis))
     try:
@@ -62,9 +67,10 @@ def ring_mesh(mesh, seq_axis: str = "data"):
 
 
 def active_ring_mesh():
-    """The innermost active ``(mesh, seq_axis)``, or None."""
+    """The innermost active ``(mesh, seq_axis)``, or None (also inside a
+    suspending ``ring_mesh(None)``)."""
     stack = _ring_stack()
-    return stack[-1] if stack else None
+    return stack[-1] if stack and stack[-1][0] is not None else None
 
 
 def _whole_sequence(x: torch.Tensor, ctx) -> torch.Tensor:

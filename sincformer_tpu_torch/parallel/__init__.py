@@ -10,7 +10,8 @@ written out (``collectives.py``). A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` with the JAX axis names
 (``"data"``, ``"model"``), or None for one process. Context parallelism
 (ring attention and the halo-exchange conv) is in ``ops/`` and runs under
-``ops.ring_mesh``.
+``ops.ring_mesh``; ``context.py`` cuts a model's whole sequence into the
+ring's blocks and joins them again.
 """
 
 from sincformer_tpu_torch.parallel.distributed import (  # noqa: F401

@@ -56,8 +56,9 @@ several ranks, each rank holds a slice of every split parameter.
 
 Context parallelism (``ops.ring_mesh``, each rank holding its block of
 frames): :func:`mean_over` averages a statistic over the sequence axis,
-and :func:`gather` with ``summed=True`` makes the whole sequence for a
-call that cannot run on blocks.
+:func:`gather` joins the blocks (``parallel/context.py``) and, with
+``summed=True``, makes the whole sequence for a call that cannot run on
+blocks.
 
 Transport: under NCCL the gather is ``all_gather_into_tensor`` and the hop
 a pair of ``isend``/``irecv``. Gloo gathers, reduces and broadcasts CUDA
@@ -244,9 +245,11 @@ def broadcast_(tensors: Sequence[torch.Tensor], mesh, src: int = 0,
 
 def barrier(mesh=None) -> None:
     """Wait for every rank of ``mesh``'s data axis (of the whole group
-    without a mesh, or with a model axis of several ranks); nothing to wait
-    for in one process."""
-    if mesh is not None and model_group_of(mesh) is None:
+    without a mesh, or with another axis of several ranks); nothing to
+    wait for in one process."""
+    if mesh is not None and all(
+            mesh.size(i) == 1 for i, a in enumerate(mesh.mesh_dim_names)
+            if a != "data"):
         if _active(group_of(mesh)):
             dist.barrier(group=group_of(mesh))
     elif dist.is_initialized() and dist.get_world_size() > 1:

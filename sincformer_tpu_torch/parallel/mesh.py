@@ -66,6 +66,15 @@ def model_rank(mesh, axis: str = "model") -> int:
     return mesh.get_local_rank(axis)
 
 
+def leads(mesh) -> bool:
+    """True on the ranks that are first on every axis of ``mesh`` but
+    "model" (a model group: every model rank takes part in a gathered
+    checkpoint); True without a mesh."""
+    return mesh is None or all(
+        mesh.get_local_rank(a) == 0 for a in mesh.mesh_dim_names
+        if a != "model")
+
+
 def rank_seed(seed: int, mesh) -> int:
     """The seed of this rank's noise generators (dropout, Gumbel): each rank
     draws its own rows' noise, where JAX's sharded step draws the global

@@ -52,6 +52,18 @@ ranks of one model group take the same rows and draw the same noise. A
 checkpoint gathers every leaf and is written whole by the first rank, in
 the unsharded format; a resume re-shards it. The discriminator stays
 replicated, as in JAX.
+
+Context parallelism (a model with ``attn_impl="ring"``, the steps called
+inside ``ops.ring_mesh``): every rank of the ring runs the step on the
+same rows, and the model runs its MSA blocks on this rank's block of the
+frames and everything else whole (``agents/metacog.py``), so every rank
+computes the same loss and updates the MAA statistics and the episodic
+bank as one process would. The MSA blocks' and heads' gradients (each
+rank's share) are summed over the ring, the others' (each rank's whole
+gradient) averaged, so every rank takes the same step. The MSA's frame
+count T' must divide the ring, as JAX asserts. The dropout masks of each
+rank's block come from its own generator; the Gumbel noise, drawn for the
+whole batch, is the same on every rank of the ring.
 """
 
 from __future__ import annotations
@@ -75,7 +87,9 @@ from sincformer_tpu_torch.masks.pcirm import (compute_correlation_coefficients,
                                               compute_pcirm,
                                               compute_phase_differences)
 from sincformer_tpu_torch.parallel import collectives
-from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
+from sincformer_tpu_torch.parallel.context import (block_generator,
+                                                   ring_flags, ring_reduce)
+from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, leads,
                                                 model_rank, rank_seed,
                                                 shard_batch)
 from sincformer_tpu_torch.parallel.sharding import (shard_state_params,
@@ -166,6 +180,7 @@ class SincformerTrainer(SincformerPipeline):
                                      device=self.device)
         self.dropout_generator = None
         self.routing_generator = None
+        self._block_generators = {}     # ring rank → dropout generator
         self._weights_loaded = False
         self._disc_loaded = False
 
@@ -263,6 +278,7 @@ class SincformerTrainer(SincformerPipeline):
             device=self.device).manual_seed(seed + 1)
         self.routing_generator = torch.Generator(
             device=self.device).manual_seed(seed + 2)
+        self._block_generators = {}
         if self.mesh is not None:
             self._broadcast_state()
             self.opt_state = shard_state_params(self.model, self.opt_state,
@@ -296,8 +312,10 @@ class SincformerTrainer(SincformerPipeline):
         clean_spec = stft(clean, n_fft, hop, frame)
         out = self.model(noisy, noisy_spec.real, noisy_spec.imag, train=train,
                          gumbel_tau=gumbel_tau,
-                         dropout_generator=(self.dropout_generator
-                                            if train else None),
+                         dropout_generator=(block_generator(
+                             self.dropout_generator,
+                             rank_seed(self.seed, self.mesh) + 1,
+                             self._block_generators) if train else None),
                          routing_generator=(self.routing_generator
                                             if train else None))
         enh_r, enh_i = out["enhanced_real"], out["enhanced_imag"]
@@ -361,6 +379,7 @@ class SincformerTrainer(SincformerPipeline):
             loss, aux = self._loss(noisy, clean, True, use_perceptual,
                                    use_vq, gumbel_tau, use_mask_mse, use_adv)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = ring_reduce(grads, ring_flags(self.model))
         self.last_mags = (aux["enh_mag"].detach(), aux["clean_mag"].detach())
         loss, sisnr, *grads = collectives.average_over_ranks(
             [loss.detach(), aux["sisnr"].detach(), *grads], self.mesh)
@@ -375,6 +394,7 @@ class SincformerTrainer(SincformerPipeline):
         with torch.enable_grad():
             dl = discriminator_loss(self.disc(clean_mag), self.disc(enh_mag))
             grads = torch.autograd.grad(dl, params, allow_unused=True)
+        grads = ring_reduce(grads, [False] * len(grads))
         dl, *grads = collectives.average_over_ranks([dl.detach(), *grads],
                                                     self.mesh)
         return dl, list(grads)
@@ -498,7 +518,7 @@ class SincformerTrainer(SincformerPipeline):
         steps_per_epoch = max(1, len(clean_train) // batch_size)
         start_epoch = 0
         resume_path = None
-        primary = data_rank(self.mesh) == 0      # its model group saves
+        primary = leads(self.mesh)      # its model group saves
         writer = primary and model_rank(self.mesh) == 0
         verbose = verbose and writer
         if resume:

@@ -45,16 +45,25 @@ the enhanced STFT is widened to float32 before the iSTFT and the losses.
 The train and eval steps and validation take that path; serving
 (``enhance``, the inherited pipeline) and checkpoints stay float32.
 Context parallelism (a model with ``attn_impl="ring"``, the steps called
-inside ``ops.ring_mesh``): every rank holds the whole batch, takes the
-STFT, and runs the model on its block of the frames (the frame count must
-divide the ring, as JAX asserts); the blocks of the enhanced STFT are
-gathered back (the gather's backward takes this rank's block of the
-gradient), so every rank computes the same losses, and the parameters'
-gradients, each rank's share, are summed over the ring. In bf16 the ring's
+inside ``ops.ring_mesh``): every rank of the ring takes the STFT of the
+same rows and hands the whole of it to the model, which runs on its block
+of the frames and returns the whole enhanced STFT
+(``parallel/context.py``), so every rank of the ring computes the same
+losses; the parameters' gradients, each rank's share, are summed over the
+ring. The frame count must divide the ring, as JAX asserts. With a mesh
+too (``("data", seq)`` or ``("data", "model", seq)``, the ring on its
+sequence axis) each data rank takes its rows of every batch and each ring
+rank its block of their frames: the enhanced STFT is joined over the ring
+alone, SI-SNR and the magnitude L1 stay local and are averaged over the
+data ranks, the MR-STFT spectral convergence is global over the data
+ranks (every ring rank holds the same joined waveform), the "batch"
+BatchNorm statistics are means over the data ranks and then over the
+ring (equal blocks: each frame counts once), and the gradients are summed
+over the ring and then averaged over the data ranks. In bf16 the ring's
 body and the halo conv round as JAX's do (``ops/ring_attention.py``,
-``ops/cp_conv.py``). A data-parallel mesh on the trainer and a ring
-together are refused; with dropout each rank draws its block's masks from
-its own generator.
+``ops/cp_conv.py``). With dropout each (data, ring) rank draws its
+block's masks from its own generator. The rank first on every axis but
+the model axis writes the checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -73,9 +82,10 @@ from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
                                               train_test_split)
 from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.models.dcse import default_speech_enhancer
-from sincformer_tpu_torch.ops.attention import active_ring_mesh
 from sincformer_tpu_torch.parallel import collectives
-from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, data_rank,
+from sincformer_tpu_torch.parallel.context import (block_generator,
+                                                   ring_flags, ring_reduce)
+from sincformer_tpu_torch.parallel.mesh import (blocks_for_ranks, leads,
                                                 model_rank, rank_seed,
                                                 shard_batch)
 from sincformer_tpu_torch.parallel.sharding import (shard_state_params,
@@ -116,8 +126,9 @@ class DCSETrainer(DCSEPipeline):
     and eval steps then run the model in bf16 on bf16 copies of the float32
     masters (module docstring; kernels K1 and K3 launch their bf16 forms on
     the card), the rest in float32. ``mesh`` (a DeviceMesh with a
-    ``"data"`` axis) makes the training data-parallel over its ranks, and a
-    ``"model"`` axis tensor-parallel."""
+    ``"data"`` axis) makes the training data-parallel over its ranks, a
+    ``"model"`` axis tensor-parallel, and a sequence axis named by an
+    ``ops.ring_mesh`` around the steps context-parallel."""
 
     _CKPT_NAMES = ("conformer_final", "best_conformer")
 
@@ -141,6 +152,7 @@ class DCSETrainer(DCSEPipeline):
         self.nan_count = torch.zeros((), dtype=torch.int32,
                                      device=self.device)
         self.dropout_generator = None
+        self._block_generators = {}     # ring rank → dropout generator
         self._weights_loaded = False
 
     # ── data ────────────────────────────────────────────────────────────
@@ -222,6 +234,7 @@ class DCSETrainer(DCSEPipeline):
         self.dropout_generator = torch.Generator(
             device=self.device).manual_seed(rank_seed(self.seed, self.mesh)
                                             + 1)
+        self._block_generators = {}
         if self.mesh is not None:
             broadcast_state(self.model, self.opt_state, self.mesh)
             self.opt_state = shard_state_params(self.model, self.opt_state,
@@ -237,11 +250,11 @@ class DCSETrainer(DCSEPipeline):
         n_fft, hop, frame = a.fft_size, a.hop_size, a.frame_size
         noisy_spec = stft(noisy, n_fft, hop, frame)
         clean_spec = stft(clean, n_fft, hop, frame)
-        generator = self.dropout_generator if train else None
-        ring = active_ring_mesh()
+        generator = (block_generator(self.dropout_generator,
+                                     rank_seed(self.seed, self.mesh) + 1,
+                                     self._block_generators)
+                     if train else None)
         re, im = noisy_spec.real, noisy_spec.imag
-        if ring is not None:
-            re, im = (self._ring_block(t, *ring) for t in (re, im))
         dt = self.compute_dtype
         if dt is None:
             enh_r, enh_i, _ = self.model(re, im, generator=generator)
@@ -250,10 +263,6 @@ class DCSETrainer(DCSEPipeline):
                 self.model, compute_copies(self.model, dt),
                 (re.to(dt), im.to(dt)), {"generator": generator})
             enh_r, enh_i = enh_r.float(), enh_i.float()
-        if ring is not None:        # every rank's block: the whole again
-            group = ring[0].get_group(ring[1])
-            enh_r, enh_i = (collectives.gather(t, 1, group=group)
-                            for t in (enh_r, enh_i))
         enh_wav = istft(torch.complex(enh_r, enh_i), n_fft, hop, frame,
                         length=clean.shape[-1])
         loss_sisnr = si_snr_loss(enh_wav, clean)
@@ -266,22 +275,6 @@ class DCSETrainer(DCSEPipeline):
                  + loss_stft)
         return total, (-loss_sisnr, enh_wav)
 
-    def _ring_block(self, x: torch.Tensor, mesh, seq_axis: str
-                    ) -> torch.Tensor:
-        """This rank's block of the frames (axis 1) of ``x`` on the ring
-        ``mesh[seq_axis]``."""
-        if self.mesh is not None:
-            raise ValueError("context parallelism in the trainer takes the "
-                             "whole batch on every rank: give the trainer "
-                             "no data-parallel mesh inside ops.ring_mesh")
-        n = mesh.size(mesh.mesh_dim_names.index(seq_axis))
-        t = x.shape[1]
-        if t % n:
-            raise ValueError(f"{t} STFT frames must divide the "
-                             f"'{seq_axis}' axis size {n}")
-        r = mesh.get_local_rank(seq_axis)
-        return x[:, r * (t // n):(r + 1) * (t // n)]
-
     def loss_and_grads(self, noisy: torch.Tensor, clean: torch.Tensor):
         """A training forward and its gradients: (loss, sisnr, grads in the
         order of :meth:`params`, None for a parameter nothing reads)."""
@@ -290,9 +283,7 @@ class DCSETrainer(DCSEPipeline):
                 collectives.model_parallel(self.mesh):
             loss, (sisnr, _) = self._loss(noisy, clean, True)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        ring = active_ring_mesh()
-        if ring is not None:    # each rank's share, through its block
-            grads = collectives.sum_over(grads, ring[0].get_group(ring[1]))
+        grads = ring_reduce(grads, ring_flags(self.model))
         loss, sisnr, *grads = collectives.average_over_ranks(
             [loss.detach(), sisnr.detach(), *grads], self.mesh)
         return loss, sisnr, collectives.average_replicated(
@@ -375,7 +366,7 @@ class DCSETrainer(DCSEPipeline):
         steps_per_epoch = max(1, len(train_ds) // batch_size)
         start_epoch = 0
         resume_path = None
-        primary = data_rank(self.mesh) == 0      # its model group saves
+        primary = leads(self.mesh)      # its model group saves
         writer = primary and model_rank(self.mesh) == 0
         verbose = verbose and writer
         if resume:

@@ -51,6 +51,14 @@ def si_snr_loss(estimated: torch.Tensor, target: torch.Tensor,
     return -torch.mean(si_snr)
 
 
+def spectral_convergence(pred_mag: torch.Tensor, tgt_mag: torch.Tensor,
+                         eps: float = 1e-8) -> torch.Tensor:
+    """||tgt_mag - pred_mag|| / ||tgt_mag||, both norms over every rank's
+    rows (``parallel/collectives.norm``)."""
+    return (collectives.norm(tgt_mag - pred_mag)
+            / (collectives.norm(tgt_mag) + eps))
+
+
 def multi_resolution_stft_loss(predicted: torch.Tensor, target: torch.Tensor,
                                fft_sizes: Sequence[int] = (256, 512, 1024),
                                hop_sizes: Sequence[int] = (64, 128, 256),
@@ -63,8 +71,7 @@ def multi_resolution_stft_loss(predicted: torch.Tensor, target: torch.Tensor,
         # the default window is the periodic Hann of ``win`` samples
         pred_mag = torch.abs(stft(predicted, fft, hop, win))
         tgt_mag = torch.abs(stft(target, fft, hop, win))
-        sc = (collectives.norm(tgt_mag - pred_mag)
-              / (collectives.norm(tgt_mag) + eps))
+        sc = spectral_convergence(pred_mag, tgt_mag, eps)
         lm = torch.mean(torch.abs(torch.log(pred_mag + eps)
                                   - torch.log(tgt_mag + eps)))
         loss = loss + sc + lm

@@ -266,13 +266,16 @@ def guarded(grads: Sequence[Optional[torch.Tensor]], loss: torch.Tensor,
 
 def broadcast_state(model, opt_state: dict, mesh, extra=()) -> None:
     """Global rank 0's parameters, buffers and AdamW moments (and the
-    ``extra`` tensors) on every rank of ``mesh``: over the data axis, then
-    over the model axis for every tensor this rank holds whole (a split
-    parameter's slice and its moments are the rank's own)."""
+    ``extra`` tensors) on every rank of ``mesh``: over the data axis and
+    any sequence axis (a ring's ranks hold the same slices), then over the
+    model axis for every tensor this rank holds whole (a split parameter's
+    slice and its moments are the rank's own)."""
     from sincformer_tpu_torch.parallel import collectives
     tensors = [*model.parameters(), *model.buffers(),
                *opt_state["mu"].values(), *opt_state["nu"].values(), *extra]
-    collectives.broadcast_(tensors, mesh)
+    for axis in mesh.mesh_dim_names:
+        if axis != "model":
+            collectives.broadcast_(tensors, mesh, axis=axis)
     split = {name for name, p in model.named_parameters()
              if getattr(p, "tp_split", None) is not None}
     whole = [p for name, p in model.named_parameters() if name not in split]

@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tests import _torch_threads  # noqa: F401
+
 
 def _f64(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):

@@ -23,7 +23,10 @@ Jobs:
   * ``"evaluate"``: ``cli.main(["evaluate", "--distributed", ...])`` with
     an identity enhancer and no speech files;
   * ``"tp"``, ``"cp"`` and ``"cp_bf16"``: tensor and context parallelism
-    (tests/_torch_tp_jobs.py).
+    (tests/_torch_tp_jobs.py);
+  * ``"cp_models"`` and, on a pool of four, ``"cp_mesh"``: models given
+    the whole sequence under ``ring_mesh``, and the DCSE trainer on a
+    data-parallel mesh inside the ring (tests/_torch_cp_jobs.py).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+from tests import _torch_threads
 
 LR_EPOCHS, LR_STEPS = 3, 2       # the schedule of the parity tests
 GROUP_TIMEOUT = 120              # seconds a collective waits for a rank
@@ -158,7 +163,7 @@ def _mesh(job: dict):
 
 
 def serve(rank: int, world: int, port: int, inbox, outbox) -> None:
-    torch.set_num_threads(2)
+    torch.set_num_threads(_torch_threads.share(2))
     import torch.distributed as dist
     try:
         dist.init_process_group(
@@ -465,8 +470,17 @@ def _tp_jobs():
     return _torch_tp_jobs
 
 
+def _cp_jobs():
+    from tests import _torch_cp_jobs
+    return _torch_cp_jobs
+
+
 JOBS = {"flagship": flagship, "dcse": dcse, "evaluate": evaluate,
         "tp": lambda job, mesh, out_dir: _tp_jobs().tp(job, mesh, out_dir),
         "cp": lambda job, mesh, out_dir: _tp_jobs().cp(job, mesh, out_dir),
         "cp_bf16": lambda job, mesh, out_dir: _tp_jobs().cp_bf16(job, mesh,
-                                                                 out_dir)}
+                                                                 out_dir),
+        "cp_models": lambda job, mesh, out_dir: _cp_jobs().models(
+            job, mesh, out_dir),
+        "cp_mesh": lambda job, mesh, out_dir: _cp_jobs().mesh_steps(
+            job, mesh, out_dir)}

@@ -25,6 +25,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tests import _torch_threads  # noqa: F401
+
 # narrow widths: 2 Conformer blocks, 2 heads of 16, a 65-tap SincConv
 NARROW = dict(encoder_channels=32, cpea_hidden=16, cpea_channels=8,
               d_model=32, msa_blocks=2, num_heads=2, d_ff=64, kernel_size=7,

@@ -21,9 +21,9 @@ port only, never JAX.
     with "batch" and "group" norm under ``ring_mesh``.
   * :func:`cp_bf16` on a 2-rank sequence axis: the narrow DCSE model in
     bf16 (the trainer's bf16 copies of float32 masters) with
-    ``attn_impl="ring"`` under ``ring_mesh`` on this rank's half of the
-    frames (:func:`dcse_bf16_step`), against which the test runs the same
-    model in one process.
+    ``attn_impl="ring"`` under ``ring_mesh``, given the whole STFT, its
+    loss over this rank's half of the frames (:func:`dcse_bf16_step`),
+    against which the test runs the same model in one process.
 """
 
 from __future__ import annotations
@@ -296,17 +296,18 @@ def dcse_model(config: dict, attn_impl: str):
 def dcse_bf16_step(model, job, rows=slice(None), dtype=torch.bfloat16):
     """A training forward (dropout 0, BatchNorm on the batch's statistics)
     of ``model`` in ``dtype`` on bf16 (``dtype``) copies of its float32
-    masters, as ``DCSETrainer(compute_dtype=...)`` runs it, over ``rows``
-    of the frames of the job's noisy STFT: the loss sum(weight ·
-    |enhanced|²) over those frames, the masters' gradients and the
-    enhanced STFT (float32)."""
+    masters, as ``DCSETrainer(compute_dtype=...)`` runs it, on the job's
+    noisy STFT: the loss sum(weight · |enhanced|²) over ``rows`` of the
+    frames, the masters' gradients (under a ring, this rank's share) and
+    the enhanced STFT of those frames (float32)."""
     from sincformer_tpu_torch.train.dcse_trainer import compute_copies
-    re, im, wt = (torch.from_numpy(job[k])[:, rows]
-                  for k in ("re", "im", "weight"))
+    re, im = (torch.from_numpy(job[k]) for k in ("re", "im"))
+    wt = torch.from_numpy(job["weight"])[:, rows]
     params = dict(model.named_parameters())
     er, ei, _ = torch.func.functional_call(
         model, compute_copies(model, dtype), (re.to(dtype), im.to(dtype)),
         {"generator": torch.Generator().manual_seed(0)})
+    er, ei = er[:, rows], ei[:, rows]
     loss = torch.sum(wt * (er.float() ** 2 + ei.float() ** 2))
     grads = torch.autograd.grad(loss, list(params.values()))
     return {"loss": float(loss.detach()),

@@ -293,7 +293,7 @@ def test_one_rank_mesh_bf16_step_is_bit_equal(group_of_one, axes):
 
 class _TwoRankRing:
     """A stand-in for a DeviceMesh of one 2-rank "data" axis, this rank
-    the first: enough for the trainer to cut its block of frames."""
+    the first: enough for the model to size its blocks of frames."""
     mesh_dim_names = ("data",)
 
     def size(self, dim=0):
@@ -306,14 +306,14 @@ class _TwoRankRing:
 def test_bf16_step_under_a_ring_raises():
     """A bf16 training step inside ``ops.ring_mesh`` runs the model on
     this rank's block of the STFT frames (two real ranks are held in
-    ``tests/test_torch_bf16_kernels.py``), and refuses, before any
-    collective, a frame count that the ring does not divide (4,000
-    samples: 51 frames on 2 ranks), as JAX asserts; it raised
+    ``tests/test_torch_bf16_kernels.py``), and the model refuses, before
+    any collective, a frame count that the ring does not divide (4,000
+    samples: 51 frames on 2 ranks) with JAX's training error; it raised
     ``NotImplementedError`` before the ring was ported in bf16."""
     from sincformer_tpu_torch.ops import ring_mesh
     pipe = _trainer(dropout=0.0, attn_impl="ring")
     with ring_mesh(_TwoRankRing(), "data"), pytest.raises(
-            ValueError, match="51 STFT frames must divide"):
+            RuntimeError, match="T=51 does not divide the 'data' axis"):
         pipe.loss_and_grads(*(torch.from_numpy(a) for a in _batch()))
 
 

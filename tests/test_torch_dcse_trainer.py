@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401
+
 
 # the keys of sincformer_tpu/train/dcse_trainer.py's history entries
 HISTORY_KEYS = {"epoch", "train_loss", "val_loss", "val_sisnr", "nan_count",

@@ -18,6 +18,7 @@ from sincformer_tpu.ops.meddis_pallas import meddis_pallas
 from sincformer_tpu_torch.dsp.haircell import MeddisHairCell
 from sincformer_tpu_torch.ops.meddis import (_meddis_plain, meddis,
                                             wave_columns)
+from tests import _torch_threads  # noqa: F401
 
 TOL = 1e-5
 # the drives of tests/test_pallas_ops.py::TestMeddisPallas, plus one with

@@ -9,6 +9,8 @@ import sys
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sincformer_tpu")
 

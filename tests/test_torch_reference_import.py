@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401
+
 D, FF, K, F, BLOCKS = 32, 64, 7, 129, 2
 WAVE_TOL = 1e-4
 

@@ -17,6 +17,7 @@ from sincformer_tpu_torch.dsp.stft import istft, stft
 from sincformer_tpu_torch.utils.signal import (frame_signal, hann_window,
                                                num_frames, overlap_add,
                                                pcm_to_float)
+from tests import _torch_threads  # noqa: F401
 
 
 def _x(n, b=2, seed=0):

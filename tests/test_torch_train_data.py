@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests import _torch_threads  # noqa: F401
+
 TOL = 1e-5
 
 
