@@ -50,8 +50,12 @@ its kernels:
     ``artifacts/r5/eval_grid_jax_cpu.json``), the metric sweep against the
     CPU, one cell's device time by part; the ``calibrate`` verb on copies
     of the artifact, card against CPU, persisted and read back;
-  * WAV input through the native decoder (built from ``native/wavio.cpp``)
-    and ``observability.trace`` around one flagship request;
+  * WAV input through the native decoder (built from ``native/wavio.cpp``),
+    the library's SNR mixing and batch padding against numpy, and
+    ``observability.trace`` around one flagship request;
+  * the JAX package's public surface (``[api]``): every subpackage and
+    its exports import, ``VQMaskQuantizer`` around the full-width mask DNN and
+    ``perceptual_stoi_loss`` with their gradients, card against CPU;
   * DCSE training at full width: the ``train --pipeline conformer`` verb
     in a process of its own (``--synthetic 40 --epochs 2``, K1 counted in
     the child, its checkpoint serving one request), one dropout-0 step of
@@ -136,6 +140,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import os
@@ -221,6 +226,9 @@ DCSE_STATS_TOL = 1e-5       # BatchNorm running statistics after a training
                             # forward, card vs CPU, of their scale (>= 1)
 CLIP_TOL = 1e-4             # the DCSE step's global-norm clip factor, card
                             # vs CPU, relative
+NATIVE_MIX_TOL = 1e-6       # native mix_snr against numpy's float64
+API_SOFT_TOL = 1e-5         # [api]: soft mask and STOI loss, card vs CPU
+API_TOL = 1e-4              # [api]: where the card's library sums differ
 DIST_GRID_TOL = 1e-6        # evaluate --distributed and the split metric
                             # sweep vs the one-process grid, per value (the
                             # sweep's of max(1, |value|): SSNR is in dB)
@@ -1950,6 +1958,7 @@ def check_native_and_trace(seed: int, launches) -> dict:
                                  "read")
         if not np.array_equal(x, load_audio(path, use_native=False)):
             raise AssertionError("the native decoder disagrees with scipy")
+        mix_err, pad_equal = check_native_mix_and_pad(seed)
         pipe = port.SincformerPipeline(device="cuda", model_dir=ARTIFACT)
         pipe.load_model()
         pipe.enhance_signal(x)                     # plans and caches
@@ -1966,12 +1975,163 @@ def check_native_and_trace(seed: int, launches) -> dict:
     n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
     say(f"[native] load_audio of a 4 s int16 WAV through "
         f"{os.path.relpath(lib, REPO)} ({read_ms:.2f} ms), equal to scipy's "
-        f"read; [trace] one flagship request under trace(): {files[0]}, "
+        f"read; mix_snr at 5 dB {mix_err:.3e} of numpy's peak (limit "
+        f"{NATIVE_MIX_TOL:g}), batch_pad equal to numpy's: {pad_equal}; "
+        f"[trace] one flagship request under trace(): {files[0]}, "
         f"{size} bytes, {n_kernels} kernel events, K1 {len(k1)}")
     if len(files) != 1 or len(k1) != blocks:
         raise AssertionError("the trace does not hold the request's kernels")
-    return {"native_read_ms": read_ms, "trace_bytes": size,
+    return {"native_read_ms": read_ms, "native_mix_err": mix_err,
+            "trace_bytes": size,
             "trace_kernels": n_kernels, "trace_k1": len(k1)}
+
+
+def check_native_mix_and_pad(seed: int) -> tuple:
+    """The native library's SNR mixing (tiled noise) and batch padding
+    against numpy on the same input: (mix_snr's largest error over the
+    peak, batch_pad equal)."""
+    from sincformer_tpu_torch.data import native
+    rng = np.random.default_rng(seed + 40)
+    clean = rng.standard_normal(32000).astype(np.float32)
+    noise = rng.standard_normal(12345).astype(np.float32)
+    tiled = np.resize(noise, clean.shape).astype(np.float64)
+    pc = np.mean(clean.astype(np.float64) ** 2) + 1e-10
+    pn = np.mean(tiled ** 2) + 1e-10
+    want = clean + np.sqrt(pc / (pn * 10 ** 0.5)) * tiled
+    got = native.mix_snr(clean, noise, 5.0)
+    mix_err = float(np.abs(got - want).max() / np.abs(want).max())
+    sigs = [rng.standard_normal(n).astype(np.float32)
+            for n in (32000, 17, 40000, 0, 31999)]
+    want_pad = np.zeros((len(sigs), 32000), np.float32)
+    for i, sig in enumerate(sigs):
+        want_pad[i, :min(len(sig), 32000)] = sig[:32000]
+    pad_equal = bool(np.array_equal(native.batch_pad(sigs, 32000),
+                                    want_pad))
+    if not (mix_err <= NATIVE_MIX_TOL and pad_equal):
+        raise AssertionError(f"the native mix_snr ({mix_err:.3e}) or "
+                             f"batch_pad ({pad_equal}) left numpy's")
+    return mix_err, pad_equal
+
+
+def check_api(seed: int, smi: str, launches) -> dict:
+    """The JAX package's public surface in the port (``[api]``): every
+    subpackage, with the names it re-exports, imports on this machine;
+    ``VQMaskQuantizer``
+    around the full-width mask DNN (``DNNConfig()``, seeded weights) over
+    4,096 frames, card against CPU (soft mask, quantized values away from a
+    centroid midpoint, vq_loss, the gradients of the estimator and the
+    centroids); ``perceptual_stoi_loss`` and its input gradient at (8, 129,
+    401), card against CPU. Neither path launches a kernel."""
+    import importlib
+
+    import sincformer_tpu_torch as port
+    from sincformer_tpu_torch.models import VQMaskQuantizer, create_dnn
+    from sincformer_tpu_torch.train import perceptual_stoi_loss
+    t0 = time.perf_counter()
+    pkg = os.path.dirname(port.__file__)
+    subpackages = sorted(
+        d for d in os.listdir(pkg)
+        if os.path.exists(os.path.join(pkg, d, "__init__.py")))
+    for sub in subpackages:
+        importlib.import_module(f"sincformer_tpu_torch.{sub}")
+
+    g = torch.Generator().manual_seed(seed + 41)
+    rng = np.random.default_rng(seed + 41)
+    est = create_dnn(port.FeatureConfig().dim, dcfg=port.DNNConfig())
+    est.training_init(g)
+    x = torch.from_numpy(rng.standard_normal((4096, est.input_dim)).astype(
+        np.float32))
+    c = torch.from_numpy(rng.standard_normal((4096, est.output_dim)).astype(
+        np.float32))
+    # A pre-activation within the two devices' rounding of 0 takes the
+    # other ReLU branch on each, and one such unit moves its layer's weight
+    # gradient by about 1/sqrt(frames) of the gradient's scale: the card's
+    # ReLU decisions are imposed on the CPU's forward (a pre-activation on
+    # the other side of 0 is mirrored across it by a constant, so the value
+    # moves by twice its own size and the gradient takes the card's
+    # branch), and each imposed decision must lie that close to 0
+    runs, on_card, imposed = {}, [], []
+
+    def record(module, inputs, z):
+        on_card.append(z.detach() > 0)
+
+    def impose(module, inputs, z):
+        on = on_card[len(imposed)].cpu()
+        tiny = torch.finfo(z.dtype).tiny
+        move = torch.where(on & (z <= 0), tiny - 2 * z, torch.where(
+            ~on & (z > 0), -tiny - 2 * z, torch.zeros_like(z))).detach()
+        flipped = move != 0
+        imposed.append((int(flipped.sum()), float(
+            (z.detach().abs()[flipped].max() if flipped.any() else 0.0)
+            / z.detach().abs().max())))
+        return z + move
+
+    launches.reset()
+    for device in ("cuda", "cpu"):
+        model = VQMaskQuantizer(copy.deepcopy(est)).to(device)
+        hooks = [getattr(model.mask_estimator, f"hidden_{i}")
+                 .register_forward_hook(record if device == "cuda"
+                                        else impose)
+                 for i in range(est.num_hidden_layers)]
+        q, soft, vq_loss = model(x.to(device), return_soft=True)
+        (q * c.to(device)).sum().add(vq_loss).backward()
+        for h in hooks:
+            h.remove()
+        runs[device] = {"q": q.detach().cpu(), "soft": soft.detach().cpu(),
+                        "vq_loss": vq_loss.item(),
+                        "grads": {n: p.grad.cpu()
+                                  for n, p in model.named_parameters()}}
+    card, cpu = runs["cuda"], runs["cpu"]
+    relu_flips = sum(n for n, _ in imposed)
+    relu_margin = max(m for _, m in imposed)
+
+    def scale_err(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    soft_err = scale_err(card["soft"], cpu["soft"])
+    cents = model.vq.centroids.detach().sort().values
+    mids = (cents[1:] + cents[:-1]) / 2
+    near_mid = ((cpu["soft"][..., None] - mids).abs()
+                <= API_SOFT_TOL).any(-1)
+    q_flips = int(((card["q"] != cpu["q"]) & ~near_mid).sum())
+    vq_err = abs(card["vq_loss"] - cpu["vq_loss"]) / abs(cpu["vq_loss"])
+    grad_err = max(scale_err(card["grads"][n], cpu["grads"][n])
+                   for n in cpu["grads"])
+
+    spec_c = np.abs(rng.standard_normal((8, 129, 401))).astype(np.float32)
+    spec_e = spec_c + 0.1 * np.abs(rng.standard_normal(spec_c.shape)).astype(
+        np.float32)
+    stoi = {}
+    for device in ("cuda", "cpu"):
+        e = torch.from_numpy(spec_e).to(device).requires_grad_(True)
+        loss = perceptual_stoi_loss(e, torch.from_numpy(spec_c).to(device))
+        loss.backward()
+        stoi[device] = (loss.item(), e.grad.cpu())
+    stoi_err = abs(stoi["cuda"][0] - stoi["cpu"][0]) / abs(stoi["cpu"][0])
+    stoi_grad_err = scale_err(stoi["cuda"][1], stoi["cpu"][1])
+    launches.expect("[api]")
+    wall = time.perf_counter() - t0
+    say(f"[api] {len(subpackages)} subpackages import; "
+        f"VQMaskQuantizer(DNNConfig()) over 4096 frames card vs CPU: soft "
+        f"mask {soft_err:.3e} of its scale (limit {API_SOFT_TOL:g}), "
+        f"{q_flips} quantized values differ away from a midpoint, vq_loss "
+        f"{vq_err:.3e} relative, gradients {grad_err:.3e} of each leaf's "
+        f"scale (limit {API_TOL:g}) with the card's ReLU decisions imposed "
+        f"on the CPU ({relu_flips} of {sum(z.numel() for z in on_card)} "
+        f"differed, each within {relu_margin:.1e} of its layer's largest "
+        f"pre-activation of 0; limit {API_SOFT_TOL:g}); "
+        f"perceptual_stoi_loss (8, 129, 401): "
+        f"{stoi_err:.3e} relative (limit {API_SOFT_TOL:g}), input gradient "
+        f"{stoi_grad_err:.3e} of its scale (limit {API_TOL:g}); "
+        f"{wall:.1f} s on {smi}")
+    if not (soft_err <= API_SOFT_TOL and q_flips == 0 and vq_err <= API_TOL
+            and grad_err <= API_TOL and relu_margin <= API_SOFT_TOL
+            and stoi_err <= API_SOFT_TOL
+            and stoi_grad_err <= API_TOL):
+        raise AssertionError("[api]: the card left the CPU")
+    return {"subpackages": len(subpackages), "soft_err": soft_err, "vq_loss_err": vq_err,
+            "grad_err": grad_err, "relu_flips": relu_flips,
+            "relu_margin": relu_margin, "stoi_err": stoi_err,
+            "stoi_grad_err": stoi_grad_err, "seconds": wall}
 
 
 def run_verb(argv, env_extra: dict, what: str, timeout: int = 900):
@@ -5825,6 +5985,9 @@ def main() -> int:
     host = check_native_and_trace(args.seed, launches)
     launches.reset()
     phase_done("[evaluate], [calibrate], [native]")
+    api = check_api(args.seed, smi, launches)
+    say("[api] " + json.dumps(api))
+    phase_done("[api]")
 
     # ── phase 13: DCSE and mask-DNN training, reference import, demo ─────
     dcse_train = check_train_dcse(args.seed, smi, launches)

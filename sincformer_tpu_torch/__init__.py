@@ -12,6 +12,7 @@ GroupNorm, envelope / activation).
 Imports torch, numpy and the standard library only; nothing of JAX.
 """
 
+from sincformer_tpu_torch import config
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
 from sincformer_tpu_torch.compat.from_jax import (
     convert_quantized_dnn_from_jax, convert_quantized_from_jax,
@@ -39,7 +40,7 @@ from sincformer_tpu_torch.serve import (OnlineEnhancer, OnlineEnhancerPool,
                                         StreamingEnhancer, enhance_long)
 from sincformer_tpu_torch.train.state import resolve_output_gain
 
-__all__ = ["AudioConfig", "DCSEConfig", "DCSEPipeline", "DNNConfig",
+__all__ = ["AudioConfig", "config", "DCSEConfig", "DCSEPipeline", "DNNConfig",
            "DNNPipeline", "FeatureConfig", "FeatureExtractor",
            "GammatoneConfig", "GammatoneFilterbank", "MeddisHairCell",
            "MetacogConfig", "OnlineEnhancer", "OnlineEnhancerPool",

@@ -35,6 +35,21 @@ from sincformer_tpu_torch.parallel import collectives
 from sincformer_tpu_torch.parallel import sharding as tp
 
 SOFT_MASK, RESAMPLE, HARD_MASK, ESCALATE = 0, 1, 2, 3
+
+STRATEGY_NAMES = {
+    0: "SOFT_MASK (high confidence)",
+    1: "RESAMPLE (ensemble averaging)",
+    2: "HARD_MASK (quantized fallback)",
+    3: "ESCALATE (human review)",
+}
+
+
+def get_strategy_name(decision_idx: int) -> str:
+    """The strategy of a decision index, in words ("UNKNOWN" outside
+    0-3)."""
+    return STRATEGY_NAMES.get(int(decision_idx), "UNKNOWN")
+
+
 MOMENTUM = 0.1            # EMA of the running σ statistics in training
 
 

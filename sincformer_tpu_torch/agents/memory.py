@@ -115,3 +115,16 @@ class EpisodicMemory(nn.Module):
                                       * collectives.world_size())
         return {"bias": bias * gate, "gate": gate, "top_indices": top,
                 "similarity": torch.max(similarity, dim=-1).values}
+
+    @staticmethod
+    def usage_stats(memory_stats) -> torch.Tensor:
+        """Each slot's share of the queries counted in training: the
+        ``usage_count`` over ``num_queries``, zeros before the first.
+        ``memory_stats`` is the module (its buffers) or a mapping holding
+        both, as the JAX ``memory_stats`` collection."""
+        if isinstance(memory_stats, nn.Module):
+            memory_stats = dict(memory_stats.named_buffers())
+        usage = memory_stats["usage_count"]
+        total = memory_stats["num_queries"]
+        return torch.where(total > 0, usage / torch.clamp(total, min=1),
+                           torch.zeros_like(usage))

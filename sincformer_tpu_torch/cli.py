@@ -289,7 +289,7 @@ def demo(args) -> int:
     from sincformer_tpu_torch.masks.pcirm import (
         compute_correlation_coefficients, compute_pcirm,
         compute_phase_differences)
-    from sincformer_tpu_torch.pipeline import resolve_device
+    from sincformer_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     print("=" * 70)

@@ -35,7 +35,11 @@ bias, which has no int8 form on the JAX grid, so they are dequantized,
 folded and stored in float32 (1 MB of the flagship's 16 MB).
 
 ``load_dnn_from_jax`` and ``convert_quantized_dnn_from_jax`` do both for the
-mask DNN (Dense layers only).
+mask DNN (Dense layers only). ``load_vq_mask_quantizer_from_jax`` carries a
+``VQMaskQuantizer``'s tree (``params/vq/centroids`` and the
+``params/mask_estimator`` subtree) across: the centroids as ``vq.centroids``,
+the mask DNN through ``load_dnn_from_jax``, its keys under
+``mask_estimator.``.
 
 ``load_train_state_from_jax`` carries a JAX train state across so that
 training continues in the port: the parameters keyed by the port's
@@ -524,6 +528,21 @@ def load_dnn_from_jax(variables: Mapping, dropout: float = 0.2
         skeleton = SpeechEnhancementDNN(**sizes)
     _check_filled(skeleton, state)
     return {k: _tensor(v) for k, v in state.items()}, sizes
+
+
+def load_vq_mask_quantizer_from_jax(
+        variables: Mapping) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """flax ``VQMaskQuantizer`` variables around the mask DNN (``init``'s
+    ``{"params": ...}``, numpy leaves) → (the state_dict of the port's
+    ``models.vq.VQMaskQuantizer``, the DNN's size arguments)."""
+    params = variables["params"]
+    if set(params) != {"mask_estimator", "vq"} or set(params["vq"]) != {
+            "centroids"}:
+        raise ValueError(f"not a VQMaskQuantizer tree: {sorted(params)}")
+    state, sizes = load_dnn_from_jax({"params": params["mask_estimator"]})
+    out = {f"mask_estimator.{k}": v for k, v in state.items()}
+    out["vq.centroids"] = _tensor(params["vq"]["centroids"])
+    return out, sizes
 
 
 def convert_quantized_dnn_from_jax(params_q: Mapping, dropout: float = 0.2):

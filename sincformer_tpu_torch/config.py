@@ -1,25 +1,33 @@
 """Audio framing, the auditory front-end's and the feature extractor's
 constants, the training data and loss settings, the curriculum, model sizes
 and training settings of the flagship, of DCSE, of the ComplexConformer and
-of the mask DNN, RBM pretraining, the particle swarm and the OPT-PCIRM
-quantizer.
+of the mask DNN, RBM pretraining, the particle swarm, the OPT-PCIRM
+quantizer and the VQ quantizer.
 
-A copy of what the port needs from ``sincformer_tpu/config.py`` (AudioConfig,
-GammatoneConfig, FeatureConfig, DataConfig, DNNConfig, RBMConfig, PSOConfig,
-OptPCIRMConfig, ConformerConfig, AgentConfig, VQConfig, LossConfig,
-CurriculumConfig, DCSEConfig) and of the
-``SincformerMetacog`` fields that ``default_metacog`` sets. The model
-fields are plain fields with the JAX package's defaults; the data, loss and
-PerceptionAgent-variant fields read the same ``SINCFORMER_*`` environment
-knobs as the JAX package (``SINCFORMER_MAX_WAVE_SECONDS``,
+The configuration tree of ``sincformer_tpu/config.py``, field for field and
+default for default: every dataclass there (AudioConfig, GammatoneConfig,
+FeatureConfig, DataConfig, DNNConfig, RBMConfig, PSOConfig, OptPCIRMConfig,
+ConformerConfig, DCSEConfig, VQConfig, AgentConfig, LossConfig,
+CurriculumConfig, EvalConfig), the root :class:`Config`, :data:`DEFAULT`
+and :func:`replace`; plus the port's own :class:`MetacogConfig` (the
+``SincformerMetacog`` fields, whose sizes default to those of the sections
+that ``default_metacog`` reads) and the
+``n_freq``, ``conv_norm`` and ``remat`` of :class:`DCSEConfig`. The data,
+loss and PerceptionAgent-variant fields read the same ``SINCFORMER_*``
+environment knobs as the JAX package (``SINCFORMER_MAX_WAVE_SECONDS``,
 ``SINCFORMER_MASK_MSE_WEIGHT``, ``SINCFORMER_PA_FINE_ACT``,
-``SINCFORMER_PA_FINE_FEATS``, the dataset directories) when an instance is
-made; :data:`AGENTS` is the instance made at import, as the JAX package's
-``DEFAULT.agents``.
+``SINCFORMER_PA_FINE_FEATS``, the dataset, output and model directories)
+when an instance is made; :data:`DEFAULT`'s are read at import, as the JAX
+package's.
+
+``LossConfig.perceptual_weight`` is the JAX package's 10.0, which neither
+package's flagship trainer reads: both take their own ``perceptual_weight``
+argument, 1.0 unless given (``train/agent_trainer.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Tuple
@@ -27,13 +35,27 @@ from typing import Tuple
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def replace(cfg, **kw):
+    """``dataclasses.replace``: a copy of ``cfg`` with the fields in ``kw``
+    changed."""
+    return dataclasses.replace(cfg, **kw)
+
+
 @dataclass(frozen=True)
 class AudioConfig:
     """Narrowband 8 kHz framing: 20 ms frames, 50 % hop, 256-point FFT."""
     sample_rate: int = 8000
+    frame_size_ms: int = 20
     fft_size: int = 256
-    frame_size: int = 160
-    hop_size: int = 80
+    window: str = "hamming"
+
+    @property
+    def frame_size(self) -> int:    # 160 samples
+        return int(self.sample_rate * self.frame_size_ms / 1000)
+
+    @property
+    def hop_size(self) -> int:      # 80 samples: 50 % overlap
+        return self.frame_size // 2
 
     @property
     def n_freq(self) -> int:
@@ -89,6 +111,8 @@ class DataConfig:
     noise_types: Tuple[str, ...] = ("babble", "white", "factory1",
                                     "destroyerengine")
     snr_levels: Tuple[int, ...] = (-5, 0, 5, 10)
+    max_train_utterances: int = 19200
+    max_test_utterances: int = 1920
     train_split_seed: int = 42
     eval_sample_seed: int = 99          # utterances drawn for evaluation
     train_fraction: float = 0.9
@@ -99,6 +123,10 @@ class DataConfig:
         "SINCFORMER_TIMIT_DIR", os.path.join(_REPO, "DARPA-TIMIT", "data")))
     noisex_dir: str = field(default_factory=lambda: os.environ.get(
         "SINCFORMER_NOISEX_DIR", os.path.join(_REPO, "Noises", "NoiseX-92")))
+    output_dir: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_OUTPUT_DIR", "output"))
+    model_dir: str = field(default_factory=lambda: os.environ.get(
+        "SINCFORMER_MODEL_DIR", "saved_models"))
     # the mask DNN's per-utterance feature and mask cache
     cache_dir: str = field(default_factory=lambda: os.environ.get(
         "SINCFORMER_CACHE_DIR", "feature_cache"))
@@ -106,8 +134,11 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class LossConfig:
-    """Loss weights of flagship training."""
-    perceptual_weight: float = 1.0      # the pipeline's default
+    """Loss weights of flagship training. ``perceptual_weight`` is the
+    reference's weight of the STOI term; the trainer does not read it (its
+    own ``perceptual_weight`` argument, 1.0 unless given, as in the JAX
+    package: the reference's 10.0 destabilised training)."""
+    perceptual_weight: float = 10.0
     commitment_weight: float = 0.25     # weight of the VQ loss
     adversarial_weight: float = 0.5     # weight of the stage-3 GAN term
     # stage-1/2 mask-domain MSE against the oracle PCIRM
@@ -130,6 +161,7 @@ class EvalConfig:
     "clib" the C library only (raises without it); "native" always the
     native P.862; "proxy" the log-spectral-distortion proxy on the
     device."""
+    stoi_extended: bool = False
     pesq_mode: str = "nb"
     pesq_impl: str = "auto"
 
@@ -196,11 +228,27 @@ VARIANTS = {"pa_impl": ("mxu", "reference"),
 
 
 @dataclass(frozen=True)
+class VQConfig:
+    """The VQ quantizer: M centroids and the commitment weight."""
+    num_centroids: int = 3
+    commitment_weight: float = 0.25
+
+
+@dataclass(frozen=True)
 class AgentConfig:
-    """The mxu encoder's fine-stream activation and feature streams that
-    ``train.agent_trainer.default_metacog`` builds, from
-    ``SINCFORMER_PA_FINE_ACT`` and ``SINCFORMER_PA_FINE_FEATS`` when an
-    instance is made (the JAX package's ``AgentConfig``)."""
+    """Sizes and variant of the agent stack (the JAX package's
+    ``AgentConfig``), which ``train.agent_trainer.default_metacog`` builds
+    the flagship from; the mxu encoder's fine-stream activation and feature
+    streams are read from ``SINCFORMER_PA_FINE_ACT`` and
+    ``SINCFORMER_PA_FINE_FEATS`` when an instance is made."""
+    cpea_hidden_size: int = 128
+    cpea_num_layers: int = 2
+    pa_encoder_channels: int = 256
+    maa_threshold_init: float = 0.5
+    sinc_kernel_size: int = 251
+    memory_slots: int = 64
+    msa_phase_bound_div: float = 8.0    # phase within +-pi/8
+    pa_impl: str = "mxu"                # "mxu" | "reference"
     pa_fine_act: str = field(default_factory=lambda: os.environ.get(
         "SINCFORMER_PA_FINE_ACT", "mulaw"))
     pa_fine_feats: str = field(default_factory=lambda: os.environ.get(
@@ -215,32 +263,35 @@ class MetacogConfig:
     ``"softmax"`` by the softmax probabilities. ``pa_impl``,
     ``pa_fine_act``, ``pa_fine_feats`` and ``cpea_impl`` select the
     variant (:data:`VARIANTS`); ``pa_num_blocks``, ``pa_env_pool``,
-    ``pa_fine_act`` and ``pa_fine_feats`` shape the mxu encoder only."""
-    encoder_channels: int = 256
-    sample_rate: int = 8000
-    sinc_kernel_size: int = 251
-    hop: int = 80
+    ``pa_fine_act`` and ``pa_fine_feats`` shape the mxu encoder only. The
+    fields that ``default_metacog`` takes from the audio, agent, VQ and
+    Conformer sections default to those sections' defaults."""
+    encoder_channels: int = AgentConfig.pa_encoder_channels
+    sample_rate: int = AudioConfig.sample_rate
+    sinc_kernel_size: int = AgentConfig.sinc_kernel_size
+    hop: int = AudioConfig().hop_size
     pa_num_blocks: int = 3
     pa_env_pool: int = 8
     pa_fine_act: str = "mulaw"      # "mulaw" | "gelu"
-    pa_impl: str = "mxu"            # "mxu" (frame-rate encoder) |
+    pa_impl: str = AgentConfig.pa_impl  # "mxu" (frame-rate encoder) |
                                     # "reference" (stride-2 conv cascade)
     pa_fine_feats: str = "single"   # "single" | "dual" (+ a per-frame
                                     # normalised fine stream; mxu only)
     cpea_impl: str = "lstm"         # "lstm" (BiLSTM) | "ssm" (BiLRU)
-    cpea_hidden: int = 128
-    cpea_layers: int = 2
+    cpea_hidden: int = AgentConfig.cpea_hidden_size
+    cpea_layers: int = AgentConfig.cpea_num_layers
     cpea_channels: int = 64
     d_model: int = 256
-    n_freq: int = 129
+    n_freq: int = AudioConfig().n_freq
     msa_blocks: int = 4
     num_heads: int = 4
     d_ff: int = 1024
     kernel_size: int = 31
-    attn_impl: str = "speech"       # "speech" (kernel K1) | "xla" (plain)
-    vq_centroids: int = 3
-    vq_commitment: float = 0.25
-    memory_slots: int = 64
+    attn_impl: str = ConformerConfig.attn_impl  # "speech" (kernel K1) |
+                                                # "xla" (plain)
+    vq_centroids: int = VQConfig.num_centroids
+    vq_commitment: float = VQConfig.commitment_weight
+    memory_slots: int = AgentConfig.memory_slots
     episodic_slots: int = 16
     dropout: float = 0.1
     routing: str = "gumbel"         # "gumbel" | "softmax"
@@ -299,5 +350,25 @@ class DCSEConfig:
                              f"'group', got {self.conv_norm!r}")
 
 
-# read at import, as the JAX package reads its DEFAULT.agents
-AGENTS = AgentConfig()
+@dataclass(frozen=True)
+class Config:
+    """The root of the tree, one instance of each section."""
+    audio: AudioConfig = field(default_factory=AudioConfig)
+    gammatone: GammatoneConfig = field(default_factory=GammatoneConfig)
+    features: FeatureConfig = field(default_factory=FeatureConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    dnn: DNNConfig = field(default_factory=DNNConfig)
+    rbm: RBMConfig = field(default_factory=RBMConfig)
+    pso: PSOConfig = field(default_factory=PSOConfig)
+    opt_pcirm: OptPCIRMConfig = field(default_factory=OptPCIRMConfig)
+    conformer: ConformerConfig = field(default_factory=ConformerConfig)
+    dcse: DCSEConfig = field(default_factory=DCSEConfig)
+    vq: VQConfig = field(default_factory=VQConfig)
+    agents: AgentConfig = field(default_factory=AgentConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    curriculum: CurriculumConfig = field(default_factory=CurriculumConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+
+
+# made at import, as the JAX package's DEFAULT
+DEFAULT = Config()

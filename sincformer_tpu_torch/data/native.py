@@ -1,7 +1,9 @@
 """ctypes bindings to the native host audio runtime (``native/wavio.cpp``,
 the JAX package's ``data/native.py``): RIFF/WAVE decoding to mono float32
-and linear resampling, what ``load_audio`` takes. (The library's SNR mixing
-and batch padding have no caller in either package and are not bound.)
+and linear resampling, what ``load_audio`` takes, and the library's SNR
+mixing with tiled noise (``mix_snr``, ``data.audio.add_noise_at_snr``'s
+arithmetic in double precision) and right-zero-padded batch assembly
+(``batch_pad``). ``available`` says whether the library loads.
 
 The library is built at first use with the host C++ compiler (``CXX``,
 default ``g++``) into ``sincformer_tpu_torch/_build/`` (git-ignored), its
@@ -83,8 +85,21 @@ def _load() -> Optional[ctypes.CDLL]:
                                     ctypes.c_long,
                                     ctypes.POINTER(ctypes.c_float),
                                     ctypes.c_long]
+    lib.mix_snr.restype = None
+    lib.mix_snr.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+                            ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+                            ctypes.c_float, ctypes.POINTER(ctypes.c_float)]
+    lib.batch_pad.restype = None
+    lib.batch_pad.argtypes = [ctypes.POINTER(ctypes.c_float),
+                              ctypes.POINTER(ctypes.c_long), ctypes.c_long,
+                              ctypes.c_long, ctypes.POINTER(ctypes.c_float)]
     _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the library builds (at first use) and loads."""
+    return _load() is not None
 
 
 def _fptr(a: np.ndarray):
@@ -120,4 +135,35 @@ def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     x = np.ascontiguousarray(x, np.float32)
     out = np.empty(int(len(x) * sr_out / sr_in), np.float32)
     lib.resample_linear(_fptr(x), len(x), _fptr(out), len(out))
+    return out
+
+
+def mix_snr(clean: np.ndarray, noise: np.ndarray,
+            snr_db: float) -> Optional[np.ndarray]:
+    """clean + noise scaled to ``snr_db`` (noise tiled to clean's length);
+    None when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return None
+    clean = np.ascontiguousarray(clean, np.float32)
+    noise = np.ascontiguousarray(noise, np.float32)
+    out = np.empty(len(clean), np.float32)
+    lib.mix_snr(_fptr(clean), len(clean), _fptr(noise), len(noise),
+                float(snr_db), _fptr(out))
+    return out
+
+
+def batch_pad(signals, max_len: int) -> Optional[np.ndarray]:
+    """(len(signals), max_len) float32: each signal cut or right-padded
+    with zeros to ``max_len``; None when the library is missing."""
+    lib = _load()
+    if lib is None:
+        return None
+    lens = np.asarray([len(s) for s in signals], np.int64)
+    flat = np.ascontiguousarray(np.concatenate(
+        [np.asarray(s, np.float32) for s in signals]))
+    out = np.empty((len(signals), max_len), np.float32)
+    lib.batch_pad(_fptr(flat),
+                  lens.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+                  len(signals), max_len, _fptr(out))
     return out

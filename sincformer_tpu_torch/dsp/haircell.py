@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from sincformer_tpu_torch.ops import meddis as _meddis
+from sincformer_tpu_torch.ops.meddis import (A, B, G, H, L, M, R, X, Y,
+                                             meddis, steady_state)
 from sincformer_tpu_torch.utils.signal import frame_signal
 
 
@@ -21,10 +22,10 @@ class MeddisHairCell:
     def __init__(self, sample_rate: int = 8000):
         self.fs = sample_rate
         self.dt = 1.0 / sample_rate
-        self.A, self.B, self.g = _meddis.A, _meddis.B, _meddis.G
-        self.y, self.l, self.r = _meddis.Y, _meddis.L, _meddis.R
-        self.x, self.h, self.M = _meddis.X, _meddis.H, _meddis.M
-        self.q0, self.c0, self.w0 = _meddis.steady_state()
+        self.A, self.B, self.g = A, B, G
+        self.y, self.l, self.r = Y, L, R
+        self.x, self.h, self.M = X, H, M
+        self.q0, self.c0, self.w0 = steady_state()
 
     def process(self, signal: torch.Tensor,
                 backend: str = "scan") -> torch.Tensor:
@@ -38,7 +39,7 @@ class MeddisHairCell:
         if backend not in ("scan", "pallas"):
             raise ValueError(f"backend must be 'scan' or 'pallas', got "
                              f"{backend!r}")
-        return _meddis.meddis(signal.to(torch.float32).contiguous(), self.fs)
+        return meddis(signal.to(torch.float32).contiguous(), self.fs)
 
     def process_filterbank(self, filterbank_output: torch.Tensor
                            ) -> torch.Tensor:

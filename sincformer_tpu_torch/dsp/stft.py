@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from sincformer_tpu_torch.utils.signal import (frame_signal, hann_window,
-                                               overlap_add)
+                                               num_frames, overlap_add)
 
 
 def _padded_window(window: Optional[np.ndarray], win_length: int, n_fft: int,
@@ -123,3 +123,12 @@ def istft_uncentered(spec: torch.Tensor, out_len: int, frame_size: int = 160,
     y = overlap_add(frames, hop, out_len)
     norm = overlap_add((w * w).expand(t, frame_size), hop, out_len)
     return y / torch.where(norm < eps, torch.ones_like(norm), norm)
+
+
+def stft_frame_count(n_samples: int, hop: int = 80, center: bool = True,
+                     frame_size: int = 160) -> int:
+    """The frame count of :func:`stft` (``center=True``: n_samples // hop
+    + 1) or of :func:`stft_uncentered` (``center=False``)."""
+    if center:
+        return n_samples // hop + 1
+    return num_frames(n_samples, frame_size, hop)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sincformer_tpu_torch.pipeline import resolve_device
+from sincformer_tpu_torch.utils.device import resolve_device
 
 
 def f32_on(x, device) -> torch.Tensor:

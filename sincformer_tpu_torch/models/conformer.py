@@ -152,6 +152,15 @@ class FeedForwardModule(nn.Module):
         return x + 0.5 * y
 
 
+class FusedFeedForward(FeedForwardModule):
+    """The JAX package's ``FusedFeedForward``: a :class:`FeedForwardModule`
+    with ``fused=True`` (the same parameters, that module's dropout
+    default)."""
+
+    def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1):
+        super().__init__(d_model, d_ff, fused=True, dropout=dropout)
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Pre-LN multi-head self-attention with residual; the fused ``qkv``
     projection splits in q, k, v order. A forward given a ``generator`` is

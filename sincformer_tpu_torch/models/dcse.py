@@ -30,6 +30,7 @@ scales the tanh, as JAX rounds a Python constant to the array's dtype.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -37,7 +38,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from sincformer_tpu_torch.config import DCSEConfig
+from sincformer_tpu_torch.config import DEFAULT, AudioConfig, DCSEConfig
 from sincformer_tpu_torch.models.conformer import LN_EPS, ConformerBlock
 from sincformer_tpu_torch.models.init import variance_scaling_
 from sincformer_tpu_torch.ops.flax_math import LayerNorm, in_dtype, sigmoid
@@ -176,7 +177,12 @@ class SpeechEnhancer(nn.Module):
         return self
 
 
-def default_speech_enhancer(**overrides) -> SpeechEnhancer:
-    """The DCSE model as the ``train`` verb builds it: ``DCSEConfig()``
-    (6,225,414 parameters), fields overridden by ``overrides``."""
-    return SpeechEnhancer(DCSEConfig(**overrides))
+def default_speech_enhancer(dcfg: DCSEConfig = DEFAULT.dcse,
+                            acfg: AudioConfig = DEFAULT.audio,
+                            **overrides) -> SpeechEnhancer:
+    """The DCSE model as the ``train`` verb builds it, as in the JAX
+    package: ``dcfg`` (``DEFAULT.dcse``, 6,225,414 parameters) with the
+    frequency bins of ``acfg``, fields of :class:`config.DCSEConfig`
+    overridden by ``overrides``."""
+    return SpeechEnhancer(dataclasses.replace(
+        dcfg, **{"n_freq": acfg.n_freq, **overrides}))

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from sincformer_tpu_torch.config import RBMConfig
-from sincformer_tpu_torch.pipeline import resolve_device
+from sincformer_tpu_torch.utils.device import resolve_device
 
 Params = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -102,8 +102,21 @@ class RBM:
         err = torch.mean((v_data - neg_v_prob) ** 2)
         return (w, vb, hb), err
 
-    def draw_uniforms(self, batch: int,
-                      generator: torch.Generator) -> List[torch.Tensor]:
+    def contrastive_divergence(
+            self, v_data, generator: Optional[torch.Generator] = None
+    ) -> float:
+        """One CD-k step (:meth:`cd_step`) on the batch ``v_data`` that
+        updates this RBM's ``W``, ``v_bias`` and ``h_bias``; returns the
+        reconstruction error. The uniforms are drawn from ``generator``
+        (the device's default generator without one)."""
+        v = torch.as_tensor(v_data, dtype=torch.float32).to(self.device)
+        params, err = self.cd_step(self.params, v, self.draw_uniforms(
+            v.shape[0], generator))
+        self.W, self.v_bias, self.h_bias = params
+        return float(err)
+
+    def draw_uniforms(self, batch: int, generator: Optional[torch.Generator]
+                      ) -> List[torch.Tensor]:
         return [torch.rand(s, generator=generator, device=self.device)
                 for s in cd_uniform_shapes(batch, self.n_visible,
                                            self.n_hidden, self.k)]

@@ -129,7 +129,7 @@ def _run_rank(rank: int, world: int, port: int, device) -> Optional[str]:
     from sincformer_tpu_torch.parallel import make_mesh, shard_batch
     from sincformer_tpu_torch.parallel.sharding import (has_model_axis,
                                                         split_flags)
-    from sincformer_tpu_torch.pipeline import resolve_device
+    from sincformer_tpu_torch.utils.device import resolve_device
     from sincformer_tpu_torch.train.agent_trainer import (SincformerTrainer,
                                                           default_metacog)
     device = resolve_device(device)

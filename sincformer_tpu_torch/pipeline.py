@@ -49,23 +49,9 @@ from sincformer_tpu_torch.train.state import (inference_ckpt_order,
                                               restore_checkpoint,
                                               save_checkpoint,
                                               save_checkpoint_quantized)
+from sincformer_tpu_torch.utils.device import resolve_device
 from sincformer_tpu_torch.utils.signal import (hann_window, overlap_add,
                                                pcm_to_float)
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must be present. The port
-    computes in float32 on the card: this turns TF32 off in cuBLAS and
-    cuDNN (PyTorch leaves it on in cuDNN), for the process."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available. sincformer_tpu_torch runs on the GPU "
-                "by default; pass device='cpu' to run on the CPU on purpose.")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    return device
 
 
 def with_training_state(pipe, state: dict, quantize: bool) -> dict:

@@ -77,9 +77,9 @@ import numpy as np
 import torch
 
 from sincformer_tpu_torch.agents.metacog import SincformerMetacog
-from sincformer_tpu_torch.config import (AGENTS, AudioConfig,
-                                         DataConfig, LossConfig,
-                                         MetacogConfig)
+from sincformer_tpu_torch.config import (DEFAULT, AgentConfig,
+                                         AudioConfig, DataConfig, LossConfig,
+                                         MetacogConfig, VQConfig)
 from sincformer_tpu_torch.data.loader import (WaveformDataset, batch_iterator,
                                               heldout_noises, remix_for_stage)
 from sincformer_tpu_torch.dsp.stft import istft, stft
@@ -120,15 +120,33 @@ LR = 5e-4           # peak of the warmup-cosine schedule
 DISC_LR = 2e-4      # the discriminator's constant Adam rate
 
 
-def default_metacog(**overrides) -> SincformerMetacog:
+def default_metacog(acfg: AudioConfig = DEFAULT.audio,
+                    agcfg: AgentConfig = DEFAULT.agents,
+                    vqcfg: VQConfig = DEFAULT.vq,
+                    **overrides) -> SincformerMetacog:
     """The flagship as the ``train`` verb builds it, as in the JAX package:
-    the fine stream read at import (:data:`config.AGENTS`, from
-    ``SINCFORMER_PA_FINE_ACT`` and ``SINCFORMER_PA_FINE_FEATS``), the depth
-    from ``SINCFORMER_MSA_BLOCKS``; ``overrides`` (e.g. ``cpea_impl="ssm"``,
-    ``pa_impl="reference"``) set any field."""
-    kw = {"msa_blocks": int(os.environ.get("SINCFORMER_MSA_BLOCKS", "4")),
-          "pa_fine_act": AGENTS.pa_fine_act,
-          "pa_fine_feats": AGENTS.pa_fine_feats}
+    its sizes and variant from the audio, agent and VQ sections of the
+    configuration (:data:`config.DEFAULT`'s unless given; the agents' fine
+    stream read at import from ``SINCFORMER_PA_FINE_ACT`` and
+    ``SINCFORMER_PA_FINE_FEATS``), the attention from
+    ``DEFAULT.conformer``, the depth from ``SINCFORMER_MSA_BLOCKS``;
+    ``overrides`` (e.g. ``cpea_impl="ssm"``, ``d_model=32``) set any field
+    of :class:`config.MetacogConfig`."""
+    kw = dict(encoder_channels=agcfg.pa_encoder_channels,
+              cpea_hidden=agcfg.cpea_hidden_size,
+              cpea_layers=agcfg.cpea_num_layers,
+              n_freq=acfg.n_freq,
+              vq_centroids=vqcfg.num_centroids,
+              vq_commitment=vqcfg.commitment_weight,
+              memory_slots=agcfg.memory_slots,
+              sample_rate=acfg.sample_rate,
+              sinc_kernel_size=agcfg.sinc_kernel_size,
+              hop=acfg.hop_size,
+              attn_impl=DEFAULT.conformer.attn_impl,
+              pa_impl=agcfg.pa_impl,
+              pa_fine_act=agcfg.pa_fine_act,
+              pa_fine_feats=agcfg.pa_fine_feats,
+              msa_blocks=int(os.environ.get("SINCFORMER_MSA_BLOCKS", "4")))
     kw.update(overrides)
     return SincformerMetacog(MetacogConfig(**kw))
 
@@ -141,7 +159,10 @@ class SincformerTrainer(SincformerPipeline):
     (``self.disc``, with its Adam state ``disc_opt_state``): its term enters
     the loss in stage 3, and every training step is followed by its own
     step, gated by the stage (:meth:`disc_step`); a full checkpoint then has
-    a ``<name>_disc`` sibling at the generator's step. As in the JAX
+    a ``<name>_disc`` sibling at the generator's step.
+    ``perceptual_weight`` weighs the STOI term: 1.0 unless given, as in the
+    JAX pipeline, and never ``LossConfig.perceptual_weight`` (the
+    reference's 10.0, which destabilised training). As in the JAX
     pipeline, training starts from weights drawn from ``seed`` unless a
     checkpoint or a state was loaded (``load_model``, ``load_state``,
     ``load_disc_state``): a model given to the constructor is its
@@ -153,12 +174,14 @@ class SincformerTrainer(SincformerPipeline):
     def __init__(self, model=None, device="cuda", output_gain: float = 1.0,
                  audio: AudioConfig = AudioConfig(),
                  model_dir: Optional[str] = None, seed: int = 0,
-                 logger=None, use_adversarial: bool = False, mesh=None):
+                 logger=None, use_adversarial: bool = False, mesh=None,
+                 perceptual_weight: Optional[float] = None):
         super().__init__(model, device, output_gain, audio, model_dir)
         loss = LossConfig()
         self.seed = seed
         self.mesh = mesh
-        self.perceptual_weight = loss.perceptual_weight
+        self.perceptual_weight = (1.0 if perceptual_weight is None
+                                  else perceptual_weight)
         self.vq_weight = loss.commitment_weight
         self.mask_mse_weight = loss.mask_mse_weight
         self.adv_weight = loss.adversarial_weight
@@ -630,3 +653,7 @@ class SincformerTrainer(SincformerPipeline):
                       f"{time.time() - t0:.1f}s {'*' if improved else ''}",
                       flush=True)
         return history
+
+
+# the JAX package names its training pipeline so, in this module
+SincformerPipeline = SincformerTrainer

@@ -55,3 +55,19 @@ class CurriculumScheduler:
             "description": "Stage 3: VQ activation + intelligibility loss",
         }
 
+    def print_schedule(self):
+        """Print the schedule, one paragraph per stage."""
+        print("=" * 60)
+        print("Curriculum Learning Schedule")
+        print("=" * 60)
+        lens = [self.stage1_epochs, self.stage2_epochs, self.stage3_epochs]
+        for epoch in range(self.total_epochs):
+            stage = self.get_stage(epoch)
+            if epoch in (0, self.stage1_epochs,
+                         self.stage1_epochs + self.stage2_epochs):
+                print(f"\n--- {stage['description']} ---")
+                print(f"  Epochs: {epoch} - "
+                      f"{epoch + lens[stage['stage'] - 1] - 1}")
+                print(f"  SNR levels: {stage['snr_levels']}")
+                print(f"  VQ active: {stage['use_vq']}")
+                print(f"  Loss: {stage['loss_type']}")

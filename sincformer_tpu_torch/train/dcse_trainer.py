@@ -453,3 +453,7 @@ class DCSETrainer(DCSEPipeline):
         if verbose:
             print(f"\n  Best validation loss: {best_val:.4f}")
         return history
+
+
+# the JAX package names its training pipeline so, in this module
+DCSEPipeline = DCSETrainer

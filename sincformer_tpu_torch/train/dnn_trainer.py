@@ -483,3 +483,7 @@ class DNNTrainer(DNNPipeline):
             opt.setdefault("lr", self._lr)
             self.tx, self.opt_state = make_adam_plateau(opt["lr"]), opt
         return path
+
+
+# the JAX package names its training pipeline so, in this module
+DNNPipeline = DNNTrainer

@@ -160,3 +160,11 @@ class PerceptualSTOILoss:
         denom = (torch.sqrt(torch.sum(clean_seg ** 2, -1) + eps)
                  * torch.sqrt(torch.sum(enh_clip ** 2, -1) + eps))
         return -torch.mean(numer / (denom + eps))
+
+
+def perceptual_stoi_loss(enhanced_spec: torch.Tensor, clean_spec: torch.Tensor,
+                         fs: int | None = None,
+                         n_fft: int | None = None) -> torch.Tensor:
+    """:class:`PerceptualSTOILoss` at ``fs`` and ``n_fft`` (the audio
+    defaults unless given), called once."""
+    return PerceptualSTOILoss(fs, n_fft)(enhanced_spec, clean_spec)

@@ -75,6 +75,14 @@ def dct_matrix(n: int, n_out: Optional[int] = None) -> np.ndarray:
     return d.astype(np.float32)
 
 
+def dct_ortho(x: torch.Tensor, n_out: Optional[int] = None) -> torch.Tensor:
+    """Orthonormal DCT-II along the last axis, the first ``n_out``
+    coefficients: :func:`dct_matrix` times x."""
+    d = torch.from_numpy(dct_matrix(x.shape[-1], n_out)).to(x.device,
+                                                           x.dtype)
+    return torch.einsum("kn,...n->...k", d, x)
+
+
 def pcm_to_float(wav: torch.Tensor) -> torch.Tensor:
     """int16 PCM → float32 in [-1, 1) on the tensor's device; float input
     passes through unchanged."""

@@ -51,18 +51,34 @@ def _port_modules():
 
 def test_import_loads_no_jax_module():
     """Importing every module of the port (the new front-end, feature, DNN
-    and kernel-wrapper modules included) and chip_smoke.py loads nothing of
-    JAX, builds no kernel and needs no CUDA, nvcc or triton."""
+    and kernel-wrapper modules included, and every subpackage with the
+    names it re-exports as the JAX package's do) and chip_smoke.py loads
+    nothing of JAX, builds no kernel (nor the native audio library) and
+    needs no CUDA, nvcc or triton."""
     modules = sorted(_port_modules())
     for new in ("dsp.gammatone", "dsp.haircell", "dsp.features", "models.dnn",
                 "ops.meddis", "ops.envact", "ops.conv_gn"):
         assert f"sincformer_tpu_torch.{new}" in modules
+    subpackages = sorted(os.path.basename(os.path.dirname(p)) for p in
+                         _port_sources() if p.endswith("__init__.py")
+                         and os.path.dirname(os.path.dirname(p)).endswith(
+                             "sincformer_tpu_torch"))
+    jax_pkg = os.path.join(REPO, "sincformer_tpu")
+    assert subpackages == sorted(
+        d for d in os.listdir(jax_pkg)
+        if os.path.exists(os.path.join(jax_pkg, d, "__init__.py")))
     code = (f"import sys, chip_smoke, {', '.join(modules)}; "
+            f"from sincformer_tpu_torch.ops import build; "
+            f"from sincformer_tpu_torch.data import native; "
             f"print([m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN + ('triton',)!r}])")
+            f"{FORBIDDEN + ('triton',)!r}], build.load.cache_info().currsize,"
+            f" native._tried)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True).stdout
-    assert out.strip() == "[]"
+    assert out.strip() == "[] 0 False"
+    from sincformer_tpu_torch import models
+    assert models.VQMaskQuantizer.__module__ == (
+        "sincformer_tpu_torch.models.vq")
 
 
 def test_pipeline_default_device_needs_cuda():
